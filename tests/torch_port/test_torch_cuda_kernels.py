@@ -1,0 +1,79 @@
+"""The CUDA kernels on the card against their plain PyTorch versions.
+
+Needs a CUDA device and nvcc; skips without them.  Imports nothing of
+JAX, so it runs on a machine without it:
+
+    python -m pytest --noconftest -m cuda tests/torch_port/test_torch_cuda_kernels.py
+
+Tolerances as in chip_smoke.py: fp32 on both sides with a different
+summation order, features to 1e-5 absolute, the matvec to 1e-4 of
+max |ref|.
+"""
+import numpy as np
+import pytest
+import torch
+
+from xgpr_tpu_torch.ops.cuda import feature_map, ztzv
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _t(a, dev):
+    return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32,
+                           device=dev)
+
+
+@pytest.mark.parametrize("mode", ["hi", "exact"])
+@pytest.mark.parametrize("n,d,f,padded", [(100, 84, 256, 128),
+                                          (257, 10, 200, 16),
+                                          (64, 200, 300, 256)])
+def test_feature_map_kernel(cuda, mode, n, d, f, padded):
+    rng = np.random.default_rng(n + f)
+    x = _t(rng.standard_normal((n, d)) * 0.5, cuda)
+    proj = _t(rng.standard_normal((d, f)) * 0.5, cuda)
+    # Row 0 has one nonzero, so its arguments are single exact-rounded
+    # products on both sides, some past the polynomial's range.
+    x[0] = 0.0
+    x[0, 0] = 5e4
+    before = feature_map.LAUNCHES
+    got = feature_map.rbf_feature_map(x, proj, True, padded, mode)
+    want = feature_map.rbf_feature_map_plain(x, proj, True, padded, mode)
+    torch.cuda.synchronize()
+    assert feature_map.LAUNCHES == before + 1
+    assert float((got - want).abs().max()) < 1e-5
+
+
+@pytest.mark.parametrize("intercept", [False, True])
+@pytest.mark.parametrize("n,d,f,k", [(2000, 84, 500, 3), (96, 10, 384, 8),
+                                     (10, 50, 32, 1), (300, 84, 256, 26)])
+def test_ztzv_kernel(cuda, intercept, n, d, f, k):
+    rng = np.random.default_rng(n * 3 + k)
+    x = _t(rng.standard_normal((n, d)), cuda)
+    m = _t(rng.random(n) > 0.25, cuda)
+    proj = _t(rng.standard_normal((d, f)) * 0.3, cuda)
+    vc = _t(rng.standard_normal((f, k)), cuda)
+    vs = _t(rng.standard_normal((f, k)), cuda)
+    before = ztzv.LAUNCHES
+    oc, os_ = ztzv.ztzv_parts(x, m, proj, 0.7, vc, vs, intercept)
+    rc, rs = ztzv.ztzv_parts_plain(x, m, proj, 0.7, vc, vs, intercept)
+    torch.cuda.synchronize()
+    assert ztzv.LAUNCHES == before + 1
+    tol = 1e-4 * max(1.0, float(rc.abs().max()))
+    assert float((oc - rc).abs().max()) < tol
+    assert float((os_ - rs).abs().max()) < tol
+
+
+def test_kernels_refuse_what_they_do_not_take(cuda):
+    x = torch.zeros((4, 3), dtype=torch.float64, device=cuda)
+    proj = torch.zeros((3, 8), dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError):
+        feature_map.rbf_feature_map(x, proj, True, 4)
+    with pytest.raises(NotImplementedError):
+        feature_map.rbf_feature_map(x.float(), proj.float(), True, 4, "fast")

@@ -1,0 +1,29 @@
+"""xgpr_tpu_torch: the PyTorch/CUDA port of xgpr_tpu.
+
+Same module tree and names as the JAX package; each module's reference is
+its namesake in ``xgpr_tpu``.  Plain tensor code is PyTorch; the feature
+map and the fused CG matvec are CUDA C++ kernels for Hopper
+(``ops/cuda``).  This package never imports jax.
+"""
+__version__ = "0.1.0"
+
+from .kernels import KERNEL_NAME_TO_CLASS
+
+__all__ = ["KERNEL_NAME_TO_CLASS"]
+
+
+def __getattr__(name):
+    if name in ("GPRegression", "xGPRegression"):
+        from .models.regression import GPRegression
+        return GPRegression
+    if name in ("build_regression_dataset", "build_classification_dataset",
+                "build_offline_np_dataset"):
+        from .data import builders
+        return getattr(builders, name)
+    if name == "DatasetBaseclass":
+        from .data.dataset import DatasetBaseclass
+        return DatasetBaseclass
+    if name in ("from_numpy_state", "load_jax_model"):
+        from .models import convert
+        return getattr(convert, name)
+    raise AttributeError(f"module 'xgpr_tpu_torch' has no attribute {name!r}")

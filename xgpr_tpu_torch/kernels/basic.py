@@ -1,0 +1,169 @@
+"""Fixed-vector SORF kernels: RBF, Matern, Cauchy (port of xgpr_tpu/kernels/basic.py).
+
+The three share ``SORFKernelBaseclass`` and differ only in chi:
+- SORF state: padded dim = next_pow2(D), ceil(F / padded) blocks, int8
+  Rademacher diagonals and chi(df=padded) scaling, drawn on the host with
+  numpy exactly as xgpr_tpu does (utils/rng.py), so the state is equal bit
+  for bit;
+- Matern divides chi by sqrt(chi2(2nu)/2nu); Cauchy multiplies it by
+  sqrt(Exp(1)).
+
+With the dense projection (D * F <= 32M) the feature fn is the K2 kernel
+(ops/cuda/feature_map.py) and the fused chunk matvec the K1 kernel
+(ops/cuda/ztzv.py): kernels on a CUDA tensor, their plain versions on a
+CPU tensor.  The kernels guard the polynomial sincos per element, so
+xgpr_tpu's Pallas gate, host range check and lax.cond fallback are not
+needed.  Larger D * F take the structured FWHT path in plain torch.
+"""
+from math import ceil
+
+import numpy as np
+import torch
+
+from .kernel_baseclass import KernelBaseclass
+from ..ops.cuda.feature_map import rbf_feature_map as fused_feature_map
+from ..ops.cuda.ztzv import ztzv_parts
+from ..ops.hadamard import next_pow2
+from ..ops.sorf import (rbf_feature_map, dense_sorf_projection,
+                        dense_threshold_ok)
+from ..utils import rng as state_rng
+
+
+class SORFKernelBaseclass(KernelBaseclass):
+    """Shared machinery for fixed-vector sine-cosine SORF kernels."""
+
+    def __init__(self, xdim, num_rffs, random_seed=123, device="cuda",
+                 kernel_spec_parms=None):
+        super().__init__(xdim, num_rffs, sine_cosine_kernel=True,
+                         kernel_spec_parms=kernel_spec_parms, device=device)
+        if len(xdim) != 2:
+            raise ValueError(
+                "This kernel operates on fixed-length vectors and needs "
+                f"a 2d (rows, features) input; got a {len(xdim)}d shape.")
+        self.random_seed = random_seed
+        padded = next_pow2(xdim[-1])
+        self.padded_dims = padded
+        self.nblocks = max(1, ceil(self.num_freqs / padded))
+        self._feature_padded = padded
+        # Host state drawn in float32 as in xgpr_tpu, whose float64 runs
+        # cast these float32 draws up (its double_precision option, which
+        # draws in float64, is not ported).
+        self.radem_diag = torch.as_tensor(
+            state_rng.radem_diagonals(random_seed, self.nblocks, padded,
+                                      np.float32),
+            dtype=self.dtype, device=self.device)
+        self._set_chi(state_rng.chi_scaling(random_seed, padded,
+                                            self.num_freqs, np.float32))
+        self.use_dense_projection = dense_threshold_ok(xdim[-1],
+                                                       self.num_freqs)
+        self.hyperparams = np.ones((2,))
+        self.bounds = np.asarray([[1e-3, 1e1], [1e-6, 1e2]])
+
+    def _set_chi(self, chi_np):
+        self._chi_np = chi_np
+        self.chi_arr = torch.as_tensor(chi_np, dtype=self.dtype,
+                                       device=self.device)
+        self._proj = None
+
+    def _dense_proj(self):
+        """The (D, F) dense projection with chi folded in, built once."""
+        if self._proj is None:
+            self._proj = dense_sorf_projection(self.radem_diag, self.chi_arr,
+                                               self._xdim[-1]).contiguous()
+        return self._proj
+
+    def feature_params(self):
+        params = {"sigma": float(self.hyperparams[1])}
+        if self.use_dense_projection:
+            params["proj"] = self._dense_proj()
+        else:
+            params["radem"] = self.radem_diag
+            params["chi"] = self.chi_arr
+        return params
+
+    def kernel_specific_transform(self, input_x, sequence_length=None):
+        return self.pure_feature_fn()(self.feature_params(), input_x)
+
+    def pure_feature_fn(self):
+        intercept = self.fit_intercept
+        padded = self.padded_dims
+        if self.use_dense_projection:
+            def fn(params, x):
+                feats = fused_feature_map(x * params["sigma"],
+                                          params["proj"], intercept, padded)
+                if intercept:
+                    feats[:, 0] = 1.0
+                return feats
+        else:
+            def fn(params, x):
+                feats = rbf_feature_map(x * params["sigma"], params["radem"],
+                                        params["chi"], intercept)
+                if intercept:
+                    feats[:, 0] = 1.0
+                return feats
+        return fn
+
+    def pure_feature_parts_fn(self):
+        """(cos, sin) parts without the block layout: the feature map with
+        one block as wide as F writes [cos | sin], and the parts are its
+        two halves (views, no copy)."""
+        if not self.use_dense_projection:
+            return None
+        intercept = self.fit_intercept
+        num_freqs = self.num_freqs
+
+        def fn(params, x):
+            z = fused_feature_map(x * params["sigma"], params["proj"],
+                                  intercept, num_freqs)
+            c, s = z[:, :num_freqs], z[:, num_freqs:]
+            if intercept:
+                c[:, 0] = 1.0
+            return c, s
+        return fn
+
+    def pure_ztzv_parts_fn(self):
+        """Fused whole-chunk matvec: the chunk's Z^T (Z v) in cos/sin
+        halves without materialising Z (K1 on the card)."""
+        if not self.use_dense_projection:
+            return None
+        intercept = self.fit_intercept
+
+        def fn(params, x, m, v_c, v_s):
+            return ztzv_parts(x, m, params["proj"], params["sigma"], v_c,
+                              v_s, intercept)
+        return fn
+
+
+class RBF(SORFKernelBaseclass):
+    """Gaussian (RBF) kernel via SORF random Fourier features."""
+
+
+class Matern(SORFKernelBaseclass):
+    """Matern kernel (nu in [1/2, 5/2]) via Student-t spectral sampling."""
+
+    def __init__(self, xdim, num_rffs, random_seed=123, device="cuda",
+                 kernel_spec_parms=None):
+        super().__init__(xdim, num_rffs, random_seed, device,
+                         kernel_spec_parms)
+        parms = kernel_spec_parms or {}
+        if "matern_nu" not in parms:
+            raise ValueError(
+                "A Matern kernel requires matern_nu in kernel_settings.")
+        self.matern_nu = float(parms["matern_nu"])
+        if not 0.5 <= self.matern_nu <= 2.5:
+            raise ValueError("matern_nu is only supported on [0.5, 2.5].")
+        modifier = state_rng.matern_chi_modifier(
+            random_seed, self.num_freqs, self.matern_nu, self._chi_np.dtype)
+        self._set_chi(self._chi_np / modifier)
+
+
+class Cauchy(SORFKernelBaseclass):
+    """Cauchy kernel (rational-quadratic, small alpha limit)."""
+
+    def __init__(self, xdim, num_rffs, random_seed=123, device="cuda",
+                 kernel_spec_parms=None):
+        super().__init__(xdim, num_rffs, random_seed, device,
+                         kernel_spec_parms)
+        modifier = state_rng.cauchy_chi_modifier(
+            random_seed, self.num_freqs, self._chi_np.dtype)
+        self._set_chi(self._chi_np * modifier)

@@ -1,0 +1,257 @@
+"""Shared model state machine (port of xgpr_tpu/models/baseclass.py).
+
+Kernel initialisation through the registry, the cached engine, the
+Nystrom preconditioner build with rank autoselection, and the property
+setters that invalidate weights.  ``device`` ("cuda" by default, or "cpu"
+by name) replaces xgpr_tpu's ``_resolve_accelerator``: a CUDA request with
+no card raises, and nothing quietly runs on the CPU instead.
+"""
+from .. import config, constants
+from ..fitting.engine import Engine
+from ..kernels import KERNEL_NAME_TO_CLASS
+from ..preconditioners.nystrom import NystromPreconditioner, srht_ratio_check
+
+
+class ModelBaseclass:
+    """Base class for the regression model."""
+
+    def __init__(self, num_rffs=256, variance_rffs=16, kernel_choice="RBF",
+                 device="cuda", kernel_settings=None, verbose=True,
+                 random_seed=123):
+        if kernel_settings is None:
+            kernel_settings = dict(constants.DEFAULT_KERNEL_SPEC_PARMS)
+        if not isinstance(kernel_settings, dict):
+            raise RuntimeError("Pass kernel_settings as a dict of option "
+                               "name -> value.")
+        self._device = config.resolve_device(device)
+        self._kernel_choice = None
+        self.kernel = None
+        self.weights = None
+        self.var = None
+        self.trainy_mean = 0.0
+        self.trainy_std = 1.0
+        self.kernel_choice = kernel_choice
+        self._num_rffs = num_rffs
+        self._variance_rffs = 0
+        self.variance_rffs = variance_rffs
+        self.kernel_spec_parms = kernel_settings
+        self.verbose = verbose
+        self.is_regression = True
+        self._random_seed = random_seed
+        self._engines = {}
+
+    # ------------------------------------------------------------------
+    def _engine(self, dataset):
+        """Cached Engine for the (dataset, kernel) pair; hyperparameters
+        flow through feature_params at reduction time, so reuse is safe.
+        At most one engine is kept: a stacked engine pins the dataset on
+        the device."""
+        key = (dataset.get_uid(), self.kernel.get_uid())
+        engine = self._engines.get(key)
+        if engine is None:
+            self._engines = {}
+            engine = Engine(self.kernel, dataset)
+            self._engines = {key: engine}
+        return engine
+
+    def pre_prediction_checks(self, input_x, sequence_lengths, get_var):
+        if self.kernel is None or self.weights is None:
+            raise RuntimeError("No fitted weights present; call fit() first.")
+        if not self.kernel.validate_new_datapoints(input_x):
+            raise RuntimeError("Input array shape does not match the shape "
+                               "this model was fitted for.")
+        if sequence_lengths is not None:
+            raise RuntimeError("Fixed-vector kernels take no "
+                               "sequence_lengths argument; pass None.")
+        if self.weights.shape[0] != self.kernel.get_num_rffs():
+            raise RuntimeError(
+                f"Fitted weights cover {self.weights.shape[0]} features but "
+                f"the kernel now produces {self.kernel.get_num_rffs()}; "
+                "refit after changing the feature count.")
+        if self.var is None and get_var:
+            raise RuntimeError("Variance was requested but suppress_var was "
+                               "selected when fitting.")
+
+    def set_hyperparams(self, hyperparams=None, dataset=None, xdim=None):
+        """Set hyperparams (log-space), initialising the kernel if needed."""
+        if self.kernel is None:
+            self._initialize_kernel(dataset, xdim, hyperparams=hyperparams)
+        elif hyperparams is not None:
+            self.kernel.check_hyperparams(hyperparams)
+            self.kernel.set_hyperparams(hyperparams, logspace=True)
+        self.weights = None
+        self.var = None
+
+    def get_hyperparams(self):
+        if self.kernel is None:
+            return None
+        return self.kernel.get_hyperparams()
+
+    def build_preconditioner(self, dataset, max_rank=512, method="srht"):
+        """Build a Nystrom preconditioner; returns (precond, ratio)."""
+        self._run_pre_fitting_prep(dataset, max_rank)
+        precond = NystromPreconditioner(self._engine(dataset), max_rank,
+                                        self.verbose, self.random_seed,
+                                        method,
+                                        is_regression=self.is_regression)
+        return precond, precond.achieved_ratio
+
+    # ------------------------------------------------------------------
+    def _initialize_kernel(self, dataset=None, xdim=None, hyperparams=None,
+                           bounds=None):
+        if dataset is not None:
+            input_xdim = dataset.get_xdim()
+        elif xdim is not None:
+            input_xdim = xdim
+        else:
+            raise RuntimeError("Kernel construction needs input dimensions: "
+                               "pass a dataset or an xdim tuple.")
+        self.kernel = KERNEL_NAME_TO_CLASS[self.kernel_choice](
+            input_xdim, self.num_rffs, self.random_seed, self._device,
+            kernel_spec_parms=self.kernel_spec_parms)
+        self._num_rffs = self.kernel.get_num_rffs()
+        if self.variance_rffs >= self.num_rffs and self.is_regression:
+            raise RuntimeError("variance_rffs cannot reach num_rffs; "
+                               "shrink it.")
+        if bounds is not None:
+            self.kernel.set_bounds(bounds)
+        if hyperparams is not None:
+            self.kernel.check_hyperparams(hyperparams)
+            self.kernel.set_hyperparams(hyperparams, logspace=True)
+        self.weights, self.var = None, None
+        self._engines = {}
+
+    def _run_pre_fitting_prep(self, dataset, max_rank=None):
+        self.trainy_mean = dataset.get_ymean()
+        self.trainy_std = dataset.get_ystd()
+        if self.kernel is None:
+            self._initialize_kernel(dataset)
+        if self.variance_rffs > self.kernel.get_num_rffs():
+            raise RuntimeError(
+                f"variance_rffs ({self.variance_rffs}) cannot exceed the "
+                f"kernel's feature count ({self.kernel.get_num_rffs()}).")
+        if max_rank is not None:
+            if max_rank < 1:
+                raise RuntimeError("Invalid value for max_rank.")
+            if max_rank >= self.kernel.get_num_rffs():
+                raise RuntimeError("max_rank cannot reach num_rffs.")
+
+    # ------------------------------------------------------------------
+    def _autoselect_preconditioner(self, dataset, min_rank=512,
+                                   max_rank=3000, increment_size=512,
+                                   always_use_srht2=False,
+                                   ratio_target=30.):
+        """Walk a ladder of candidate ranks, stopping at the first whose
+        sampled min-eig / lambda^2 estimate clears ``ratio_target``; if the
+        ladder is exhausted, use the largest admissible rank with the
+        two-pass srht_2 construction.  Then build the preconditioner."""
+        rank_cap = min(max_rank, self.kernel.get_num_rffs() - 1)
+        sample_frac = 1.0 if dataset.get_ndatapoints() < 5000 else 0.2
+        chosen_rank, method = rank_cap, "srht_2"
+        if min_rank >= rank_cap:
+            chosen_rank, method = rank_cap, "srht"
+        else:
+            for candidate in range(min_rank, rank_cap, increment_size):
+                est = self._check_rank_ratio(dataset, sample_frac, candidate)
+                if est <= ratio_target:
+                    chosen_rank, method = candidate, "srht"
+                    break
+        if always_use_srht2:
+            method = "srht_2"
+        if self.verbose:
+            print(f"Preconditioner rank {chosen_rank} ({method}).")
+        return NystromPreconditioner(self._engine(dataset), chosen_rank,
+                                     self.verbose, self.random_seed, method,
+                                     is_regression=self.is_regression)
+
+    def _check_rank_ratio(self, dataset, sample_frac=0.1, max_rank=512):
+        """Sampled ratio estimate.  Caps the rff count at 8192 during the
+        check (eigenvalue interlacing)."""
+        if sample_frac < 0.01 or sample_frac > 1:
+            raise RuntimeError("sample_frac must be in [0.01, 1].")
+        num_rffs = self.num_rffs
+        capped = min(num_rffs, 8192)
+        if capped != num_rffs:
+            self.num_rffs = capped
+        eig = srht_ratio_check(self._engine(dataset), max_rank,
+                               self.random_seed, sample_frac=sample_frac)
+        ratio = float(eig.min()) / self.kernel.get_lambda() ** 2
+        ratio /= sample_frac
+        if capped != num_rffs:
+            self.num_rffs = num_rffs
+        return ratio
+
+    # ------------------------------------------------------------------
+    # properties with weight invalidation
+    @property
+    def device(self):
+        return self._device
+
+    @property
+    def kernel_spec_parms(self):
+        return self._kernel_spec_parms
+
+    @kernel_spec_parms.setter
+    def kernel_spec_parms(self, value):
+        if not isinstance(value, dict):
+            raise RuntimeError(
+                f"kernel_spec_parms expects a dict of kernel settings; "
+                f"got {type(value).__name__}.")
+        self._kernel_spec_parms = value
+        self.kernel = None
+        self.weights = None
+        self.var = None
+        self._engines = {}
+
+    @property
+    def kernel_choice(self):
+        return self._kernel_choice
+
+    @kernel_choice.setter
+    def kernel_choice(self, value):
+        if not isinstance(value, str):
+            raise RuntimeError("kernel_choice must be a string.")
+        if value not in KERNEL_NAME_TO_CLASS:
+            raise RuntimeError("kernel_choice does not name a registered "
+                               "kernel.")
+        self._kernel_choice = value
+        self.kernel = None
+        self.weights = None
+        self.var = None
+
+    @property
+    def num_rffs(self):
+        return self._num_rffs
+
+    @num_rffs.setter
+    def num_rffs(self, value):
+        self._num_rffs = value
+        if self.kernel is not None:
+            # Rebuild the kernel at the new width, keeping its
+            # hyperparameters and bounds.
+            self._initialize_kernel(
+                xdim=self.kernel.get_xdim(),
+                hyperparams=self.kernel.get_hyperparams(),
+                bounds=self.kernel.get_bounds())
+        self.weights = None
+        self.var = None
+
+    @property
+    def variance_rffs(self):
+        return self._variance_rffs
+
+    @variance_rffs.setter
+    def variance_rffs(self, value):
+        if value > constants.MAX_VARIANCE_RFFS:
+            raise RuntimeError(
+                f"variance_rffs is capped at {constants.MAX_VARIANCE_RFFS}.")
+        if self.kernel is not None and value > self.num_rffs:
+            raise RuntimeError("variance_rffs cannot exceed num_rffs.")
+        self._variance_rffs = value
+        if self.var is not None:
+            self.weights = None
+            self.var = None
+
+    @property
+    def random_seed(self):
+        return self._random_seed

@@ -1,0 +1,107 @@
+"""Build and load the CUDA kernels of ops/cuda/csrc.
+
+The sources compile with nvcc into one shared library with a plain C
+interface, loaded with ctypes (no PyTorch headers, so a build takes
+seconds).  The library is built at first use into ``build/torch_kernels/``
+of the checkout, under a name keyed by a hash of the sources and flags,
+so an edited source is rebuilt and a stale library is never loaded.
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o libxgpr_kernels_<hash>.so csrc/*.cu
+
+No --use_fast_math: it would turn sincosf into the inaccurate __sincosf.
+"""
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # name: argtypes (pointers and the stream are c_void_p)
+    "xgpr_feature_map": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "xgpr_ztzv": [_P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _P,
+                  _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+}
+
+_LIB = None
+BUILD_SECONDS = None  # wall time of the build this process ran, if any
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc():
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if cuda_home and (Path(cuda_home) / "bin" / "nvcc").exists():
+        return str(Path(cuda_home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if Path("/usr/local/cuda/bin/nvcc").exists():
+        return "/usr/local/cuda/bin/nvcc"
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                       "source and need the CUDA toolkit (set CUDA_HOME).")
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libxgpr_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the library unless a build of these exact sources exists."""
+    global BUILD_SECONDS
+    target = library_path()
+    if target.exists():
+        return target
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    # Build into a temporary name and rename, so concurrent processes never
+    # load a half-written library.
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp] + \
+        [str(s) for s in sorted(CSRC.glob("*.cu"))]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed:\n" + proc.stdout + proc.stderr)
+        os.replace(tmp, target)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    BUILD_SECONDS = time.perf_counter() - t0
+    return target
+
+
+def library():
+    """The loaded kernel library (built at first use)."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def check(rc: int, what: str):
+    """Raise when a C entry point reports a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
