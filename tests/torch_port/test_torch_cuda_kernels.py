@@ -6,14 +6,15 @@ JAX, so it runs on a machine without it:
     python -m pytest --noconftest -m cuda tests/torch_port/test_torch_cuda_kernels.py
 
 Tolerances as in chip_smoke.py: fp32 on both sides with a different
-summation order, features to 1e-5 absolute, the matvec to 1e-4 of
-max |ref|.
+summation order, features to 1e-5 absolute, the matvec and the conv
+window loops (sums of up to nw terms of fp32 projections) to 1e-4 of
+max(1, max |ref|).
 """
 import numpy as np
 import pytest
 import torch
 
-from xgpr_tpu_torch.ops.cuda import feature_map, ztzv
+from xgpr_tpu_torch.ops.cuda import conv, feature_map, ztzv
 
 pytestmark = pytest.mark.cuda
 
@@ -70,6 +71,53 @@ def test_ztzv_kernel(cuda, intercept, n, d, f, k):
     assert float((os_ - rs).abs().max()) < tol
 
 
+CONV_CASES = [(300, 16, 64, 9, 256),   # the motif slice's L, D, w
+              (257, 20, 7, 5, 200),   # ragged rows and F
+              (70, 6, 10, 1, 96),     # GraphRBF's w = 1
+              (65, 12, 3, 9, 130)]    # nw = 4 < one window block
+
+
+def _conv_inputs(dev, n, l, d, width, f):
+    rng = np.random.default_rng(n + l + width)
+    x = _t(rng.standard_normal((n, l, d)) * 0.5, dev)
+    lengths = rng.integers(width, l + 1, size=n).astype(np.int32)
+    lengths[0] = width - 1              # no valid window at all
+    lengths = torch.as_tensor(lengths, device=dev)
+    proj = _t(rng.standard_normal((width * d, f)) * 0.3, dev)
+    return x, lengths, proj
+
+
+@pytest.mark.parametrize("mode", ["hi", "exact"])
+@pytest.mark.parametrize("n,l,d,width,f", CONV_CASES)
+def test_conv_parts_kernel(cuda, mode, n, l, d, width, f):
+    x, lengths, proj = _conv_inputs(cuda, n, l, d, width, f)
+    scale = torch.linspace(0.5, 1.5, n, device=cuda)
+    for row_scale in (None, scale):
+        before = conv.PARTS_LAUNCHES
+        got = conv.conv_parts(x, lengths, proj, 0.7, width, row_scale, mode)
+        want = conv.conv_parts_plain(x, lengths, proj, 0.7, width,
+                                     row_scale, mode)
+        torch.cuda.synchronize()
+        assert conv.PARTS_LAUNCHES == before + 1
+        for g, w in zip(got, want):
+            tol = 1e-4 * max(1.0, float(w.abs().max()))
+            assert float((g - w).abs().max()) < tol
+        assert float(got[0][0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("n,l,d,width,f", CONV_CASES)
+def test_conv_maxpool_kernel(cuda, n, l, d, width, f):
+    x, lengths, proj = _conv_inputs(cuda, n, l, d, width, f)
+    before = conv.MAXPOOL_LAUNCHES
+    got = conv.conv_maxpool(x, lengths, proj, width)
+    want = conv.conv_maxpool_plain(x, lengths, proj, width)
+    torch.cuda.synchronize()
+    assert conv.MAXPOOL_LAUNCHES == before + 1
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) < tol
+    assert float(got[0].abs().max()) == 0.0
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     x = torch.zeros((4, 3), dtype=torch.float64, device=cuda)
     proj = torch.zeros((3, 8), dtype=torch.float64, device=cuda)
@@ -77,3 +125,12 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         feature_map.rbf_feature_map(x, proj, True, 4)
     with pytest.raises(NotImplementedError):
         feature_map.rbf_feature_map(x.float(), proj.float(), True, 4, "fast")
+    xs = torch.zeros((4, 5, 3), dtype=torch.float32, device=cuda)
+    lengths = torch.full((4,), 5, dtype=torch.int32, device=cuda)
+    proj2 = torch.zeros((6, 8), dtype=torch.float32, device=cuda)
+    with pytest.raises(TypeError):
+        conv.conv_parts(xs.double(), lengths, proj2.double(), 0.5, 2)
+    with pytest.raises(TypeError):
+        conv.conv_maxpool(xs, lengths.long(), proj2, 2)
+    with pytest.raises(NotImplementedError):
+        conv.conv_parts(xs, lengths, proj2, 0.5, 2, None, "poly")

@@ -2,8 +2,8 @@
 
 Same module tree and names as the JAX package; each module's reference is
 its namesake in ``xgpr_tpu``.  Plain tensor code is PyTorch; the feature
-map and the fused CG matvec are CUDA C++ kernels for Hopper
-(``ops/cuda``).  This package never imports jax.
+map, the fused CG matvec and the conv window loops are CUDA C++ kernels
+for Hopper (``ops/cuda``).  This package never imports jax.
 """
 __version__ = "0.1.0"
 
@@ -16,6 +16,9 @@ def __getattr__(name):
     if name in ("GPRegression", "xGPRegression"):
         from .models.regression import GPRegression
         return GPRegression
+    if name == "FastConv1d":
+        from .models.static_layers import FastConv1d
+        return FastConv1d
     if name in ("build_regression_dataset", "build_classification_dataset",
                 "build_offline_np_dataset"):
         from .data import builders

@@ -15,9 +15,12 @@ never perturbs a reduction.  Each chunk's products run in the working
 dtype (float32 on the card); the sums over chunks, and every result, are
 float64.  That costs O(M * K) per chunk and keeps the rounding of a
 float32 sum over hundreds of thousands of rows out of the solver.
-Features come from the kernel's feature fn (the K2 kernel on the card).
-This slice covers fixed-vector kernels, so sequence lengths are not
-carried.
+Features come from the kernel's feature fn (the K2 kernel, or for the
+convolution kernels the K3/K4 kernels, on the card).  Sequence lengths
+travel with their chunk as int32 tensors on the device (None for
+fixed-vector data); padded rows carry the full padded length
+(data/dataset.py), so row averaging stays finite before the mask zeroes
+them.
 """
 import numpy as np
 import torch
@@ -57,36 +60,48 @@ class Engine:
         return torch.as_tensor(np.asarray(arr), dtype=self._dtype,
                                device=self.device)
 
+    def _lengths_to_device(self, lb):
+        if lb is None:
+            return None
+        return torch.as_tensor(np.asarray(lb), dtype=torch.int32,
+                               device=self.device)
+
     def _build_stack(self):
-        xs, ys, ms = [], [], []
-        for xb, yb, _, mb in self.dataset.padded_batches(with_y=True):
+        xs, ys, ls, ms = [], [], [], []
+        for xb, yb, lb, mb in self.dataset.padded_batches(with_y=True):
             xs.append(np.asarray(xb))
             ys.append(np.asarray(yb, dtype=np.float64))
+            ls.append(lb)
             ms.append(mb)
         # Host copy of the masks: row subsampling reads mask values on the
         # host without a device round trip.
         self._m_host = np.stack(ms)
         self._stacked = {"x": self._to_device(np.stack(xs)),
                          "y": self._to_device(np.stack(ys)),
+                         "l": None if ls[0] is None else
+                         self._lengths_to_device(np.stack(ls)),
                          "m": self._to_device(self._m_host)}
 
     def _params(self):
         return self.kernel.feature_params()
 
     def _batches(self, with_y=True):
-        """Yield (x, y-or-None, mask, host mask) per chunk, on the device."""
+        """Yield (x, y-or-None, lengths-or-None, mask, host mask) per
+        chunk, on the device."""
         if self.mode == "stacked":
             s = self._stacked
             for i in range(s["x"].shape[0]):
-                yield s["x"][i], s["y"][i], s["m"][i], self._m_host[i]
+                yield (s["x"][i], s["y"][i],
+                       None if s["l"] is None else s["l"][i], s["m"][i],
+                       self._m_host[i])
             return
-        for xb, yb, _, mb in self.dataset.padded_batches(with_y=with_y):
+        for xb, yb, lb, mb in self.dataset.padded_batches(with_y=with_y):
             yield (self._to_device(xb),
                    None if yb is None else self._to_device(yb),
-                   self._to_device(mb), mb)
+                   self._lengths_to_device(lb), self._to_device(mb), mb)
 
-    def _features(self, params, xb, mb):
-        return self.fn(params, xb) * mb[:, None]
+    def _features(self, params, xb, lb, mb):
+        return self.fn(params, xb, lb) * mb[:, None]
 
     def _as_matrix(self, vec):
         return torch.as_tensor(vec, dtype=self._dtype,
@@ -105,16 +120,16 @@ class Engine:
         parts_fn = self.kernel.pure_feature_parts_fn()
         if parts_fn is None:
             acc = self._zeros(*v2.shape)
-            for xb, _, mb, _ in self._batches(with_y=False):
-                acc += ztzv_contract(self._features(params, xb, mb), v2)
+            for xb, _, lb, mb, _ in self._batches(with_y=False):
+                acc += ztzv_contract(self._features(params, xb, lb, mb), v2)
             return acc.reshape(np.shape(vec))
         cos_pos, sin_pos = (torch.as_tensor(p, device=self.device)
                             for p in self.kernel.feature_positions())
         v_c, v_s = v2[cos_pos], v2[sin_pos]
         oc = self._zeros(*v_c.shape)
         os_ = self._zeros(*v_s.shape)
-        for xb, _, mb, _ in self._batches(with_y=False):
-            c, s = parts_fn(params, xb)
+        for xb, _, lb, mb, _ in self._batches(with_y=False):
+            c, s = parts_fn(params, xb, lb)
             a, b = parts_contract(c * mb[:, None], s * mb[:, None], v_c, v_s)
             oc += a
             os_ += b
@@ -132,8 +147,8 @@ class Engine:
         m = self.num_rffs
         ztz, zty, yty = self._zeros(m, m), self._zeros(m), self._zeros()
         params = self._params()
-        for xb, yb, mb, _ in self._batches():
-            z = self._features(params, xb, mb)
+        for xb, yb, lb, mb, _ in self._batches():
+            z = self._features(params, xb, lb, mb)
             ym = yb * mb
             ztz += mm(z.T, z)
             zty += mm(z.T, ym)
@@ -144,9 +159,9 @@ class Engine:
         """(Z^T y, y^T y)."""
         zty, yty = self._zeros(self.num_rffs), self._zeros()
         params = self._params()
-        for xb, yb, mb, _ in self._batches():
+        for xb, yb, lb, mb, _ in self._batches():
             ym = yb * mb
-            zty += mm(self._features(params, xb, mb).T, ym)
+            zty += mm(self._features(params, xb, lb, mb).T, ym)
             yty += ym @ ym
         return zty, float(yty)
 
@@ -158,8 +173,8 @@ class Engine:
             device=self.device)
         acc = self._zeros(variance_rffs, variance_rffs)
         params = self._params()
-        for xb, _, mb, _ in self._batches(with_y=False):
-            z = self._features(params, xb, mb)[:, idx]
+        for xb, _, lb, mb, _ in self._batches(with_y=False):
+            z = self._features(params, xb, lb, mb)[:, idx]
             acc += mm(z.T, z)
         return acc
 
@@ -178,11 +193,11 @@ class Engine:
         if row_keep_prob is not None and row_keep_prob >= 1.0:
             row_keep_prob = None
         rng = np.random.default_rng(seed)
-        for xb, yb, mb, mh in self._batches(with_y=with_zty):
+        for xb, yb, lb, mb, mh in self._batches(with_y=with_zty):
             if row_keep_prob is not None:
                 keep = state_rng.exact_count_keep_mask(mh, row_keep_prob, rng)
                 mb = mb * torch.as_tensor(keep, **opts)
-            z = self._features(params, xb, mb)
+            z = self._features(params, xb, lb, mb)
             acc += mm(srht_rows(z, radem, idx).T, z)
             if with_zty:
                 ym = yb * mb

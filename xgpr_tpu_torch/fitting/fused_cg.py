@@ -4,9 +4,11 @@ solver in xgpr_tpu/fitting/fused_cg.py: ``_cg_while`` and
 
 The JAX solver is one ``lax.while_loop`` program.  Here it is a Python
 loop over device tensors that reads one flag per iteration on the host to
-decide whether to go on.  The matvec runs through the kernel's fused chunk
-matvec (the K1 kernel on the card) on the cos/sin halves of the direction,
-so no (chunk, num_rffs) feature matrix is ever written.
+decide whether to go on.  Where the kernel has a fused chunk matvec (the
+K1 kernel on the card) it runs on the cos/sin halves of the direction, so
+no (chunk, num_rffs) feature matrix is ever written; otherwise (the
+convolution kernels) the matvec is the engine's ``ztzv``, which contracts
+each chunk's (cos, sin) parts with torch.matmul.
 
 The solver state (iterates, residuals, the preconditioner) is float64 on
 the device whatever the working dtype: it is O(M * K) per iteration,
@@ -93,7 +95,8 @@ def fused_cg_solve_stacked(engine, rhs, lam, precond=None, max_iter=200,
             oc = torch.zeros(v_c.shape, dtype=v.dtype, device=v.device)
             os_ = torch.zeros_like(oc)
             for i in range(s["x"].shape[0]):
-                a, b = ztzv_fn(params, s["x"][i], s["m"][i], v_c, v_s)
+                lb = None if s["l"] is None else s["l"][i]
+                a, b = ztzv_fn(params, s["x"][i], lb, s["m"][i], v_c, v_s)
                 oc += a
                 os_ += b
             out = torch.empty_like(v)

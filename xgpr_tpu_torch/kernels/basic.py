@@ -88,14 +88,14 @@ class SORFKernelBaseclass(KernelBaseclass):
         intercept = self.fit_intercept
         padded = self.padded_dims
         if self.use_dense_projection:
-            def fn(params, x):
+            def fn(params, x, seq_len=None):
                 feats = fused_feature_map(x * params["sigma"],
                                           params["proj"], intercept, padded)
                 if intercept:
                     feats[:, 0] = 1.0
                 return feats
         else:
-            def fn(params, x):
+            def fn(params, x, seq_len=None):
                 feats = rbf_feature_map(x * params["sigma"], params["radem"],
                                         params["chi"], intercept)
                 if intercept:
@@ -112,7 +112,7 @@ class SORFKernelBaseclass(KernelBaseclass):
         intercept = self.fit_intercept
         num_freqs = self.num_freqs
 
-        def fn(params, x):
+        def fn(params, x, seq_len=None):
             z = fused_feature_map(x * params["sigma"], params["proj"],
                                   intercept, num_freqs)
             c, s = z[:, :num_freqs], z[:, num_freqs:]
@@ -128,7 +128,7 @@ class SORFKernelBaseclass(KernelBaseclass):
             return None
         intercept = self.fit_intercept
 
-        def fn(params, x, m, v_c, v_s):
+        def fn(params, x, seq_len, m, v_c, v_s):
             return ztzv_parts(x, m, params["proj"], params["sigma"], v_c,
                               v_s, intercept)
         return fn

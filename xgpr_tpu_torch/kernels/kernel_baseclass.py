@@ -9,7 +9,9 @@
 Every kernel holds its projection state on an explicit ``device`` in the
 working dtype of that device (config.fp_dtype).  PyTorch runs eagerly, so
 the JAX package's traced-function caches are gone: ``pure_feature_fn`` and
-friends are plain functions of (params, x).
+friends are plain functions of (params, x, seq_len=None), the signature of
+xgpr_tpu's; fixed-vector kernels ignore seq_len, and the convolution
+kernels (kernels/conv1d.py) need it as an int32 tensor on their device.
 """
 import abc
 import itertools
@@ -147,16 +149,18 @@ class KernelBaseclass(ABC):
         raise NotImplementedError
 
     def pure_feature_fn(self):
-        """fn(params, x) -> (N, num_rffs) features, intercept applied."""
+        """fn(params, x, seq_len=None) -> (N, num_rffs) features,
+        intercept applied."""
         raise NotImplementedError
 
     def pure_feature_parts_fn(self):
-        """fn(params, x) -> (cos, sin) parts, or None if unsupported."""
+        """fn(params, x, seq_len=None) -> (cos, sin) parts, or None if
+        unsupported."""
         return None
 
     def pure_ztzv_parts_fn(self):
-        """fn(params, x, mask, v_c, v_s) -> (oc, os) fused chunk matvec,
-        or None if the kernel has none."""
+        """fn(params, x, seq_len, mask, v_c, v_s) -> (oc, os) fused chunk
+        matvec, or None if the kernel has none."""
         return None
 
     # ------------------------------------------------------------------
@@ -164,11 +168,17 @@ class KernelBaseclass(ABC):
     def _cast_input(self, input_x):
         return torch.as_tensor(input_x, dtype=self.dtype, device=self.device)
 
+    def _cast_lengths(self, sequence_length):
+        if sequence_length is None:
+            return None
+        return torch.as_tensor(np.asarray(sequence_length), dtype=torch.int32,
+                               device=self.device)
+
     def transform_x(self, input_x, sequence_length=None):
-        """Random features of (N, D) input as an (N, num_rffs) tensor on the
-        kernel's device."""
-        xtrans = self.kernel_specific_transform(self._cast_input(input_x),
-                                                sequence_length)
+        """Random features of (N, D) input, or of (N, L, D) sequences with
+        their lengths, as an (N, num_rffs) tensor on the kernel's device."""
+        xtrans = self.kernel_specific_transform(
+            self._cast_input(input_x), self._cast_lengths(sequence_length))
         if self.fit_intercept:
             xtrans[:, 0] = 1.0
         return xtrans

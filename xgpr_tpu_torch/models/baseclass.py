@@ -6,6 +6,8 @@ setters that invalidate weights.  ``device`` ("cuda" by default, or "cpu"
 by name) replaces xgpr_tpu's ``_resolve_accelerator``: a CUDA request with
 no card raises, and nothing quietly runs on the CPU instead.
 """
+import numpy as np
+
 from .. import config, constants
 from ..fitting.engine import Engine
 from ..kernels import KERNEL_NAME_TO_CLASS
@@ -60,9 +62,22 @@ class ModelBaseclass:
         if not self.kernel.validate_new_datapoints(input_x):
             raise RuntimeError("Input array shape does not match the shape "
                                "this model was fitted for.")
-        if sequence_lengths is not None:
+        if sequence_lengths is None:
+            if input_x.ndim != 2:
+                raise RuntimeError("sequence_lengths is required if using a "
+                                   "convolution kernel.")
+        elif input_x.ndim == 2:
             raise RuntimeError("Fixed-vector kernels take no "
                                "sequence_lengths argument; pass None.")
+        elif np.shape(sequence_lengths) != (input_x.shape[0],):
+            raise RuntimeError("sequence_lengths needs one entry per row "
+                               "of input_x.")
+        else:
+            # The conv kernels' own contract (lengths in [conv_width, L]),
+            # checked once on the host for the whole input.
+            require = getattr(self.kernel, "_require_lengths", None)
+            if require is not None:
+                require(input_x, sequence_lengths)
         if self.weights.shape[0] != self.kernel.get_num_rffs():
             raise RuntimeError(
                 f"Fitted weights cover {self.weights.shape[0]} features but "

@@ -27,8 +27,14 @@ class GPRegression(ModelBaseclass):
     def predict(self, input_x, sequence_lengths=None, get_var=False,
                 chunk_size=2000):
         """Posterior mean (and optionally variance) for new datapoints, as
-        numpy arrays.  Each chunk of rows is featurised on the model's
-        device (the K2 kernel on the card)."""
+        numpy arrays.  Each chunk of rows, with its slice of the sequence
+        lengths for 3d input, is featurised on the model's device (the K2
+        kernel, or K3/K4 for the convolution kernels, on the card).
+
+        xgpr_tpu pads the sequence axis to a bucket first
+        (``_bucket_sequence_axis``) only so that XLA reuses one compiled
+        program; PyTorch compiles nothing per shape, and padding windows
+        changes no feature, so the port does not."""
         self.pre_prediction_checks(input_x, sequence_lengths, get_var)
         feature_fn = self.kernel.pure_feature_fn()
         params = self.kernel.feature_params()
@@ -39,8 +45,10 @@ class GPRegression(ModelBaseclass):
                 device=self.kernel.device)
         means, variances = [], []
         for i in range(0, input_x.shape[0], chunk_size):
+            slen = None if sequence_lengths is None else \
+                self.kernel._cast_lengths(sequence_lengths[i:i + chunk_size])
             z = feature_fn(params, self.kernel._cast_input(
-                input_x[i:i + chunk_size]))
+                input_x[i:i + chunk_size]), slen)
             means.append(z @ self.weights)
             if get_var:
                 zv = z[:, var_idx]

@@ -5,9 +5,12 @@ interface, loaded with ctypes (no PyTorch headers, so a build takes
 seconds).  The library is built at first use into ``build/torch_kernels/``
 of the checkout, under a name keyed by a hash of the sources and flags,
 so an edited source is rebuilt and a stale library is never loaded.
+Each source compiles in its own nvcc process, all started together, and
+one more call links the objects:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o libxgpr_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -c csrc/<name>.cu -o <name>.o      (one per source)
+    nvcc -shared -o libxgpr_kernels_<hash>.so *.o
 
 No --use_fast_math: it would turn sincosf into the inaccurate __sincosf.
 """
@@ -23,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -31,10 +34,14 @@ _SIGNATURES = {
     "xgpr_feature_map": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "xgpr_ztzv": [_P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _P,
                   _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    "xgpr_conv_parts": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                        _I, _P],
+    "xgpr_conv_maxpool": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _LIB = None
 BUILD_SECONDS = None  # wall time of the build this process ran, if any
+BUILD_LOG = ""        # compiler output of that build
 
 
 def _sources():
@@ -62,28 +69,45 @@ def library_path() -> Path:
     return BUILD_DIR / f"libxgpr_kernels_{digest.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the library unless a build of these exact sources exists."""
-    global BUILD_SECONDS
+def build(extra_flags=()) -> Path:
+    """Compile the library unless a build of these exact sources exists.
+    ``extra_flags`` go to every compile (e.g. ["-Xptxas", "-v"]); their
+    output is kept in ``BUILD_LOG``."""
+    global BUILD_SECONDS, BUILD_LOG
     target = library_path()
     if target.exists():
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    # Build into a temporary name and rename, so concurrent processes never
-    # load a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp] + \
-        [str(s) for s in sorted(CSRC.glob("*.cu"))]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError("nvcc failed:\n" + proc.stdout + proc.stderr)
-        os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = _nvcc()
+    # Build in a private directory and rename the library into place, so
+    # concurrent processes never load a half-written one.
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [nvcc] + NVCC_FLAGS + list(extra_flags) + \
+                ["-c", str(src), "-o", str(obj)]
+            procs.append((src.name, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for name, _, proc in procs:
+            out = proc.communicate()[0]
+            logs.append(f"--- {name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(name)
+        BUILD_LOG = "".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{BUILD_LOG}")
+        lib = Path(tmp) / "lib.so"
+        link = subprocess.run([nvcc, "-shared", "-o", str(lib)] +
+                              [str(obj) for _, obj, _ in procs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + link.stdout +
+                               link.stderr)
+        os.replace(lib, target)
     BUILD_SECONDS = time.perf_counter() - t0
     return target
 

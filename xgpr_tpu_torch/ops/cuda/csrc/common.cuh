@@ -1,8 +1,9 @@
-// Shared device code of the RBF feature-map kernel (feature_map.cu) and the
-// fused CG-matvec kernels (ztzv.cu): the tiled projection x @ proj and the
-// guarded (cos, sin) evaluator.
+// Shared device code of the RBF feature-map kernel (feature_map.cu), the
+// fused CG-matvec kernels (ztzv.cu) and the conv window-loop kernels
+// (conv.cu): the tiled projection x @ proj and the guarded (cos, sin)
+// evaluator.
 //
-// Both kernels compute arg = x @ proj for a TM x TN tile of (rows, freqs)
+// Each kernel computes arg = x @ proj for a TM x TN tile of (rows, freqs)
 // with plain fp32 FMAs, staging TK-deep slices of x and proj in shared
 // memory.  256 threads each own a 4 x 4 micro-tile whose rows and freqs are
 // strided by 16, so consecutive lanes touch consecutive columns.  The
@@ -30,12 +31,14 @@ struct TileSmem {
   float b[TK][TN];      // proj slice
 };
 
-// acc[i][j] = sum_d x[row0 + r_lo + 16 i, d] * proj[d, f0 + f_lo + 16 j].
+// acc[i][j] = sum_d x[(row0 + r_lo + 16 i) * lda + d] * proj[d, f0 + f_lo + 16 j].
 // Rows >= n, freqs >= f and depth >= d read as zero, so any shape works
-// without padded copies.  Ends with a __syncthreads().
-__device__ __forceinline__ void project_tile(
-    const float* __restrict__ x, const float* __restrict__ proj, int n, int d,
-    int f, int row0, int f0, int r_lo, int f_lo, TileSmem& sm,
+// without padded copies.  lda >= d is the row stride of x: the conv kernels
+// (conv.cu) read window j of each sequence as rows of stride L*D that start
+// at j*D.  Ends with a __syncthreads().
+__device__ __forceinline__ void project_tile_strided(
+    const float* __restrict__ x, size_t lda, const float* __restrict__ proj,
+    int n, int d, int f, int row0, int f0, int r_lo, int f_lo, TileSmem& sm,
     float acc[4][4]) {
   const int tid = threadIdx.x;
 #pragma unroll
@@ -49,7 +52,7 @@ __device__ __forceinline__ void project_tile(
       const int e = tid + q * NT;
       const int r = e / TK, k = e % TK;
       const int gr = row0 + r, gd = d0 + k;
-      sm.a[k][r] = (gr < n && gd < d) ? x[(size_t)gr * d + gd] : 0.0f;
+      sm.a[k][r] = (gr < n && gd < d) ? x[(size_t)gr * lda + gd] : 0.0f;
     }
 #pragma unroll
     for (int q = 0; q < (TK * TN) / NT; ++q) {
@@ -73,6 +76,15 @@ __device__ __forceinline__ void project_tile(
     }
     __syncthreads();
   }
+}
+
+// The same for a dense (n, d) x.
+__device__ __forceinline__ void project_tile(
+    const float* __restrict__ x, const float* __restrict__ proj, int n, int d,
+    int f, int row0, int f0, int r_lo, int f_lo, TileSmem& sm,
+    float acc[4][4]) {
+  project_tile_strided(x, (size_t)d, proj, n, d, f, row0, f0, r_lo, f_lo, sm,
+                       acc);
 }
 
 // (cos x * w, sin x * w).  exact == 0: the "hi" pair of
