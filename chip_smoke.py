@@ -26,12 +26,15 @@ built beforehand.  Phases (any failure raises and the exit code is not 0):
    rows and 16,384 held out.
 5. K3 and K4 against their plain versions on the card, in fp32: at the
    sequence slice's shapes (8192-row chunks of the corpus with the
-   models' own projections), a ragged case and GraphRBF's w = 1.
+   models' own projections), a ragged case, GraphRBF's w = 1 and D = 21.
+   At the slice shape, prints each kernel's time beside both bounds, the
+   (row, window) slots its tiles project against the valid windows, and
+   its achieved TFLOP/s on the valid-window work.
 6. The sequence slice: Conv1dRBF, 8192 RFFs, fit(mode="cg") with the
-   autoselected preconditioner, predict(get_var=True).  Checks CG
-   convergence, that K3 ran during fit and during predict, finite
-   predictions, var >= 0, 4096 predictions against the plain K3, and
-   held-out Spearman > 0.75.
+   autoselected preconditioner (the model prints the rank it chose),
+   predict(get_var=True).  Checks CG convergence, that K3 ran during fit
+   and during predict, finite predictions, var >= 0, 4096 predictions
+   against the plain K3, and held-out Spearman > 0.75.
 7. The K4 path on 65,536 rows of the corpus: Conv1dTwoLayer (init_rffs
    1024, 4096 RFFs) fit by CG and predict with variance, then FastConv1d
    on 4096 rows.  Checks convergence, that K4 and K2 ran, agreement with
@@ -84,9 +87,12 @@ ZTZV_RTOL = 1e-4
 CONV_RTOL = 1e-4
 PREDICT_RTOL = 1e-4
 
-# Published H100 SXM peaks (NVIDIA data sheet): fp32 on CUDA cores and
-# HBM3 bandwidth.  The bounds count each input read once, each output
-# written once, and the fp32 FMAs of the projections (2 flops each).
+# Published H100 SXM peaks (NVIDIA data sheet): dense TF32 on the tensor
+# cores, fp32 on CUDA cores and HBM3 bandwidth.  The bounds count each
+# input read once, each output written once, and the multiply-adds of the
+# projections (2 flops each): as three TF32 products each at fp32 grade
+# (3xTF32) for the tensor-core bound, as fp32 FMAs for the CUDA-core one.
+PEAK_TF32_FLOPS = 495e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
@@ -203,10 +209,22 @@ def time_ms(torch, fn, reps=10, dev="cuda"):
 
 
 def bound(nbytes, flops):
-    """(least ms, what sets it) on the published peaks."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FP32_FLOPS
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    """Least ms on the published peaks and what sets it: "ms"/"by" with
+    the flops on the tensor cores (3xTF32), "cuda_core_ms"/"cuda_core_by"
+    with them on CUDA cores."""
+    t_bytes = nbytes / PEAK_BYTES
+    out = {}
+    for key, t_ops in (("", 3 * flops / PEAK_TF32_FLOPS),
+                       ("cuda_core_", flops / PEAK_FP32_FLOPS)):
+        out[key + "ms"] = max(t_bytes, t_ops) * 1e3
+        out[key + "by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return out
+
+
+def bound_text(b):
+    return (f"bound {b['ms']:.4f} ms ({b['by']}, tensor cores 3xTF32) / "
+            f"{b['cuda_core_ms']:.4f} ms ({b['cuda_core_by']}, fp32 CUDA "
+            f"cores)")
 
 
 def counters():
@@ -234,7 +252,8 @@ def phase_build():
           f"(nvcc {build.BUILD_SECONDS if build.BUILD_SECONDS else 0:.2f}s)",
           flush=True)
     for line in build.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("---"):
+        if "registers" in line or "spill" in line or \
+                "entry function" in line or line.startswith("---"):
             print("ptxas: " + line.strip(), flush=True)
 
 
@@ -279,9 +298,9 @@ def phase_kernels(torch, card):
             d, f = pr.shape
             k2_bound = bound(4 * (n * d + d * f + n * 2 * f), 2 * n * d * f)
             print(f"K2 time at slice shape: kernel {k2_ms:.4f} ms, plain "
-                  f"{k2_plain_ms:.4f} ms, bound {k2_bound[0]:.4f} ms "
-                  f"({k2_bound[1]}); projection matmul alone (partial "
-                  f"yardstick) {mm_ms:.4f} ms [{card}]", flush=True)
+                  f"{k2_plain_ms:.4f} ms, {bound_text(k2_bound)}; "
+                  f"projection matmul alone (partial yardstick) "
+                  f"{mm_ms:.4f} ms [{card}]", flush=True)
     results["K2"] = dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms,
                          bound=k2_bound)
 
@@ -319,8 +338,8 @@ def phase_kernels(torch, card):
             k1_bound = bound(4 * (n * d + n + d * f + 4 * f * k),
                              2 * n * d * f + 8 * n * f * k)
             print(f"K1 time at slice shape (K=1): kernel {k1_ms:.4f} ms, "
-                  f"plain {k1_plain_ms:.4f} ms, bound {k1_bound[0]:.4f} ms "
-                  f"({k1_bound[1]}) [{card}]", flush=True)
+                  f"plain {k1_plain_ms:.4f} ms, {bound_text(k1_bound)} "
+                  f"[{card}]", flush=True)
     results["K1"] = dict(max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms,
                          bound=k1_bound)
     return results
@@ -442,10 +461,12 @@ def phase_conv_kernels(torch, card, corpus, dev="cuda", chunk=CHUNK,
     cases = {
         "K3": [("slice", x_slice, l_slice, proj3, MOTIF_W, row_scale),
                ("ragged", *ragged(1000, 9, 16, 5, 200), 5, None),
-               ("w=1", *ragged(300, 12, 21, 1, 256), 1, None)],
+               ("w=1", *ragged(300, 12, 21, 1, 256), 1, None),
+               ("D=21", *ragged(700, 14, 21, 6, 300), 6, None)],
         "K4": [("slice", x_slice, l_slice, proj4, MOTIF_W, None),
                ("ragged", *ragged(1000, 9, 16, 5, 200), 5, None),
-               ("w=1", *ragged(300, 12, 21, 1, 256), 1, None)],
+               ("w=1", *ragged(300, 12, 21, 1, 256), 1, None),
+               ("D=21", *ragged(700, 14, 21, 6, 300), 6, None)],
     }
     runs = {"K3": (lambda x, l, p, w, rs: conv.conv_parts(x, l, p, sigma, w,
                                                           rs),
@@ -481,14 +502,24 @@ def phase_conv_kernels(torch, card, corpus, dev="cuda", chunk=CHUNK,
         n, l, d = x.shape
         f = proj.shape[1]
         out_cols = 2 * f if name == "K3" else f
+        flops = 2 * width * d * f * nk_sum
         kb = bound(4 * (n * l * d + n + width * d * f + n * out_cols)
-                   + (4 * n if name == "K3" else 0),
-                   2 * width * d * f * nk_sum)
+                   + (4 * n if name == "K3" else 0), flops)
+        slots, valid = conv.window_slots(lens, width, l - width + 1)
         print(f"{name} time at slice shape: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {kb[0]:.4f} ms ({kb[1]}; "
-              f"{nk_sum} valid windows); projection matmul alone (partial "
-              f"yardstick, no mask/sincos/sum) {mm_ms:.4f} ms [{card}]",
-              flush=True)
+              f"{plain_ms:.4f} ms, {bound_text(kb)}; {nk_sum} valid "
+              f"windows, {flops / 1e9:.1f} GFLOP; projection matmul alone "
+              f"(partial yardstick, no mask/sincos/sum) {mm_ms:.4f} ms "
+              f"[{card}]", flush=True)
+        print(f"{name} at slice shape: {slots} window slots projected for "
+              f"{valid} valid windows ({slots / valid:.3f} : 1); achieved "
+              f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s on the "
+              f"valid-window work ({flops * 1e3 / ms / PEAK_FP32_FLOPS:.1%} "
+              f"of the fp32 CUDA-core peak; the tensor cores run "
+              f"{3 * flops * slots / valid / (ms * 1e-3) / 1e12:.1f} TFLOP/s "
+              f"of TF32 products on the projected slots, "
+              f"{3 * flops * slots / valid * 1e3 / ms / PEAK_TF32_FLOPS:.1%} "
+              f"of peak) [{card}]", flush=True)
         results[name] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                              bound=kb)
     return results
@@ -508,10 +539,11 @@ def phase_conv_slice(torch, card, corpus, n_train=N_TRAIN, n_test=N_TEST,
     trx, tr_y, tr_l = x[:n_train], y[:n_train], lens[:n_train]
     tex, te_y, te_l = (a[n_train:n_train + n_test] for a in (x, y, lens))
     dset = build_regression_dataset(trx, tr_y, tr_l, chunk_size=chunk)
+    # verbose: the fit prints the preconditioner rank the autoselect chose.
     model = GPRegression(num_rffs=num_rffs, variance_rffs=variance_rffs,
                          kernel_choice="Conv1dRBF",
                          kernel_settings={"conv_width": MOTIF_W},
-                         device=dev, verbose=False)
+                         device=dev, verbose=True)
     model.set_hyperparams(MOTIF_HPARAMS, dset)
 
     reset_counts()
@@ -524,6 +556,7 @@ def phase_conv_slice(torch, card, corpus, n_train=N_TRAIN, n_test=N_TEST,
           f"relative residual {losses[-1]:.3e}; launches during fit: "
           f"{fit_counts}", flush=True)
     check(n_iter < 500 and losses[-1] < 1e-6, "Conv1dRBF CG did not converge")
+    model.verbose = False
 
     reset_counts()
     t0 = time.perf_counter()
@@ -674,8 +707,11 @@ def kernel_line(name, route, source, replaces, launches, res):
     return {"name": name, "route": route, "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": res["max_abs_err"], "ms": res["ms"],
-            "plain_ms": res["plain_ms"], "bound_ms": res["bound"][0],
-            "bound_by": res["bound"][1], "library_ms": None}
+            "plain_ms": res["plain_ms"], "bound_ms": res["bound"]["ms"],
+            "bound_by": res["bound"]["by"],
+            "cuda_core_bound_ms": res["bound"]["cuda_core_ms"],
+            "cuda_core_bound_by": res["bound"]["cuda_core_by"],
+            "library_ms": None}
 
 
 def main(argv):

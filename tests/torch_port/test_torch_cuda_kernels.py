@@ -71,26 +71,37 @@ def test_ztzv_kernel(cuda, intercept, n, d, f, k):
     assert float((os_ - rs).abs().max()) < tol
 
 
-CONV_CASES = [(300, 16, 64, 9, 256),   # the motif slice's L, D, w
-              (257, 20, 7, 5, 200),   # ragged rows and F
-              (70, 6, 10, 1, 96),     # GraphRBF's w = 1
-              (65, 12, 3, 9, 130)]    # nw = 4 < one window block
+# (n, l, d, w, f, lengths): "spread" draws lengths over [w - 1, L] in
+# shuffled row order, with row 0 below w (no valid window); "equal" gives
+# every row the same length.
+CONV_CASES = [(300, 16, 64, 9, 256, "spread"),   # the motif slice's L, D, w
+              (257, 20, 7, 5, 200, "spread"),    # ragged rows and F
+              (70, 6, 10, 1, 96, "spread"),      # GraphRBF's w = 1
+              (65, 12, 3, 9, 130, "spread"),     # nw = 4, D = 3
+              (1000, 16, 64, 9, 300, "spread"),  # 16 tiles, F off the tile
+              (500, 16, 64, 9, 256, "equal"),    # all rows of one length
+              (200, 10, 21, 4, 129, "spread"),   # D = 21
+              (90, 7, 21, 1, 40, "equal"),       # w = 1, D = 21
+              (1000, 16, 64, 9, 4096, "spread")]  # a cut of the motif shape
 
 
-def _conv_inputs(dev, n, l, d, width, f):
-    rng = np.random.default_rng(n + l + width)
+def _conv_inputs(dev, n, l, d, width, f, kind):
+    rng = np.random.default_rng(n + l + width + d)
     x = _t(rng.standard_normal((n, l, d)) * 0.5, dev)
-    lengths = rng.integers(width, l + 1, size=n).astype(np.int32)
-    lengths[0] = width - 1              # no valid window at all
+    if kind == "equal":
+        lengths = np.full(n, (l + width) // 2, dtype=np.int32)
+    else:
+        lengths = rng.integers(width - 1, l + 1, size=n).astype(np.int32)
+        lengths[0] = width - 1              # no valid window at all
     lengths = torch.as_tensor(lengths, device=dev)
     proj = _t(rng.standard_normal((width * d, f)) * 0.3, dev)
     return x, lengths, proj
 
 
 @pytest.mark.parametrize("mode", ["hi", "exact"])
-@pytest.mark.parametrize("n,l,d,width,f", CONV_CASES)
-def test_conv_parts_kernel(cuda, mode, n, l, d, width, f):
-    x, lengths, proj = _conv_inputs(cuda, n, l, d, width, f)
+@pytest.mark.parametrize("n,l,d,width,f,kind", CONV_CASES)
+def test_conv_parts_kernel(cuda, mode, n, l, d, width, f, kind):
+    x, lengths, proj = _conv_inputs(cuda, n, l, d, width, f, kind)
     scale = torch.linspace(0.5, 1.5, n, device=cuda)
     for row_scale in (None, scale):
         before = conv.PARTS_LAUNCHES
@@ -102,12 +113,13 @@ def test_conv_parts_kernel(cuda, mode, n, l, d, width, f):
         for g, w in zip(got, want):
             tol = 1e-4 * max(1.0, float(w.abs().max()))
             assert float((g - w).abs().max()) < tol
-        assert float(got[0][0].abs().max()) == 0.0
+        if kind == "spread":
+            assert float(got[0][0].abs().max()) == 0.0
 
 
-@pytest.mark.parametrize("n,l,d,width,f", CONV_CASES)
-def test_conv_maxpool_kernel(cuda, n, l, d, width, f):
-    x, lengths, proj = _conv_inputs(cuda, n, l, d, width, f)
+@pytest.mark.parametrize("n,l,d,width,f,kind", CONV_CASES)
+def test_conv_maxpool_kernel(cuda, n, l, d, width, f, kind):
+    x, lengths, proj = _conv_inputs(cuda, n, l, d, width, f, kind)
     before = conv.MAXPOOL_LAUNCHES
     got = conv.conv_maxpool(x, lengths, proj, width)
     want = conv.conv_maxpool_plain(x, lengths, proj, width)
@@ -115,7 +127,24 @@ def test_conv_maxpool_kernel(cuda, n, l, d, width, f):
     assert conv.MAXPOOL_LAUNCHES == before + 1
     tol = 1e-4 * max(1.0, float(want.abs().max()))
     assert float((got - want).abs().max()) < tol
-    assert float(got[0].abs().max()) == 0.0
+    if kind == "spread":
+        assert float(got[0].abs().max()) == 0.0
+
+
+def test_conv_kernels_return_input_row_order(cuda):
+    """The kernels read rows sorted by window count; permuting the input
+    rows permutes the outputs and nothing else."""
+    x, lengths, proj = _conv_inputs(cuda, 1000, 16, 64, 9, 300, "spread")
+    perm = torch.as_tensor(np.random.default_rng(5).permutation(1000),
+                           device=cuda)
+    xq, lq = x[perm].contiguous(), lengths[perm].contiguous()
+    c, s = conv.conv_parts(x, lengths, proj, 0.7, 9)
+    cq, sq = conv.conv_parts(xq, lq, proj, 0.7, 9)
+    m, mq = conv.conv_maxpool(x, lengths, proj, 9), \
+        conv.conv_maxpool(xq, lq, proj, 9)
+    torch.cuda.synchronize()
+    for a, b in ((c, cq), (s, sq), (m, mq)):
+        assert float((a[perm] - b).abs().max()) < 1e-6
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):

@@ -34,9 +34,8 @@ _SIGNATURES = {
     "xgpr_feature_map": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "xgpr_ztzv": [_P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _P,
                   _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
-    "xgpr_conv_parts": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                        _I, _P],
-    "xgpr_conv_maxpool": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "xgpr_conv_parts": [_P] * 9 + [_I] * 5 + [_F, _I, _P],
+    "xgpr_conv_maxpool": [_P] * 7 + [_I] * 5 + [_P],
 }
 
 _LIB = None

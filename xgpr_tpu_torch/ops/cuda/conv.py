@@ -18,8 +18,18 @@ folded in.  Window j of row i counts while j < seq_lengths[i] - w + 1.
 Each wrapper runs its plain version for CPU tensors and its kernel for
 CUDA tensors (float32 x and proj, int32 lengths); anything else raises.
 ``PARTS_LAUNCHES`` and ``MAXPOOL_LAUNCHES`` count kernel launches.
+
+Before a launch the wrapper prepares the kernels' operands with the plain
+torch functions below: ``row_order`` (the rows ordered by valid-window
+count, so that a tile stops at its own rows' largest count),
+``pad_operands`` (channels padded to a multiple of 4, and proj transposed
+to the K-major projT the tiles read) and ``split_tf32`` (x and projT as
+TF32 high parts and remainders, the operands of the kernels' 3xTF32
+products).  ``window_slots`` counts the (row, window) slots the kernels
+project against the valid windows.
 """
 import torch
+import torch.nn.functional as F
 
 from .. import sincos as _sincos
 from . import build
@@ -66,6 +76,60 @@ def conv_maxpool_plain(x, seq_lengths, proj, width):
     return torch.clamp_min(g.amax(dim=1), 0.0)
 
 
+# The kernels' tiling (csrc/conv.cu: WR, WG, WN): rows per tile, windows
+# per group, frequencies per tile.
+TILE_ROWS = 64
+WINDOW_GROUP = 2
+TILE_FREQS = 128
+
+
+def row_order(seq_lengths, width, num_windows):
+    """(order, nk), each (N,) int32 on the lengths' device: nk[i] =
+    clamp(seq_lengths[i] - w + 1, 0, nw) the valid windows of row i, and
+    order a stable permutation of the rows by ascending nk.  A kernel tile
+    is TILE_ROWS consecutive rows of this order."""
+    nk = (seq_lengths.to(torch.int64) - width + 1).clamp(0, num_windows)
+    order = torch.argsort(nk, stable=True)
+    return order.to(torch.int32), nk.to(torch.int32)
+
+
+def pad_operands(x, proj, width):
+    """(x, projT) as the kernels read them: x (N, L, dp) with the channels
+    padded by zeros to dp, the next multiple of 4 (16-byte rows), and projT
+    (F, w*dp) the K-major transpose of proj (w*D, F) with the matching zero
+    columns.  The padding adds zero terms only."""
+    d = x.shape[2]
+    f = proj.shape[1]
+    dp = -(-d // 4) * 4
+    proj = proj.reshape(width, d, f)
+    if dp != d:
+        x = F.pad(x, (0, dp - d))
+        proj = F.pad(proj, (0, 0, 0, dp - d))
+    return x.contiguous(), proj.reshape(width * dp, f).t().contiguous()
+
+
+def split_tf32(a):
+    """(hi, lo), float32 with hi + lo == a exactly: hi is a rounded to TF32
+    (10 explicit mantissa bits; to nearest, ties away from zero, as
+    cvt.rna.tf32.f32 rounds) and lo = a - hi, of which the tensor cores
+    read the top TF32 bits."""
+    bits = a.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return hi, a - hi
+
+
+def window_slots(seq_lengths, width, num_windows):
+    """(slots, valid): the (row, window) GEMM rows the kernels project,
+    TILE_ROWS x WINDOW_GROUP for each window group of each tile up to the
+    tile's largest nk, against the valid windows sum(nk)."""
+    order, nk = row_order(seq_lengths, width, num_windows)
+    tiles = F.pad(nk[order.long()], (0, -len(nk) % TILE_ROWS))
+    top = tiles.reshape(-1, TILE_ROWS).amax(dim=1).to(torch.int64)
+    groups = (top + WINDOW_GROUP - 1) // WINDOW_GROUP
+    return (int(groups.sum()) * TILE_ROWS * WINDOW_GROUP,
+            int(nk.to(torch.int64).sum()))
+
+
 def _check_shapes(name, x, seq_lengths, proj, width):
     if x.dim() != 3 or proj.dim() != 2 or \
             proj.shape[0] != width * x.shape[2] or \
@@ -77,8 +141,10 @@ def _check_shapes(name, x, seq_lengths, proj, width):
         raise ValueError("Sequence axis shorter than conv_width.")
 
 
-def _kernel_operands(name, x, seq_lengths, proj, *more):
-    """Checks for the CUDA route; returns (n, l, d, f)."""
+def _kernel_operands(name, x, seq_lengths, proj, width, *more):
+    """Checks for the CUDA route; returns (x_hi, x_lo, order, nk, projT_hi,
+    projT_lo) as the kernel reads them (``row_order``, ``pad_operands``,
+    ``split_tf32``, whose outputs are fresh, 16-byte aligned tensors)."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {x.device}.")
     check_cuda_operands(name, x, proj, *more)
@@ -86,11 +152,11 @@ def _kernel_operands(name, x, seq_lengths, proj, *more):
             or not seq_lengths.is_contiguous():
         raise TypeError(f"{name}: the CUDA kernel takes contiguous int32 "
                         f"lengths on {x.device}.")
-    n, l, d = x.shape
-    f = proj.shape[1]
-    if (f + 63) // 64 > 65535:
+    if -(-proj.shape[1] // TILE_FREQS) > 65535:
         raise ValueError(f"{name}: too many frequencies for the grid.")
-    return n, l, d, f
+    order, nk = row_order(seq_lengths, width, x.shape[1] - width + 1)
+    xp, projT = pad_operands(x, proj, width)
+    return split_tf32(xp) + (order, nk) + split_tf32(projT)
 
 
 def conv_parts(x, seq_lengths, proj, sigma, width, row_scale=None,
@@ -103,8 +169,11 @@ def conv_parts(x, seq_lengths, proj, sigma, width, row_scale=None,
     if all(t.device.type == "cpu" for t in (x, seq_lengths, proj) + extra):
         return conv_parts_plain(x, seq_lengths, proj, sigma, width,
                                 row_scale, mode)
-    n, l, d, f = _kernel_operands("conv_parts", x, seq_lengths, proj, *extra)
     exact = kernel_sincos_flag(mode)
+    xh, xl, order, nk, hi, lo = _kernel_operands(
+        "conv_parts", x, seq_lengths, proj, width, *extra)
+    n, l, dp = xh.shape
+    f = proj.shape[1]
     c = torch.empty((n, f), dtype=torch.float32, device=x.device)
     s = torch.empty((n, f), dtype=torch.float32, device=x.device)
     if n == 0 or f == 0:
@@ -113,9 +182,10 @@ def conv_parts(x, seq_lengths, proj, sigma, width, row_scale=None,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.xgpr_conv_parts(
-            x.data_ptr(), seq_lengths.data_ptr(), proj.data_ptr(),
+            xh.data_ptr(), xl.data_ptr(), order.data_ptr(), nk.data_ptr(),
+            hi.data_ptr(), lo.data_ptr(),
             None if row_scale is None else row_scale.data_ptr(),
-            c.data_ptr(), s.data_ptr(), n, l, d, width, f, float(sigma),
+            c.data_ptr(), s.data_ptr(), n, l, dp, width, f, float(sigma),
             exact, stream)
     build.check(rc, "conv parts kernel")
     PARTS_LAUNCHES += 1
@@ -128,7 +198,10 @@ def conv_maxpool(x, seq_lengths, proj, width):
     _check_shapes("conv_maxpool", x, seq_lengths, proj, width)
     if all(t.device.type == "cpu" for t in (x, seq_lengths, proj)):
         return conv_maxpool_plain(x, seq_lengths, proj, width)
-    n, l, d, f = _kernel_operands("conv_maxpool", x, seq_lengths, proj)
+    xh, xl, order, nk, hi, lo = _kernel_operands(
+        "conv_maxpool", x, seq_lengths, proj, width)
+    n, l, dp = xh.shape
+    f = proj.shape[1]
     out = torch.empty((n, f), dtype=torch.float32, device=x.device)
     if n == 0 or f == 0:
         return out
@@ -136,8 +209,9 @@ def conv_maxpool(x, seq_lengths, proj, width):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.xgpr_conv_maxpool(
-            x.data_ptr(), seq_lengths.data_ptr(), proj.data_ptr(),
-            out.data_ptr(), n, l, d, width, f, stream)
+            xh.data_ptr(), xl.data_ptr(), order.data_ptr(), nk.data_ptr(),
+            hi.data_ptr(), lo.data_ptr(), out.data_ptr(), n, l, dp, width, f,
+            stream)
     build.check(rc, "conv maxpool kernel")
     MAXPOOL_LAUNCHES += 1
     return out

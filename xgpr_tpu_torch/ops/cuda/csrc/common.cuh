@@ -1,7 +1,7 @@
-// Shared device code of the RBF feature-map kernel (feature_map.cu), the
-// fused CG-matvec kernels (ztzv.cu) and the conv window-loop kernels
-// (conv.cu): the tiled projection x @ proj and the guarded (cos, sin)
-// evaluator.
+// Shared device code: the tiled fp32 projection x @ proj of the RBF
+// feature-map kernel (feature_map.cu) and the fused CG-matvec kernels
+// (ztzv.cu), and the guarded (cos, sin) evaluator, which the conv
+// window-loop kernels (conv.cu) use too.
 //
 // Each kernel computes arg = x @ proj for a TM x TN tile of (rows, freqs)
 // with plain fp32 FMAs, staging TK-deep slices of x and proj in shared
@@ -33,9 +33,8 @@ struct TileSmem {
 
 // acc[i][j] = sum_d x[(row0 + r_lo + 16 i) * lda + d] * proj[d, f0 + f_lo + 16 j].
 // Rows >= n, freqs >= f and depth >= d read as zero, so any shape works
-// without padded copies.  lda >= d is the row stride of x: the conv kernels
-// (conv.cu) read window j of each sequence as rows of stride L*D that start
-// at j*D.  Ends with a __syncthreads().
+// without padded copies.  lda >= d is the row stride of x.  Ends with a
+// __syncthreads().
 __device__ __forceinline__ void project_tile_strided(
     const float* __restrict__ x, size_t lda, const float* __restrict__ proj,
     int n, int d, int f, int row0, int f0, int r_lo, int f_lo, TileSmem& sm,
