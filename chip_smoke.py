@@ -11,10 +11,12 @@ built beforehand.  Phases (any failure raises and the exit code is not 0):
    build the kernels from ops/cuda/csrc (one nvcc per source, in
    parallel) and print the build time and ptxas's register counts.
 2. K1 and K2 against their plain PyTorch versions on the card, in fp32:
-   the feature map (K2) at slice A's shape and at a ragged one, and the
-   fused CG matvec (K1) at slice A's shape for K = 1 and 26 and at a
-   ragged one with masked rows.  Prints each max error and each kernel's
-   time beside the plain version's.
+   the feature map (K2) at slice A's shape, at the K4 path's second layer
+   (D 1024, F 2048, padded 1024) and at a ragged one, and the fused CG
+   matvec (K1) at slice A's shape for K = 1 and 26 and at a ragged one
+   with masked rows; two K1 calls on the same inputs must be bitwise
+   equal.  Prints each max error and each kernel's time beside the plain
+   version's (K1's at K = 26 too).
 3. Slice A at a real size: 262,144 x 84 training rows, 8192 RFFs, RBF,
    fit(mode="cg") with the autoselected Nystrom preconditioner, then
    predict(get_var=True) on 16,384 rows.  Checks CG convergence, finite
@@ -40,9 +42,11 @@ built beforehand.  Phases (any failure raises and the exit code is not 0):
    on 4096 rows.  Checks convergence, that K4 and K2 ran, agreement with
    the plain path, and held-out Spearman above its floor.
 
-The line before the last is one JSON object describing the kernels; the
-last line is {"ok": true, "device": {...}}.  Without a CUDA device, or
-outside a checkout, it exits with code 1 and prints no result.
+The line before the last is one JSON object describing the kernels (K2
+twice: at slice A's shape with slice A's launches, and at the K4 path's
+with that path's); the last line is {"ok": true, "device": {...}}.
+Without a CUDA device, or outside a checkout, it exits with code 1 and
+prints no result.
 """
 import json
 import subprocess
@@ -259,26 +263,37 @@ def phase_build():
 
 def phase_kernels(torch, card):
     """K1 and K2 against their plain versions on the card."""
-    from xgpr_tpu_torch.kernels import RBF
+    from xgpr_tpu_torch.kernels import RBF, Conv1dTwoLayer
     from xgpr_tpu_torch.ops.cuda import feature_map, ztzv
     dev = torch.device("cuda")
     rng = np.random.default_rng(7)
     kernel = RBF((CHUNK, N_FEATURES), NUM_RFFS, SEED, device="cuda")
     proj = kernel._dense_proj()                       # (84, 4096), fp32
+    two = Conv1dTwoLayer((CHUNK, MOTIF_L, MOTIF_D), K4_RFFS, SEED,
+                         device="cuda",
+                         kernel_spec_parms={"conv_width": MOTIF_W,
+                                            "init_rffs": INIT_RFFS})
+    proj2 = two._dense_projs()[1]                     # (1024, 2048), fp32
 
     def t(a):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32,
                                device=dev)
 
     results = {}
-    # --- K2: slice shape (padded 128, 32 blocks) and a ragged case -----
-    k2_err, k2_ms, k2_plain_ms = 0.0, None, None
-    cases = [(CHUNK, proj, kernel.padded_dims, True, "slice")]
+    # --- K2: slice A's shape (padded 128, 32 blocks), ragged cases, and
+    # the K4 path's second layer (D 1024, F 2048, padded 1024) on
+    # nonnegative rows like its sigma-scaled maxpool profiles -----------
+    k2_err = 0.0
+    cases = [(t(rng.standard_normal((CHUNK, N_FEATURES)) * 0.5), proj,
+              kernel.padded_dims, True, "K2", "slice"),
+             (t(rng.random((CHUNK, proj2.shape[0])) * 0.1), proj2,
+              two._feature_padded, True, "K2_k4", "K4 path")]
     for intercept in (False, True):
-        cases.append((257, t(rng.standard_normal((10, 200)) * 0.7), 16,
-                      intercept, f"ragged intercept={intercept}"))
-    for n, pr, padded, intercept, label in cases:
-        x = t(rng.standard_normal((n, pr.shape[0])) * 0.5)
+        cases.append((t(rng.standard_normal((257, 10)) * 0.5),
+                      t(rng.standard_normal((10, 200)) * 0.7), 16,
+                      intercept, None, f"ragged intercept={intercept}"))
+    for x, pr, padded, intercept, key, label in cases:
+        n = x.shape[0]
         got = feature_map.rbf_feature_map(x, pr, intercept, padded)
         want = feature_map.rbf_feature_map_plain(x, pr, intercept, padded)
         torch.cuda.synchronize()
@@ -288,24 +303,26 @@ def phase_kernels(torch, card):
               f"(tol {FEATURE_ATOL:g})", flush=True)
         check(err < FEATURE_ATOL, f"K2 {label} disagrees ({err})")
         k2_err = max(k2_err, err)
-        if label == "slice":
-            k2_ms = time_ms(torch, lambda: feature_map.rbf_feature_map(
-                x, pr, intercept, padded))
-            k2_plain_ms = time_ms(
-                torch, lambda: feature_map.rbf_feature_map_plain(
-                    x, pr, intercept, padded))
-            mm_ms = time_ms(torch, lambda: torch.matmul(x, pr))
-            d, f = pr.shape
-            k2_bound = bound(4 * (n * d + d * f + n * 2 * f), 2 * n * d * f)
-            print(f"K2 time at slice shape: kernel {k2_ms:.4f} ms, plain "
-                  f"{k2_plain_ms:.4f} ms, {bound_text(k2_bound)}; "
-                  f"projection matmul alone (partial yardstick) "
-                  f"{mm_ms:.4f} ms [{card}]", flush=True)
-    results["K2"] = dict(max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms,
-                         bound=k2_bound)
+        if key is None:
+            continue
+        ms = time_ms(torch, lambda: feature_map.rbf_feature_map(
+            x, pr, intercept, padded))
+        plain_ms = time_ms(torch, lambda: feature_map.rbf_feature_map_plain(
+            x, pr, intercept, padded))
+        mm_ms = time_ms(torch, lambda: torch.matmul(x, pr))
+        d, f = pr.shape
+        kb = bound(4 * (n * d + d * f + n * 2 * f), 2 * n * d * f)
+        print(f"K2 time at {label} shape: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, {bound_text(kb)}; projection matmul "
+              f"alone (partial yardstick) {mm_ms:.4f} ms [{card}]",
+              flush=True)
+        results[key] = dict(ms=ms, plain_ms=plain_ms, bound=kb,
+                            shape=f"N {n}, D {d}, F {f}, padded {padded}")
+    for key in ("K2", "K2_k4"):
+        results[key]["max_abs_err"] = k2_err
 
     # --- K1: slice shape for K = 1, 26 and a ragged masked case --------
-    k1_err, k1_ms, k1_plain_ms = 0.0, None, None
+    k1_err = 0.0
     sigma = float(np.exp(HPARAMS[1]))
     k1_cases = [(CHUNK, proj, 1, sigma, "slice K=1"),
                 (CHUNK, proj, 26, sigma, "slice K=26"),
@@ -329,19 +346,36 @@ def phase_kernels(torch, card):
                   f"(tol {ZTZV_RTOL:g} * max|ref|)", flush=True)
             check(err < ZTZV_RTOL * scale, f"K1 {label} disagrees ({err})")
             k1_err = max(k1_err, err)
+        d, f = pr.shape
         if label == "slice K=1":
+            again = ztzv.ztzv_parts(x, m, pr, sig, vc, vs, False)
+            torch.cuda.synchronize()
+            same = torch.equal(again[0], oc) and torch.equal(again[1], os_)
+            print(f"K1 determinism at slice shape (K=1): two calls "
+                  f"bitwise equal: {same}", flush=True)
+            check(same, "two K1 calls on the same inputs differ")
             k1_ms = time_ms(torch, lambda: ztzv.ztzv_parts(
                 x, m, pr, sig, vc, vs, True))
             k1_plain_ms = time_ms(torch, lambda: ztzv.ztzv_parts_plain(
                 x, m, pr, sig, vc, vs, True))
-            d, f = pr.shape
             k1_bound = bound(4 * (n * d + n + d * f + 4 * f * k),
                              2 * n * d * f + 8 * n * f * k)
             print(f"K1 time at slice shape (K=1): kernel {k1_ms:.4f} ms, "
                   f"plain {k1_plain_ms:.4f} ms, {bound_text(k1_bound)} "
                   f"[{card}]", flush=True)
+        elif label == "slice K=26":
+            k1_ms26 = time_ms(torch, lambda: ztzv.ztzv_parts(
+                x, m, pr, sig, vc, vs, True))
+            b26 = bound(4 * (n * d + n + d * f + 4 * f * k),
+                        2 * n * d * f + 8 * n * f * k)
+            print(f"K1 time at slice shape (K=26, SLQ's probes): kernel "
+                  f"{k1_ms26:.4f} ms, {bound_text(b26)} [{card}]",
+                  flush=True)
     results["K1"] = dict(max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms,
-                         bound=k1_bound)
+                         bound=k1_bound, ms_k26=k1_ms26,
+                         bound_ms_k26=b26["ms"],
+                         shape=f"R {CHUNK}, D {N_FEATURES}, F "
+                               f"{proj.shape[1]}, K 1")
     return results
 
 
@@ -659,7 +693,7 @@ def phase_k4_path(torch, card, corpus, n_train=K4_ROWS, n_test=N_TEST,
           "Conv1dTwoLayer Spearman below the floor")
     print(f"Conv1dTwoLayer fit phases: {dict(model.fit_phase_times)} "
           f"[{card}]", flush=True)
-    return {"K4": counts["K4"]}
+    return {"K4": counts["K4"], "K2_k4": counts["K2"]}
 
 
 def profile_fit(torch, model, dset, card):
@@ -704,7 +738,7 @@ def profile_fit(torch, model, dset, card):
 
 
 def kernel_line(name, route, source, replaces, launches, res):
-    return {"name": name, "route": route, "source": source,
+    line = {"name": name, "route": route, "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": res["max_abs_err"], "ms": res["ms"],
             "plain_ms": res["plain_ms"], "bound_ms": res["bound"]["ms"],
@@ -712,6 +746,10 @@ def kernel_line(name, route, source, replaces, launches, res):
             "cuda_core_bound_ms": res["bound"]["cuda_core_ms"],
             "cuda_core_bound_by": res["bound"]["cuda_core_by"],
             "library_ms": None}
+    for key in ("shape", "ms_k26", "bound_ms_k26"):
+        if key in res:
+            line[key] = res[key]
+    return line
 
 
 def main(argv):
@@ -747,6 +785,9 @@ def main(argv):
     kernels = [
         kernel_line("rbf_feature_map", "cuda", src + "feature_map.cu",
                     pallas + "sorf_pallas.py:96", launches["K2"], res["K2"]),
+        kernel_line("rbf_feature_map", "cuda", src + "feature_map.cu",
+                    pallas + "sorf_pallas.py:96", launches["K2_k4"],
+                    res["K2_k4"]),
         kernel_line("ztzv_parts", "cuda", src + "ztzv.cu",
                     pallas + "ztzv_pallas.py:240", launches["K1"], res["K1"]),
         kernel_line("conv_parts", "cuda", src + "conv.cu",

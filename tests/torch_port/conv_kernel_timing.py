@@ -3,15 +3,18 @@ shapes (one 8192-row chunk of chip_smoke.py's motif corpus, L 16, D 64,
 w 9; K3 with Conv1dRBF's 8192-RFF projection, K4 with Conv1dTwoLayer's
 1024-feature first layer), and print one line:
 
-    VARIANT <label> K3 <ms>/<ms> ms err <max abs err> | K4 ...
+    VARIANT <label> K3 <ms>/<ms> ms err <max abs err> sha <hash> | K4 ...
 
-Two timings of 20 calls each (CUDA events, after a warm-up) and the max
-error against the plain versions.  Run it from the root of a checkout or
+Two timings of 20 calls each (CUDA events, after a warm-up), the max
+error against the plain versions, and the first 12 hex digits of the
+SHA-256 of the kernel's output bytes: two versions that compute the same
+bits print the same hash.  Run it from the root of a checkout or
 of a copy of one; to compare versions of the kernels on one card, run
 each copy in turn in one command (parent, change, change, parent):
 
     python tests/torch_port/conv_kernel_timing.py <label>
 """
+import hashlib
 import sys
 from pathlib import Path
 
@@ -53,8 +56,11 @@ def main(label):
         got, want = fn(), plain()
         torch.cuda.synchronize()
         err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        sha = hashlib.sha256(b"".join(a.cpu().numpy().tobytes()
+                                      for a in got)).hexdigest()[:12]
         times = [cs.time_ms(torch, fn, reps=20) for _ in range(2)]
-        out.append(f"{name} {times[0]:.4f}/{times[1]:.4f} ms err {err:.2e}")
+        out.append(f"{name} {times[0]:.4f}/{times[1]:.4f} ms err {err:.2e} "
+                   f"sha {sha}")
     print("VARIANT", label, " | ".join(out), f"[{cs.card_line()}]",
           flush=True)
 

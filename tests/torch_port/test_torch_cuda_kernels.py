@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from xgpr_tpu_torch.ops.cuda import conv, feature_map, ztzv
+from xgpr_tpu_torch.ops.cuda.operands import split_tf32
 
 pytestmark = pytest.mark.cuda
 
@@ -31,18 +32,27 @@ def _t(a, dev):
                            device=dev)
 
 
+# (n, d, f, padded): D in {10, 84, 200, 1024}, N and F off the 128 tile,
+# ragged last blocks (F not a multiple of padded; an odd last block at
+# F 333), and Conv1dTwoLayer's second layer (D 1024, padded 1024).
+FEATURE_CASES = [(100, 84, 256, 128), (257, 10, 200, 16), (64, 200, 300, 256),
+                 (129, 84, 4100, 128), (200, 200, 333, 16),
+                 (300, 1024, 2100, 1024), (1000, 1024, 2048, 1024)]
+
+
 @pytest.mark.parametrize("mode", ["hi", "exact"])
-@pytest.mark.parametrize("n,d,f,padded", [(100, 84, 256, 128),
-                                          (257, 10, 200, 16),
-                                          (64, 200, 300, 256)])
+@pytest.mark.parametrize("n,d,f,padded", FEATURE_CASES)
 def test_feature_map_kernel(cuda, mode, n, d, f, padded):
     rng = np.random.default_rng(n + f)
     x = _t(rng.standard_normal((n, d)) * 0.5, cuda)
     proj = _t(rng.standard_normal((d, f)) * 0.5, cuda)
-    # Row 0 has one nonzero, so its arguments are single exact-rounded
-    # products on both sides, some past the polynomial's range.
+    # Row 0 has one nonzero, so its arguments are single exact products
+    # on both sides, some past the polynomial's range: the kernel's 3xTF32
+    # product of 5e4 (hi 50016, lo -16) by a proj row rounded to TF32 is
+    # exact, as the plain fp32 product is.
     x[0] = 0.0
     x[0, 0] = 5e4
+    proj[0] = split_tf32(proj[0])[0]
     before = feature_map.LAUNCHES
     got = feature_map.rbf_feature_map(x, proj, True, padded, mode)
     want = feature_map.rbf_feature_map_plain(x, proj, True, padded, mode)
@@ -51,16 +61,26 @@ def test_feature_map_kernel(cuda, mode, n, d, f, padded):
     assert float((got - want).abs().max()) < 1e-5
 
 
-@pytest.mark.parametrize("intercept", [False, True])
-@pytest.mark.parametrize("n,d,f,k", [(2000, 84, 500, 3), (96, 10, 384, 8),
-                                     (10, 50, 32, 1), (300, 84, 256, 26)])
-def test_ztzv_kernel(cuda, intercept, n, d, f, k):
+# (n, d, f, k): K in {1, 8, 26, 64}, R and F off the 128 tile.
+ZTZV_CASES = [(2000, 84, 500, 3), (96, 10, 384, 8), (10, 50, 32, 1),
+              (300, 84, 256, 26), (1000, 84, 4100, 1), (777, 84, 300, 64),
+              (2500, 84, 1000, 1), (130, 1024, 200, 8)]
+
+
+def _ztzv_inputs(dev, n, d, f, k):
     rng = np.random.default_rng(n * 3 + k)
-    x = _t(rng.standard_normal((n, d)), cuda)
-    m = _t(rng.random(n) > 0.25, cuda)
-    proj = _t(rng.standard_normal((d, f)) * 0.3, cuda)
-    vc = _t(rng.standard_normal((f, k)), cuda)
-    vs = _t(rng.standard_normal((f, k)), cuda)
+    x = _t(rng.standard_normal((n, d)), dev)
+    m = _t(rng.random(n) > 0.25, dev)
+    proj = _t(rng.standard_normal((d, f)) * 0.3, dev)
+    vc = _t(rng.standard_normal((f, k)), dev)
+    vs = _t(rng.standard_normal((f, k)), dev)
+    return x, m, proj, vc, vs
+
+
+@pytest.mark.parametrize("intercept", [False, True])
+@pytest.mark.parametrize("n,d,f,k", ZTZV_CASES)
+def test_ztzv_kernel(cuda, intercept, n, d, f, k):
+    x, m, proj, vc, vs = _ztzv_inputs(cuda, n, d, f, k)
     before = ztzv.LAUNCHES
     oc, os_ = ztzv.ztzv_parts(x, m, proj, 0.7, vc, vs, intercept)
     rc, rs = ztzv.ztzv_parts_plain(x, m, proj, 0.7, vc, vs, intercept)
@@ -69,6 +89,17 @@ def test_ztzv_kernel(cuda, intercept, n, d, f, k):
     tol = 1e-4 * max(1.0, float(rc.abs().max()))
     assert float((oc - rc).abs().max()) < tol
     assert float((os_ - rs).abs().max()) < tol
+
+
+@pytest.mark.parametrize("n,d,f,k", [(8192, 84, 4096, 1), (3000, 84, 1000, 26)])
+def test_ztzv_kernel_is_deterministic(cuda, n, d, f, k):
+    """No atomics: two calls on the same inputs give the same bits."""
+    x, m, proj, vc, vs = _ztzv_inputs(cuda, n, d, f, k)
+    first = ztzv.ztzv_parts(x, m, proj, 0.7, vc, vs, True)
+    second = ztzv.ztzv_parts(x, m, proj, 0.7, vc, vs, True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 # (n, l, d, w, f, lengths): "spread" draws lengths over [w - 1, L] in

@@ -31,9 +31,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # name: argtypes (pointers and the stream are c_void_p)
-    "xgpr_feature_map": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    "xgpr_ztzv": [_P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _P,
-                  _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    "xgpr_feature_map": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
+    "xgpr_ztzv": [_P] * 5 + [_F] + [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
     "xgpr_conv_parts": [_P] * 9 + [_I] * 5 + [_F, _I, _P],
     "xgpr_conv_maxpool": [_P] * 7 + [_I] * 5 + [_P],
 }

@@ -25,8 +25,9 @@ count, so that a tile stops at its own rows' largest count),
 ``pad_operands`` (channels padded to a multiple of 4, and proj transposed
 to the K-major projT the tiles read) and ``split_tf32`` (x and projT as
 TF32 high parts and remainders, the operands of the kernels' 3xTF32
-products).  ``window_slots`` counts the (row, window) slots the kernels
-project against the valid windows.
+products; in operands.py, shared with K1 and K2).  ``window_slots``
+counts the (row, window) slots the kernels project against the valid
+windows.
 """
 import torch
 import torch.nn.functional as F
@@ -34,6 +35,7 @@ import torch.nn.functional as F
 from .. import sincos as _sincos
 from . import build
 from .feature_map import check_cuda_operands, kernel_sincos_flag
+from .operands import split_tf32
 
 PARTS_LAUNCHES = 0
 MAXPOOL_LAUNCHES = 0
@@ -106,16 +108,6 @@ def pad_operands(x, proj, width):
         x = F.pad(x, (0, dp - d))
         proj = F.pad(proj, (0, 0, 0, dp - d))
     return x.contiguous(), proj.reshape(width * dp, f).t().contiguous()
-
-
-def split_tf32(a):
-    """(hi, lo), float32 with hi + lo == a exactly: hi is a rounded to TF32
-    (10 explicit mantissa bits; to nearest, ties away from zero, as
-    cvt.rna.tf32.f32 rounds) and lo = a - hi, of which the tensor cores
-    read the top TF32 bits."""
-    bits = a.contiguous().view(torch.int32)
-    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
-    return hi, a - hi
 
 
 def window_slots(seq_lengths, width, num_windows):

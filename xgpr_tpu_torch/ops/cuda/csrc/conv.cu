@@ -35,17 +35,14 @@
 //   (sequence, window) row of the tile: B is read once per depth step per
 //   tile, not once per window.  cp.async brings both, as 128-byte rows in
 //   the 128-byte swizzle, into a 3-stage ring of shared memory.
-// - 3xTF32 on wgmma.m64n128k8.  The wrapper splits x and projT into a TF32
-//   high part and the remainder (hi + lo == a exactly); each warpgroup
-//   accumulates lo*hi + hi*lo + hi*hi in fp32 (the lo*lo term, ~2^-22
-//   relative, is dropped), both operands read from shared memory.  Step
-//   s's products run while the block waits for step s + 1's copies and
-//   issues step s + 2's.  A group's first product overwrites the
-//   accumulators (scale-d 0): zeroing them in the loop is a non-wgmma write
-//   to registers of products in flight, and ptxas then serialises every
-//   wgmma.  The register-A form (x split in registers, no extra bytes)
-//   leaves too few registers for products in flight; it measured slower
-//   (PERF.md).
+// - 3xTF32 on wgmma.m64n128k8, the body of tf32_gemm.cuh (shared with K1
+//   and K2): the wrapper splits x and projT into TF32 high parts and
+//   remainders, both operands are read from shared memory, and step s's
+//   products run while the block waits for step s + 1's copies and issues
+//   step s + 2's.  This file gives it the row policy (which box of x a
+//   GEMM row reads) and the epilogues.  The register-A form (x split in
+//   registers, no extra bytes) leaves too few registers for products in
+//   flight; it measured slower (PERF.md).
 // - Rows ordered by window count.  The wrapper passes a stable order of
 //   the rows by nk; a tile is 64 consecutive rows of that order, so its
 //   rows have near-equal nk, and it loops over groups of WG = 2 windows
@@ -63,22 +60,14 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "tf32_gemm.cuh"
 
 using namespace xgpr;
 
 namespace {
 
-constexpr int WR = 64;               // sequences per tile
-constexpr int WG = 2;                // windows per group
-constexpr int WM = WR * WG;          // GEMM rows per tile: 2 warpgroups x 64
-constexpr int WN = 128;              // frequencies per tile (the wgmma N)
-constexpr int WK = 32;               // channels per stage: one 128-byte row
-constexpr int STAGES = 3;
-constexpr int WT = 256;
-constexpr int B_BYTES = WN * WK * 4;  // one of projT hi / lo
-constexpr int A_BYTES = WM * WK * 4;  // one of x hi / lo
-constexpr int STAGE_BYTES = 2 * (A_BYTES + B_BYTES);      // 64 KB
-constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;  // + alignment slack
+constexpr int WR = 64;      // sequences per tile
+constexpr int WG = GM / WR;  // windows per group: GM GEMM rows per tile
 
 struct ConvArgs {
   const float* x_hi;     // (n, l, dp), dp % 4 == 0: TF32 high parts
@@ -89,70 +78,6 @@ struct ConvArgs {
   const float* proj_lo;  // the same, remainders
   int n, l, dp, width, f;
 };
-
-__device__ __forceinline__ void cp_async16(void* dst, const float* src,
-                                           bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
-}
-
-// Byte offset of 16-byte chunk c of row r in a tile of 128-byte rows in
-// the 128-byte swizzle, the layout wgmma's descriptors below read.
-__device__ __forceinline__ int sw128(int r, int c) {
-  return r * 128 + ((c ^ (r % 8)) << 4);
-}
-
-// Descriptor of a K-major tile of 128-byte rows in the 128-byte swizzle
-// (8-row atoms of 1024 bytes, SBO 1024); +2 steps 32 bytes along K.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keeps the compiler from moving accumulator accesses across the
-// asynchronous products.
-__device__ __forceinline__ void fence_acc(float d[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x 128, fp32) += a (64 x 8) @ b (8 x 128), TF32 operands in shared
-// memory, both K-major.
-__device__ __forceinline__ void wgmma_tf32(float d[64], uint64_t desc_a,
-                                           uint64_t desc_b,
-                                           int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
-}
 
 // K3: running cos/sin sums of this thread's sequence x 32 frequencies.
 struct PartsEpilogue {
@@ -222,18 +147,16 @@ struct MaxpoolEpilogue {
 // 8j + 2t + e.  A's shared rows follow the same order:
 // (s / 8) * 16 + window * 8 + s % 8.
 template <class Epi>
-__global__ void __launch_bounds__(WT, 1)
+__global__ void __launch_bounds__(GT, 1)
     conv_window_kernel(ConvArgs p, typename Epi::Args ea) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   __shared__ int s_row[WR], s_nk[WR], s_nkmax;
-  unsigned char* smem =
-      smem_raw +
-      ((1024 - ((unsigned)__cvta_generic_to_shared(smem_raw) & 1023)) & 1023);
+  unsigned char* smem = ring_base(smem_raw);
 
   const int tid = threadIdx.x, lane = tid % 32;
   const int g = lane / 4, t4 = lane % 4;
   const int seq = (tid / 32) * 8 + g;  // this thread's sequence in the tile
-  const int row0 = blockIdx.x * WR, f0 = blockIdx.y * WN;
+  const int row0 = blockIdx.x * WR, f0 = blockIdx.y * GN;
   const int nw = p.l - p.width + 1;
   const int kdim = p.width * p.dp;
 
@@ -268,17 +191,17 @@ __global__ void __launch_bounds__(WT, 1)
     boff[q] = (size_t)(bok[q] ? fr : 0) * kdim;
   }
 
-  const int kc = (p.dp + WK - 1) / WK;  // channel chunks per tap
+  const int kc = (p.dp + GK - 1) / GK;  // channel chunks per tap
   const int spg = p.width * kc;         // pipeline steps per window group
   const int nsteps = (s_nkmax + WG - 1) / WG * spg;
 
-  // Stage layout: projT hi, projT lo, x hi, x lo.
-  auto load_stage = [&](int step) {
+  // Row policy: GEMM row (s / 8) * 16 + window * 8 + s % 8 of a step is
+  // window j0 + window of sequence s at tap `tap`, channels c : c + 32.
+  auto load_stage = [&](int step, unsigned char* st) {
     const int gi = step / spg, rem = step - gi * spg;
-    const int tap = rem / kc, c = (rem - tap * kc) * WK + 4 * lc;
+    const int tap = rem / kc, c = (rem - tap * kc) * GK + 4 * lc;
     const int j0 = gi * WG;
     const bool cok = c < p.dp;
-    unsigned char* st = smem + (step % STAGES) * STAGE_BYTES;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const bool ok = bok[q] && cok;
@@ -308,61 +231,18 @@ __global__ void __launch_bounds__(WT, 1)
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
 
-  // The three products of a step on its stage: this warpgroup's 64 A rows.
-  const int a_rows = (tid / 128) * 64 * 128;
-  auto issue = [&](int step) {
-    const unsigned char* st = smem + (step % STAGES) * STAGE_BYTES;
-    const uint64_t bh = sw128_desc(st), bl = sw128_desc(st + B_BYTES);
-    const uint64_t ah = sw128_desc(st + 2 * B_BYTES + a_rows);
-    const uint64_t al = sw128_desc(st + 2 * B_BYTES + A_BYTES + a_rows);
-    fence_acc(acc);
-    wgmma_fence();
+  // A finished window group folds its valid windows into the epilogue.
+  tf32_pipeline(smem, nsteps, spg, acc, load_stage, [&](int gi) {
+    const int j0 = gi * WG;
 #pragma unroll
-    for (int kk = 0; kk < WK / 8; ++kk) {
-      // A group's first product overwrites the accumulators.
-      wgmma_tf32(acc, al + 2 * kk, bh + 2 * kk, kk > 0 || step % spg != 0);
-      wgmma_tf32(acc, ah + 2 * kk, bl + 2 * kk, 1);
-      wgmma_tf32(acc, ah + 2 * kk, bh + 2 * kk, 1);
-    }
-    wgmma_commit();
-  };
-
-  // Step s's products run while the block waits for step s + 1's copies
-  // and issues step s + 2's into the slot step s - 1 read (every warp has
-  // waited for those products before the barrier).
+    for (int h = 0; h < 2; ++h)
+      if (j0 + h < nk_s) {
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nsteps) load_stage(s);
-    cp_async_commit();
-  }
-  if (nsteps > 0) {
-    cp_async_wait<STAGES - 2>();
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-    issue(0);
-  }
-  for (int step = 0; step < nsteps; ++step) {
-    cp_async_wait<0>();
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-    if (step + 2 < nsteps) load_stage(step + 2);
-    cp_async_commit();
-    wgmma_wait_all();
-    fence_acc(acc);
-    if ((step + 1) % spg == 0) {  // the group's products are complete
-      const int j0 = (step / spg) * WG;
+        for (int j = 0; j < 16; ++j)
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
-        if (j0 + h < nk_s) {
-#pragma unroll
-          for (int j = 0; j < 16; ++j)
-#pragma unroll
-            for (int e = 0; e < 2; ++e)
-              epi.fold(j, e, acc[4 * j + 2 * h + e]);
-        }
-    }
-    if (step + 1 < nsteps) issue(step + 1);
-  }
+          for (int e = 0; e < 2; ++e) epi.fold(j, e, acc[4 * j + 2 * h + e]);
+      }
+  });
 
   if (row0 + seq < p.n) {
     const int orig = s_row[seq];
@@ -380,11 +260,10 @@ __global__ void __launch_bounds__(WT, 1)
 template <class Epi>
 int launch(const ConvArgs& p, const typename Epi::Args& ea, void* stream) {
   auto kernel = conv_window_kernel<Epi>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  cudaError_t err = allow_ring_smem(kernel);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.n + WR - 1) / WR, (p.f + WN - 1) / WN);
-  kernel<<<grid, WT, SMEM_BYTES, (cudaStream_t)stream>>>(p, ea);
+  const dim3 grid((p.n + WR - 1) / WR, (p.f + GN - 1) / GN);
+  kernel<<<grid, GT, SMEM_BYTES, (cudaStream_t)stream>>>(p, ea);
   return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,328 @@
+// The fp32-grade tensor-core GEMM body shared by every kernel of the
+// library: K3 and K4 (conv.cu), K2 (feature_map.cu) and K1 (ztzv.cu).
+//
+// A block of two warpgroups computes acc = A @ B^T for a tile of GM = 128
+// GEMM rows by GN = 128 columns (frequencies), in depth steps of GK = 32
+// fp32 values, on wgmma.m64n128k8 in 3xTF32: the wrapper splits each
+// operand into a TF32 high part and the remainder (hi + lo == a exactly),
+// and each warpgroup accumulates lo*hi + hi*lo + hi*hi in fp32 (the lo*lo
+// term, ~2^-22 relative, is dropped), both operands read from shared
+// memory.  Warpgroup w owns the tile's GEMM rows 64w .. 64w + 63.
+//
+// The caller's policies decide what a step loads and what a finished group
+// of steps does (tf32_loop is the schedule; tf32_pipeline gives it a ring
+// of 64 KB stages for the conv kernels' row policy; dense_pipeline the
+// dense row policy of K1 and K2, with one operand resident when the depth
+// is short):
+// - the copies of a step go into its stage: B (GN rows, K-major) hi then
+//   lo, A (GM rows, K-major) hi then lo, each row one 128-byte line in the
+//   128-byte swizzle (sw128).  Out-of-range rows and depth are zero-filled
+//   (cp_async16 with valid == false).
+// - done(group) runs the epilogue on the accumulators after every spg
+//   steps.  A group's first product overwrites the accumulators (scale-d
+//   0): zeroing them in the loop would be a non-wgmma write to registers
+//   of products in flight, and ptxas would then serialise every wgmma.
+//   After a barrier, done may use the stage of the group's last step
+//   (step % STAGES) as scratch: no copy targets it before the next
+//   iteration's barrier.
+//
+// Pipeline: a 3-stage cp.async ring.  Step s's products run while the
+// block waits for step s + 1's copies and issues step s + 2's into the
+// slot step s - 1 read (every warp has waited for those products before
+// the barrier).  The epilogue runs after step s's products complete and
+// before step s + 1's are issued, so no product is in flight during it;
+// the copies of the next two steps are.
+//
+// Accumulator fragment of warp q (of its warpgroup), lane (g, t) =
+// (lane / 4, lane % 4): acc[4j + 2h + e] is the warpgroup's row
+// 16q + g + 8h and column 8j + 2t + e, for j < 16 and h, e < 2.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace xgpr {
+
+constexpr int GM = 128;  // GEMM rows per tile: 2 warpgroups x 64
+constexpr int GN = 128;  // columns per tile (the wgmma N)
+constexpr int GK = 32;   // depth per stage: one 128-byte row of fp32
+constexpr int STAGES = 3;
+constexpr int GT = 256;                  // threads per block
+constexpr int B_BYTES = GN * GK * 4;     // one of B hi / lo
+constexpr int A_BYTES = GM * GK * 4;     // one of A hi / lo
+constexpr int STAGE_BYTES = 2 * (A_BYTES + B_BYTES);     // 64 KB
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;  // + alignment slack
+
+__device__ __forceinline__ void cp_async16(void* dst, const float* src,
+                                           bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// Byte offset of 16-byte chunk c of row r in a tile of 128-byte rows in
+// the 128-byte swizzle, the layout wgmma's descriptors below read.
+__device__ __forceinline__ int sw128(int r, int c) {
+  return r * 128 + ((c ^ (r % 8)) << 4);
+}
+
+// Descriptor of a K-major tile of 128-byte rows in the 128-byte swizzle
+// (8-row atoms of 1024 bytes, SBO 1024); +2 steps 32 bytes along K.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving accumulator accesses across the
+// asynchronous products.
+__device__ __forceinline__ void fence_acc(float d[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 128, fp32) += a (64 x 8) @ b (8 x 128), TF32 operands in shared
+// memory, both K-major.
+__device__ __forceinline__ void wgmma_tf32(float d[64], uint64_t desc_a,
+                                           uint64_t desc_b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// The dynamic shared memory of a block, aligned to the 1024-byte swizzle
+// atom.
+__device__ __forceinline__ unsigned char* ring_base(unsigned char* raw) {
+  return raw +
+         ((1024 - ((unsigned)__cvta_generic_to_shared(raw) & 1023)) & 1023);
+}
+
+// The three products of a step: this warpgroup's 64 rows of the A tile
+// (hi, lo: 128 rows each) against the B tile (hi, lo).  overwrite: the
+// group's first step.
+__device__ __forceinline__ void issue_3xtf32(const unsigned char* a_hi,
+                                             const unsigned char* a_lo,
+                                             const unsigned char* b_hi,
+                                             const unsigned char* b_lo,
+                                             float acc[64], bool overwrite) {
+  const int a_rows = (threadIdx.x / 128) * 64 * 128;
+  const uint64_t bh = sw128_desc(b_hi), bl = sw128_desc(b_lo);
+  const uint64_t ah = sw128_desc(a_hi + a_rows);
+  const uint64_t al = sw128_desc(a_lo + a_rows);
+  fence_acc(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < GK / 8; ++kk) {
+    wgmma_tf32(acc, al + 2 * kk, bh + 2 * kk, kk > 0 || !overwrite);
+    wgmma_tf32(acc, ah + 2 * kk, bl + 2 * kk, 1);
+    wgmma_tf32(acc, ah + 2 * kk, bh + 2 * kk, 1);
+  }
+  wgmma_commit();
+}
+
+// The same on a stage of the ring: B hi, B lo, A hi, A lo.
+__device__ __forceinline__ void issue_stage(const unsigned char* st,
+                                            float acc[64], bool overwrite) {
+  issue_3xtf32(st + 2 * B_BYTES, st + 2 * B_BYTES + A_BYTES, st,
+               st + B_BYTES, acc, overwrite);
+}
+
+// The main loop over nsteps steps in groups of spg; see the top of the
+// file.  load(step) issues the step's copies into its stage,
+// issue(step, overwrite) its three products, done(group) the epilogue.
+// All threads of the block call it.
+template <class Load, class Issue, class Done>
+__device__ __forceinline__ void tf32_loop(int nsteps, int spg, float acc[64],
+                                          Load&& load, Issue&& issue,
+                                          Done&& done) {
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nsteps) load(s);
+    cp_async_commit();
+  }
+  if (nsteps > 0) {
+    cp_async_wait<STAGES - 2>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    issue(0, true);
+  }
+  for (int step = 0; step < nsteps; ++step) {
+    cp_async_wait<0>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (step + 2 < nsteps) load(step + 2);
+    cp_async_commit();
+    wgmma_wait_all();
+    fence_acc(acc);
+    if ((step + 1) % spg == 0) done(step / spg);  // the group is complete
+    if (step + 1 < nsteps) issue(step + 1, (step + 1) % spg == 0);
+  }
+}
+
+// tf32_loop on a ring of 64 KB stages (B hi, B lo, A hi, A lo);
+// load(step, stage) fills one.
+template <class Load, class Done>
+__device__ __forceinline__ void tf32_pipeline(unsigned char* smem,
+                                              int nsteps, int spg,
+                                              float acc[64], Load&& load,
+                                              Done&& done) {
+  auto stage = [&](int step) { return smem + (step % STAGES) * STAGE_BYTES; };
+  tf32_loop(
+      nsteps, spg, acc, [&](int step) { load(step, stage(step)); },
+      [&](int step, bool first) { issue_stage(stage(step), acc, first); },
+      done);
+}
+
+// The dense row policy of K1 and K2: GEMM row r of a tile is row row0 + r
+// of x.  A block walks a list of tiles along one axis (the column tiles of
+// row tile blockIdx.x, or the row tiles of column tile blockIdx.x), tile i
+// being blockIdx.y + i * gridDim.y of that axis, kc = ceil(dp / GK) steps
+// each; the stages flow from one tile to the next, so a tile's first
+// copies are in flight during the previous tile's epilogue.
+struct DenseOperands {
+  const float* x_hi;  // (n, dp), dp % 4 == 0: TF32 high parts
+  const float* x_lo;  // the same, remainders
+  const float* b_hi;  // (f, dp), K-major (proj transposed): high parts
+  const float* b_lo;  // the same, remainders
+  int n, dp, f;
+};
+
+struct DenseWalk {
+  int fixed, first, stride, count;
+  bool by_cols;  // walk the column tiles of one row tile
+  __device__ __forceinline__ int row0(int i) const {
+    return (by_cols ? fixed : first + i * stride) * GM;
+  }
+  __device__ __forceinline__ int col0(int i) const {
+    return (by_cols ? first + i * stride : fixed) * GN;
+  }
+};
+
+__device__ __forceinline__ DenseWalk dense_walk(bool by_cols, int n, int f) {
+  const int tiles = by_cols ? (f + GN - 1) / GN : (n + GM - 1) / GM;
+  DenseWalk w;
+  w.by_cols = by_cols;
+  w.fixed = blockIdx.x;
+  w.first = blockIdx.y;
+  w.stride = gridDim.y;
+  w.count = w.first < tiles ? (tiles - 1 - w.first) / w.stride + 1 : 0;
+  return w;
+}
+
+// The copies of depth chunk kk (GK values) of rows base .. base + 127 of
+// a K-major (nrows, dp) operand, hi and lo, into dst (hi at dst, lo at
+// dst + 16 KB): thread (lr, lc) = (tid / 8, tid % 8) brings 16-byte chunk
+// lc of rows lr + 32q.  Rows past nrows and depth past dp are zero-filled.
+__device__ __forceinline__ void load_rows(const float* hi, const float* lo,
+                                          int nrows, int dp, int base, int kk,
+                                          unsigned char* dst) {
+  const int lc = threadIdx.x % 8, lr = threadIdx.x / 8;
+  const int c = kk * GK + 4 * lc;
+  const bool cok = c < dp;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int r = base + lr + 32 * q;
+    const bool ok = cok && r < nrows;
+    const size_t off = ok ? (size_t)r * dp + c : 0;
+    const int d = sw128(lr + 32 * q, lc);
+    cp_async16(dst + d, hi + off, ok);
+    cp_async16(dst + A_BYTES + d, lo + off, ok);
+  }
+}
+
+// The dense kernels' main loop: tf32_loop over the tiles of the block's
+// walk, kc depth steps each.  With RESIDENT and a depth of at most RES_K
+// steps, the block keeps the tile of the operand its walk does not move
+// (A when it walks column tiles, B when it walks row tiles), all its
+// depth chunks, in shared memory, and the ring carries only the other
+// one, half the bytes a step; the layout is then the fixed tile's chunks
+// (hi, lo: 32 KB each), then STAGES ring stages of 32 KB.  Otherwise the
+// ring has tf32_pipeline's 64 KB stages, so done(tile) may use the stage
+// of the tile's last step as scratch.  extra(step) runs beside each
+// step's copies (the kernels stage small per-tile operands there).
+constexpr int RES_K = 3;
+constexpr int HALF_STAGE = 2 * A_BYTES;  // one operand's hi and lo
+
+template <bool RESIDENT, class Extra, class Done>
+__device__ __forceinline__ void dense_pipeline(unsigned char* smem,
+                                               const DenseOperands& p,
+                                               const DenseWalk& w, int kc,
+                                               float acc[64], Extra&& extra,
+                                               Done&& done) {
+  static_assert(A_BYTES == B_BYTES, "a ring stage holds an A or a B tile");
+  const bool resident = RESIDENT && kc <= RES_K;
+  const int nsteps = w.count * kc;
+  auto stage = [&](int step) {
+    return resident ? smem + RES_K * HALF_STAGE + (step % STAGES) * HALF_STAGE
+                    : smem + (step % STAGES) * STAGE_BYTES;
+  };
+  auto load = [&](int step) {
+    unsigned char* st = stage(step);
+    const int i = step / kc, kk = step - i * kc;
+    if (!resident) {
+      load_rows(p.b_hi, p.b_lo, p.f, p.dp, w.col0(i), kk, st);
+      load_rows(p.x_hi, p.x_lo, p.n, p.dp, w.row0(i), kk, st + 2 * B_BYTES);
+    } else if (w.by_cols) {
+      load_rows(p.b_hi, p.b_lo, p.f, p.dp, w.col0(i), kk, st);
+    } else {
+      load_rows(p.x_hi, p.x_lo, p.n, p.dp, w.row0(i), kk, st);
+    }
+    extra(step);
+  };
+  auto issue = [&](int step, bool first) {
+    const unsigned char* st = stage(step);
+    const unsigned char* f = smem + (step % kc) * HALF_STAGE;
+    if (!resident)
+      issue_stage(st, acc, first);
+    else if (w.by_cols)
+      issue_3xtf32(f, f + A_BYTES, st, st + B_BYTES, acc, first);
+    else
+      issue_3xtf32(st, st + A_BYTES, f, f + B_BYTES, acc, first);
+  };
+  if (resident && nsteps > 0) {  // joins step 0's copy group
+    for (int kk = 0; kk < kc; ++kk) {
+      unsigned char* dst = smem + kk * HALF_STAGE;
+      if (w.by_cols)
+        load_rows(p.x_hi, p.x_lo, p.n, p.dp, w.row0(0), kk, dst);
+      else
+        load_rows(p.b_hi, p.b_lo, p.f, p.dp, w.col0(0), kk, dst);
+    }
+  }
+  tf32_loop(nsteps, kc, acc, load, issue, done);
+}
+
+// Lets a kernel of this body take SMEM_BYTES of dynamic shared memory.
+template <class Kernel>
+cudaError_t allow_ring_smem(Kernel kernel) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+}
+
+}  // namespace xgpr

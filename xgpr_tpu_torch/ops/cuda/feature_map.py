@@ -8,6 +8,11 @@ sigma, proj (D, F) with chi folded in, output (N, 2F) in the block
 [cos | sin] layout.  The intercept overwrite of column 0 stays in the
 kernel layer (kernels/basic.py).
 
+Before a launch the wrapper pads x's columns to a multiple of 4 and
+splits x into TF32 high parts and remainders (operands.py: three
+elementwise passes over x, 2.75 MB at RBF's 8192 x 84 chunk); the split
+of proj's transpose is cached with proj (``projT_split``).
+
 ``rbf_feature_map`` runs the plain version for a CPU tensor and the
 kernel for a CUDA tensor; anything else raises.  ``LAUNCHES`` counts
 kernel launches.
@@ -19,8 +24,12 @@ from ..layout import assemble_cos_sin
 from ..sorf import rbf_norm_constant
 from ...config import sincos_mode
 from . import build
+from .operands import (pad_depth, projT_split, sm_count, split_tf32,
+                       tile_split)
 
 LAUNCHES = 0
+
+TILE = 128  # rows and frequencies per tile (csrc/tf32_gemm.cuh: GM, GN)
 
 
 def rbf_feature_map_plain(x, proj, fit_intercept, padded, mode=None):
@@ -72,20 +81,23 @@ def rbf_feature_map(x, proj, fit_intercept, padded, mode=None):
         raise ValueError(f"rbf_feature_map: no kernel for {x.device}.")
     check_cuda_operands("rbf_feature_map", x, proj)
     exact = kernel_sincos_flag(mode)
-    n, d = x.shape
+    n = x.shape[0]
     f = proj.shape[1]
-    if (f + 63) // 64 > 65535:
-        raise ValueError("rbf_feature_map: too many frequencies for the grid.")
     out = torch.empty((n, 2 * f), dtype=torch.float32, device=x.device)
-    if n == 0:
+    if n == 0 or f == 0:
         return out
+    xh, xl = split_tf32(pad_depth(x))
+    ph, pl = projT_split(proj)
+    row_tiles, f_tiles = -(-n // TILE), -(-f // TILE)
+    rsplit = tile_split(row_tiles, f_tiles, sm_count(x.device.index), 64)
     lib = build.library()
     scale = rbf_norm_constant(f, fit_intercept)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.xgpr_feature_map(x.data_ptr(), proj.data_ptr(),
-                                  out.data_ptr(), n, d, f, int(padded),
-                                  scale, exact, stream)
+        rc = lib.xgpr_feature_map(xh.data_ptr(), xl.data_ptr(),
+                                  ph.data_ptr(), pl.data_ptr(),
+                                  out.data_ptr(), n, xh.shape[1], f,
+                                  int(padded), scale, exact, rsplit, stream)
     build.check(rc, "feature map kernel")
     LAUNCHES += 1
     return out

@@ -3,28 +3,32 @@
 Replaces xgpr_tpu/ops/pallas/ztzv_pallas.py (``ztzv_parts_pallas``, whose
 ``pallas_call`` is in ``_ztzv_parts_impl``) with the CUDA C++ kernels in
 csrc/ztzv.cu; see that file for the design and what bounds it on the card.
+Before a launch the wrapper pads x's columns to a multiple of 4 and splits
+x into TF32 high parts and remainders (operands.py: three elementwise
+passes over the chunk, 2.75 MB at 8192 x 84); the split of proj's
+transpose is cached with proj (``projT_split``).
 Same semantics: x raw (not sigma-scaled), sigma multiplies the product,
 scale = rbf_norm_constant(F, intercept), mask * scale folded into both
 parts, and with an intercept cos column 0 equals the mask.
 
 ``ztzv_parts`` runs the plain version for CPU tensors and the kernel for
 CUDA tensors; anything else raises.  ``LAUNCHES`` counts kernel launches
-(one per call, covering its three CUDA launches).
+(one per call, covering its three CUDA launches).  Two calls on the same
+inputs give the same bits.
 """
-from functools import lru_cache
-
 import torch
 
 from .. import sincos as _sincos
 from ..contract import parts_contract
 from ..sorf import rbf_norm_constant
 from . import build
-from .feature_map import check_cuda_operands, kernel_sincos_flag
+from .feature_map import TILE, check_cuda_operands, kernel_sincos_flag
+from .operands import (pad_depth, projT_split, sm_count, split_tf32,
+                       tile_split)
 
 LAUNCHES = 0
 
-_TILE = 64          # rows and frequencies per tile (csrc/common.cuh)
-_BLOCKS_PER_SM = 4  # blocks to aim for per SM when splitting a launch
+ZV_RHS = 8  # right-hand sides per block of the zv pass when K > 1
 
 
 def ztzv_parts_plain(x, m, proj, sigma, v_c, v_s, fit_intercept, mode=None):
@@ -38,18 +42,6 @@ def ztzv_parts_plain(x, m, proj, sigma, v_c, v_s, fit_intercept, mode=None):
     if fit_intercept:
         c[:, 0] = m
     return parts_contract(c, s, v_c, v_s)
-
-
-@lru_cache(maxsize=None)
-def _sm_count(device_index):
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
-def _split(tiles, other_blocks, sms, cap):
-    """How many slices of the loop dimension to give separate blocks, so
-    the launch has about _BLOCKS_PER_SM blocks per SM."""
-    want = -(-_BLOCKS_PER_SM * sms // max(1, other_blocks))
-    return max(1, min(want, tiles, cap))
 
 
 def ztzv_parts(x, m, proj, sigma, v_c, v_s, fit_intercept, mode=None):
@@ -72,14 +64,19 @@ def ztzv_parts(x, m, proj, sigma, v_c, v_s, fit_intercept, mode=None):
         raise ValueError(f"ztzv_parts: no kernel for {x.device}.")
     check_cuda_operands("ztzv_parts", x, m, proj, v_c, v_s)
     exact = kernel_sincos_flag(mode)
-    kchunks = 1 if k == 1 else -(-k // 8)
-    row_tiles, f_tiles = -(-n // _TILE), -(-f // _TILE)
-    if kchunks > 65535:
-        raise ValueError("ztzv_parts: shapes exceed the launch grid.")
-    sms = _sm_count(x.device.index)
-    zsplit = _split(f_tiles, row_tiles * kchunks, sms, 16)
-    osplit = _split(row_tiles, f_tiles * kchunks, sms, 32)
     opts = dict(dtype=torch.float32, device=x.device)
+    if n == 0 or f == 0:
+        return torch.zeros((f, k), **opts), torch.zeros((f, k), **opts)
+    zv_blocks = 1 if k == 1 else -(-k // ZV_RHS)
+    if k > 65535:
+        raise ValueError("ztzv_parts: too many right-hand sides for the "
+                         "launch grid.")
+    xh, xl = split_tf32(pad_depth(x))
+    ph, pl = projT_split(proj)
+    row_tiles, f_tiles = -(-n // TILE), -(-f // TILE)
+    sms = sm_count(x.device.index)
+    zsplit = tile_split(f_tiles, row_tiles * zv_blocks, sms, 16)
+    osplit = tile_split(row_tiles, f_tiles * k, sms, 32)
     zv_part = torch.empty((zsplit, n, k), **opts)
     oc_part = torch.empty((osplit, f, k), **opts)
     os_part = torch.empty((osplit, f, k), **opts)
@@ -89,12 +86,12 @@ def ztzv_parts(x, m, proj, sigma, v_c, v_s, fit_intercept, mode=None):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.xgpr_ztzv(
-            x.data_ptr(), m.data_ptr(), proj.data_ptr(), float(sigma),
-            v_c.data_ptr(), v_s.data_ptr(), zv_part.data_ptr(),
-            oc_part.data_ptr(), os_part.data_ptr(), oc.data_ptr(),
-            os_.data_ptr(), n, d, f, k, zsplit, osplit,
-            rbf_norm_constant(f, fit_intercept), int(bool(fit_intercept)),
-            exact, stream)
+            xh.data_ptr(), xl.data_ptr(), m.data_ptr(), ph.data_ptr(),
+            pl.data_ptr(), float(sigma), v_c.data_ptr(), v_s.data_ptr(),
+            zv_part.data_ptr(), oc_part.data_ptr(), os_part.data_ptr(),
+            oc.data_ptr(), os_.data_ptr(), n, xh.shape[1], f, k, zsplit,
+            osplit, rbf_norm_constant(f, fit_intercept),
+            int(bool(fit_intercept)), exact, stream)
     build.check(rc, "ztzv kernel")
     LAUNCHES += 1
     return oc, os_
