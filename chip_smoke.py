@@ -11,12 +11,13 @@ built beforehand.  Phases (any failure raises and the exit code is not 0):
    build the kernels from ops/cuda/csrc (one nvcc per source, in
    parallel) and print the build time and ptxas's register counts.
 2. K1 and K2 against their plain PyTorch versions on the card, in fp32:
-   the feature map (K2) at slice A's shape, at the K4 path's second layer
-   (D 1024, F 2048, padded 1024) and at a ragged one, and the fused CG
-   matvec (K1) at slice A's shape for K = 1 and 26 and at a ragged one
-   with masked rows; two K1 calls on the same inputs must be bitwise
-   equal.  Prints each max error and each kernel's time beside the plain
-   version's (K1's at K = 26 too).
+   the feature map (K2) at slice A's shape, at the tuning width (F 1024),
+   at the K4 path's second layer (D 1024, F 2048, padded 1024) and at a
+   ragged one, and the fused CG matvec (K1) at slice A's shape for K = 1
+   and 26 and at a ragged one with masked rows; two K1 calls on the same
+   inputs must be bitwise equal.  Prints each max error and, at every
+   shape the main path launches, each kernel's time beside the plain
+   version's.
 3. Slice A at a real size: 262,144 x 84 training rows, 8192 RFFs, RBF,
    fit(mode="cg") with the autoselected Nystrom preconditioner, then
    predict(get_var=True) on 16,384 rows.  Checks CG convergence, finite
@@ -28,10 +29,11 @@ built beforehand.  Phases (any failure raises and the exit code is not 0):
    rows and 16,384 held out.
 5. K3 and K4 against their plain versions on the card, in fp32: at the
    sequence slice's shapes (8192-row chunks of the corpus with the
-   models' own projections), a ragged case, GraphRBF's w = 1 and D = 21.
-   At the slice shape, prints each kernel's time beside both bounds, the
-   (row, window) slots its tiles project against the valid windows, and
-   its achieved TFLOP/s on the valid-window work.
+   models' own projections; K3 at the tuning width's F 1024 too), a
+   ragged case, GraphRBF's w = 1 and D = 21.  At each slice shape, prints
+   the kernel's time beside both bounds, the (row, window) slots its
+   tiles project against the valid windows, and its achieved TFLOP/s on
+   the valid-window work.
 6. The sequence slice: Conv1dRBF, 8192 RFFs, fit(mode="cg") with the
    autoselected preconditioner (the model prints the rank it chose),
    predict(get_var=True).  Checks CG convergence, that K3 ran during fit
@@ -41,10 +43,30 @@ built beforehand.  Phases (any failure raises and the exit code is not 0):
    1024, 4096 RFFs) fit by CG and predict with variance, then FastConv1d
    on 4096 rows.  Checks convergence, that K4 and K2 ran, agreement with
    the plain path, and held-out Spearman above its floor.
+8. Slice B, tuning (``phase_tuning``):
+   a. RBF on phase 3's data at 8192 RFFs and the pinned hyperparameters:
+      exact_nmll, then approximate_nmll with default settings (the
+      amortized srht_2 preconditioner, 25 probes: K1 at K = 26), within
+      1% of exact; prints the SLQ CG iterations, the rank, each call's
+      time and K1's launches by K.
+   b. RBF at 2048 RFFs, at a point away from the pinned one:
+      exact_nmll_gradient within 0.5% of a float64 witness on the card,
+      the witness within 0.5% of a central difference of its own NMLL;
+      then tune_hyperparams(L-BFGS-B, exact, max_iter 5) from the same
+      point; the score must not rise.
+   c. Conv1dRBF: tune_hyperparams_crude on the first 65,536 rows of the
+      corpus at 2048 RFFs, a refit at 8192 RFFs on 262,144 rows with the
+      tuned hyperparameters (held-out Spearman > 0.75), and
+      approximate_nmll within 1% of exact_nmll there.
+   No evaluation may return the penalty score, and K1 (at K = 26), K2
+   and K3 must each have run during the phase.
 
-The line before the last is one JSON object describing the kernels (K2
-twice: at slice A's shape with slice A's launches, and at the K4 path's
-with that path's); the last line is {"ok": true, "device": {...}}.
+The launch counters count by shape.  The line before the last is one JSON
+object describing the kernels: one row per path (slice A, Conv1dRBF, the
+K4 path, tuning), kernel and launch shape less its row count, with the
+launches at that shape (by row count) and the times and bound measured
+at it; a launch at a shape phases 2 and 5 did not check and time fails
+the run.  The last line is {"ok": true, "device": {...}}.
 Without a CUDA device, or outside a checkout, it exits with code 1 and
 prints no result.
 """
@@ -52,6 +74,7 @@ import json
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -80,6 +103,21 @@ MOTIF_SPEARMAN_FLOOR = 0.75
 K4_ROWS, INIT_RFFS, K4_RFFS = 65_536, 1024, 4096
 TWOLAYER_HPARAMS = np.array([-0.713433, -5.3507411])
 TWOLAYER_SPEARMAN_FLOOR = 0.5495
+
+# Slice B, tuning.  Tuning runs at 2048 RFFs as the 1M motif north star
+# did (NORTHSTAR_r05_motif.json tune_rffs), the crude tune on 65,536 rows;
+# SLQ is held within 1% of the exact NMLL, the JAX suite's gate
+# (tests/approximate_nmll_tests/test_slq_nmll.py).  The gradient is held
+# at GRAD_POINT, in log space, to the JAX suite's 0.5% against a float64
+# witness on the card (the same analytic gradient with float64 features),
+# and the witness to 0.5% against a central difference at GRAD_STEP of its
+# own NMLL.  Central differences of the float32 exact_nmll are printed
+# beside them, not gated: its float32 chunk products make it rough in
+# sigma at this size (PERF.md, slice B).  L-BFGS-B starts at GRAD_POINT.
+TUNE_RFFS, TUNE_ROWS, BAYES_ITER = 2048, 65_536, 30
+NMLL_RTOL = 0.01
+GRAD_POINT = HPARAMS + np.array([0.5, 0.5])
+GRAD_STEP, GRAD_RTOL = 1e-3, 0.005
 
 # Tolerances, fp32 on both sides with a different summation order:
 # features are O(1/sqrt(F)) in magnitude and match to ~1e-5 absolute;
@@ -232,19 +270,31 @@ def bound_text(b):
 
 
 def counters():
-    """The kernels' launch counters, as (module, attribute) by name."""
+    """The kernels' launch counters by name: Counters keyed by the launch's
+    shape, whose first entry is the row count (K1 (R, D, F, K), K2
+    (N, D, F), K3 and K4 (N, L, D, w, F))."""
     from xgpr_tpu_torch.ops.cuda import conv, feature_map, ztzv
-    return {"K1": (ztzv, "LAUNCHES"), "K2": (feature_map, "LAUNCHES"),
-            "K3": (conv, "PARTS_LAUNCHES"), "K4": (conv, "MAXPOOL_LAUNCHES")}
+    return {"K1": ztzv.LAUNCHES, "K2": feature_map.LAUNCHES,
+            "K3": conv.PARTS_LAUNCHES, "K4": conv.MAXPOOL_LAUNCHES}
 
 
 def reset_counts():
-    for mod, attr in counters().values():
-        setattr(mod, attr, 0)
+    for counter in counters().values():
+        counter.clear()
 
 
 def read_counts():
-    return {k: getattr(mod, attr) for k, (mod, attr) in counters().items()}
+    """A copy of every counter."""
+    return {k: Counter(c) for k, c in counters().items()}
+
+
+def counts_since(before):
+    now = read_counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def totals(counts):
+    return {k: c.total() for k, c in counts.items()}
 
 
 def phase_build():
@@ -261,14 +311,23 @@ def phase_build():
             print("ptxas: " + line.strip(), flush=True)
 
 
+def timed_entry(name, key, err, ms, plain_ms, kb, shape):
+    """One timed kernel case, keyed by (kernel, launch shape without its
+    row count) as the kernels line matches the launches to it."""
+    return {(name, key): dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              bound=kb, shape=shape)}
+
+
 def phase_kernels(torch, card):
-    """K1 and K2 against their plain versions on the card."""
+    """K1 and K2 against their plain versions on the card, timed at every
+    shape the main path launches them at."""
     from xgpr_tpu_torch.kernels import RBF, Conv1dTwoLayer
     from xgpr_tpu_torch.ops.cuda import feature_map, ztzv
     dev = torch.device("cuda")
     rng = np.random.default_rng(7)
     kernel = RBF((CHUNK, N_FEATURES), NUM_RFFS, SEED, device="cuda")
     proj = kernel._dense_proj()                       # (84, 4096), fp32
+    tune = RBF((CHUNK, N_FEATURES), TUNE_RFFS, SEED, device="cuda")
     two = Conv1dTwoLayer((CHUNK, MOTIF_L, MOTIF_D), K4_RFFS, SEED,
                          device="cuda",
                          kernel_spec_parms={"conv_width": MOTIF_W,
@@ -280,19 +339,21 @@ def phase_kernels(torch, card):
                                device=dev)
 
     results = {}
-    # --- K2: slice A's shape (padded 128, 32 blocks), ragged cases, and
-    # the K4 path's second layer (D 1024, F 2048, padded 1024) on
-    # nonnegative rows like its sigma-scaled maxpool profiles -----------
-    k2_err = 0.0
-    cases = [(t(rng.standard_normal((CHUNK, N_FEATURES)) * 0.5), proj,
-              kernel.padded_dims, True, "K2", "slice"),
+    # --- K2: slice A's shape (padded 128, 32 blocks), the tuning width's
+    # (F 1024), ragged cases, and the K4 path's second layer (D 1024,
+    # F 2048, padded 1024) on nonnegative rows like its sigma-scaled
+    # maxpool profiles ------------------------------------------------
+    x_tab = t(rng.standard_normal((CHUNK, N_FEATURES)) * 0.5)
+    cases = [(x_tab, proj, kernel.padded_dims, True, "slice"),
+             (x_tab, tune._dense_proj(), tune.padded_dims, True,
+              f"tuning ({TUNE_RFFS} RFFs)"),
              (t(rng.random((CHUNK, proj2.shape[0])) * 0.1), proj2,
-              two._feature_padded, True, "K2_k4", "K4 path")]
+              two._feature_padded, True, "K4 path")]
     for intercept in (False, True):
         cases.append((t(rng.standard_normal((257, 10)) * 0.5),
                       t(rng.standard_normal((10, 200)) * 0.7), 16,
-                      intercept, None, f"ragged intercept={intercept}"))
-    for x, pr, padded, intercept, key, label in cases:
+                      intercept, f"ragged intercept={intercept}"))
+    for x, pr, padded, intercept, label in cases:
         n = x.shape[0]
         got = feature_map.rbf_feature_map(x, pr, intercept, padded)
         want = feature_map.rbf_feature_map_plain(x, pr, intercept, padded)
@@ -302,8 +363,7 @@ def phase_kernels(torch, card):
               f"F={pr.shape[1]} padded={padded} max_abs_err={err:.3e} "
               f"(tol {FEATURE_ATOL:g})", flush=True)
         check(err < FEATURE_ATOL, f"K2 {label} disagrees ({err})")
-        k2_err = max(k2_err, err)
-        if key is None:
+        if label.startswith("ragged"):
             continue
         ms = time_ms(torch, lambda: feature_map.rbf_feature_map(
             x, pr, intercept, padded))
@@ -316,13 +376,11 @@ def phase_kernels(torch, card):
               f"{plain_ms:.4f} ms, {bound_text(kb)}; projection matmul "
               f"alone (partial yardstick) {mm_ms:.4f} ms [{card}]",
               flush=True)
-        results[key] = dict(ms=ms, plain_ms=plain_ms, bound=kb,
-                            shape=f"N {n}, D {d}, F {f}, padded {padded}")
-    for key in ("K2", "K2_k4"):
-        results[key]["max_abs_err"] = k2_err
+        results.update(timed_entry(
+            "K2", (d, f), err, ms, plain_ms, kb,
+            f"N {n}, D {d}, F {f}, padded {padded}"))
 
     # --- K1: slice shape for K = 1, 26 and a ragged masked case --------
-    k1_err = 0.0
     sigma = float(np.exp(HPARAMS[1]))
     k1_cases = [(CHUNK, proj, 1, sigma, "slice K=1"),
                 (CHUNK, proj, 26, sigma, "slice K=26"),
@@ -333,6 +391,7 @@ def phase_kernels(torch, card):
         m = t((rng.random(n) > 0.25).astype(np.float32))
         vc = t(rng.standard_normal((pr.shape[1], k)))
         vs = t(rng.standard_normal((pr.shape[1], k)))
+        k1_err = 0.0
         for intercept in (True, False):
             oc, os_ = ztzv.ztzv_parts(x, m, pr, sig, vc, vs, intercept)
             rc, rs = ztzv.ztzv_parts_plain(x, m, pr, sig, vc, vs, intercept)
@@ -346,51 +405,38 @@ def phase_kernels(torch, card):
                   f"(tol {ZTZV_RTOL:g} * max|ref|)", flush=True)
             check(err < ZTZV_RTOL * scale, f"K1 {label} disagrees ({err})")
             k1_err = max(k1_err, err)
-        d, f = pr.shape
-        if label == "slice K=1":
+        if label == "ragged":
+            continue
+        if k == 1:
             again = ztzv.ztzv_parts(x, m, pr, sig, vc, vs, False)
             torch.cuda.synchronize()
             same = torch.equal(again[0], oc) and torch.equal(again[1], os_)
             print(f"K1 determinism at slice shape (K=1): two calls "
                   f"bitwise equal: {same}", flush=True)
             check(same, "two K1 calls on the same inputs differ")
-            k1_ms = time_ms(torch, lambda: ztzv.ztzv_parts(
-                x, m, pr, sig, vc, vs, True))
-            k1_plain_ms = time_ms(torch, lambda: ztzv.ztzv_parts_plain(
-                x, m, pr, sig, vc, vs, True))
-            k1_bound = bound(4 * (n * d + n + d * f + 4 * f * k),
-                             2 * n * d * f + 8 * n * f * k)
-            print(f"K1 time at slice shape (K=1): kernel {k1_ms:.4f} ms, "
-                  f"plain {k1_plain_ms:.4f} ms, {bound_text(k1_bound)} "
-                  f"[{card}]", flush=True)
-        elif label == "slice K=26":
-            k1_ms26 = time_ms(torch, lambda: ztzv.ztzv_parts(
-                x, m, pr, sig, vc, vs, True))
-            b26 = bound(4 * (n * d + n + d * f + 4 * f * k),
-                        2 * n * d * f + 8 * n * f * k)
-            print(f"K1 time at slice shape (K=26, SLQ's probes): kernel "
-                  f"{k1_ms26:.4f} ms, {bound_text(b26)} [{card}]",
-                  flush=True)
-    results["K1"] = dict(max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms,
-                         bound=k1_bound, ms_k26=k1_ms26,
-                         bound_ms_k26=b26["ms"],
-                         shape=f"R {CHUNK}, D {N_FEATURES}, F "
-                               f"{proj.shape[1]}, K 1")
+        d, f = pr.shape
+        ms = time_ms(torch, lambda: ztzv.ztzv_parts(
+            x, m, pr, sig, vc, vs, True))
+        plain_ms = time_ms(torch, lambda: ztzv.ztzv_parts_plain(
+            x, m, pr, sig, vc, vs, True))
+        kb = bound(4 * (n * d + n + d * f + 4 * f * k),
+                   2 * n * d * f + 8 * n * f * k)
+        print(f"K1 time at slice shape (K={k}): kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, {bound_text(kb)} [{card}]",
+              flush=True)
+        results.update(timed_entry("K1", (d, f, k), k1_err, ms, plain_ms, kb,
+                                   f"R {n}, D {d}, F {f}, K {k}"))
     return results
 
 
-def phase_slice(torch, card):
-    """Slice A: fit(mode="cg") + predict(get_var=True) at a real size."""
+def phase_slice(torch, card, tab):
+    """Slice A: fit(mode="cg") + predict(get_var=True) at a real size, on
+    ``tab`` = (train dataset, test x, test y)."""
     from scipy.stats import spearmanr
-    from xgpr_tpu_torch import GPRegression, build_regression_dataset
+    from xgpr_tpu_torch import GPRegression
     from xgpr_tpu_torch.ops.cuda import feature_map
 
-    t0 = time.perf_counter()
-    (trx, tr_y), (tex, te_y) = tabular_data(N_TRAIN, N_TEST, N_FEATURES,
-                                            seed=SEED)
-    dset = build_regression_dataset(trx, tr_y, chunk_size=CHUNK)
-    print(f"data: {N_TRAIN} x {N_FEATURES} train, {N_TEST} test, made in "
-          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    dset, tex, te_y = tab
     model = GPRegression(num_rffs=NUM_RFFS, variance_rffs=VARIANCE_RFFS,
                          kernel_choice="RBF", device="cuda", verbose=False)
     model.set_hyperparams(HPARAMS, dset)
@@ -401,12 +447,13 @@ def phase_slice(torch, card):
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     fit_counts = read_counts()
+    fit_n = totals(fit_counts)
     print(f"fit: {fit_s:.3f}s, CG iterations {n_iter}, final relative "
-          f"residual {losses[-1]:.3e}; launches during fit: {fit_counts}",
+          f"residual {losses[-1]:.3e}; launches during fit: {fit_n}",
           flush=True)
     check(n_iter < 500 and losses[-1] < 1e-6, "CG did not converge")
-    check(fit_counts["K1"] > 0, "K1 was not launched during fit")
-    check(fit_counts["K2"] > 0, "K2 was not launched during fit")
+    check(fit_n["K1"] > 0, "K1 was not launched during fit")
+    check(fit_n["K2"] > 0, "K2 was not launched during fit")
 
     reset_counts()
     t0 = time.perf_counter()
@@ -414,8 +461,9 @@ def phase_slice(torch, card):
     predict_s = time.perf_counter() - t0
     predict_counts = read_counts()
     print(f"predict: {predict_s:.3f}s for {N_TEST} rows; launches "
-          f"{predict_counts}", flush=True)
-    check(predict_counts["K2"] > 0, "K2 was not launched during predict")
+          f"{totals(predict_counts)}", flush=True)
+    check(predict_counts["K2"].total() > 0,
+          "K2 was not launched during predict")
     check(preds.shape == (N_TEST,) and var.shape == (N_TEST,),
           "prediction shapes")
     check(bool(np.all(np.isfinite(preds)) and np.all(np.isfinite(var))),
@@ -436,8 +484,7 @@ def phase_slice(torch, card):
     z[:, 0] = 1.0
     check_predictions(model, z, preds[:4096], "the plain feature map")
     report_times(model, n_iter, predict_s, card, "slice A")
-    return {"K1": fit_counts["K1"],
-            "K2": fit_counts["K2"] + predict_counts["K2"]}
+    return {k: fit_counts[k] + predict_counts[k] for k in fit_counts}
 
 
 def check_predictions(model, z, preds, what):
@@ -461,22 +508,27 @@ def report_times(model, n_iter, predict_s, card, label):
 
 
 def phase_conv_kernels(torch, card, corpus, dev="cuda", chunk=CHUNK,
-                       num_rffs=NUM_RFFS, init_rffs=INIT_RFFS):
-    """K3 and K4 against their plain versions, at the sequence slice's
-    shapes (chunks of the corpus, the models' own projections), a ragged
-    case and w = 1."""
+                       num_rffs=NUM_RFFS, init_rffs=INIT_RFFS,
+                       tune_rffs=TUNE_RFFS):
+    """K3 and K4 against their plain versions, at the shapes the main path
+    launches them at (chunks of the corpus, the models' own projections:
+    the sequence slice's, and K3 at the tuning width too), a ragged case
+    and w = 1; each main-path shape is timed."""
     from xgpr_tpu_torch.kernels import Conv1dRBF, Conv1dTwoLayer
     from xgpr_tpu_torch.ops.conv import conv_row_scale
     from xgpr_tpu_torch.ops.cuda import conv
     rng = np.random.default_rng(11)
     x_np, _, l_np = corpus
     xdim = (chunk, MOTIF_L, MOTIF_D)
-    k3 = Conv1dRBF(xdim, num_rffs, SEED, device=dev,
-                   kernel_spec_parms={"conv_width": MOTIF_W})
+    spec = {"conv_width": MOTIF_W}
+    k3 = Conv1dRBF(xdim, num_rffs, SEED, device=dev, kernel_spec_parms=spec)
+    k3_tune = Conv1dRBF(xdim, tune_rffs, SEED, device=dev,
+                        kernel_spec_parms=spec)
     k4 = Conv1dTwoLayer(xdim, K4_RFFS, SEED, device=dev,
                         kernel_spec_parms={"conv_width": MOTIF_W,
                                            "init_rffs": init_rffs})
     proj3, proj4 = k3._dense_proj(), k4._dense_projs()[0]
+    proj3_tune = k3_tune._dense_proj()
     sigma = float(np.exp(MOTIF_HPARAMS[1]))
 
     def t(a, dtype=k3.dtype):
@@ -488,19 +540,21 @@ def phase_conv_kernels(torch, card, corpus, dev="cuda", chunk=CHUNK,
         lens = t(rng.integers(width, l + 1, size=n), torch.int32)
         return x, lens, t(rng.standard_normal((width * d, f)) * 0.3)
 
+    def row_scale(pr):
+        return conv_row_scale(l_slice, MOTIF_W, pr.shape[1], 0, k3.dtype,
+                              dev)
+
     x_slice, l_slice = t(x_np[:chunk]), t(l_np[:chunk], torch.int32)
-    row_scale = conv_row_scale(l_slice, MOTIF_W, proj3.shape[1], 0,
-                               k3.dtype, dev)
     nk_sum = int(np.clip(l_np[:chunk] - MOTIF_W + 1, 0, None).sum())
+    others = [("ragged", *ragged(1000, 9, 16, 5, 200), 5, None),
+              ("w=1", *ragged(300, 12, 21, 1, 256), 1, None),
+              ("D=21", *ragged(700, 14, 21, 6, 300), 6, None)]
+    # Cases whose label does not start with "slice" are checked, not timed.
     cases = {
-        "K3": [("slice", x_slice, l_slice, proj3, MOTIF_W, row_scale),
-               ("ragged", *ragged(1000, 9, 16, 5, 200), 5, None),
-               ("w=1", *ragged(300, 12, 21, 1, 256), 1, None),
-               ("D=21", *ragged(700, 14, 21, 6, 300), 6, None)],
-        "K4": [("slice", x_slice, l_slice, proj4, MOTIF_W, None),
-               ("ragged", *ragged(1000, 9, 16, 5, 200), 5, None),
-               ("w=1", *ragged(300, 12, 21, 1, 256), 1, None),
-               ("D=21", *ragged(700, 14, 21, 6, 300), 6, None)],
+        "K3": [("slice", x_slice, l_slice, proj3, MOTIF_W, row_scale(proj3)),
+               (f"slice, tuning ({tune_rffs} RFFs)", x_slice, l_slice,
+                proj3_tune, MOTIF_W, row_scale(proj3_tune))] + others,
+        "K4": [("slice", x_slice, l_slice, proj4, MOTIF_W, None)] + others,
     }
     runs = {"K3": (lambda x, l, p, w, rs: conv.conv_parts(x, l, p, sigma, w,
                                                           rs),
@@ -513,49 +567,50 @@ def phase_conv_kernels(torch, card, corpus, dev="cuda", chunk=CHUNK,
     results = {}
     for name, kcases in cases.items():
         kernel_fn, plain_fn = runs[name]
-        worst = 0.0
         for label, x, lens, proj, width, rs in kcases:
             got = kernel_fn(x, lens, proj, width, rs)
             want = plain_fn(x, lens, proj, width, rs)
             sync(torch, dev)
             scale = max(1.0, max(float(w.abs().max()) for w in want))
             err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-            print(f"{name} {label}: N={x.shape[0]} L={x.shape[1]} "
-                  f"D={x.shape[2]} w={width} F={proj.shape[1]} "
+            n, l, d = x.shape
+            f = proj.shape[1]
+            print(f"{name} {label}: N={n} L={l} D={d} w={width} F={f} "
                   f"max_abs_err={err:.3e} max|ref|={scale:.3e} "
                   f"(tol {CONV_RTOL:g} * max(1, max|ref|))", flush=True)
             check(err < CONV_RTOL * scale, f"{name} {label} disagrees ({err})")
-            worst = max(worst, err)
-        _, x, lens, proj, width, rs = kcases[0]
-        ms = time_ms(torch, lambda: kernel_fn(x, lens, proj, width, rs),
-                     dev=dev)
-        plain_ms = time_ms(torch, lambda: plain_fn(x, lens, proj, width, rs),
-                           reps=3, dev=dev)
-        slab = conv.window_slab(x, width)
-        mm_ms = time_ms(torch, lambda: torch.matmul(slab, proj), dev=dev)
-        n, l, d = x.shape
-        f = proj.shape[1]
-        out_cols = 2 * f if name == "K3" else f
-        flops = 2 * width * d * f * nk_sum
-        kb = bound(4 * (n * l * d + n + width * d * f + n * out_cols)
-                   + (4 * n if name == "K3" else 0), flops)
-        slots, valid = conv.window_slots(lens, width, l - width + 1)
-        print(f"{name} time at slice shape: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, {bound_text(kb)}; {nk_sum} valid "
-              f"windows, {flops / 1e9:.1f} GFLOP; projection matmul alone "
-              f"(partial yardstick, no mask/sincos/sum) {mm_ms:.4f} ms "
-              f"[{card}]", flush=True)
-        print(f"{name} at slice shape: {slots} window slots projected for "
-              f"{valid} valid windows ({slots / valid:.3f} : 1); achieved "
-              f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s on the "
-              f"valid-window work ({flops * 1e3 / ms / PEAK_FP32_FLOPS:.1%} "
-              f"of the fp32 CUDA-core peak; the tensor cores run "
-              f"{3 * flops * slots / valid / (ms * 1e-3) / 1e12:.1f} TFLOP/s "
-              f"of TF32 products on the projected slots, "
-              f"{3 * flops * slots / valid * 1e3 / ms / PEAK_TF32_FLOPS:.1%} "
-              f"of peak) [{card}]", flush=True)
-        results[name] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                             bound=kb)
+            if not label.startswith("slice"):
+                continue
+            ms = time_ms(torch, lambda: kernel_fn(x, lens, proj, width, rs),
+                         dev=dev)
+            plain_ms = time_ms(torch, lambda: plain_fn(x, lens, proj, width,
+                                                       rs), reps=3, dev=dev)
+            slab = conv.window_slab(x, width)
+            mm_ms = time_ms(torch, lambda: torch.matmul(slab, proj), dev=dev)
+            out_cols = 2 * f if name == "K3" else f
+            flops = 2 * width * d * f * nk_sum
+            kb = bound(4 * (n * l * d + n + width * d * f + n * out_cols)
+                       + (4 * n if name == "K3" else 0), flops)
+            slots, valid = conv.window_slots(lens, width, l - width + 1)
+            print(f"{name} time at {label} shape: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, {bound_text(kb)}; {nk_sum} valid "
+                  f"windows, {flops / 1e9:.1f} GFLOP; projection matmul "
+                  f"alone (partial yardstick, no mask/sincos/sum) "
+                  f"{mm_ms:.4f} ms [{card}]", flush=True)
+            tc_flops = 3 * flops * slots / valid
+            print(f"{name} at {label} shape: {slots} window slots projected "
+                  f"for {valid} valid windows ({slots / valid:.3f} : 1); "
+                  f"achieved {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s on the "
+                  f"valid-window work "
+                  f"({flops * 1e3 / ms / PEAK_FP32_FLOPS:.1%} of the fp32 "
+                  f"CUDA-core peak; the tensor cores run "
+                  f"{tc_flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s of TF32 "
+                  f"products on the projected slots, "
+                  f"{tc_flops * 1e3 / ms / PEAK_TF32_FLOPS:.1%} of peak) "
+                  f"[{card}]", flush=True)
+            results.update(timed_entry(
+                name, (l, d, width, f), err, ms, plain_ms, kb,
+                f"N {n}, L {l}, D {d}, w {width}, F {f}"))
     return results
 
 
@@ -588,7 +643,7 @@ def phase_conv_slice(torch, card, corpus, n_train=N_TRAIN, n_test=N_TEST,
     fit_counts = read_counts()
     print(f"Conv1dRBF fit: {fit_s:.3f}s, CG iterations {n_iter}, final "
           f"relative residual {losses[-1]:.3e}; launches during fit: "
-          f"{fit_counts}", flush=True)
+          f"{totals(fit_counts)}", flush=True)
     check(n_iter < 500 and losses[-1] < 1e-6, "Conv1dRBF CG did not converge")
     model.verbose = False
 
@@ -598,10 +653,11 @@ def phase_conv_slice(torch, card, corpus, n_train=N_TRAIN, n_test=N_TEST,
     predict_s = time.perf_counter() - t0
     predict_counts = read_counts()
     print(f"Conv1dRBF predict: {predict_s:.3f}s for {n_test} rows; "
-          f"launches {predict_counts}", flush=True)
+          f"launches {totals(predict_counts)}", flush=True)
     if torch.device(dev).type == "cuda":
-        check(fit_counts["K3"] > 0, "K3 was not launched during fit")
-        check(predict_counts["K3"] > 0, "K3 was not launched during predict")
+        check(fit_counts["K3"].total() > 0, "K3 was not launched during fit")
+        check(predict_counts["K3"].total() > 0,
+              "K3 was not launched during predict")
     check(preds.shape == (n_test,) and var.shape == (n_test,),
           "prediction shapes")
     check(bool(np.all(np.isfinite(preds)) and np.all(np.isfinite(var))),
@@ -626,7 +682,7 @@ def phase_conv_slice(torch, card, corpus, n_train=N_TRAIN, n_test=N_TEST,
     if profile:
         profile_fit(torch, model, dset, card)
     check(rho > MOTIF_SPEARMAN_FLOOR, "Conv1dRBF Spearman below the floor")
-    return {"K3": fit_counts["K3"] + predict_counts["K3"]}
+    return {k: fit_counts[k] + predict_counts[k] for k in fit_counts}
 
 
 def phase_k4_path(torch, card, corpus, n_train=K4_ROWS, n_test=N_TEST,
@@ -662,12 +718,12 @@ def phase_k4_path(torch, card, corpus, n_train=K4_ROWS, n_test=N_TEST,
     counts = read_counts()
     print(f"Conv1dTwoLayer fit: {fit_s:.3f}s, CG iterations {n_iter}, "
           f"final relative residual {losses[-1]:.3e}; launches over fit, "
-          f"predict and FastConv1d: {counts}", flush=True)
+          f"predict and FastConv1d: {totals(counts)}", flush=True)
     check(n_iter < 500 and losses[-1] < 1e-6,
           "Conv1dTwoLayer CG did not converge")
     if torch.device(dev).type == "cuda":
-        check(counts["K4"] > 0, "K4 was not launched on the K4 path")
-        check(counts["K2"] > 0, "K2 was not launched on the K4 path")
+        check(counts["K4"].total() > 0, "K4 was not launched on the K4 path")
+        check(counts["K2"].total() > 0, "K2 was not launched on the K4 path")
     check(bool(np.all(np.isfinite(preds)) and np.all(var >= 0)),
           "Conv1dTwoLayer predictions not finite or var < 0")
     rho = float(spearmanr(preds, te_y)[0])
@@ -693,7 +749,7 @@ def phase_k4_path(torch, card, corpus, n_train=K4_ROWS, n_test=N_TEST,
           "Conv1dTwoLayer Spearman below the floor")
     print(f"Conv1dTwoLayer fit phases: {dict(model.fit_phase_times)} "
           f"[{card}]", flush=True)
-    return {"K4": counts["K4"], "K2_k4": counts["K2"]}
+    return counts
 
 
 def profile_fit(torch, model, dset, card):
@@ -737,19 +793,346 @@ def profile_fit(torch, model, dset, card):
     prof.export_chrome_trace(str(out / "conv_fit_trace.json.gz"))
 
 
-def kernel_line(name, route, source, replaces, launches, res):
-    line = {"name": name, "route": route, "source": source,
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": res["max_abs_err"], "ms": res["ms"],
-            "plain_ms": res["plain_ms"], "bound_ms": res["bound"]["ms"],
-            "bound_by": res["bound"]["by"],
-            "cuda_core_bound_ms": res["bound"]["cuda_core_ms"],
-            "cuda_core_bound_by": res["bound"]["cuda_core_by"],
-            "library_ms": None}
-    for key in ("shape", "ms_k26", "bound_ms_k26"):
-        if key in res:
-            line[key] = res[key]
-    return line
+def nmll_call(torch, dev, fn, *args):
+    """(result, seconds, launches) of one NMLL evaluation; the penalty
+    score fails the run."""
+    from xgpr_tpu_torch.constants import DEFAULT_SCORE_IF_PROBLEM
+    before = read_counts()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    sync(torch, dev)
+    secs = time.perf_counter() - t0
+    score = out[0] if isinstance(out, tuple) else out
+    check(score != DEFAULT_SCORE_IF_PROBLEM and np.isfinite(score),
+          f"{fn.__name__} returned the penalty score ({score})")
+    return out, secs, counts_since(before)
+
+
+def rel_gap(a, b):
+    return abs(a - b) / abs(b)
+
+
+def k1_by_k(counts):
+    """K1's launches by their number of right-hand sides."""
+    out = Counter()
+    for shape, n in counts["K1"].items():
+        out[shape[3]] += n
+    return out
+
+
+def phase_rbf_nmll(torch, card, dset, dev="cuda", num_rffs=NUM_RFFS):
+    """exact_nmll and approximate_nmll (default settings) on slice A's
+    data at the pinned hyperparameters; then the approximate NMLL's two
+    parts timed apart: the amortized preconditioner (the cached rank) and
+    the SLQ solve.  Returns the split's launches apart: it calls the
+    model's internals, not an entry point."""
+    from xgpr_tpu_torch import GPRegression, constants
+    from xgpr_tpu_torch.scoring.slq import slq_nmll_from_engine
+    model = GPRegression(num_rffs=num_rffs, kernel_choice="RBF", device=dev,
+                         verbose=False)
+    model.set_hyperparams(HPARAMS, dset)
+    exact, exact_s, exact_counts = nmll_call(torch, dev, model.exact_nmll,
+                                             HPARAMS, dset)
+    approx, approx_s, counts = nmll_call(torch, dev, model.approximate_nmll,
+                                         HPARAMS, dset)
+    by_k = k1_by_k(counts)
+    rank = model._nmll_rank_cache[1]
+    gap = rel_gap(approx, exact)
+    print(f"RBF NMLL at {num_rffs} RFFs: exact {exact:.6f} in {exact_s:.3f}s "
+          f"(launches {counts_text(exact_counts)}), approximate "
+          f"{approx:.6f} in {approx_s:.3f}s (launches {counts_text(counts)}),"
+          f" relative gap {gap:.3e} (gate {NMLL_RTOL}); "
+          f"preconditioner rank {rank} (srht_2); K1 launches by K during "
+          f"approximate_nmll {dict(by_k)} [{card}]", flush=True)
+    check(gap < NMLL_RTOL, "RBF approximate NMLL is not within 1% of exact")
+
+    before = read_counts()
+    t0 = time.perf_counter()
+    precond = model._amortized_nmll_preconditioner(dset)
+    sync(torch, dev)
+    pre_s = time.perf_counter() - t0
+    settings = constants.DEFAULT_NMLL_PARAMS
+    engine = model._engine(dset)
+    t0 = time.perf_counter()
+    slq = slq_nmll_from_engine(engine, precond, model.random_seed,
+                               settings["nsamples"], settings["nmll_iter"],
+                               settings["nmll_tol"])
+    sync(torch, dev)
+    slq_s = time.perf_counter() - t0
+    split = counts_since(before)
+    # The stacked engine launches K1 once per chunk per CG iteration.
+    k = settings["nsamples"] + 1
+    n_chunks = dset.get_n_batches()
+    on_card = torch.device(dev).type == "cuda"
+    iters = k1_by_k(split)[k] / n_chunks if on_card else None
+    it_text = "not counted (no K1 on the CPU)" if iters is None else (
+        f"{iters:g} ({iters * n_chunks:g} K1 launches at K={k} over "
+        f"{n_chunks} chunks), {slq_s / iters * 1e3:.2f} ms per iteration")
+    print(f"RBF approximate NMLL split: preconditioner at the cached rank "
+          f"{precond.get_rank()} {pre_s:.3f}s, SLQ solve {slq_s:.3f}s "
+          f"(NMLL {slq:.6f}); SLQ CG iterations {it_text} [{card}]",
+          flush=True)
+    if on_card:
+        check(by_k[k] > 0, f"K1 was not launched at K={k} during "
+                           "approximate_nmll")
+    return {"k26": by_k[k], "approx_s": approx_s, "slq_s": slq_s,
+            "split": split}
+
+
+def central_difference(fn, point, step):
+    """Central differences of fn at point, one coordinate at a time."""
+    num = np.zeros_like(point)
+    for i in range(point.shape[0]):
+        e = np.zeros_like(point)
+        e[i] = step
+        num[i] = (fn(point + e) - fn(point - e)) / (2 * step)
+    return num
+
+
+def rel_err(got, want):
+    return np.abs(got - want) / np.abs(want)
+
+
+def phase_rbf_gradient(torch, card, dset, dev="cuda", num_rffs=TUNE_RFFS):
+    """exact_nmll_gradient at GRAD_POINT against its float64 witness, and
+    the witness against central differences of its own NMLL; then an
+    L-BFGS-B tune from GRAD_POINT."""
+    from xgpr_tpu_torch import GPRegression, config
+    from xgpr_tpu_torch.constants import DEFAULT_SCORE_IF_PROBLEM
+    model = GPRegression(num_rffs=num_rffs, kernel_choice="RBF", device=dev,
+                         verbose=False)
+    model.set_hyperparams(GRAD_POINT, dset)
+    (score, grad), grad_s, _ = nmll_call(
+        torch, dev, model.exact_nmll_gradient, GRAD_POINT, dset)
+    # The witness: the same analytic gradient on the same rows with float64
+    # features and chunk products.  The gradient fns are plain torch, so
+    # no kernel runs in it; the NMLL it returns is the exact NMLL.
+    with config.working_dtype(torch.float64):
+        wit = GPRegression(num_rffs=num_rffs, kernel_choice="RBF",
+                           device=dev, verbose=False)
+        wit.set_hyperparams(GRAD_POINT, dset)
+        (score64, grad64), wit_s, _ = nmll_call(
+            torch, dev, wit.exact_nmll_gradient, GRAD_POINT, dset)
+        num64 = central_difference(
+            lambda h: nmll_call(torch, dev, wit.exact_nmll_gradient, h,
+                                dset)[0][0], GRAD_POINT, GRAD_STEP)
+        check(wit.kernel.dtype == torch.float64, "the witness is not float64")
+    del wit
+    num32 = {step: central_difference(
+        lambda h: nmll_call(torch, dev, model.exact_nmll, h, dset)[0],
+        GRAD_POINT, step) for step in (GRAD_STEP, 10 * GRAD_STEP)}
+    err32, err64 = rel_err(grad, grad64), rel_err(grad64, num64)
+    noise = "; ".join(f"at step {step:g} {num} ({rel_err(grad, num)} off "
+                      f"the analytic)" for step, num in num32.items())
+    print(f"RBF gradient at {num_rffs} RFFs on {dset.get_ndatapoints()} "
+          f"rows, log hyperparameters {GRAD_POINT}: float32 features (the "
+          f"card's path) NMLL {score:.6f}, analytic {grad} in {grad_s:.3f}s; "
+          f"float64 witness NMLL {score64:.6f}, analytic {grad64} in "
+          f"{wit_s:.3f}s, central difference of its NMLL at step "
+          f"{GRAD_STEP:g} {num64}; relative error float32 vs witness "
+          f"{err32}, witness vs central difference {err64} (gate "
+          f"{GRAD_RTOL} each) [{card}]", flush=True)
+    print(f"RBF gradient: central differences of the float32 exact_nmll "
+          f"(not gated; its float32 chunk products make it rough in "
+          f"sigma): {noise} [{card}]", flush=True)
+    check(np.all(err32 < GRAD_RTOL), "the analytic gradient disagrees with "
+                                     "its float64 witness")
+    check(np.all(err64 < GRAD_RTOL), "the float64 analytic gradient "
+                                     "disagrees with the central difference")
+
+    evals = []
+    cost = model.exact_nmll_gradient
+
+    def recorded(h, d):
+        out = cost(h, d)
+        evals.append(out[0])
+        return out
+    model.exact_nmll_gradient = recorded
+    t0 = time.perf_counter()
+    tuned, n_feval, best = model.tune_hyperparams(
+        dset, tuning_method="L-BFGS-B", nmll_method="exact", max_iter=5,
+        starting_hyperparams=GRAD_POINT)
+    sync(torch, dev)
+    tune_s = time.perf_counter() - t0
+    print(f"L-BFGS-B (exact NMLL, max_iter 5) from {GRAD_POINT}: score "
+          f"{score:.6f} -> {best:.6f} at {tuned}, {n_feval} evaluations in "
+          f"{tune_s:.3f}s ({tune_s / max(n_feval, 1):.3f}s each) [{card}]",
+          flush=True)
+    check(DEFAULT_SCORE_IF_PROBLEM not in evals,
+          "an L-BFGS-B evaluation returned the penalty score")
+    check(best <= score, "L-BFGS-B raised the score")
+
+
+def phase_conv_tune(torch, card, corpus, dev="cuda", tune_rows=TUNE_ROWS,
+                    n_train=N_TRAIN, n_test=N_TEST, chunk=CHUNK,
+                    tune_rffs=TUNE_RFFS, num_rffs=NUM_RFFS,
+                    variance_rffs=VARIANCE_RFFS, bayes_iter=BAYES_ITER,
+                    spearman_floor=MOTIF_SPEARMAN_FLOOR):
+    """Conv1dRBF: crude tune on a row subsample, refit with the tuned
+    hyperparameters, and the approximate NMLL against the exact there."""
+    from scipy.stats import spearmanr
+    from xgpr_tpu_torch import GPRegression, build_regression_dataset
+    from xgpr_tpu_torch.constants import DEFAULT_SCORE_IF_PROBLEM
+    from xgpr_tpu_torch.scoring import surrogate_tuner
+    x, y, lens = corpus
+    settings = {"conv_width": MOTIF_W}
+    tune_set = build_regression_dataset(x[:tune_rows], y[:tune_rows],
+                                        lens[:tune_rows], chunk_size=chunk)
+    model = GPRegression(num_rffs=tune_rffs, kernel_choice="Conv1dRBF",
+                         kernel_settings=settings, device=dev, verbose=False)
+    scores = []
+    search = surrogate_tuner.shared_hparam_search
+
+    def recorded(*args, **kw):
+        out = search(*args, **kw)
+        scores.append(out[0])
+        return out
+    surrogate_tuner.shared_hparam_search = recorded
+    t0 = time.perf_counter()
+    try:
+        tuned, n_feval, best = model.tune_hyperparams_crude(
+            tune_set, max_bayes_iter=bayes_iter)
+    finally:
+        surrogate_tuner.shared_hparam_search = search
+    sync(torch, dev)
+    tune_s = time.perf_counter() - t0
+    print(f"Conv1dRBF crude tune on {tune_rows} rows at {tune_rffs} RFFs "
+          f"(max_bayes_iter {bayes_iter}): {tuned} (the 1M north star's "
+          f"{MOTIF_HPARAMS}), score {best}, n_feval {n_feval}, "
+          f"{tune_s:.3f}s ({tune_s / max(n_feval, 1):.3f}s per evaluation) "
+          f"[{card}]", flush=True)
+    check(len(scores) == n_feval and all(
+        s < 0.1 * DEFAULT_SCORE_IF_PROBLEM for s in scores),
+          "a crude-tune evaluation returned the penalty score")
+    del model, tune_set
+
+    train = build_regression_dataset(x[:n_train], y[:n_train],
+                                     lens[:n_train], chunk_size=chunk)
+    tex, te_y, te_l = (a[n_train:n_train + n_test] for a in (x, y, lens))
+    model = GPRegression(num_rffs=num_rffs, variance_rffs=variance_rffs,
+                         kernel_choice="Conv1dRBF", kernel_settings=settings,
+                         device=dev, verbose=False)
+    model.set_hyperparams(tuned, train)
+    t0 = time.perf_counter()
+    n_iter, losses = model.fit(train, mode="cg", run_diagnostics=True)
+    preds = model.predict(tex, te_l)
+    sync(torch, dev)
+    fit_s = time.perf_counter() - t0
+    rho = float(spearmanr(preds, te_y)[0])
+    print(f"Conv1dRBF refit at {num_rffs} RFFs on {n_train} rows with the "
+          f"tuned hyperparameters: fit + predict {fit_s:.3f}s, CG "
+          f"iterations {n_iter}, held-out Spearman {rho:.4f} (floor "
+          f"{spearman_floor}) [{card}]", flush=True)
+    check(n_iter < 500 and losses[-1] < 1e-6, "the refit's CG did not "
+                                               "converge")
+    check(rho > spearman_floor, "Spearman after tuning is below the floor")
+
+    exact, exact_s, _ = nmll_call(torch, dev, model.exact_nmll, tuned, train)
+    approx, approx_s, _ = nmll_call(torch, dev, model.approximate_nmll, tuned,
+                                    train)
+    gap = rel_gap(approx, exact)
+    print(f"Conv1dRBF NMLL at the tuned point, {num_rffs} RFFs: exact "
+          f"{exact:.6f} in {exact_s:.3f}s, approximate {approx:.6f} in "
+          f"{approx_s:.3f}s (rank {model._nmll_rank_cache[1]}), relative gap "
+          f"{gap:.3e} (gate {NMLL_RTOL}) [{card}]", flush=True)
+    check(gap < NMLL_RTOL, "Conv1dRBF approximate NMLL is not within 1% of "
+                           "exact")
+
+
+def counts_text(counts):
+    return ", ".join(f"{k} {v}" for k, v in sorted(totals(counts).items()))
+
+
+def time_gradient_maps(torch, card, tab, corpus, dev="cuda", chunk=CHUNK,
+                       num_rffs=TUNE_RFFS):
+    """The gradient feature maps (plain torch on every device) on one
+    chunk at the tuning width: RBF's dense one on slice A's test rows
+    and Conv1dRBF's on the motif corpus."""
+    from xgpr_tpu_torch.kernels import RBF, Conv1dRBF
+    x_tab = tab[1][:chunk]
+    x_seq, _, l_seq = (a[:chunk] for a in corpus)
+    for name, kern, x, lens in (
+            ("RBF", RBF((chunk, N_FEATURES), num_rffs, SEED, device=dev),
+             x_tab, None),
+            ("Conv1dRBF", Conv1dRBF((chunk, MOTIF_L, MOTIF_D), num_rffs,
+                                    SEED, device=dev,
+                                    kernel_spec_parms={"conv_width":
+                                                       MOTIF_W}),
+             x_seq, l_seq)):
+        kern.set_hyperparams(HPARAMS if lens is None else MOTIF_HPARAMS)
+        fn, params = kern.pure_gradient_fn(), kern.gradient_params()
+        xt, lt = kern._cast_input(x), kern._cast_lengths(lens)
+        ms = time_ms(torch, lambda: fn(params, xt, lt), reps=5, dev=dev)
+        feats = kern.pure_feature_fn()
+        fms = time_ms(torch, lambda: feats(kern.feature_params(), xt, lt),
+                      reps=5, dev=dev)
+        print(f"{name} gradient feature map (plain torch) at {chunk} rows, "
+              f"{num_rffs} RFFs: {ms:.4f} ms a chunk; the feature fn "
+              f"alone (its kernel) {fms:.4f} ms [{card}]", flush=True)
+
+
+def phase_tuning(torch, card, tab, corpus, dev="cuda"):
+    """Slice B: the NMLLs, the gradient and the two tuners; fails unless
+    K1 ran at K = 26 and K2 and K3 ran.  Returns the phase's launches."""
+    t0 = time.perf_counter()
+    time_gradient_maps(torch, card, tab, corpus, dev)
+    reset_counts()      # the timing launches above are not the path's
+    rbf = phase_rbf_nmll(torch, card, tab[0], dev)
+    phase_rbf_gradient(torch, card, tab[0], dev)
+    phase_conv_tune(torch, card, corpus, dev)
+    counts = {k: c - rbf["split"][k] for k, c in read_counts().items()}
+    print(f"tuning phase: {time.perf_counter() - t0:.1f}s; launches through "
+          f"the entry points {counts_text(counts)} (and "
+          f"{counts_text(rbf['split'])} in the timed split), K1 at K=26 "
+          f"{rbf['k26']}; the SLQ solve {rbf['slq_s']:.3f}s of an "
+          f"approximate_nmll call's {rbf['approx_s']:.3f}s [{card}]",
+          flush=True)
+    if torch.device(dev).type == "cuda":
+        for name in ("K1", "K2", "K3"):
+            check(counts[name].total() > 0,
+                  f"{name} was not launched during the tuning phase")
+    return counts
+
+
+SRC, PALLAS = "xgpr_tpu_torch/ops/cuda/csrc/", "xgpr_tpu/ops/pallas/"
+KERNELS = {
+    "K1": ("ztzv_parts", SRC + "ztzv.cu", PALLAS + "ztzv_pallas.py:240"),
+    "K2": ("rbf_feature_map", SRC + "feature_map.cu",
+           PALLAS + "sorf_pallas.py:96"),
+    "K3": ("conv_parts", SRC + "conv.cu", PALLAS + "conv_pallas.py:302"),
+    "K4": ("conv_maxpool", SRC + "conv.cu", PALLAS + "conv_pallas.py:216"),
+}
+
+
+def kernel_rows(path, counts, timed):
+    """The kernels line's rows for one path: one per kernel and launch
+    shape less its row count, with the launches and the times at that
+    shape.  A launch at a shape that was not checked against the plain
+    version and timed fails the run."""
+    rows = []
+    for name in sorted(counts):
+        by_shape = {}
+        for shape, n in counts[name].items():
+            by_shape.setdefault(shape[1:], Counter())[shape[0]] += n
+        for key, by_rows in sorted(by_shape.items()):
+            res = timed.get((name, key))
+            check(res is not None, f"{name} ran on the {path} path at "
+                                   f"{key} (its shape less the rows), where "
+                                   "it was not held against its plain version")
+            fn, source, replaces = KERNELS[name]
+            rows.append({
+                "name": fn, "route": "cuda", "source": source,
+                "replaces": replaces, "path": path,
+                "launches": by_rows.total(),
+                "launches_by_rows": {str(r): c
+                                     for r, c in sorted(by_rows.items())},
+                "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+                "plain_ms": res["plain_ms"], "bound_ms": res["bound"]["ms"],
+                "bound_by": res["bound"]["by"],
+                "cuda_core_bound_ms": res["bound"]["cuda_core_ms"],
+                "cuda_core_bound_by": res["bound"]["cuda_core_by"],
+                "library_ms": None, "shape": res["shape"]})
+    return rows
 
 
 def main(argv):
@@ -769,32 +1152,28 @@ def main(argv):
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     t_start = time.perf_counter()
     phase_build()
-    res = phase_kernels(torch, card)
-    launches = phase_slice(torch, card)
+    timed = phase_kernels(torch, card)
+    t0 = time.perf_counter()
+    (trx, tr_y), (tex, te_y) = tabular_data(N_TRAIN, N_TEST, N_FEATURES,
+                                            seed=SEED)
+    from xgpr_tpu_torch import build_regression_dataset
+    tab = (build_regression_dataset(trx, tr_y, chunk_size=CHUNK), tex, te_y)
+    print(f"data: {N_TRAIN} x {N_FEATURES} train, {N_TEST} test, made in "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    paths = [("slice A fit + predict", phase_slice(torch, card, tab))]
     t0 = time.perf_counter()
     corpus = motif_corpus(N_TRAIN + N_TEST)
     print(f"motif corpus: {N_TRAIN} + {N_TEST} rows x {MOTIF_L} x "
           f"{MOTIF_D}, made in {time.perf_counter() - t0:.2f}s", flush=True)
-    res.update(phase_conv_kernels(torch, card, corpus))
-    launches.update(phase_conv_slice(torch, card, corpus,
-                                     profile="--profile" in argv))
-    launches.update(phase_k4_path(torch, card, corpus))
+    timed.update(phase_conv_kernels(torch, card, corpus))
+    paths.append(("Conv1dRBF fit + predict",
+                  phase_conv_slice(torch, card, corpus,
+                                   profile="--profile" in argv)))
+    paths.append(("K4 path", phase_k4_path(torch, card, corpus)))
+    paths.append(("tuning", phase_tuning(torch, card, tab, corpus)))
     print(f"total {time.perf_counter() - t_start:.1f}s [{card}]", flush=True)
-    src = "xgpr_tpu_torch/ops/cuda/csrc/"
-    pallas = "xgpr_tpu/ops/pallas/"
-    kernels = [
-        kernel_line("rbf_feature_map", "cuda", src + "feature_map.cu",
-                    pallas + "sorf_pallas.py:96", launches["K2"], res["K2"]),
-        kernel_line("rbf_feature_map", "cuda", src + "feature_map.cu",
-                    pallas + "sorf_pallas.py:96", launches["K2_k4"],
-                    res["K2_k4"]),
-        kernel_line("ztzv_parts", "cuda", src + "ztzv.cu",
-                    pallas + "ztzv_pallas.py:240", launches["K1"], res["K1"]),
-        kernel_line("conv_parts", "cuda", src + "conv.cu",
-                    pallas + "conv_pallas.py:302", launches["K3"], res["K3"]),
-        kernel_line("conv_maxpool", "cuda", src + "conv.cu",
-                    pallas + "conv_pallas.py:216", launches["K4"], res["K4"]),
-    ]
+    kernels = [row for path, counts in paths
+               for row in kernel_rows(path, counts, timed)]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -53,11 +53,11 @@ def test_feature_map_kernel(cuda, mode, n, d, f, padded):
     x[0] = 0.0
     x[0, 0] = 5e4
     proj[0] = split_tf32(proj[0])[0]
-    before = feature_map.LAUNCHES
+    before = feature_map.LAUNCHES.total()
     got = feature_map.rbf_feature_map(x, proj, True, padded, mode)
     want = feature_map.rbf_feature_map_plain(x, proj, True, padded, mode)
     torch.cuda.synchronize()
-    assert feature_map.LAUNCHES == before + 1
+    assert feature_map.LAUNCHES.total() == before + 1
     assert float((got - want).abs().max()) < 1e-5
 
 
@@ -81,11 +81,11 @@ def _ztzv_inputs(dev, n, d, f, k):
 @pytest.mark.parametrize("n,d,f,k", ZTZV_CASES)
 def test_ztzv_kernel(cuda, intercept, n, d, f, k):
     x, m, proj, vc, vs = _ztzv_inputs(cuda, n, d, f, k)
-    before = ztzv.LAUNCHES
+    before = ztzv.LAUNCHES.total()
     oc, os_ = ztzv.ztzv_parts(x, m, proj, 0.7, vc, vs, intercept)
     rc, rs = ztzv.ztzv_parts_plain(x, m, proj, 0.7, vc, vs, intercept)
     torch.cuda.synchronize()
-    assert ztzv.LAUNCHES == before + 1
+    assert ztzv.LAUNCHES.total() == before + 1
     tol = 1e-4 * max(1.0, float(rc.abs().max()))
     assert float((oc - rc).abs().max()) < tol
     assert float((os_ - rs).abs().max()) < tol
@@ -135,12 +135,12 @@ def test_conv_parts_kernel(cuda, mode, n, l, d, width, f, kind):
     x, lengths, proj = _conv_inputs(cuda, n, l, d, width, f, kind)
     scale = torch.linspace(0.5, 1.5, n, device=cuda)
     for row_scale in (None, scale):
-        before = conv.PARTS_LAUNCHES
+        before = conv.PARTS_LAUNCHES.total()
         got = conv.conv_parts(x, lengths, proj, 0.7, width, row_scale, mode)
         want = conv.conv_parts_plain(x, lengths, proj, 0.7, width,
                                      row_scale, mode)
         torch.cuda.synchronize()
-        assert conv.PARTS_LAUNCHES == before + 1
+        assert conv.PARTS_LAUNCHES.total() == before + 1
         for g, w in zip(got, want):
             tol = 1e-4 * max(1.0, float(w.abs().max()))
             assert float((g - w).abs().max()) < tol
@@ -151,11 +151,11 @@ def test_conv_parts_kernel(cuda, mode, n, l, d, width, f, kind):
 @pytest.mark.parametrize("n,l,d,width,f,kind", CONV_CASES)
 def test_conv_maxpool_kernel(cuda, n, l, d, width, f, kind):
     x, lengths, proj = _conv_inputs(cuda, n, l, d, width, f, kind)
-    before = conv.MAXPOOL_LAUNCHES
+    before = conv.MAXPOOL_LAUNCHES.total()
     got = conv.conv_maxpool(x, lengths, proj, width)
     want = conv.conv_maxpool_plain(x, lengths, proj, width)
     torch.cuda.synchronize()
-    assert conv.MAXPOOL_LAUNCHES == before + 1
+    assert conv.MAXPOOL_LAUNCHES.total() == before + 1
     tol = 1e-4 * max(1.0, float(want.abs().max()))
     assert float((got - want).abs().max()) < tol
     if kind == "spread":

@@ -66,12 +66,12 @@ def test_plain_feature_map_ragged_blocks_match_xla(intercept):
 
 def test_cpu_tensor_takes_the_plain_version_and_modes_are_checked():
     x, proj = _inputs(8, 10, 32, 1)
-    before = feature_map.LAUNCHES
+    before = feature_map.LAUNCHES.total()
     got = feature_map.rbf_feature_map(torch.from_numpy(x),
                                       torch.from_numpy(proj), True, 16)
     want = feature_map.rbf_feature_map_plain(torch.from_numpy(x),
                                              torch.from_numpy(proj), True, 16)
-    assert torch.equal(got, want) and feature_map.LAUNCHES == before
+    assert torch.equal(got, want) and feature_map.LAUNCHES.total() == before
     with pytest.raises(ValueError):
         feature_map.rbf_feature_map(torch.from_numpy(x).to("meta"),
                                     torch.from_numpy(proj).to("meta"),

@@ -4,7 +4,9 @@
   the default; "cpu" is used only when asked for by name.  Asking for
   "cuda" when no card is visible raises instead of carrying on on the CPU.
 - Dtype: float64 on the CPU (the tests hold the port against xgpr_tpu run
-  in float64), float32 on the card.
+  in float64), float32 on the card; ``working_dtype`` overrides both for
+  the models and kernels made inside it (a float64 witness on the card,
+  or float32 on the CPU).
 - Matmuls: full fp32 on the card.  TF32 is switched off here for both
   matmuls and cuDNN, mirroring xgpr_tpu's HIGHEST pin on every solve-path
   contraction (xgpr_tpu/ops/contract.py): TF32 keeps ~3 decimal digits,
@@ -14,6 +16,8 @@
 - Stacked-element limit: datasets with fewer raw x elements than this live
   on the device for the whole fit; larger ones stream chunk by chunk.
 """
+import contextlib
+
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -36,10 +40,29 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+_DTYPE_OVERRIDE = None
+
+
 def fp_dtype(device) -> torch.dtype:
-    """The working dtype: float64 on the CPU, float32 on the card."""
+    """The working dtype: float64 on the CPU, float32 on the card, unless
+    ``working_dtype`` overrides it."""
+    if _DTYPE_OVERRIDE is not None:
+        return _DTYPE_OVERRIDE
     return torch.float64 if torch.device(device).type == "cpu" \
         else torch.float32
+
+
+@contextlib.contextmanager
+def working_dtype(dtype):
+    """Models and kernels made inside the block work in ``dtype`` on every
+    device.  The CUDA kernels take float32 only and raise on a float64
+    CUDA tensor; the plain-torch gradient fns run in any dtype."""
+    global _DTYPE_OVERRIDE
+    saved, _DTYPE_OVERRIDE = _DTYPE_OVERRIDE, dtype
+    try:
+        yield
+    finally:
+        _DTYPE_OVERRIDE = saved
 
 
 # ----------------------------------------------------------------------

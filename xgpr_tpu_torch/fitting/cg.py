@@ -4,7 +4,8 @@ The matvec is the chunked (Z^T Z + lambda^2) v reduction; per-RHS alpha
 and beta, convergence when the relative residual norm of every column is
 below tol.  Stacked engines use the fused-matvec solver
 (fitting/fused_cg.py); streaming engines use the loop below with the
-engine's ztzv.  Both carry the same per-column breakdown freeze.
+engine's ztzv.  Both carry the same per-column breakdown freeze and
+record each iteration's alphas and betas for SLQ.
 """
 import warnings
 
@@ -19,22 +20,28 @@ class ConjugateGrad:
     def __init__(self, engine):
         self.engine = engine
 
-    def fit(self, rhs, lambda_, preconditioner=None, maxiter=200, tol=1e-4):
+    def fit(self, rhs, lambda_, preconditioner=None, maxiter=200, tol=1e-4,
+            nmll_settings=False):
         """Solve (Z^T Z + lambda^2) x = rhs for each (M, K) RHS column,
         with the solver state in float64 (see fitting/fused_cg.py).
 
-        Returns (x, converged, niter, losses).
+        Returns (x, converged, niter, losses), or with ``nmll_settings``
+        (x, alphas, betas): the per-iteration CG coefficients of the probe
+        columns, (niter, K - 1) float64 tensors on the device, with the
+        fit column 0 dropped, for stochastic Lanczos quadrature.
         """
         rhs = torch.as_tensor(rhs, dtype=torch.float64,
                               device=self.engine.device)
         if self.engine._stacked is not None:
-            x_k, done, niter, errs = fused_cg_solve_stacked(
+            x_k, done, niter, alphas, betas, errs = fused_cg_solve_stacked(
                 self.engine, rhs, lambda_, preconditioner, maxiter, tol)
         else:
             precond = (lambda v: v) if preconditioner is None \
                 else preconditioner.batch_matvec
-            x_k, done, niter, errs = _cg_while(
+            x_k, done, niter, alphas, betas, errs = _cg_while(
                 self.engine.ztzv, precond, rhs, lambda_, maxiter, tol)
+        if nmll_settings:
+            return x_k, alphas[:, 1:], betas[:, 1:]
         return x_k, done, niter, list(errs.cpu().numpy())
 
 

@@ -5,6 +5,14 @@ import warnings
 import torch
 
 
+def cho_solve_lower(chol, target):
+    """Solve A x = target given lower-triangular chol(A); target is (M,)
+    or (M, K)."""
+    if target.dim() == 1:
+        return torch.cholesky_solve(target[:, None], chol)[:, 0]
+    return torch.cholesky_solve(target, chol)
+
+
 def direct_weight_calc(z_trans_z, z_trans_y, lambda_):
     """Cholesky solve of (Z^T Z + lambda^2 I) w = Z^T y -> (chol, weights).
 
@@ -20,8 +28,7 @@ def direct_weight_calc(z_trans_z, z_trans_y, lambda_):
     chol, info = torch.linalg.cholesky_ex(a)
     if int(info) != 0 or bool(torch.any(torch.isnan(chol))):
         raise FloatingPointError("Design matrix is not positive definite.")
-    weights = torch.cholesky_solve(z_trans_y[:, None], chol)[:, 0]
-    return chol, weights
+    return chol, cho_solve_lower(chol, z_trans_y)
 
 
 def rescue_weight_calc(z_trans_z, z_trans_y, lambda_):

@@ -37,11 +37,14 @@ def _cg_while(matvec, precond, rhs, lam, max_iter, tol):
     r^T P^-1 r -- impossible in exact arithmetic, routine in fp32 at
     extreme hyperparameters).  Frozen columns stop updating (alpha = beta
     = 0) so they can never poison the others with NaNs; converged columns
-    keep iterating until the global exit, as in the reference.  (The
-    per-iteration alphas and betas that SLQ needs are not kept yet.)
+    keep iterating until the global exit, as in the reference.  Each
+    iteration's alphas and betas go into (max_iter, K) float64 buffers on
+    the device (zero once a column is frozen), where SLQ reads where each
+    column's Lanczos sequence ends.
 
-    Returns (x, all converged, iterations, relative residual norms of
-    column 0 per iteration).
+    Returns (x, all converged, iterations, alphas, betas, relative
+    residual norms of column 0 per iteration), the last three trimmed to
+    the iterations run.
     """
     _, k = rhs.shape
     init_norms = torch.sqrt(torch.sum(rhs * rhs, dim=0))
@@ -52,6 +55,8 @@ def _cg_while(matvec, precond, rhs, lam, max_iter, tol):
     active = torch.ones((k,), dtype=torch.bool, device=rhs.device)
     converged = torch.zeros((k,), dtype=torch.bool, device=rhs.device)
     errs = torch.zeros((max_iter,), dtype=rhs.dtype, device=rhs.device)
+    alphas = torch.zeros((max_iter, k), dtype=rhs.dtype, device=rhs.device)
+    betas = torch.zeros_like(alphas)
     lam2 = lam ** 2
     niter = 0
     while niter < max_iter and bool(active.any()):
@@ -70,10 +75,13 @@ def _cg_while(matvec, precond, rhs, lam, max_iter, tol):
         beta = torch.where(active, rz_next / rz, 0.0)
         p = torch.where(active[None, :], z + beta[None, :] * p, p)
         active = active & ~torch.all(converged | ~active)
+        alphas[niter] = alpha
+        betas[niter] = beta
         errs[niter] = err[0]
         rz = rz_next
         niter += 1
-    return x, bool(torch.all(converged)), niter, errs[:niter]
+    return (x, bool(torch.all(converged)), niter, alphas[:niter],
+            betas[:niter], errs[:niter])
 
 
 def fused_cg_solve_stacked(engine, rhs, lam, precond=None, max_iter=200,

@@ -13,7 +13,9 @@ With the dense projection (D * F <= 32M) the feature fn is the K2 kernel
 (ops/cuda/ztzv.py): kernels on a CUDA tensor, their plain versions on a
 CPU tensor.  The kernels guard the polynomial sincos per element, so
 xgpr_tpu's Pallas gate, host range check and lax.cond fallback are not
-needed.  Larger D * F take the structured FWHT path in plain torch.
+needed.  Larger D * F take the structured FWHT path in plain torch.  The
+gradient fn (features and d features / d sigma, for the exact NMLL
+gradient) is plain torch on both paths.
 """
 from math import ceil
 
@@ -24,7 +26,8 @@ from .kernel_baseclass import KernelBaseclass
 from ..ops.cuda.feature_map import rbf_feature_map as fused_feature_map
 from ..ops.cuda.ztzv import ztzv_parts
 from ..ops.hadamard import next_pow2
-from ..ops.sorf import (rbf_feature_map, dense_sorf_projection,
+from ..ops.sorf import (rbf_feature_map, rbf_feature_map_grad,
+                        rbf_feature_map_dense_grad, dense_sorf_projection,
                         dense_threshold_ok)
 from ..utils import rng as state_rng
 
@@ -101,6 +104,27 @@ class SORFKernelBaseclass(KernelBaseclass):
                 if intercept:
                     feats[:, 0] = 1.0
                 return feats
+        return fn
+
+    def pure_gradient_fn(self):
+        intercept = self.fit_intercept
+        padded = self.padded_dims
+        if self.use_dense_projection:
+            def grad_fn(params, x):
+                return rbf_feature_map_dense_grad(
+                    x, params["proj"], params["sigma"], intercept, padded)
+        else:
+            def grad_fn(params, x):
+                return rbf_feature_map_grad(x, params["radem"],
+                                            params["chi"], params["sigma"],
+                                            intercept)
+
+        def fn(params, x, seq_len=None):
+            z, dz = grad_fn(params, x)
+            if intercept:
+                z[:, 0] = 1.0
+                dz[:, 0, :] = 0.0
+            return z, dz
         return fn
 
     def pure_feature_parts_fn(self):

@@ -16,8 +16,10 @@ parts, averaging in K3's epilogue.  The kernel guards its polynomial
 sincos per element, so xgpr_tpu's Pallas shape gate, config switch and
 lax.cond range guard are not needed.  Conv kernels have no fused matvec:
 CG contracts the K3 parts with torch.matmul (fitting/engine.py), as
-xgpr_tpu's ``matvec_parts`` does.  The gradient fns wait for tuning
-(slice B).
+xgpr_tpu's ``matvec_parts`` does.  The gradient fn (features and
+d features / d sigma, for the exact NMLL gradient) is plain torch
+(ops/conv.py ``with_grad``), as in xgpr_tpu, where it is not a Pallas
+kernel.
 """
 from math import ceil
 
@@ -107,6 +109,26 @@ class ConvKernelBaseclass(KernelBaseclass):
         self._require_lengths(input_x, sequence_length)
         return self.pure_feature_fn()(self.feature_params(), input_x,
                                       sequence_length)
+
+    def kernel_specific_gradient(self, input_x, sequence_length=None):
+        self._require_lengths(input_x, sequence_length)
+        return super().kernel_specific_gradient(input_x, sequence_length)
+
+    def pure_gradient_fn(self):
+        intercept = self.fit_intercept
+        width = self.conv_width
+        scaling = self.scaling_type
+
+        def fn(params, x, seq_len=None):
+            z, dz = conv_rbf_features(x, seq_len, params["radem"],
+                                      params["chi"], params["sigma"], width,
+                                      scaling, proj=params.get("proj"),
+                                      with_grad=True)
+            if intercept:
+                z[:, 0] = 1.0
+                dz[:, 0, :] = 0.0
+            return z, dz
+        return fn
 
     def feature_params(self):
         params = {"sigma": float(self.hyperparams[1]),

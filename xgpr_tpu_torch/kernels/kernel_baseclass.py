@@ -163,6 +163,24 @@ class KernelBaseclass(ABC):
         matvec, or None if the kernel has none."""
         return None
 
+    def gradient_params(self):
+        """The dict of state the pure gradient fn consumes."""
+        return self.feature_params()
+
+    def pure_gradient_fn(self):
+        """fn(params, x, seq_len=None) -> (features, d features / d sigma)
+        with the derivative (N, num_rffs, n_sigma), intercept applied (its
+        column's derivative is 0), or None if the kernel has none."""
+        return None
+
+    def kernel_specific_gradient(self, input_x, sequence_length=None):
+        """(features, d features / d sigma) of pre-cast input, through
+        the pure gradient fn."""
+        fn = self.pure_gradient_fn()
+        if fn is None:
+            raise NotImplementedError("This kernel has no gradient fn.")
+        return fn(self.gradient_params(), input_x, sequence_length)
+
     # ------------------------------------------------------------------
     # transforms
     def _cast_input(self, input_x):
@@ -182,3 +200,15 @@ class KernelBaseclass(ABC):
         if self.fit_intercept:
             xtrans[:, 0] = 1.0
         return xtrans
+
+    def gradient_x(self, input_x, sequence_length=None):
+        """(features, d features / d sigma) of raw input, on the kernel's
+        device; the intercept column is 1 and its derivative 0."""
+        return self.kernel_specific_gradient(
+            self._cast_input(input_x), self._cast_lengths(sequence_length))
+
+    def gradient_x_y(self, input_x, input_y, sequence_length=None):
+        xtrans, dz_dsigma = self.gradient_x(input_x, sequence_length)
+        y_out = torch.as_tensor(np.asarray(input_y), dtype=self.dtype,
+                                device=self.device)
+        return xtrans, dz_dsigma, y_out

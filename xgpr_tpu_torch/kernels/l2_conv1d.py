@@ -10,8 +10,10 @@ xgpr_tpu/kernels/l2_conv1d.py).
 - FHTMaxpoolConv1dFeatureExtractor: the same layer-1 operation on its own,
   for the FastConv1d static layer (models/static_layers.py).
 
-Conv1dTwoLayer has no parts fn, so CG contracts its full features.  The
-gradient fn waits for tuning (slice B).
+Conv1dTwoLayer has no parts fn, so CG contracts its full features.  Its
+gradient fn runs layer 1 as above (K4 on the card) and layer 2's features
+and d features / d sigma through the structured SORF map in plain torch,
+as xgpr_tpu does.
 """
 from math import ceil
 
@@ -24,7 +26,7 @@ from ..ops.conv import conv_maxpool_features
 from ..ops.cuda.feature_map import rbf_feature_map as fused_feature_map
 from ..ops.hadamard import next_pow2
 from ..ops.sorf import (dense_sorf_projection, dense_threshold_ok,
-                        rbf_feature_map)
+                        rbf_feature_map, rbf_feature_map_grad)
 from ..utils import rng as state_rng
 
 
@@ -93,14 +95,38 @@ class Conv1dTwoLayer(KernelBaseclass):
                                       self.init_rffs).contiguous())
         return self._projs
 
-    def kernel_specific_transform(self, input_x, sequence_length=None):
+    def _check_input(self, input_x, sequence_length):
         if sequence_length is None:
             raise ValueError("Convolution kernels cannot run without "
                              "per-row sequence lengths.")
         if input_x.shape[2] != self._xdim[2]:
             raise RuntimeError("Unexpected input shape supplied.")
+
+    def kernel_specific_transform(self, input_x, sequence_length=None):
+        self._check_input(input_x, sequence_length)
         return self.pure_feature_fn()(self.feature_params(), input_x,
                                       sequence_length)
+
+    def kernel_specific_gradient(self, input_x, sequence_length=None):
+        self._check_input(input_x, sequence_length)
+        return super().kernel_specific_gradient(input_x, sequence_length)
+
+    def pure_gradient_fn(self):
+        intercept = self.fit_intercept
+        width = self.conv_width
+
+        def fn(params, x, seq_len=None):
+            prof = conv_maxpool_features(x, seq_len, params["radem1"],
+                                         params["chi1"], width,
+                                         proj=params.get("proj1"))
+            z, dz = rbf_feature_map_grad(prof, params["radem2"],
+                                         params["chi2"], params["sigma"],
+                                         intercept)
+            if intercept:
+                z[:, 0] = 1.0
+                dz[:, 0, :] = 0.0
+            return z, dz
+        return fn
 
     def feature_params(self):
         params = {"sigma": float(self.hyperparams[1]),

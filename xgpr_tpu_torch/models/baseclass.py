@@ -1,8 +1,10 @@
 """Shared model state machine (port of xgpr_tpu/models/baseclass.py).
 
 Kernel initialisation through the registry, the cached engine, the
-Nystrom preconditioner build with rank autoselection, and the property
-setters that invalidate weights.  ``device`` ("cuda" by default, or "cpu"
+Nystrom preconditioner build with rank autoselection (and its amortized
+form for repeated approximate-NMLL calls, with the rank cached per
+dataset), the NMLL preparation steps, and the property setters that
+invalidate weights.  ``device`` ("cuda" by default, or "cpu"
 by name) replaces xgpr_tpu's ``_resolve_accelerator``: a CUDA request with
 no card raises, and nothing quietly runs on the CPU instead.
 """
@@ -41,14 +43,25 @@ class ModelBaseclass:
         self.is_regression = True
         self._random_seed = random_seed
         self._engines = {}
+        self._nmll_rank_cache = None
 
     # ------------------------------------------------------------------
+    @staticmethod
+    def _dataset_token(dataset):
+        """Cache key for a dataset: its never-recycled uid where it has
+        one (every built-in dataset does), else id() and shape."""
+        get_uid = getattr(dataset, "get_uid", None)
+        if get_uid is not None:
+            return ("uid", get_uid())
+        return ("id", id(dataset), dataset.get_ndatapoints(),
+                tuple(dataset.get_xdim()))
+
     def _engine(self, dataset):
         """Cached Engine for the (dataset, kernel) pair; hyperparameters
         flow through feature_params at reduction time, so reuse is safe.
         At most one engine is kept: a stacked engine pins the dataset on
         the device."""
-        key = (dataset.get_uid(), self.kernel.get_uid())
+        key = (self._dataset_token(dataset), self.kernel.get_uid())
         engine = self._engines.get(key)
         if engine is None:
             self._engines = {}
@@ -135,6 +148,27 @@ class ModelBaseclass:
             self.kernel.set_hyperparams(hyperparams, logspace=True)
         self.weights, self.var = None, None
         self._engines = {}
+        self._nmll_rank_cache = None
+
+    def _run_pre_nmll_prep(self, dataset, bounds=None):
+        if self.kernel is None:
+            self._initialize_kernel(dataset, bounds=bounds)
+        self.weights, self.var = None, None
+        return self.kernel.get_bounds()
+
+    def _run_singlepoint_nmll_prep(self, dataset, exact_method=False):
+        if self.kernel is None:
+            self._initialize_kernel(dataset)
+        self.weights, self.var = None, None
+        if self.num_rffs <= 2:
+            raise RuntimeError("Tuning with num_rffs <= 2 cannot "
+                               "distinguish hyperparameters; raise "
+                               "num_rffs.")
+        if exact_method and \
+                self.kernel.get_num_rffs() > constants.MAX_CLOSED_FORM_RFFS:
+            raise RuntimeError(
+                f"At most {constants.MAX_CLOSED_FORM_RFFS} rffs can be used "
+                "for exact-NMLL tuning; use approximate NMLL instead.")
 
     def _run_pre_fitting_prep(self, dataset, max_rank=None):
         self.trainy_mean = dataset.get_ymean()
@@ -178,6 +212,44 @@ class ModelBaseclass:
         return NystromPreconditioner(self._engine(dataset), chosen_rank,
                                      self.verbose, self.random_seed, method,
                                      is_regression=self.is_regression)
+
+    def _amortized_nmll_preconditioner(self, dataset, ratio_target=30.):
+        """Preconditioner for repeated approximate-NMLL evaluations.
+
+        The first call runs the full rank autoselection (srht_2) and caches
+        the rank it chose, keyed on the dataset.  A later call on the same
+        dataset builds srht_2 at the cached rank directly, skipping the
+        sampled check passes, and grows the rank by 512 (up to the hard
+        cap) while the build's own achieved ratio misses the target.  A
+        tuner's successive iterates move slowly, so the rank is nearly
+        always the same.
+        """
+        num_rffs = self.kernel.get_num_rffs()
+        hard_cap = min(constants.LARGEST_NMLL_MAX_RANK, num_rffs - 1)
+        ds_token = self._dataset_token(dataset)
+        cached = self._nmll_rank_cache
+        if cached is not None and cached[0] != ds_token:
+            cached = None
+        if cached is None:
+            precond = self._autoselect_preconditioner(
+                dataset, min_rank=constants.SMALLEST_NMLL_MAX_RANK,
+                max_rank=constants.LARGEST_NMLL_MAX_RANK,
+                always_use_srht2=True, ratio_target=ratio_target)
+            self._nmll_rank_cache = (ds_token, precond.get_rank())
+            return precond
+
+        engine = self._engine(dataset)
+        rank = min(cached[1], hard_cap)
+        precond = NystromPreconditioner(engine, rank, self.verbose,
+                                        self.random_seed, "srht_2",
+                                        is_regression=self.is_regression)
+        while precond.achieved_ratio > ratio_target and rank < hard_cap:
+            rank = min(rank + 512, hard_cap)
+            precond = NystromPreconditioner(engine, rank, self.verbose,
+                                            self.random_seed, "srht_2",
+                                            is_regression=self.is_regression)
+        self._nmll_rank_cache = (ds_token, rank)
+        return precond
 
     def _check_rank_ratio(self, dataset, sample_frac=0.1, max_rank=512):
         """Sampled ratio estimate.  Caps the rff count at 8192 during the

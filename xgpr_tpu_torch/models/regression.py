@@ -1,24 +1,47 @@
-"""Approximate GP regression (port of ``fit`` and ``predict`` of
-xgpr_tpu/models/regression.py; tuning, NMLL and the exported predict fn
-wait for later slices).
+"""Approximate GP regression (port of xgpr_tpu/models/regression.py):
+fit, predict, exact and SLQ-approximated NMLL, the exact NMLL gradient,
+and the crude and scipy.optimize tuners.
 
     model = GPRegression(num_rffs=8192, variance_rffs=512,
                          kernel_choice="RBF", device="cuda")
-    model.set_hyperparams(log_hparams, dataset)
+    model.tune_hyperparams_crude(dataset)  # or tune_hyperparams(...)
     model.fit(dataset, mode="cg")      # autoselected Nystrom rank + PCG
     mean, var = model.predict(x, get_var=True)
 
 ``fit`` keeps its per-phase wall times (synchronised on the card) in
-``fit_phase_times``.
+``fit_phase_times``.  ``export_predict_fn`` is not ported.
+
+An NMLL evaluation at a degenerate hyperparameter point (a singular
+design matrix or sketch, CG or SLQ breakdown) returns
+``DEFAULT_SCORE_IF_PROBLEM`` so that one bad iterate cannot end a tune,
+as in xgpr_tpu.  Only those numerical failures become the penalty score:
+a kernel that does not build or launch, a CUDA error or a bad argument
+raises, where xgpr_tpu's ``except Exception`` would absorb it.
 """
+import warnings
+
 import numpy as np
 import torch
+from scipy.optimize import minimize
 
 from .baseclass import ModelBaseclass
 from .. import constants
 from ..fitting.cg import cg_fit
-from ..fitting.exact import calc_weights_exact, calc_variance_exact
+from ..fitting.exact import (calc_weights_exact, calc_variance_exact,
+                             direct_weight_calc)
+from ..preconditioners.nystrom import NystromPreconditioner
+from ..scoring.alpha_beta import optimize_alpha_beta
+from ..scoring.gradient import exact_nmll_reg_grad
+from ..scoring.lb_optimizer import shared_hparam_search
+from ..scoring.slq import slq_nmll_from_engine
+from ..scoring.surrogate_tuner import surrogate_grid_tuning
 from ..utils.diagnostics import PhaseTimes, phase_timer
+
+# The failures of a degenerate hyperparameter point: the port's own
+# non-positive-definite and SLQ breakdown checks, and the solvers' (torch
+# and numpy) failures to converge.
+NUMERICAL_FAILURES = (FloatingPointError, torch.linalg.LinAlgError,
+                      np.linalg.LinAlgError)
 
 
 class GPRegression(ModelBaseclass):
@@ -62,6 +85,107 @@ class GPRegression(ModelBaseclass):
         var[var < 0] = 0
         return preds, var * self.trainy_std ** 2
 
+    # ------------------------------------------------------------------
+    def exact_nmll(self, hyperparams, dataset):
+        """Exact NMLL via the design matrix's Cholesky factor (float64 on
+        the model's device)."""
+        self._run_singlepoint_nmll_prep(dataset, exact_method=True)
+        self.kernel.set_hyperparams(hyperparams, logspace=True)
+        ndatapoints = dataset.get_ndatapoints()
+        engine = self._engine(dataset)
+        z_trans_z, z_trans_y, y_trans_y = engine.design_mat()
+        try:
+            chol, weights = direct_weight_calc(z_trans_z, z_trans_y,
+                                               self.kernel.get_lambda())
+        except NUMERICAL_FAILURES:
+            warnings.warn("Design matrix is numerically singular at "
+                          f"{hyperparams}; returning the penalty score.")
+            return constants.DEFAULT_SCORE_IF_PROBLEM
+
+        nll1 = float(0.5 * (y_trans_y - z_trans_y @ weights))
+        nll2 = float(torch.sum(torch.log(torch.diagonal(chol))))
+        negloglik, _ = optimize_alpha_beta(
+            self.kernel.get_lambda(), np.array([nll1, nll2]), ndatapoints,
+            self.kernel.get_num_rffs())
+        if np.isnan(negloglik):
+            warnings.warn("Design matrix is numerically singular at "
+                          f"{hyperparams}; returning the penalty score.")
+            return constants.DEFAULT_SCORE_IF_PROBLEM
+        if self.verbose:
+            print("Evaluated NMLL.")
+        return negloglik
+
+    def exact_nmll_gradient(self, hyperparams, dataset, subsample=1.0):
+        """(NMLL, its gradient in log space)."""
+        self._run_singlepoint_nmll_prep(dataset, exact_method=True)
+        init_hparams = self.kernel.get_hyperparams()
+        self.kernel.set_hyperparams(hyperparams, logspace=True)
+        hparams = self.kernel.get_hyperparams(logspace=False)
+        if self.verbose:
+            print("Evaluating gradient...")
+
+        engine = self._engine(dataset)
+        ztz, zty, yty, dz_ty, inner, nsamples = \
+            engine.gradient_terms(subsample=subsample)
+        try:
+            negloglik, grad, _ = exact_nmll_reg_grad(
+                ztz, zty, yty, hparams, nsamples, dz_ty, inner)
+        except NUMERICAL_FAILURES:
+            return (constants.DEFAULT_SCORE_IF_PROBLEM,
+                    hyperparams - init_hparams)
+        if np.isnan(negloglik):
+            return (constants.DEFAULT_SCORE_IF_PROBLEM,
+                    hyperparams - init_hparams)
+        return float(negloglik), grad
+
+    def approximate_nmll(self, hyperparams, dataset, manual_settings=None):
+        """SLQ-approximated NMLL: a Nystrom preconditioner (the amortized
+        autoselect unless ``manual_settings`` pins it), then one batched
+        PCG over the fit column and the probes."""
+        self._run_singlepoint_nmll_prep(dataset, exact_method=False)
+        self.kernel.set_hyperparams(hyperparams, logspace=True)
+        if self.verbose:
+            print("Now building preconditioner...")
+        try:
+            negloglik = self._approximate_nmll_inner(dataset,
+                                                     manual_settings)
+        except NUMERICAL_FAILURES:
+            warnings.warn("Numerical failure encountered when calculating "
+                          f"approximate NMLL for {hyperparams}.")
+            self._nmll_rank_cache = None
+            return constants.DEFAULT_SCORE_IF_PROBLEM
+        if not np.isfinite(negloglik):
+            warnings.warn("Non-finite approximate NMLL encountered for "
+                          f"{hyperparams}.")
+            return constants.DEFAULT_SCORE_IF_PROBLEM
+        if self.verbose:
+            print("NMLL evaluation completed.")
+        return negloglik
+
+    def _approximate_nmll_inner(self, dataset, manual_settings=None):
+        settings = dict(constants.DEFAULT_NMLL_PARAMS)
+        engine = self._engine(dataset)
+        if manual_settings is not None:
+            for key in settings:
+                if key in manual_settings:
+                    settings[key] = manual_settings[key]
+            if settings["max_rank"] >= self.num_rffs:
+                settings["max_rank"] = self.num_rffs - 1
+            preconditioner = NystromPreconditioner(
+                engine, settings["max_rank"], False, self.random_seed,
+                settings["preconditioner_mode"])
+        else:
+            preconditioner = self._amortized_nmll_preconditioner(dataset)
+            engine = self._engine(dataset)
+
+        if self.verbose:
+            print("Now fitting...")
+        return slq_nmll_from_engine(
+            engine, preconditioner, self.random_seed,
+            settings["nsamples"], settings["nmll_iter"],
+            settings["nmll_tol"])
+
+    # ------------------------------------------------------------------
     def fit(self, dataset, preconditioner=None, tol=1e-6, max_iter=500,
             mode="cg", suppress_var=False, max_rank=3000, min_rank=512,
             autoselect_target_ratio=30., always_use_srht2=False,
@@ -107,3 +231,118 @@ class GPRegression(ModelBaseclass):
             print(times.report())
         if run_diagnostics:
             return n_iter, losses
+
+    # ------------------------------------------------------------------
+    def tune_hyperparams_crude(self, dataset, bounds=None, random_seed=123,
+                               max_bayes_iter=30, subsample=1.0):
+        """Crude tuner: the exact NMLL with lambda in closed form on a
+        grid, over a surrogate-guided search of the kernel's other
+        hyperparameters.  Returns (hyperparams, n_feval, best_score)."""
+        if subsample < 0.01 or subsample > 1:
+            raise RuntimeError("subsample is a row fraction and must lie "
+                               "in [0.01, 1].")
+        optim_bounds = self._run_pre_nmll_prep(dataset, bounds)
+        num_hparams = self.kernel.get_hyperparams().shape[0]
+        engine_factory = lambda: self._engine(dataset)
+
+        if num_hparams == 1:
+            best_score, hyperparams = shared_hparam_search(
+                np.array([]), self.kernel, engine_factory, optim_bounds,
+                subsample=subsample)
+            n_feval = 1
+        elif 1 < num_hparams < 4:
+            hyperparams, _, best_score, n_feval = surrogate_grid_tuning(
+                self.kernel, engine_factory, optim_bounds, random_seed,
+                max_bayes_iter, self.verbose, subsample=subsample)
+        else:
+            raise RuntimeError(
+                "Crude tuning covers kernels carrying one to three "
+                f"hyperparameters; this kernel has {num_hparams}.")
+
+        self.kernel.set_hyperparams(hyperparams, logspace=True)
+        return hyperparams, n_feval, best_score
+
+    # scipy.optimize option recipes per supported tuning method; the
+    # gradient flag marks methods whose cost function returns (f, grad).
+    _TUNER_RECIPES = {
+        "Powell": (lambda max_iter, tol:
+                   {"maxfev": max_iter, "xtol": 1e-1, "ftol": tol}, False),
+        "Nelder-Mead": (lambda max_iter, tol:
+                        {"maxfev": max_iter, "fatol": tol}, False),
+        "L-BFGS-B": (lambda max_iter, tol:
+                     {"maxiter": max_iter, "ftol": tol}, True),
+    }
+
+    def _tuning_start_point(self, starting_hyperparams, optim_bounds):
+        """Resolve/validate the optimizer's x0 inside the search box."""
+        current = self.kernel.get_hyperparams()
+        if starting_hyperparams is not None:
+            x0 = np.asarray(starting_hyperparams, dtype=np.float64)
+            if x0.ndim != 1 or x0.shape[0] != current.shape[0]:
+                raise RuntimeError(
+                    "starting_hyperparams must be a 1d array with one "
+                    "entry per kernel hyperparameter "
+                    f"({current.shape[0]} here).")
+            return x0
+        inside = np.all(current >= optim_bounds[:, 0]) and \
+            np.all(current <= optim_bounds[:, 1])
+        if inside:
+            return current
+        warnings.warn(
+            "Current kernel hyperparameters sit outside the search box; "
+            "restarting the optimizer from the box's midpoint instead.",
+            UserWarning)
+        return optim_bounds.mean(axis=1)
+
+    def tune_hyperparams(self, dataset, bounds=None, max_iter=50,
+                         tuning_method="Powell", starting_hyperparams=None,
+                         tol=1e-2, n_restarts=1, nmll_method="exact",
+                         manual_settings=None):
+        """Tune hyperparameters by handing an NMLL cost function to
+        scipy.optimize.minimize, with optional random restarts: Powell or
+        Nelder-Mead on either NMLL, L-BFGS-B on the exact NMLL with its
+        analytic gradient.  Returns (hyperparams, n_feval, best_score)."""
+        if tuning_method not in self._TUNER_RECIPES:
+            raise RuntimeError(
+                f"Unknown tuning_method {tuning_method!r}; choose one of "
+                f"{sorted(self._TUNER_RECIPES)}.")
+        make_options, uses_gradient = self._TUNER_RECIPES[tuning_method]
+
+        if nmll_method == "exact":
+            cost_fun = self.exact_nmll_gradient if uses_gradient \
+                else self.exact_nmll
+            args = (dataset,)
+        elif nmll_method == "approximate":
+            if uses_gradient:
+                raise RuntimeError(
+                    "The SLQ-approximated NMLL has no gradient, so it "
+                    "cannot drive L-BFGS-B; pick Powell or Nelder-Mead, "
+                    "or use nmll_method='exact'.")
+            cost_fun = self.approximate_nmll
+            args = (dataset, manual_settings)
+        else:
+            raise RuntimeError(
+                f"Unknown nmll_method {nmll_method!r}; choose 'exact' or "
+                "'approximate'.")
+
+        optim_bounds = self._run_pre_nmll_prep(dataset, bounds)
+        x0 = self._tuning_start_point(starting_hyperparams, optim_bounds)
+        restart_rng = np.random.default_rng(self.random_seed)
+
+        best_score, hyperparams, n_feval = np.inf, None, 0
+        for _ in range(n_restarts):
+            res = minimize(cost_fun, x0=x0, args=args,
+                           method=tuning_method,
+                           options=make_options(max_iter, tol),
+                           bounds=[tuple(row) for row in optim_bounds],
+                           jac=True if uses_gradient else None)
+            n_feval += res.nfev
+            if res.fun < best_score:
+                best_score, hyperparams = res.fun, res.x
+            if self.verbose:
+                print(f"Restart done; best NMLL so far {best_score}.")
+            x0 = restart_rng.uniform(optim_bounds[:, 0],
+                                     optim_bounds[:, 1])
+
+        self.kernel.set_hyperparams(hyperparams, logspace=True)
+        return hyperparams, n_feval, best_score

@@ -17,8 +17,9 @@ Two routes, as in xgpr_tpu:
 - the structured FWHT route (``proj`` None) in plain torch, over blocks of
   windows so memory stays O(N * block * P).
 
-The ``with_grad`` option (d features / d sigma) is not ported: tuning is
-its only caller, and it waits for slice B.
+``with_grad`` (features and d features / d sigma, for the exact NMLL
+gradient) is plain torch on both routes, over blocks of windows, as
+xgpr_tpu computes it outside its Pallas kernels.
 """
 import torch
 
@@ -45,13 +46,17 @@ def conv_row_scale(seq_lengths, width, num_freqs, scaling_type, dtype,
     return torch.full(nk.shape, base, dtype=dtype, device=device)
 
 
-def _sorf_window_blocks(x, radem, chi, width, block_size):
-    """Yield (start, g): g (N, blk, F) the SORF projections times chi of
-    windows [start, start + blk)."""
+def _sorf_window_blocks(x, radem, chi, width, block_size, proj=None):
+    """Yield (start, g): g (N, blk, F) the projections of windows
+    [start, start + blk): SORF times chi, or the dense proj (chi folded
+    in) when given."""
     n = x.shape[0]
     wins = window_slab(x, width)
     for start in range(0, wins.shape[1], block_size):
         blk = wins[:, start:start + block_size]
+        if proj is not None:
+            yield start, torch.matmul(blk, proj)
+            continue
         g = sorf_project(blk.reshape(-1, blk.shape[-1]), radem,
                          chi.shape[0]) * chi
         yield start, g.reshape(n, blk.shape[1], -1)
@@ -64,7 +69,7 @@ def _check_width(x, width):
 
 def conv_rbf_features(x, seq_lengths, radem, chi, sigma, width,
                       scaling_type=SCALING_NONE, block_size=32, proj=None,
-                      parts=False):
+                      parts=False, with_grad=False):
     """Accumulated cos/sin conv-SORF features.
 
     Args:
@@ -80,14 +85,22 @@ def conv_rbf_features(x, seq_lengths, radem, chi, sigma, width,
             structured route.
         parts: return the scaled (cos, sin) parts, each (N, F) in
             frequency order, without the block-layout assembly.
+        with_grad: also return d features / d sigma, (N, 2F, 1), in the
+            block layout (incompatible with parts).
 
     Returns:
-        (N, 2F) features in the block [cos | sin] layout, or (cos, sin).
+        (N, 2F) features in the block [cos | sin] layout, or (cos, sin),
+        or (features, dz_dsigma).
     """
     _check_width(x, width)
     num_freqs = chi.shape[0]
     row_scale = conv_row_scale(seq_lengths, width, num_freqs, scaling_type,
                                x.dtype, x.device)
+    if with_grad:
+        if parts:
+            raise ValueError("parts and with_grad are mutually exclusive")
+        return _conv_rbf_grad(x, seq_lengths, radem, chi, sigma, width,
+                              row_scale, block_size, proj)
     if proj is not None:
         c, s = conv_parts(x, seq_lengths, proj, sigma, width, row_scale)
     else:
@@ -107,6 +120,28 @@ def conv_rbf_features(x, seq_lengths, radem, chi, sigma, width,
     if parts:
         return c, s
     return assemble_cos_sin(c, s, radem.shape[-1])
+
+
+def _conv_rbf_grad(x, seq_lengths, radem, chi, sigma, width, row_scale,
+                   block_size, proj):
+    """Conv features and their sigma-derivatives: per valid window the
+    projection g contributes cos/sin(g sigma) and (-sin, cos)(g sigma) * g."""
+    acc = [torch.zeros((x.shape[0], chi.shape[0]), dtype=x.dtype,
+                       device=x.device) for _ in range(4)]
+    mask = window_mask(seq_lengths.to(x.device), width,
+                       x.shape[1] - width + 1).to(x.dtype)
+    for start, g in _sorf_window_blocks(x, radem, chi, width, block_size,
+                                        proj):
+        m = mask[:, start:start + g.shape[1], None]
+        cb, sb = sincos(g * sigma)
+        acc[0] += (cb * m).sum(dim=1)
+        acc[1] += (sb * m).sum(dim=1)
+        acc[2] += (-sb * g * m).sum(dim=1)
+        acc[3] += (cb * g * m).sum(dim=1)
+    c, s, dc, ds = (a * row_scale[:, None] for a in acc)
+    padded = radem.shape[-1]
+    return (assemble_cos_sin(c, s, padded),
+            assemble_cos_sin(dc, ds, padded)[:, :, None])
 
 
 def conv_maxpool_features(x, seq_lengths, radem, chi, width, block_size=32,

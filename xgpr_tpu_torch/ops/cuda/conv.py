@@ -17,7 +17,8 @@ folded in.  Window j of row i counts while j < seq_lengths[i] - w + 1.
 
 Each wrapper runs its plain version for CPU tensors and its kernel for
 CUDA tensors (float32 x and proj, int32 lengths); anything else raises.
-``PARTS_LAUNCHES`` and ``MAXPOOL_LAUNCHES`` count kernel launches.
+``PARTS_LAUNCHES`` and ``MAXPOOL_LAUNCHES`` count kernel launches by
+their shape (N, L, D, w, F).
 
 Before a launch the wrapper prepares the kernels' operands with the plain
 torch functions below: ``row_order`` (the rows ordered by valid-window
@@ -29,6 +30,8 @@ products; in operands.py, shared with K1 and K2).  ``window_slots``
 counts the (row, window) slots the kernels project against the valid
 windows.
 """
+from collections import Counter
+
 import torch
 import torch.nn.functional as F
 
@@ -37,8 +40,8 @@ from . import build
 from .feature_map import check_cuda_operands, kernel_sincos_flag
 from .operands import split_tf32
 
-PARTS_LAUNCHES = 0
-MAXPOOL_LAUNCHES = 0
+PARTS_LAUNCHES = Counter()
+MAXPOOL_LAUNCHES = Counter()
 
 
 def window_slab(x, width):
@@ -155,7 +158,6 @@ def conv_parts(x, seq_lengths, proj, sigma, width, row_scale=None,
                mode=None):
     """(c, s), each (N, F): masked window sums of cos/sin of
     (window @ proj) * sigma, times row_scale (N,) when given."""
-    global PARTS_LAUNCHES
     _check_shapes("conv_parts", x, seq_lengths, proj, width)
     extra = () if row_scale is None else (row_scale,)
     if all(t.device.type == "cpu" for t in (x, seq_lengths, proj) + extra):
@@ -180,13 +182,12 @@ def conv_parts(x, seq_lengths, proj, sigma, width, row_scale=None,
             c.data_ptr(), s.data_ptr(), n, l, dp, width, f, float(sigma),
             exact, stream)
     build.check(rc, "conv parts kernel")
-    PARTS_LAUNCHES += 1
+    PARTS_LAUNCHES[tuple(x.shape) + (width, f)] += 1
     return c, s
 
 
 def conv_maxpool(x, seq_lengths, proj, width):
     """(N, F): max(0, max over valid windows of window @ proj)."""
-    global MAXPOOL_LAUNCHES
     _check_shapes("conv_maxpool", x, seq_lengths, proj, width)
     if all(t.device.type == "cpu" for t in (x, seq_lengths, proj)):
         return conv_maxpool_plain(x, seq_lengths, proj, width)
@@ -205,5 +206,5 @@ def conv_maxpool(x, seq_lengths, proj, width):
             hi.data_ptr(), lo.data_ptr(), out.data_ptr(), n, l, dp, width, f,
             stream)
     build.check(rc, "conv maxpool kernel")
-    MAXPOOL_LAUNCHES += 1
+    MAXPOOL_LAUNCHES[tuple(x.shape) + (width, f)] += 1
     return out

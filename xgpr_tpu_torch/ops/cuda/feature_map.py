@@ -15,8 +15,10 @@ of proj's transpose is cached with proj (``projT_split``).
 
 ``rbf_feature_map`` runs the plain version for a CPU tensor and the
 kernel for a CUDA tensor; anything else raises.  ``LAUNCHES`` counts
-kernel launches.
+kernel launches by their shape (N, D, F).
 """
+from collections import Counter
+
 import torch
 
 from .. import sincos as _sincos
@@ -27,7 +29,7 @@ from . import build
 from .operands import (pad_depth, projT_split, sm_count, split_tf32,
                        tile_split)
 
-LAUNCHES = 0
+LAUNCHES = Counter()
 
 TILE = 128  # rows and frequencies per tile (csrc/tf32_gemm.cuh: GM, GN)
 
@@ -71,7 +73,6 @@ def check_cuda_operands(name, *tensors):
 
 def rbf_feature_map(x, proj, fit_intercept, padded, mode=None):
     """(N, 2F) block-layout RBF features of sigma-scaled rows x (N, D)."""
-    global LAUNCHES
     if x.dim() != 2 or proj.dim() != 2 or x.shape[1] != proj.shape[0]:
         raise ValueError(f"rbf_feature_map: shapes {tuple(x.shape)} and "
                          f"{tuple(proj.shape)} do not contract.")
@@ -99,5 +100,5 @@ def rbf_feature_map(x, proj, fit_intercept, padded, mode=None):
                                   out.data_ptr(), n, xh.shape[1], f,
                                   int(padded), scale, exact, rsplit, stream)
     build.check(rc, "feature map kernel")
-    LAUNCHES += 1
+    LAUNCHES[(n, x.shape[1], f)] += 1
     return out

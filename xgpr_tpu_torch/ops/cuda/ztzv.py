@@ -13,9 +13,12 @@ parts, and with an intercept cos column 0 equals the mask.
 
 ``ztzv_parts`` runs the plain version for CPU tensors and the kernel for
 CUDA tensors; anything else raises.  ``LAUNCHES`` counts kernel launches
-(one per call, covering its three CUDA launches).  Two calls on the same
+(one per call, covering its three CUDA launches) by their shape
+(R, D, F, K): K is 1 in a fit's CG and 26 in SLQ's.  Two calls on the same
 inputs give the same bits.
 """
+from collections import Counter
+
 import torch
 
 from .. import sincos as _sincos
@@ -26,7 +29,7 @@ from .feature_map import TILE, check_cuda_operands, kernel_sincos_flag
 from .operands import (pad_depth, projT_split, sm_count, split_tf32,
                        tile_split)
 
-LAUNCHES = 0
+LAUNCHES = Counter()
 
 ZV_RHS = 8  # right-hand sides per block of the zv pass when K > 1
 
@@ -50,7 +53,6 @@ def ztzv_parts(x, m, proj, sigma, v_c, v_s, fit_intercept, mode=None):
     x (R, D) raw rows; m (R,) row mask; proj (D, F); sigma a float;
     v_c / v_s (F, K) the cos/sin halves of the CG direction.
     """
-    global LAUNCHES
     n, d = x.shape
     f = proj.shape[1]
     k = v_c.shape[1]
@@ -93,5 +95,5 @@ def ztzv_parts(x, m, proj, sigma, v_c, v_s, fit_intercept, mode=None):
             osplit, rbf_norm_constant(f, fit_intercept),
             int(bool(fit_intercept)), exact, stream)
     build.check(rc, "ztzv kernel")
-    LAUNCHES += 1
+    LAUNCHES[(n, d, f, k)] += 1
     return oc, os_

@@ -9,8 +9,9 @@
   the feature map is x @ proj; on the card that product and the sincos run
   inside the feature-map kernel (ops/cuda/feature_map.py).
 
-These are the plain tensor versions; the ``_grad`` variants wait for
-tuning.
+These are the plain tensor versions.  The ``_grad`` variants (features
+and d features / d sigma, for the exact NMLL gradient) stay plain torch on
+every device: xgpr_tpu computes them outside its Pallas kernels too.
 """
 import math
 
@@ -69,6 +70,35 @@ def rbf_feature_map(x, radem, chi, fit_intercept: bool):
     arg = sorf_project(x, radem, num_freqs) * chi
     return cos_sin_features(arg, rbf_norm_constant(num_freqs, fit_intercept),
                             radem.shape[-1])
+
+
+def _features_and_grad(g, sigma, fit_intercept, padded):
+    """Features cos/sin(g * sigma) * s and their sigma-derivatives
+    (-sin * g, cos * g) * s, both in the block layout; g is the projection
+    of the unscaled rows."""
+    num_freqs = g.shape[1]
+    scale = torch.tensor(rbf_norm_constant(num_freqs, fit_intercept),
+                         dtype=g.dtype, device=g.device)
+    cosv, sinv = sincos(g * sigma)
+    cosv = cosv * scale
+    sinv = sinv * scale
+    feats = assemble_cos_sin(cosv, sinv, padded)
+    grad = assemble_cos_sin(-sinv * g, cosv * g, padded)
+    return feats, grad[:, :, None]
+
+
+def rbf_feature_map_grad(x, radem, chi, sigma, fit_intercept: bool):
+    """RBF features of the unscaled rows x and d(features)/d(sigma):
+    (N, 2F) and (N, 2F, 1)."""
+    g = sorf_project(x, radem, chi.shape[0]) * chi
+    return _features_and_grad(g, sigma, fit_intercept, radem.shape[-1])
+
+
+def rbf_feature_map_dense_grad(x, proj, sigma, fit_intercept: bool,
+                               padded: int):
+    """Dense-projection analogue of rbf_feature_map_grad."""
+    return _features_and_grad(torch.matmul(x, proj), sigma, fit_intercept,
+                              padded)
 
 
 def dense_sorf_projection(radem, chi, input_dim: int):

@@ -7,7 +7,8 @@
 - ``srht_ratio_check``: a row-subsampled sketch whose min eigenvalue
   predicts the rank needed.
 - ``NystromPreconditioner``: P^{-1} v = U ((prefactor / (S + lambda^2))
-  U^T v) + (v - U U^T v).
+  U^T v) + (v - U U^T v); P itself, P^{1/2} (to draw N(0, P) SLQ probes)
+  and log det P on the same rank-structured operator.
 
 The algebra after each sketch pass runs in float64 on the engine's device
 with torch.linalg (svd, eigh, qr), whatever the working dtype; eigh returns
@@ -144,5 +145,27 @@ class NystromPreconditioner:
         """P^{-1} @ xvec for (M, K) columns."""
         return self._reweight_range(xvec, self.prefactor * self.inv_eig)
 
+    def rev_batch_matvec(self, xvec):
+        """P @ xvec (non-inverted)."""
+        return self._reweight_range(xvec, self.eig / self.prefactor)
+
+    def matvec_for_sampling(self, xvec):
+        """P^{1/2} @ xvec, for drawing N(0, P) probes."""
+        root_spectrum = torch.sqrt(torch.clamp(self.eig, min=0)
+                                   / self.prefactor)
+        return self._reweight_range(xvec, root_spectrum)
+
+    def get_logdet(self):
+        """log det P, used to correct SLQ logdet estimates; each
+        eigenvalue ratio is clipped at 1e-12 as in xgpr_tpu."""
+        logdet = 1 + (self.eig - self.prefactor) / self.prefactor
+        return float(torch.sum(torch.log(torch.clamp(logdet, min=1e-12))))
+
+    def get_rank(self):
+        return int(self.inv_eig.shape[0])
+
     def get_zty(self):
         return self.z_trans_y
+
+    def get_yty(self):
+        return float(self.y_trans_y)
