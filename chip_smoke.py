@@ -3,6 +3,12 @@
 
     python3 chip_smoke.py              # the run below
     python3 chip_smoke.py --profile    # also profile a warm Conv1dRBF fit
+    python3 chip_smoke.py --design-mat-timing LABEL   # only time design_mat
+
+``--design-mat-timing`` builds the kernels and times Engine.design_mat
+alone (``design_mat_timing``) on the package beside the script; to
+compare two versions on one card, copy this script into the root of each
+version and run each copy in turn in one command.
 
 Run from the root of a checkout; needs one CUDA device, nvcc and nothing
 built beforehand.  Phases (any failure raises and the exit code is not 0):
@@ -29,7 +35,8 @@ built beforehand.  Phases (any failure raises and the exit code is not 0):
    rows and 16,384 held out.
 5. K3 and K4 against their plain versions on the card, in fp32: at the
    sequence slice's shapes (8192-row chunks of the corpus with the
-   models' own projections; K3 at the tuning width's F 1024 too), a
+   models' own projections; K3 at the tuning width's F 1024 and the
+   verify width's F 128 too), a
    ragged case, GraphRBF's w = 1 and D = 21.  At each slice shape, prints
    the kernel's time beside both bounds, the (row, window) slots its
    tiles project against the valid windows, and its achieved TFLOP/s on
@@ -60,10 +67,22 @@ built beforehand.  Phases (any failure raises and the exit code is not 0):
       approximate_nmll within 1% of exact_nmll there.
    No evaluation may return the penalty score, and K1 (at K = 26), K2
    and K3 must each have run during the phase.
+9. The streamed engine (``phase_streamed``): phase 6's fit and predict
+   again with the dataset streamed through the prefetcher (pinned
+   staging buffers, a copy stream, events).  Its CG iterations must be
+   within one of phase 6's and its predictions within PREDICT_RTOL x
+   max|pred| of phase 6's; prints one CG iteration's data pass split
+   into host assembly, copy and compute.
+10. The referee (``phase_referee``): at the 1M north star's verify width
+   (256 RFFs: K3 at F 128) and rank 64 on phase 6's rows, the Gram from
+   K3's float32 features with float64 chunk products, through
+   GramEngine: its SLQ within 1e-3 of the exact NMLL of the same Gram,
+   and approximate_nmll (same probes and seed) within 1e-6 of it.
 
 The launch counters count by shape.  The line before the last is one JSON
-object describing the kernels: one row per path (slice A, Conv1dRBF, the
-K4 path, tuning), kernel and launch shape less its row count, with the
+object describing the kernels: one row per path (slice A, Conv1dRBF,
+streamed Conv1dRBF, the referee, the K4 path, tuning), kernel and launch
+shape less its row count, with the
 launches at that shape (by row count) and the times and bound measured
 at it; a launch at a shape phases 2 and 5 did not check and time fails
 the run.  The last line is {"ok": true, "device": {...}}.
@@ -118,6 +137,15 @@ TUNE_RFFS, TUNE_ROWS, BAYES_ITER = 2048, 65_536, 30
 NMLL_RTOL = 0.01
 GRAD_POINT = HPARAMS + np.array([0.5, 0.5])
 GRAD_STEP, GRAD_RTOL = 1e-3, 0.005
+
+# The referee (phase 10): the 1M north star's verify width, 256 RFFs (K3
+# at F 128, one TILE_FREQS tile) and rank 64, on the sequence slice's
+# rows.  GramEngine's SLQ is held to the north star's 1e-3 of the exact
+# NMLL of the same Gram; the engine's SLQ to 1e-6 relative of
+# GramEngine's (same features, probes and preconditioner seed; the
+# engine's matvec products are float32 on the card, the Gram's float64).
+VERIFY_RFFS, VERIFY_RANK = 256, 64
+REFEREE_SLQ_RTOL, ENGINE_VS_GRAM_RTOL = 1e-3, 1e-6
 
 # Tolerances, fp32 on both sides with a different summation order:
 # features are O(1/sqrt(F)) in magnitude and match to ~1e-5 absolute;
@@ -509,11 +537,11 @@ def report_times(model, n_iter, predict_s, card, label):
 
 def phase_conv_kernels(torch, card, corpus, dev="cuda", chunk=CHUNK,
                        num_rffs=NUM_RFFS, init_rffs=INIT_RFFS,
-                       tune_rffs=TUNE_RFFS):
+                       tune_rffs=TUNE_RFFS, verify_rffs=VERIFY_RFFS):
     """K3 and K4 against their plain versions, at the shapes the main path
     launches them at (chunks of the corpus, the models' own projections:
-    the sequence slice's, and K3 at the tuning width too), a ragged case
-    and w = 1; each main-path shape is timed."""
+    the sequence slice's, and K3 at the tuning and verify widths too), a
+    ragged case and w = 1; each main-path shape is timed."""
     from xgpr_tpu_torch.kernels import Conv1dRBF, Conv1dTwoLayer
     from xgpr_tpu_torch.ops.conv import conv_row_scale
     from xgpr_tpu_torch.ops.cuda import conv
@@ -524,11 +552,14 @@ def phase_conv_kernels(torch, card, corpus, dev="cuda", chunk=CHUNK,
     k3 = Conv1dRBF(xdim, num_rffs, SEED, device=dev, kernel_spec_parms=spec)
     k3_tune = Conv1dRBF(xdim, tune_rffs, SEED, device=dev,
                         kernel_spec_parms=spec)
+    k3_verify = Conv1dRBF(xdim, verify_rffs, SEED, device=dev,
+                          kernel_spec_parms=spec)
     k4 = Conv1dTwoLayer(xdim, K4_RFFS, SEED, device=dev,
                         kernel_spec_parms={"conv_width": MOTIF_W,
                                            "init_rffs": init_rffs})
     proj3, proj4 = k3._dense_proj(), k4._dense_projs()[0]
     proj3_tune = k3_tune._dense_proj()
+    proj3_verify = k3_verify._dense_proj()
     sigma = float(np.exp(MOTIF_HPARAMS[1]))
 
     def t(a, dtype=k3.dtype):
@@ -553,7 +584,9 @@ def phase_conv_kernels(torch, card, corpus, dev="cuda", chunk=CHUNK,
     cases = {
         "K3": [("slice", x_slice, l_slice, proj3, MOTIF_W, row_scale(proj3)),
                (f"slice, tuning ({tune_rffs} RFFs)", x_slice, l_slice,
-                proj3_tune, MOTIF_W, row_scale(proj3_tune))] + others,
+                proj3_tune, MOTIF_W, row_scale(proj3_tune)),
+               (f"slice, verify ({verify_rffs} RFFs)", x_slice, l_slice,
+                proj3_verify, MOTIF_W, row_scale(proj3_verify))] + others,
         "K4": [("slice", x_slice, l_slice, proj4, MOTIF_W, None)] + others,
     }
     runs = {"K3": (lambda x, l, p, w, rs: conv.conv_parts(x, l, p, sigma, w,
@@ -682,7 +715,8 @@ def phase_conv_slice(torch, card, corpus, n_train=N_TRAIN, n_test=N_TEST,
     if profile:
         profile_fit(torch, model, dset, card)
     check(rho > MOTIF_SPEARMAN_FLOOR, "Conv1dRBF Spearman below the floor")
-    return {k: fit_counts[k] + predict_counts[k] for k in fit_counts}
+    return ({k: fit_counts[k] + predict_counts[k] for k in fit_counts},
+            n_iter, preds)
 
 
 def phase_k4_path(torch, card, corpus, n_train=K4_ROWS, n_test=N_TEST,
@@ -749,6 +783,132 @@ def phase_k4_path(torch, card, corpus, n_train=K4_ROWS, n_test=N_TEST,
           "Conv1dTwoLayer Spearman below the floor")
     print(f"Conv1dTwoLayer fit phases: {dict(model.fit_phase_times)} "
           f"[{card}]", flush=True)
+    return counts
+
+
+def phase_streamed(torch, card, corpus, stacked, n_train=N_TRAIN,
+                   n_test=N_TEST, dev="cuda", chunk=CHUNK,
+                   num_rffs=NUM_RFFS, variance_rffs=VARIANCE_RFFS):
+    """The sequence slice's fit and predict again, with the dataset
+    streamed (on the card through the prefetcher: pinned staging, a copy
+    stream, events), against the stacked fit's (CG iterations,
+    predictions) in ``stacked``; then one CG iteration's data pass split
+    into host assembly, copy and compute."""
+    from xgpr_tpu_torch import GPRegression, build_regression_dataset, config
+    from xgpr_tpu_torch.fitting.engine import Engine
+    from xgpr_tpu_torch.parallel.streaming import iteration_split
+    n_stacked, preds_stacked = stacked
+    x, y, lens = corpus
+    dset = build_regression_dataset(x[:n_train], y[:n_train], lens[:n_train],
+                                    chunk_size=chunk)
+    tex, te_l = x[n_train:n_train + n_test], lens[n_train:n_train + n_test]
+    model = GPRegression(num_rffs=num_rffs, variance_rffs=variance_rffs,
+                         kernel_choice="Conv1dRBF",
+                         kernel_settings={"conv_width": MOTIF_W},
+                         device=dev, verbose=False)
+    model.set_hyperparams(MOTIF_HPARAMS, dset)
+    limit = config.stacked_element_limit()
+    config.set_stacked_limit(1)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        n_iter, losses = model.fit(dset, mode="cg", run_diagnostics=True)
+        sync(torch, dev)
+        fit_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        preds = model.predict(tex, te_l)
+        predict_s = time.perf_counter() - t0
+        counts = read_counts()
+        engine = model._engine(dset)
+    finally:
+        config.set_stacked_limit(limit)
+    on_card = torch.device(dev).type == "cuda"
+    check(engine.mode == "streaming" and
+          (engine.prefetcher is not None) == on_card,
+          "the fit did not run on the prefetching streamed engine")
+    err = float(np.abs(preds - preds_stacked).max())
+    tol = PREDICT_RTOL * float(np.abs(preds_stacked).max())
+    print(f"streamed Conv1dRBF fit: {fit_s:.3f}s, CG iterations {n_iter} "
+          f"(stacked {n_stacked}), final relative residual {losses[-1]:.3e}; "
+          f"predictions vs the stacked fit's max_abs_err {err:.3e} (tol "
+          f"{tol:.3e}); launches {counts_text(counts)} [{card}]",
+          flush=True)
+    report_times(model, n_iter, predict_s, card, "streamed Conv1dRBF")
+    check(abs(n_iter - n_stacked) <= 1, "the streamed fit's CG iterations "
+                                        "differ from the stacked fit's")
+    check(err < tol, "streamed predictions disagree with the stacked fit's")
+    if on_card:
+        check(counts["K3"].total() > 0, "K3 was not launched during the "
+                                        "streamed fit")
+        vec = np.random.default_rng(5).standard_normal(model.num_rffs)
+        split = iteration_split(engine, Engine(model.kernel, dset,
+                                               mode="stacked"), vec)
+        print(f"streamed CG iteration's data pass ({split['chunks']} chunks "
+              f"of {chunk} rows): {split['streamed_s'] * 1e3:.1f} ms "
+              f"streamed; host assembly (padded_batches and the pinned "
+              f"fill) {split['host_s'] * 1e3:.1f} ms, copies "
+              f"{split['copy_s'] * 1e3:.1f} ms ({split['copy_gb_per_s']:.1f} "
+              f"GB/s), compute (the stacked pass) "
+              f"{split['compute_s'] * 1e3:.1f} ms [{card}]", flush=True)
+    return counts
+
+
+def phase_referee(torch, card, corpus, n_train=N_TRAIN, dev="cuda",
+                  chunk=CHUNK, verify_rffs=VERIFY_RFFS,
+                  verify_rank=VERIFY_RANK):
+    """GramEngine as the referee at the 1M north star's verify width on the
+    sequence slice's rows, pinned hyperparameters: the Gram from K3's
+    float32 features with float64 chunk products; its exact NMLL, its SLQ
+    NMLL, and approximate_nmll (the streaming engine's SLQ) with the same
+    rank, probes and seed."""
+    from xgpr_tpu_torch import GPRegression, build_regression_dataset
+    from xgpr_tpu_torch.constants import DEFAULT_NMLL_PARAMS as NMLL
+    from xgpr_tpu_torch.fitting.gram_engine import GramEngine
+    from xgpr_tpu_torch.models.regression import exact_nmll_from_design
+    from xgpr_tpu_torch.preconditioners.nystrom import NystromPreconditioner
+    from xgpr_tpu_torch.scoring.slq import slq_nmll_from_engine
+    x, y, lens = corpus
+    dset = build_regression_dataset(x[:n_train], y[:n_train], lens[:n_train],
+                                    chunk_size=chunk)
+    model = GPRegression(num_rffs=verify_rffs, kernel_choice="Conv1dRBF",
+                         kernel_settings={"conv_width": MOTIF_W},
+                         device=dev, verbose=False)
+    model.set_hyperparams(MOTIF_HPARAMS, dset)
+    reset_counts()
+    t0 = time.perf_counter()
+    design = model._engine(dset).design_mat()
+    gram = GramEngine(*design, model.kernel, n_train)
+    sync(torch, dev)
+    gram_s = time.perf_counter() - t0
+    lam = model.kernel.get_lambda()
+    exact = exact_nmll_from_design(*design, lam, n_train)
+    t0 = time.perf_counter()
+    precond = NystromPreconditioner(gram, verify_rank, False,
+                                    model.random_seed, "srht_2")
+    slq_gram = slq_nmll_from_engine(gram, precond, model.random_seed,
+                                    NMLL["nsamples"], NMLL["nmll_iter"],
+                                    NMLL["nmll_tol"])
+    gram_slq_s = time.perf_counter() - t0
+    (slq_engine, engine_s, _) = nmll_call(
+        torch, dev, model.approximate_nmll, MOTIF_HPARAMS, dset,
+        {"max_rank": verify_rank, "preconditioner_mode": "srht_2"})
+    counts = read_counts()
+    gap = rel_gap(slq_gram, exact)
+    engine_gap = rel_gap(slq_engine, slq_gram)
+    print(f"referee at {verify_rffs} RFFs, rank {verify_rank}, {n_train} "
+          f"rows: Gram (float64 chunk products) {gram_s:.3f}s, exact NMLL "
+          f"{exact:.6f}; GramEngine SLQ {slq_gram:.6f} in {gram_slq_s:.3f}s "
+          f"(gap to exact {gap:.3e}, gate {REFEREE_SLQ_RTOL}; achieved ratio "
+          f"{precond.achieved_ratio:.6g}); approximate_nmll {slq_engine:.6f} "
+          f"in {engine_s:.3f}s (gap to GramEngine's {engine_gap:.3e}, gate "
+          f"{ENGINE_VS_GRAM_RTOL}); launches {counts_text(counts)} [{card}]",
+          flush=True)
+    check(gap < REFEREE_SLQ_RTOL, "GramEngine's SLQ is not within 1e-3 of "
+                                  "the exact NMLL")
+    check(engine_gap < ENGINE_VS_GRAM_RTOL, "the engine's SLQ is not within "
+                                            "1e-6 of GramEngine's")
+    if torch.device(dev).type == "cuda":
+        check(counts["K3"].total() > 0, "K3 was not launched by the referee")
     return counts
 
 
@@ -1135,6 +1295,49 @@ def kernel_rows(path, counts, timed):
     return rows
 
 
+def design_mat_timing(torch, card, label, reps=3):
+    """Engine.design_mat's time on the card at two shapes: slice A's
+    262,144 x 84 rows at 8192 RFFs (8192-row chunks, K2 features) and
+    100,000 motif rows at 2048 RFFs (16,384-row chunks, K3 features), the
+    1M run's tune shape; the mean of ``reps`` warm calls each, and
+    exact_nmll's time and value at the pinned point.  Prints one line
+    beginning ``VARIANT <label>``."""
+    from xgpr_tpu_torch import GPRegression, build_regression_dataset
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) / reps
+
+    (x, y), _ = tabular_data(N_TRAIN, 10, N_FEATURES, seed=SEED)
+    rbf = GPRegression(num_rffs=NUM_RFFS, kernel_choice="RBF",
+                       device="cuda", verbose=False)
+    dset = build_regression_dataset(x, y, chunk_size=CHUNK)
+    rbf.set_hyperparams(HPARAMS, dset)
+    _, rbf_s = timed(rbf._engine(dset).design_mat)
+    rbf_exact, rbf_exact_s = timed(lambda: rbf.exact_nmll(HPARAMS, dset))
+    del rbf, dset
+
+    xs, ys, ls = motif_corpus(100_000)
+    conv = GPRegression(num_rffs=TUNE_RFFS, kernel_choice="Conv1dRBF",
+                        kernel_settings={"conv_width": MOTIF_W},
+                        device="cuda", verbose=False)
+    cset = build_regression_dataset(xs, ys, ls, chunk_size=16384)
+    conv.set_hyperparams(MOTIF_HPARAMS, cset)
+    _, conv_s = timed(conv._engine(cset).design_mat)
+    conv_exact, conv_exact_s = timed(
+        lambda: conv.exact_nmll(MOTIF_HPARAMS, cset))
+    print(f"VARIANT {label} RBF 262144x84 8192 RFFs design_mat "
+          f"{rbf_s:.4f} s, exact_nmll {rbf_exact_s:.4f} s ({rbf_exact!r}) | "
+          f"Conv1dRBF 100000 motif rows 2048 RFFs design_mat {conv_s:.4f} s,"
+          f" exact_nmll {conv_exact_s:.4f} s ({conv_exact!r}) [{card}]",
+          flush=True)
+
+
 def main(argv):
     if not (ROOT / "xgpr_tpu_torch" / "ops" / "cuda" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -1152,6 +1355,11 @@ def main(argv):
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     t_start = time.perf_counter()
     phase_build()
+    if "--design-mat-timing" in argv:
+        i = argv.index("--design-mat-timing")
+        design_mat_timing(torch, card, argv[i + 1] if i + 1 < len(argv)
+                          else "this")
+        return 0
     timed = phase_kernels(torch, card)
     t0 = time.perf_counter()
     (trx, tr_y), (tex, te_y) = tabular_data(N_TRAIN, N_TEST, N_FEATURES,
@@ -1166,11 +1374,14 @@ def main(argv):
     print(f"motif corpus: {N_TRAIN} + {N_TEST} rows x {MOTIF_L} x "
           f"{MOTIF_D}, made in {time.perf_counter() - t0:.2f}s", flush=True)
     timed.update(phase_conv_kernels(torch, card, corpus))
-    paths.append(("Conv1dRBF fit + predict",
-                  phase_conv_slice(torch, card, corpus,
-                                   profile="--profile" in argv)))
+    conv_counts, n_iter, preds = phase_conv_slice(
+        torch, card, corpus, profile="--profile" in argv)
+    paths.append(("Conv1dRBF fit + predict", conv_counts))
     paths.append(("K4 path", phase_k4_path(torch, card, corpus)))
     paths.append(("tuning", phase_tuning(torch, card, tab, corpus)))
+    paths.append(("streamed Conv1dRBF fit + predict",
+                  phase_streamed(torch, card, corpus, (n_iter, preds))))
+    paths.append(("referee", phase_referee(torch, card, corpus)))
     print(f"total {time.perf_counter() - t_start:.1f}s [{card}]", flush=True)
     kernels = [row for path, counts in paths
                for row in kernel_rows(path, counts, timed)]

@@ -15,7 +15,7 @@ import xgpr_tpu
 import xgpr_tpu_torch
 from xgpr_tpu.models.serialization import save_model
 from xgpr_tpu_torch import config
-from xgpr_tpu_torch.models.convert import load_jax_model
+from xgpr_tpu_torch.models.serialization import load_model
 from tests.utils.synthetic import sequence_data, spearman
 
 torch.set_num_threads(1)
@@ -147,7 +147,7 @@ def test_load_jax_conv_model(tmp_path, data, kernel_choice, settings):
     jm.fit(jd, mode="exact")
     path = tmp_path / "model.npz"
     save_model(jm, str(path))
-    tm = load_jax_model(str(path), device="cpu")
+    tm = load_model(str(path), device="cpu")
     assert tm.kernel.get_xdim() == jm.kernel.get_xdim() and \
         len(tm.kernel.get_xdim()) == 3
     assert tm.kernel_spec_parms == settings

@@ -1,6 +1,6 @@
 """A fitted xgpr_tpu model carried into the port through its checkpoint.
 
-``save_model`` (xgpr_tpu) writes the .npz, ``load_jax_model`` reads it.
+``save_model`` (xgpr_tpu) writes the .npz, the port's ``load_model`` reads it.
 The port regenerates radem and chi from the seed with the copied numpy
 code, so they must equal the JAX kernel's arrays exactly, and float64
 predictions and variance must match to 1e-10 relative (measured at
@@ -12,7 +12,8 @@ import torch
 
 import xgpr_tpu
 from xgpr_tpu.models.serialization import save_model
-from xgpr_tpu_torch.models.convert import from_numpy_state, load_jax_model
+from xgpr_tpu_torch.models.convert import from_numpy_state
+from xgpr_tpu_torch.models.serialization import load_model
 from tests.utils.synthetic import tabular_data
 
 torch.set_num_threads(1)
@@ -32,7 +33,7 @@ def test_load_jax_model_predicts_the_same(tmp_path, kernel_choice, settings):
     path = tmp_path / "model.npz"
     save_model(jm, str(path))
 
-    tm = load_jax_model(str(path), device="cpu")
+    tm = load_model(str(path), device="cpu")
     assert np.array_equal(tm.kernel.radem_diag.numpy(),
                           np.asarray(jm.kernel.radem_diag))
     assert np.array_equal(tm.kernel.chi_arr.numpy(),

@@ -113,7 +113,8 @@ CONV_CASES = [(300, 16, 64, 9, 256, "spread"),   # the motif slice's L, D, w
               (500, 16, 64, 9, 256, "equal"),    # all rows of one length
               (200, 10, 21, 4, 129, "spread"),   # D = 21
               (90, 7, 21, 1, 40, "equal"),       # w = 1, D = 21
-              (1000, 16, 64, 9, 4096, "spread")]  # a cut of the motif shape
+              (1000, 16, 64, 9, 4096, "spread"),  # a cut of the motif shape
+              (2048, 16, 64, 9, 128, "spread")]  # verify width: one F tile
 
 
 def _conv_inputs(dev, n, l, d, width, f, kind):

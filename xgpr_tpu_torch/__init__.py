@@ -26,7 +26,10 @@ def __getattr__(name):
     if name == "DatasetBaseclass":
         from .data.dataset import DatasetBaseclass
         return DatasetBaseclass
-    if name in ("from_numpy_state", "load_jax_model"):
-        from .models import convert
-        return getattr(convert, name)
+    if name == "from_numpy_state":
+        from .models.convert import from_numpy_state
+        return from_numpy_state
+    if name in ("save_model", "load_model"):
+        from .models import serialization
+        return getattr(serialization, name)
     raise AttributeError(f"module 'xgpr_tpu_torch' has no attribute {name!r}")

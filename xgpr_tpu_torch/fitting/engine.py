@@ -6,22 +6,28 @@ preconditioner) and the exact NMLL gradient's terms.  Each is a Python
 loop over fixed-shape padded chunks with tensors resident on the
 kernel's device:
 
-- "stacked": the whole padded dataset is copied to the device once (the
-  fast path, used when it has fewer raw elements than
-  config.stacked_element_limit());
-- "streaming": each chunk is copied to the device as it is reached.
+- "stacked": the whole padded dataset is copied to the device once, chunk
+  by chunk into one preallocated tensor (the fast path, used when it has
+  fewer raw elements than config.stacked_element_limit());
+- "streaming": each chunk is copied to the device as it is reached.  On
+  the card the copies go through parallel/streaming.py's prefetcher
+  (pinned staging buffers, a copy stream, events), so the copy of the
+  next chunk overlaps the compute on this one; on the CPU each chunk is
+  converted in place.
 
 Padded rows are zeroed with the row mask after featurisation, so padding
-never perturbs a reduction.  Each chunk's products run in the working
-dtype (float32 on the card); the sums over chunks, and every result, are
-float64.  That costs O(M * K) per chunk and keeps the rounding of a
-float32 sum over hundreds of thousands of rows out of the solver.  The
-exact NMLL gradient's chunk products are float64 too (features stay in
-the working dtype): its sigma component is a small difference of large
-terms, on which float32 products put 0.1-0.7% at 262,144 rows.
-Features come from the kernel's feature fn (the K2 kernel, or for the
-convolution kernels the K3/K4 kernels, on the card).  Sequence lengths
-travel with their chunk as int32 tensors on the device (None for
+never perturbs a reduction.  The CG matvec's and the sketch's chunk
+products run in the working dtype (float32 on the card); the sums over
+chunks, and every result, are float64.  That costs O(M * K) per chunk and
+keeps the rounding of a float32 sum over hundreds of thousands of rows
+out of the solver.  The design matrix's and the exact NMLL gradient's
+chunk products are float64 too (features stay in the working dtype):
+with float32 products the exact NMLL is rough in sigma at 262,144 rows
+(its central differences 31% off), the gradient's sigma component 0.1-0.7%
+off, and at 1e6 rows the float32 noise in Z^T Z is of the order of
+lambda^2.  Features come from the kernel's feature fn (the K2 kernel, or
+for the convolution kernels the K3/K4 kernels, on the card).  Sequence
+lengths travel with their chunk as int32 tensors on the device (None for
 fixed-vector data); padded rows carry the full padded length
 (data/dataset.py), so row averaging stays finite before the mask zeroes
 them.
@@ -33,6 +39,7 @@ from .. import config
 from ..data.dataset import OnlineDataset
 from ..ops.contract import mm, parts_contract, ztzv_contract
 from ..ops.sorf import srht_rows
+from ..parallel.streaming import ChunkPrefetcher
 from ..utils import rng as state_rng
 
 
@@ -56,8 +63,12 @@ class Engine:
             raise ValueError("engine mode must be stacked or streaming")
         self.mode = mode
         self._stacked = None
+        self.prefetcher = None
         if mode == "stacked":
             self._build_stack()
+        elif self.device.type == "cuda":
+            self.prefetcher = ChunkPrefetcher(dataset, self._dtype,
+                                              self.device)
 
     # ------------------------------------------------------------------
     def _to_device(self, arr):
@@ -71,20 +82,27 @@ class Engine:
                                device=self.device)
 
     def _build_stack(self):
-        xs, ys, ls, ms = [], [], [], []
-        for xb, yb, lb, mb in self.dataset.padded_batches(with_y=True):
-            xs.append(np.asarray(xb))
-            ys.append(np.asarray(yb, dtype=np.float64))
-            ls.append(lb)
-            ms.append(mb)
+        """Copy the padded chunks into one device tensor per field, chunk
+        by chunk: the host never holds a second copy of the dataset."""
+        n = self.dataset.get_n_batches()
+        stack, masks = None, []
+        for i, (xb, yb, lb, mb) in enumerate(
+                self.dataset.padded_batches(with_y=True)):
+            fields = {"x": self._to_device(xb), "y": self._to_device(yb),
+                      "m": self._to_device(mb),
+                      "l": self._lengths_to_device(lb)}
+            if stack is None:
+                stack = {k: None if t is None else
+                         t.new_empty((n,) + tuple(t.shape))
+                         for k, t in fields.items()}
+            for k, t in fields.items():
+                if t is not None:
+                    stack[k][i] = t
+            masks.append(mb)
         # Host copy of the masks: row subsampling reads mask values on the
         # host without a device round trip.
-        self._m_host = np.stack(ms)
-        self._stacked = {"x": self._to_device(np.stack(xs)),
-                         "y": self._to_device(np.stack(ys)),
-                         "l": None if ls[0] is None else
-                         self._lengths_to_device(np.stack(ls)),
-                         "m": self._to_device(self._m_host)}
+        self._m_host = np.stack(masks)
+        self._stacked = stack
 
     def _params(self):
         return self.kernel.feature_params()
@@ -98,6 +116,9 @@ class Engine:
                 yield (s["x"][i], s["y"][i],
                        None if s["l"] is None else s["l"][i], s["m"][i],
                        self._m_host[i])
+            return
+        if self.prefetcher is not None:
+            yield from self.prefetcher.chunks(with_y)
             return
         for xb, yb, lb, mb in self.dataset.padded_batches(with_y=with_y):
             yield (self._to_device(xb),
@@ -147,13 +168,14 @@ class Engine:
         return self.ztzv(q_mat)
 
     def design_mat(self):
-        """(Z^T Z, Z^T y, y^T y) in one pass."""
+        """(Z^T Z, Z^T y, y^T y) in one pass, each chunk's products in
+        float64 from working-dtype features."""
         m = self.num_rffs
         ztz, zty, yty = self._zeros(m, m), self._zeros(m), self._zeros()
         params = self._params()
         for xb, yb, lb, mb, _ in self._batches():
-            z = self._features(params, xb, lb, mb)
-            ym = yb * mb
+            z = self._features(params, xb, lb, mb).double()
+            ym = (yb * mb).double()
             ztz += mm(z.T, z)
             zty += mm(z.T, ym)
             yty += ym @ ym

@@ -1,13 +1,11 @@
-"""Carry a fitted xgpr_tpu model across to the port.
+"""Carry a fitted model's state into a port model.
 
-The JAX package's checkpoint (xgpr_tpu/models/serialization.py:save_model)
-is an .npz holding a JSON ``_meta`` record and the arrays hyperparams,
-weights and var.  The projection state (radem, chi) is not stored: it
-regenerates from the seed through utils/rng.py, which is the JAX package's
-own numpy code, so the port's state equals the JAX model's bit for bit.
+A checkpoint (either package's models/serialization.py) holds a JSON
+``_meta`` record and the arrays hyperparams, weights and var.  The
+projection state (radem, chi) is not stored: it regenerates from the seed
+through utils/rng.py, which is the JAX package's own numpy code, so the
+port's state equals the JAX model's bit for bit.
 """
-import json
-
 import numpy as np
 import torch
 
@@ -24,8 +22,9 @@ def from_numpy_state(meta, arrays, device="cuda"):
     """
     cls_name = meta.get("class", "GPRegression")
     if cls_name != "GPRegression":
-        raise RuntimeError(f"Only GPRegression models can be converted; "
-                           f"got {cls_name}.")
+        raise RuntimeError(
+            f"Only GPRegression models can be loaded; got {cls_name} "
+            "(classification is not ported yet).")
     if not meta.get("exact_var_calculation", True):
         raise RuntimeError("Models with the Nystrom (Linear-kernel) "
                            "variance cannot be converted yet.")
@@ -47,11 +46,3 @@ def from_numpy_state(meta, arrays, device="cuda"):
     if "var" in arrays:
         model.var = torch.as_tensor(np.asarray(arrays["var"]), **opts)
     return model
-
-
-def load_jax_model(path, device="cuda"):
-    """Read an .npz written by xgpr_tpu's save_model into a port model."""
-    with np.load(path, allow_pickle=False) as data:
-        meta = json.loads(bytes(data["_meta"].tobytes()).decode())
-        arrays = {k: data[k] for k in data.files if k != "_meta"}
-    return from_numpy_state(meta, arrays, device)

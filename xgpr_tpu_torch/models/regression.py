@@ -44,6 +44,21 @@ NUMERICAL_FAILURES = (FloatingPointError, torch.linalg.LinAlgError,
                       np.linalg.LinAlgError)
 
 
+def exact_nmll_from_design(z_trans_z, z_trans_y, y_trans_y, lambda_,
+                           ndatapoints):
+    """The exact NMLL from a design-matrix triple (``design_mat`` of an
+    Engine or a GramEngine): the Cholesky factor of Z^T Z + lambda^2 I in
+    float64 on the triple's device, then the closed form over the
+    amplitude.  Raises a NUMERICAL_FAILURES error when the matrix is not
+    positive definite; nan when the closed form fails."""
+    chol, weights = direct_weight_calc(z_trans_z, z_trans_y, lambda_)
+    nll1 = float(0.5 * (y_trans_y - z_trans_y @ weights))
+    nll2 = float(torch.sum(torch.log(torch.diagonal(chol))))
+    negloglik, _ = optimize_alpha_beta(lambda_, np.array([nll1, nll2]),
+                                       ndatapoints, z_trans_z.shape[0])
+    return negloglik
+
+
 class GPRegression(ModelBaseclass):
     """GP regression on random Fourier features."""
 
@@ -91,22 +106,12 @@ class GPRegression(ModelBaseclass):
         the model's device)."""
         self._run_singlepoint_nmll_prep(dataset, exact_method=True)
         self.kernel.set_hyperparams(hyperparams, logspace=True)
-        ndatapoints = dataset.get_ndatapoints()
-        engine = self._engine(dataset)
-        z_trans_z, z_trans_y, y_trans_y = engine.design_mat()
+        design = self._engine(dataset).design_mat()
         try:
-            chol, weights = direct_weight_calc(z_trans_z, z_trans_y,
-                                               self.kernel.get_lambda())
+            negloglik = exact_nmll_from_design(
+                *design, self.kernel.get_lambda(), dataset.get_ndatapoints())
         except NUMERICAL_FAILURES:
-            warnings.warn("Design matrix is numerically singular at "
-                          f"{hyperparams}; returning the penalty score.")
-            return constants.DEFAULT_SCORE_IF_PROBLEM
-
-        nll1 = float(0.5 * (y_trans_y - z_trans_y @ weights))
-        nll2 = float(torch.sum(torch.log(torch.diagonal(chol))))
-        negloglik, _ = optimize_alpha_beta(
-            self.kernel.get_lambda(), np.array([nll1, nll2]), ndatapoints,
-            self.kernel.get_num_rffs())
+            negloglik = np.nan
         if np.isnan(negloglik):
             warnings.warn("Design matrix is numerically singular at "
                           f"{hyperparams}; returning the penalty score.")

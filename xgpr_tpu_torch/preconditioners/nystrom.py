@@ -25,6 +25,7 @@ this changes nothing.
 import numpy as np
 import torch
 
+from .. import config
 from ..ops.contract import mm
 from ..ops.sorf import srht_rows
 from ..utils import rng as state_rng
@@ -163,6 +164,40 @@ class NystromPreconditioner:
 
     def get_rank(self):
         return int(self.inv_eig.shape[0])
+
+    def to_state(self):
+        """Numpy snapshot sufficient to rebuild this object without an
+        engine or any dataset pass, in xgpr_tpu's layout (an ``.npz`` of it
+        loads in either package)."""
+        state = {"u_mat": self.u_mat.cpu().numpy(),
+                 "eig": self.eig.cpu().numpy(),
+                 "achieved_ratio": np.float64(self.achieved_ratio),
+                 "prefactor": np.float64(self.prefactor),
+                 "y_trans_y": np.float64(self.y_trans_y)}
+        if self.z_trans_y is not None:
+            state["z_trans_y"] = self.z_trans_y.cpu().numpy()
+        return state
+
+    @classmethod
+    def from_state(cls, state, device="cuda"):
+        """Rebuild from a ``to_state`` snapshot (e.g. ``np.load`` of an
+        ``.npz`` it was saved into, by either package) on ``device``, in
+        float64 like a preconditioner built here."""
+        dev = config.resolve_device(device)
+
+        def tensor(key):
+            return torch.as_tensor(np.asarray(state[key]),
+                                   dtype=torch.float64, device=dev)
+        self = cls.__new__(cls)
+        self.u_mat = tensor("u_mat")
+        self.eig = tensor("eig")
+        self.inv_eig = torch.where(self.eig > 1e-14, 1.0 / self.eig, 0.0)
+        self.achieved_ratio = float(state["achieved_ratio"])
+        self.prefactor = float(state["prefactor"])
+        self.y_trans_y = float(state["y_trans_y"])
+        self.z_trans_y = tensor("z_trans_y") if "z_trans_y" in state \
+            else None
+        return self
 
     def get_zty(self):
         return self.z_trans_y
