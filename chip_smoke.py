@@ -23,7 +23,9 @@ built beforehand.  Phases (any failure raises and the exit code is not 0):
    and 26 and at a ragged one with masked rows; two K1 calls on the same
    inputs must be bitwise equal.  Prints each max error and, at every
    shape the main path launches, each kernel's time beside the plain
-   version's.
+   version's.  Then the same in the sincos modes "fast" and "poly", each
+   kernel against the plain version of the same mode, with a guard case
+   (arguments past POLY_ARG_LIMIT, which take the builtin).
 3. Slice A at a real size: 262,144 x 84 training rows, 8192 RFFs, RBF,
    fit(mode="cg") with the autoselected Nystrom preconditioner, then
    predict(get_var=True) on 16,384 rows.  Checks CG convergence, finite
@@ -40,12 +42,20 @@ built beforehand.  Phases (any failure raises and the exit code is not 0):
    ragged case, GraphRBF's w = 1 and D = 21.  At each slice shape, prints
    the kernel's time beside both bounds, the (row, window) slots its
    tiles project against the valid windows, and its achieved TFLOP/s on
-   the valid-window work.
+   the valid-window work.  K3 again in "fast" and "poly", with a guard
+   case.
 6. The sequence slice: Conv1dRBF, 8192 RFFs, fit(mode="cg") with the
    autoselected preconditioner (the model prints the rank it chose),
    predict(get_var=True).  Checks CG convergence, that K3 ran during fit
    and during predict, finite predictions, var >= 0, 4096 predictions
    against the plain K3, and held-out Spearman > 0.75.
+   6b. The paths under each sincos mode (``phase_mode_paths``): with
+   ``set_sincos_mode("fast")``, then "poly", slice A refit and predicted
+   (K1, K2) and phase 6's held-out rows predicted again (K3); CG
+   converged, predictions within 1e-4 x max|pred| of the same mode's
+   plain path and within 1e-3 x max|pred| of the "hi" run's, Spearman
+   above the slice's floor, every launch in the mode.  Prints each
+   mode's kernel times beside "hi"'s.
 7. The K4 path on 65,536 rows of the corpus: Conv1dTwoLayer (init_rffs
    1024, 4096 RFFs) fit by CG and predict with variance, then FastConv1d
    on 4096 rows.  Checks convergence, that K4 and K2 ran, agreement with
@@ -78,11 +88,22 @@ built beforehand.  Phases (any failure raises and the exit code is not 0):
    K3's float32 features with float64 chunk products, through
    GramEngine: its SLQ within 1e-3 of the exact NMLL of the same Gram,
    and approximate_nmll (same probes and seed) within 1e-6 of it.
+11. The classifiers (``phase_rbf_classifier``, ``phase_conv_classifier``):
+   GPClassification fit (autoselected preconditioner, softmax NCG) and
+   predict, at 8192 RFFs: RBF on 262,144 + 16,384 rows x 84 features of
+   the JAX suite's classification generator (5 classes; K2), Conv1dRBF on
+   65,536 motif rows with the target cut at its quartiles (4 classes;
+   K3).  Gates: the objective never rises, probability rows sum to 1 and
+   4096 of them agree with the plain feature map's within 1e-5, K2 / K3
+   ran during fit and predict, the engine stayed on the card, held-out
+   accuracy at or above the floor.  Prints one NCG iteration's two data
+   passes timed apart.
 
-The launch counters count by shape.  The line before the last is one JSON
-object describing the kernels: one row per path (slice A, Conv1dRBF,
-streamed Conv1dRBF, the referee, the K4 path, tuning), kernel and launch
-shape less its row count, with the
+The launch counters count by shape and, for K1-K3, sincos mode.  The line
+before the last is one JSON object describing the kernels: one row per
+path (slice A, Conv1dRBF, both under "fast" and "poly", streamed
+Conv1dRBF, the referee, the K4 path, tuning, the two classifiers),
+kernel and launch shape less its row count, with the
 launches at that shape (by row count) and the times and bound measured
 at it; a launch at a shape phases 2 and 5 did not check and time fails
 the run.  The last line is {"ok": true, "device": {...}}.
@@ -147,6 +168,27 @@ GRAD_STEP, GRAD_RTOL = 1e-3, 0.005
 VERIFY_RFFS, VERIFY_RANK = 256, 64
 REFEREE_SLQ_RTOL, ENGINE_VS_GRAM_RTOL = 1e-3, 1e-6
 
+# The classifiers (slice D1).  RBF: the JAX suite's classification
+# generator (tests/utils/synthetic.py:classification_data) at slice A's
+# shape, 262,144 + 16,384 rows x 84 features, 5 classes.  Conv1dRBF: the
+# motif corpus, its target cut at its quartiles into 4 classes, 65,536
+# training rows and the 16,384 held-out ones.  8192 RFFs, chunk 8192, the
+# autoselected preconditioner.  The hyperparameters: RBF from a CPU grid
+# on 16,384 rows at 1024 RFFs; Conv1dRBF the regression slice's tuned
+# sigma with the RBF classifier's lambda.  Each accuracy floor is the
+# held-out accuracy of a float64 CPU fit of both packages on the first
+# 16,384 training rows of the same data at 1024 RFFs (RBF 0.960999,
+# Conv1dRBF 0.512695, the same in both), less 0.01
+# (tests/torch_port/classifier_floors.py; PERF.md).
+CLASS_HPARAMS = np.log(np.array([0.3, 0.03]))
+CLASS_N_CLASSES = 5
+CLASS_ACC_FLOOR = 0.9509
+CONV_CLASS_ROWS = 65_536
+CONV_CLASS_HPARAMS = np.array([np.log(0.3), MOTIF_HPARAMS[1]])
+CONV_CLASS_ACC_FLOOR = 0.5026
+# Probability rows sum to 1, and agree with the plain feature map's, to:
+PROB_ATOL = 1e-5
+
 # Tolerances, fp32 on both sides with a different summation order:
 # features are O(1/sqrt(F)) in magnitude and match to ~1e-5 absolute;
 # the matvec sums R * F products, so it is held to 1e-4 of max |ref|; the
@@ -156,6 +198,11 @@ FEATURE_ATOL = 1e-5
 ZTZV_RTOL = 1e-4
 CONV_RTOL = 1e-4
 PREDICT_RTOL = 1e-4
+# The sincos modes beside "hi" that K1, K2 and K3 are instantiated for,
+# and the bound on a mode's predictions against the "hi" run's, relative to
+# max|pred|.
+SINCOS_MODES = ("fast", "poly")
+MODE_RTOL = 1e-3
 
 # Published H100 SXM peaks (NVIDIA data sheet): dense TF32 on the tensor
 # cores, fp32 on CUDA cores and HBM3 bandwidth.  The bounds count each
@@ -186,6 +233,27 @@ def tabular_data(n_train, n_test, n_features, noise=0.1, seed=123):
          + 0.5 * np.tanh(x @ w1 * (x @ w2)))
     y = y + noise * rng.standard_normal(n)
     return (x[:n_train], y[:n_train]), (x[n_train:], y[n_train:])
+
+
+def classification_data(n_train, n_test, n_features, n_classes, seed=123):
+    """The JAX suite's synthetic classification generator
+    (tests/utils/synthetic.py:classification_data), copied so that this
+    script needs nothing from the test tree: classes from the argmax of
+    noisy, mildly nonlinear logits around random centres."""
+    rng = np.random.default_rng(seed)
+    n = n_train + n_test
+    x = rng.standard_normal((n, n_features))
+    centers = rng.standard_normal((n_classes, n_features)) * 1.5
+    logits = x @ centers.T + 0.5 * np.sin(x[:, :1]) * \
+        rng.standard_normal((1, n_classes))
+    y = np.argmax(logits + 0.3 * rng.standard_normal((n, n_classes)),
+                  axis=1).astype(np.int64)
+    return (x[:n_train], y[:n_train]), (x[n_train:], y[n_train:])
+
+
+def quartile_classes(y):
+    """A regression target cut at its quartiles into 4 classes."""
+    return np.digitize(y, np.quantile(y, [0.25, 0.5, 0.75])).astype(np.int64)
 
 
 def motif_corpus(n_rows, seq_len=MOTIF_L, dim=MOTIF_D, width=MOTIF_W,
@@ -346,9 +414,24 @@ def timed_entry(name, key, err, ms, plain_ms, kb, shape):
                               bound=kb, shape=shape)}
 
 
-def phase_kernels(torch, card):
-    """K1 and K2 against their plain versions on the card, timed at every
-    shape the main path launches them at."""
+def guard_dense(torch, rng, t, n, d, f):
+    """(x, proj) whose row 0 takes arguments past POLY_ARG_LIMIT: one
+    nonzero, 5e4, against a proj rounded to TF32, so that each argument is
+    one exact product in the kernel's 3xTF32 sum and in the plain fp32
+    product alike (and sigma must be 1)."""
+    from xgpr_tpu_torch.ops.cuda.operands import split_tf32
+    x = t(rng.standard_normal((n, d)) * 0.5)
+    x[0] = 0.0
+    x[0, 0] = 5e4
+    proj = split_tf32(t(rng.standard_normal((d, f)) * 0.5))[0].contiguous()
+    return x, proj
+
+
+def phase_kernels(torch, card, mode="hi"):
+    """K1 and K2 in sincos ``mode`` against their plain versions in the
+    same mode on the card, timed at every shape the main path launches
+    them at; the ragged cases and a guard case (arguments past
+    POLY_ARG_LIMIT) are checked, not timed."""
     from xgpr_tpu_torch.kernels import RBF, Conv1dTwoLayer
     from xgpr_tpu_torch.ops.cuda import feature_map, ztzv
     dev = torch.device("cuda")
@@ -381,79 +464,88 @@ def phase_kernels(torch, card):
         cases.append((t(rng.standard_normal((257, 10)) * 0.5),
                       t(rng.standard_normal((10, 200)) * 0.7), 16,
                       intercept, f"ragged intercept={intercept}"))
+    cases.append((*guard_dense(torch, rng, t, 300, 16, 256), 16, True,
+                  "ragged guard"))
     for x, pr, padded, intercept, label in cases:
         n = x.shape[0]
-        got = feature_map.rbf_feature_map(x, pr, intercept, padded)
-        want = feature_map.rbf_feature_map_plain(x, pr, intercept, padded)
+        got = feature_map.rbf_feature_map(x, pr, intercept, padded, mode)
+        want = feature_map.rbf_feature_map_plain(x, pr, intercept, padded,
+                                                 mode)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        print(f"K2 feature map {label}: N={n} D={pr.shape[0]} "
+        print(f"K2 feature map ({mode}) {label}: N={n} D={pr.shape[0]} "
               f"F={pr.shape[1]} padded={padded} max_abs_err={err:.3e} "
               f"(tol {FEATURE_ATOL:g})", flush=True)
-        check(err < FEATURE_ATOL, f"K2 {label} disagrees ({err})")
+        check(err < FEATURE_ATOL, f"K2 ({mode}) {label} disagrees ({err})")
         if label.startswith("ragged"):
             continue
         ms = time_ms(torch, lambda: feature_map.rbf_feature_map(
-            x, pr, intercept, padded))
+            x, pr, intercept, padded, mode))
         plain_ms = time_ms(torch, lambda: feature_map.rbf_feature_map_plain(
-            x, pr, intercept, padded))
+            x, pr, intercept, padded, mode))
         mm_ms = time_ms(torch, lambda: torch.matmul(x, pr))
         d, f = pr.shape
         kb = bound(4 * (n * d + d * f + n * 2 * f), 2 * n * d * f)
-        print(f"K2 time at {label} shape: kernel {ms:.4f} ms, plain "
+        print(f"K2 ({mode}) time at {label} shape: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, {bound_text(kb)}; projection matmul "
               f"alone (partial yardstick) {mm_ms:.4f} ms [{card}]",
               flush=True)
         results.update(timed_entry(
-            "K2", (d, f), err, ms, plain_ms, kb,
-            f"N {n}, D {d}, F {f}, padded {padded}"))
+            "K2", (d, f, mode), err, ms, plain_ms, kb,
+            f"N {n}, D {d}, F {f}, padded {padded}, sincos {mode}"))
 
     # --- K1: slice shape for K = 1, 26 and a ragged masked case --------
     sigma = float(np.exp(HPARAMS[1]))
-    k1_cases = [(CHUNK, proj, 1, sigma, "slice K=1"),
-                (CHUNK, proj, 26, sigma, "slice K=26"),
+    xg, pg = guard_dense(torch, rng, t, 1000, 16, 300)
+    k1_cases = [(CHUNK, proj, 1, sigma, "slice K=1", None),
+                (CHUNK, proj, 26, sigma, "slice K=26", None),
                 (2000, t(rng.standard_normal((N_FEATURES, 500)) * 0.3), 3,
-                 0.7, "ragged")]
-    for n, pr, k, sig, label in k1_cases:
-        x = t(rng.standard_normal((n, pr.shape[0])))
+                 0.7, "ragged", None),
+                (xg.shape[0], pg, 2, 1.0, "ragged guard", xg)]
+    for n, pr, k, sig, label, xfix in k1_cases:
+        x = t(rng.standard_normal((n, pr.shape[0]))) if xfix is None \
+            else xfix
         m = t((rng.random(n) > 0.25).astype(np.float32))
         vc = t(rng.standard_normal((pr.shape[1], k)))
         vs = t(rng.standard_normal((pr.shape[1], k)))
         k1_err = 0.0
         for intercept in (True, False):
-            oc, os_ = ztzv.ztzv_parts(x, m, pr, sig, vc, vs, intercept)
-            rc, rs = ztzv.ztzv_parts_plain(x, m, pr, sig, vc, vs, intercept)
+            oc, os_ = ztzv.ztzv_parts(x, m, pr, sig, vc, vs, intercept, mode)
+            rc, rs = ztzv.ztzv_parts_plain(x, m, pr, sig, vc, vs, intercept,
+                                           mode)
             torch.cuda.synchronize()
             scale = max(1.0, float(rc.abs().max()), float(rs.abs().max()))
             err = max(float((oc - rc).abs().max()),
                       float((os_ - rs).abs().max()))
-            print(f"K1 ztzv {label} intercept={intercept}: R={n} "
+            print(f"K1 ztzv ({mode}) {label} intercept={intercept}: R={n} "
                   f"D={pr.shape[0]} F={pr.shape[1]} K={k} "
                   f"max_abs_err={err:.3e} max|ref|={scale:.3e} "
                   f"(tol {ZTZV_RTOL:g} * max|ref|)", flush=True)
-            check(err < ZTZV_RTOL * scale, f"K1 {label} disagrees ({err})")
+            check(err < ZTZV_RTOL * scale,
+                  f"K1 ({mode}) {label} disagrees ({err})")
             k1_err = max(k1_err, err)
-        if label == "ragged":
+        if label.startswith("ragged"):
             continue
         if k == 1:
-            again = ztzv.ztzv_parts(x, m, pr, sig, vc, vs, False)
+            again = ztzv.ztzv_parts(x, m, pr, sig, vc, vs, False, mode)
             torch.cuda.synchronize()
             same = torch.equal(again[0], oc) and torch.equal(again[1], os_)
-            print(f"K1 determinism at slice shape (K=1): two calls "
+            print(f"K1 ({mode}) determinism at slice shape (K=1): two calls "
                   f"bitwise equal: {same}", flush=True)
             check(same, "two K1 calls on the same inputs differ")
         d, f = pr.shape
         ms = time_ms(torch, lambda: ztzv.ztzv_parts(
-            x, m, pr, sig, vc, vs, True))
+            x, m, pr, sig, vc, vs, True, mode))
         plain_ms = time_ms(torch, lambda: ztzv.ztzv_parts_plain(
-            x, m, pr, sig, vc, vs, True))
+            x, m, pr, sig, vc, vs, True, mode))
         kb = bound(4 * (n * d + n + d * f + 4 * f * k),
                    2 * n * d * f + 8 * n * f * k)
-        print(f"K1 time at slice shape (K={k}): kernel {ms:.4f} ms, "
+        print(f"K1 ({mode}) time at slice shape (K={k}): kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, {bound_text(kb)} [{card}]",
               flush=True)
-        results.update(timed_entry("K1", (d, f, k), k1_err, ms, plain_ms, kb,
-                                   f"R {n}, D {d}, F {f}, K {k}"))
+        results.update(timed_entry("K1", (d, f, k, mode), k1_err, ms,
+                                   plain_ms, kb, f"R {n}, D {d}, F {f}, "
+                                   f"K {k}, sincos {mode}"))
     return results
 
 
@@ -512,7 +604,7 @@ def phase_slice(torch, card, tab):
     z[:, 0] = 1.0
     check_predictions(model, z, preds[:4096], "the plain feature map")
     report_times(model, n_iter, predict_s, card, "slice A")
-    return {k: fit_counts[k] + predict_counts[k] for k in fit_counts}
+    return {k: fit_counts[k] + predict_counts[k] for k in fit_counts}, preds
 
 
 def check_predictions(model, z, preds, what):
@@ -537,14 +629,18 @@ def report_times(model, n_iter, predict_s, card, label):
 
 def phase_conv_kernels(torch, card, corpus, dev="cuda", chunk=CHUNK,
                        num_rffs=NUM_RFFS, init_rffs=INIT_RFFS,
-                       tune_rffs=TUNE_RFFS, verify_rffs=VERIFY_RFFS):
-    """K3 and K4 against their plain versions, at the shapes the main path
-    launches them at (chunks of the corpus, the models' own projections:
-    the sequence slice's, and K3 at the tuning and verify widths too), a
-    ragged case and w = 1; each main-path shape is timed."""
+                       tune_rffs=TUNE_RFFS, verify_rffs=VERIFY_RFFS,
+                       mode="hi"):
+    """K3 (in sincos ``mode``) and K4 against their plain versions, at the
+    shapes the main path launches them at (chunks of the corpus, the
+    models' own projections: the sequence slice's, and K3 at the tuning
+    and verify widths too), a ragged case, w = 1 and, for K3, a guard case
+    (arguments past POLY_ARG_LIMIT); each main-path shape is timed.  K4
+    has no sincos: it runs only with ``mode`` "hi"."""
     from xgpr_tpu_torch.kernels import Conv1dRBF, Conv1dTwoLayer
     from xgpr_tpu_torch.ops.conv import conv_row_scale
     from xgpr_tpu_torch.ops.cuda import conv
+    from xgpr_tpu_torch.ops.cuda.operands import split_tf32
     rng = np.random.default_rng(11)
     x_np, _, l_np = corpus
     xdim = (chunk, MOTIF_L, MOTIF_D)
@@ -580,44 +676,61 @@ def phase_conv_kernels(torch, card, corpus, dev="cuda", chunk=CHUNK,
     others = [("ragged", *ragged(1000, 9, 16, 5, 200), 5, None),
               ("w=1", *ragged(300, 12, 21, 1, 256), 1, None),
               ("D=21", *ragged(700, 14, 21, 6, 300), 6, None)]
+    # The guard: row 0 has one nonzero, 5e4, and proj is rounded to TF32,
+    # so each of its window projections is one exact product (times
+    # sigma 1) in the kernel and the plain version alike, many past
+    # POLY_ARG_LIMIT.
+    xg, lg, pg = ragged(400, 12, 8, 4, 256)
+    xg[0] = 0.0
+    xg[0, 5, 3] = 5e4
+    lg[0] = 12
+    guard = ("guard", xg, lg, split_tf32(pg)[0].contiguous(), 4, None)
     # Cases whose label does not start with "slice" are checked, not timed.
     cases = {
         "K3": [("slice", x_slice, l_slice, proj3, MOTIF_W, row_scale(proj3)),
                (f"slice, tuning ({tune_rffs} RFFs)", x_slice, l_slice,
                 proj3_tune, MOTIF_W, row_scale(proj3_tune)),
                (f"slice, verify ({verify_rffs} RFFs)", x_slice, l_slice,
-                proj3_verify, MOTIF_W, row_scale(proj3_verify))] + others,
+                proj3_verify, MOTIF_W, row_scale(proj3_verify))] + others
+        + [guard],
         "K4": [("slice", x_slice, l_slice, proj4, MOTIF_W, None)] + others,
     }
-    runs = {"K3": (lambda x, l, p, w, rs: conv.conv_parts(x, l, p, sigma, w,
-                                                          rs),
-                   lambda x, l, p, w, rs: conv.conv_parts_plain(x, l, p,
-                                                                sigma, w,
-                                                                rs)),
-            "K4": (lambda x, l, p, w, rs: (conv.conv_maxpool(x, l, p, w),),
-                   lambda x, l, p, w, rs: (conv.conv_maxpool_plain(x, l, p,
-                                                                   w),))}
+    if mode != "hi":
+        del cases["K4"]
+
+    def sig(label):
+        return 1.0 if label == "guard" else sigma
+    runs = {"K3": (lambda x, l, p, w, rs, sg: conv.conv_parts(
+                       x, l, p, sg, w, rs, mode),
+                   lambda x, l, p, w, rs, sg: conv.conv_parts_plain(
+                       x, l, p, sg, w, rs, mode)),
+            "K4": (lambda x, l, p, w, rs, sg: (conv.conv_maxpool(x, l, p,
+                                                                 w),),
+                   lambda x, l, p, w, rs, sg: (conv.conv_maxpool_plain(
+                       x, l, p, w),))}
     results = {}
     for name, kcases in cases.items():
         kernel_fn, plain_fn = runs[name]
         for label, x, lens, proj, width, rs in kcases:
-            got = kernel_fn(x, lens, proj, width, rs)
-            want = plain_fn(x, lens, proj, width, rs)
+            got = kernel_fn(x, lens, proj, width, rs, sig(label))
+            want = plain_fn(x, lens, proj, width, rs, sig(label))
             sync(torch, dev)
             scale = max(1.0, max(float(w.abs().max()) for w in want))
             err = max(float((g - w).abs().max()) for g, w in zip(got, want))
             n, l, d = x.shape
             f = proj.shape[1]
-            print(f"{name} {label}: N={n} L={l} D={d} w={width} F={f} "
+            tag = name if name == "K4" else f"{name} ({mode})"
+            print(f"{tag} {label}: N={n} L={l} D={d} w={width} F={f} "
                   f"max_abs_err={err:.3e} max|ref|={scale:.3e} "
                   f"(tol {CONV_RTOL:g} * max(1, max|ref|))", flush=True)
-            check(err < CONV_RTOL * scale, f"{name} {label} disagrees ({err})")
+            check(err < CONV_RTOL * scale, f"{tag} {label} disagrees ({err})")
             if not label.startswith("slice"):
                 continue
-            ms = time_ms(torch, lambda: kernel_fn(x, lens, proj, width, rs),
-                         dev=dev)
+            ms = time_ms(torch, lambda: kernel_fn(x, lens, proj, width, rs,
+                                                  sigma), dev=dev)
             plain_ms = time_ms(torch, lambda: plain_fn(x, lens, proj, width,
-                                                       rs), reps=3, dev=dev)
+                                                       rs, sigma), reps=3,
+                               dev=dev)
             slab = conv.window_slab(x, width)
             mm_ms = time_ms(torch, lambda: torch.matmul(slab, proj), dev=dev)
             out_cols = 2 * f if name == "K3" else f
@@ -625,13 +738,13 @@ def phase_conv_kernels(torch, card, corpus, dev="cuda", chunk=CHUNK,
             kb = bound(4 * (n * l * d + n + width * d * f + n * out_cols)
                        + (4 * n if name == "K3" else 0), flops)
             slots, valid = conv.window_slots(lens, width, l - width + 1)
-            print(f"{name} time at {label} shape: kernel {ms:.4f} ms, plain "
+            print(f"{tag} time at {label} shape: kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, {bound_text(kb)}; {nk_sum} valid "
                   f"windows, {flops / 1e9:.1f} GFLOP; projection matmul "
                   f"alone (partial yardstick, no mask/sincos/sum) "
                   f"{mm_ms:.4f} ms [{card}]", flush=True)
             tc_flops = 3 * flops * slots / valid
-            print(f"{name} at {label} shape: {slots} window slots projected "
+            print(f"{tag} at {label} shape: {slots} window slots projected "
                   f"for {valid} valid windows ({slots / valid:.3f} : 1); "
                   f"achieved {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s on the "
                   f"valid-window work "
@@ -641,9 +754,12 @@ def phase_conv_kernels(torch, card, corpus, dev="cuda", chunk=CHUNK,
                   f"products on the projected slots, "
                   f"{tc_flops * 1e3 / ms / PEAK_TF32_FLOPS:.1%} of peak) "
                   f"[{card}]", flush=True)
-            results.update(timed_entry(
-                name, (l, d, width, f), err, ms, plain_ms, kb,
-                f"N {n}, L {l}, D {d}, w {width}, F {f}"))
+            key = (l, d, width, f)
+            shape = f"N {n}, L {l}, D {d}, w {width}, F {f}"
+            if name == "K3":
+                key, shape = key + (mode,), shape + f", sincos {mode}"
+            results.update(timed_entry(name, key, err, ms, plain_ms, kb,
+                                       shape))
     return results
 
 
@@ -716,7 +832,7 @@ def phase_conv_slice(torch, card, corpus, n_train=N_TRAIN, n_test=N_TEST,
         profile_fit(torch, model, dset, card)
     check(rho > MOTIF_SPEARMAN_FLOOR, "Conv1dRBF Spearman below the floor")
     return ({k: fit_counts[k] + predict_counts[k] for k in fit_counts},
-            n_iter, preds)
+            n_iter, preds, model)
 
 
 def phase_k4_path(torch, card, corpus, n_train=K4_ROWS, n_test=N_TEST,
@@ -1199,6 +1315,286 @@ def phase_conv_tune(torch, card, corpus, dev="cuda", tune_rows=TUNE_ROWS,
                            "exact")
 
 
+def mode_summary(timed, mode, card):
+    """Each timed (kernel, shape) of ``mode`` beside the "hi" time at the
+    same shape."""
+    for (name, key), res in sorted(timed.items(), key=str):
+        if key[-1] != mode:
+            continue
+        hi = timed.get((name, key[:-1] + ("hi",)))
+        hi_text = "not timed" if hi is None else f"{hi['ms']:.4f} ms"
+        faster = "" if hi is None else (
+            f"; {mode} {'faster' if res['ms'] < hi['ms'] else 'not faster'}"
+            f" than hi")
+        print(f"{name} {res['shape']}: {res['ms']:.4f} ms against hi "
+              f"{hi_text}{faster}; bound {res['bound']['ms']:.4f} ms "
+              f"({res['bound']['by']}) [{card}]", flush=True)
+
+
+def phase_mode_paths(torch, card, tab, corpus, hi_preds, conv_model,
+                     conv_preds, mode, n_train=N_TRAIN, n_test=N_TEST,
+                     dev="cuda", num_rffs=NUM_RFFS,
+                     variance_rffs=VARIANCE_RFFS):
+    """Slice A refit and predicted, and the Conv1dRBF model's held-out rows
+    predicted again, with the sincos mode set to ``mode`` (K1, K2 and K3
+    run its instantiation); restores the mode.  Gates: CG converged;
+    predictions within PREDICT_RTOL * max|pred| of the same mode's plain
+    path and within MODE_RTOL * max|pred| of the "hi" run's; Spearman
+    above the slice's floor.  Returns the launches of each of the two
+    paths."""
+    from scipy.stats import spearmanr
+    from xgpr_tpu_torch import GPRegression, config
+    from xgpr_tpu_torch.ops.conv import conv_row_scale
+    from xgpr_tpu_torch.ops.cuda.conv import conv_parts_plain
+    from xgpr_tpu_torch.ops.cuda.feature_map import rbf_feature_map_plain
+    from xgpr_tpu_torch.ops.layout import assemble_cos_sin
+    dset, tex, te_y = tab
+    saved = config.sincos_mode()
+    config.set_sincos_mode(mode)
+    try:
+        model = GPRegression(num_rffs=num_rffs, variance_rffs=variance_rffs,
+                             kernel_choice="RBF", device=dev, verbose=False)
+        model.set_hyperparams(HPARAMS, dset)
+        reset_counts()
+        t0 = time.perf_counter()
+        n_iter, losses = model.fit(dset, mode="cg", suppress_var=True,
+                                   run_diagnostics=True)
+        preds = model.predict(tex)
+        sync(torch, dev)
+        rbf_s = time.perf_counter() - t0
+        rbf_counts = read_counts()
+        kern = model.kernel
+        params = kern.feature_params()
+        z = rbf_feature_map_plain(kern._cast_input(tex[:4096]) *
+                                  params["sigma"], params["proj"],
+                                  kern.fit_intercept, kern.padded_dims, mode)
+        z[:, 0] = 1.0
+        plain = (z @ model.weights).cpu().numpy().astype(np.float64) * \
+            model.trainy_std + model.trainy_mean
+        del model
+
+        tex_c, te_yc, te_lc = (a[n_train:n_train + n_test] for a in corpus)
+        reset_counts()
+        t0 = time.perf_counter()
+        conv_mode = conv_model.predict(tex_c, te_lc)
+        sync(torch, dev)
+        conv_s = time.perf_counter() - t0
+        conv_counts = read_counts()
+        kern = conv_model.kernel
+        params = kern.feature_params()
+        xs, ls = kern._cast_input(tex_c[:4096]), kern._cast_lengths(
+            te_lc[:4096])
+        scale = conv_row_scale(ls, kern.conv_width, kern.num_freqs,
+                               kern.scaling_type, kern.dtype, kern.device)
+        c, s_ = conv_parts_plain(xs, ls, params["proj"], params["sigma"],
+                                 kern.conv_width, scale, mode)
+        c[:, 0] = 1.0
+        zc = assemble_cos_sin(c, s_, kern.padded_dims)
+        conv_plain = (zc @ conv_model.weights).cpu().numpy().astype(
+            np.float64) * conv_model.trainy_std + conv_model.trainy_mean
+    finally:
+        config.set_sincos_mode(saved)
+    rho = float(spearmanr(preds, te_y)[0])
+    rho_c = float(spearmanr(conv_mode, te_yc)[0])
+    rows = []
+    for label, got, plain_ref, hi, r, floor in (
+            ("slice A refit + predict", preds, plain, hi_preds, rho,
+             SPEARMAN_FLOOR),
+            ("Conv1dRBF predict", conv_mode, conv_plain, conv_preds, rho_c,
+             MOTIF_SPEARMAN_FLOOR)):
+        top = float(np.abs(hi).max())
+        err_plain = float(np.abs(got[:4096] - plain_ref).max())
+        err_hi = float(np.abs(got - hi).max())
+        rows.append((label, err_plain, err_hi, top, r, floor))
+        print(f"{label} with sincos {mode}: vs the same mode's plain path "
+              f"max_abs_err {err_plain:.3e} (tol {PREDICT_RTOL:g} x "
+              f"{top:.3e}); vs hi {err_hi:.3e} (tol {MODE_RTOL:g} x "
+              f"max|pred|); held-out Spearman {r:.4f} (floor {floor}) "
+              f"[{card}]", flush=True)
+    print(f"slice A with sincos {mode}: fit + predict {rbf_s:.3f}s, CG "
+          f"iterations {n_iter}, final relative residual {losses[-1]:.3e}, "
+          f"launches {counts_text(rbf_counts)}; Conv1dRBF predict of "
+          f"{n_test} rows {conv_s:.3f}s, launches {counts_text(conv_counts)} "
+          f"[{card}]", flush=True)
+    check(n_iter < 500 and losses[-1] < 1e-6,
+          f"CG did not converge with sincos {mode}")
+    for name, counts in (("K1", rbf_counts), ("K2", rbf_counts),
+                         ("K3", conv_counts)):
+        if torch.device(dev).type == "cuda":
+            check(counts[name].total() > 0,
+                  f"{name} did not run with sincos {mode}")
+        check(all(key[-1] == mode for key in counts[name]),
+              f"{name} ran in another mode than {mode}")
+    for label, err_plain, err_hi, top, r, floor in rows:
+        check(err_plain < PREDICT_RTOL * top,
+              f"{label} ({mode}) disagrees with the plain path")
+        check(err_hi < MODE_RTOL * top,
+              f"{label} ({mode}) is not within {MODE_RTOL} of hi's")
+        check(r > floor, f"{label} ({mode}) Spearman below the floor")
+    return rbf_counts, conv_counts
+
+
+def class_gates(torch, card, label, model, hist, probs, te_y, plain_probs,
+                fit_counts, predict_counts, kernel, floor, dev):
+    """The classifiers' gates: the objective never rises, probability rows
+    sum to 1 and agree with the plain feature map's within PROB_ATOL, the
+    held-out accuracy is at or above ``floor``; on the card, ``kernel``
+    ran during fit and predict and the engine, the kernel and the weights
+    stayed there."""
+    rise = float(np.max(np.diff(hist))) if len(hist) > 1 else 0.0
+    row_err = float(np.abs(probs.sum(axis=1) - 1.0).max())
+    plain_err = float(np.abs(probs[:plain_probs.shape[0]] -
+                             plain_probs).max())
+    acc = float((np.argmax(probs, axis=1) == te_y).mean())
+    engine = next(iter(model._engines.values()))
+    print(f"{label}: objective {hist[0]:.6f} -> {hist[-1]:.6f} over "
+          f"{len(hist) - 1} iterations (largest rise {rise:.3e}); "
+          f"probability rows sum to 1 within {row_err:.3e}; vs the plain "
+          f"feature map on {plain_probs.shape[0]} rows {plain_err:.3e} (tol "
+          f"{PROB_ATOL:g}); held-out accuracy {acc:.4f} (floor {floor}); "
+          f"{kernel} launches fit {fit_counts[kernel].total()}, predict "
+          f"{predict_counts[kernel].total()}; engine {engine.mode} on "
+          f"{engine.device} [{card}]", flush=True)
+    check(rise <= 0.0, f"{label}: the objective rose")
+    check(row_err < PROB_ATOL, f"{label}: probability rows do not sum to 1")
+    check(plain_err < PROB_ATOL,
+          f"{label}: probabilities disagree with the plain feature map")
+    if torch.device(dev).type == "cuda":
+        check(fit_counts[kernel].total() > 0,
+              f"{label}: {kernel} did not run during fit")
+        check(predict_counts[kernel].total() > 0,
+              f"{label}: {kernel} did not run during predict")
+        check(engine.device.type == "cuda" and model.kernel.device.type ==
+              "cuda" and model.weights.device.type == "cuda",
+              f"{label}: the fit did not stay on the card")
+    check(acc >= floor, f"{label}: accuracy below the floor")
+
+
+def softmax_np(logits):
+    logits = logits - logits.max(axis=1, keepdims=True)
+    e = np.exp(logits)
+    return e / e.sum(axis=1, keepdims=True)
+
+
+def classifier_passes(torch, model, dset, card, label, reps=3):
+    """One NCG iteration's two data passes timed apart on the fitted
+    model's engine (after the counted run)."""
+    from xgpr_tpu_torch.fitting.softmax_solver import _STEP_GRID
+    engine = model._engine(dset)
+    lam = model.kernel.get_lambda()
+    w = model.weights
+    grad_ms = time_ms(torch, lambda: engine.classification_loss_grad(w, lam),
+                      reps=reps)
+    ls_ms = time_ms(torch, lambda: engine.softmax_linesearch(
+        w, -w, _STEP_GRID, lam), reps=reps)
+    print(f"{label}: loss-gradient pass {grad_ms:.3f} ms, step-grid pass "
+          f"({_STEP_GRID.shape[0]} steps) {ls_ms:.3f} ms, "
+          f"{dset.get_n_batches()} chunks [{card}]", flush=True)
+
+
+def phase_rbf_classifier(torch, card, dev="cuda", n_train=N_TRAIN,
+                         n_test=N_TEST, num_rffs=NUM_RFFS, chunk=CHUNK,
+                         floor=CLASS_ACC_FLOOR):
+    """GPClassification with RBF at slice A's width: fit (autoselected
+    preconditioner, NCG) and predict on the classification generator's
+    held-out rows; class_gates."""
+    from xgpr_tpu_torch import GPClassification, build_classification_dataset
+    from xgpr_tpu_torch.ops.cuda.feature_map import rbf_feature_map_plain
+    t0 = time.perf_counter()
+    (trx, tr_y), (tex, te_y) = classification_data(
+        n_train, n_test, N_FEATURES, CLASS_N_CLASSES, seed=SEED)
+    dset = build_classification_dataset(trx, tr_y, chunk_size=chunk)
+    print(f"RBF classifier data: {n_train} + {n_test} rows x {N_FEATURES}, "
+          f"{CLASS_N_CLASSES} classes, made in "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    model = GPClassification(num_rffs=num_rffs, kernel_choice="RBF",
+                             device=dev, verbose=True)
+    model.set_hyperparams(CLASS_HPARAMS, dset)
+    reset_counts()
+    t0 = time.perf_counter()
+    n_iter, hist = model.fit(dset, run_diagnostics=True)
+    sync(torch, dev)
+    fit_s = time.perf_counter() - t0
+    fit_counts = read_counts()
+    model.verbose = False
+    reset_counts()
+    t0 = time.perf_counter()
+    probs = model.predict(tex)
+    predict_s = time.perf_counter() - t0
+    predict_counts = read_counts()
+    print(f"RBF classifier fit: {fit_s:.3f}s, {n_iter} NCG iterations; "
+          f"predict {predict_s:.3f}s for {n_test} rows; launches fit "
+          f"{counts_text(fit_counts)}, predict {counts_text(predict_counts)} "
+          f"[{card}]", flush=True)
+    kern = model.kernel
+    params = kern.feature_params()
+    z = rbf_feature_map_plain(kern._cast_input(tex[:4096]) * params["sigma"],
+                              params["proj"], kern.fit_intercept,
+                              kern.padded_dims)
+    z[:, 0] = 1.0
+    plain = softmax_np((z @ model.weights.to(z.dtype)).double().cpu()
+                       .numpy())
+    class_gates(torch, card, "RBF classifier", model, hist, probs, te_y,
+                plain, fit_counts, predict_counts, "K2", floor, dev)
+    if torch.device(dev).type == "cuda":
+        classifier_passes(torch, model, dset, card, "RBF classifier")
+    return {k: fit_counts[k] + predict_counts[k] for k in fit_counts}
+
+
+def phase_conv_classifier(torch, card, corpus, dev="cuda",
+                          n_train=CONV_CLASS_ROWS, n_held=N_TRAIN,
+                          n_test=N_TEST, num_rffs=NUM_RFFS, chunk=CHUNK,
+                          floor=CONV_CLASS_ACC_FLOOR):
+    """GPClassification with Conv1dRBF on the motif corpus's first
+    ``n_train`` rows, its target cut at its quartiles: fit and predict the
+    held-out rows (from ``n_held``); class_gates."""
+    from xgpr_tpu_torch import GPClassification, build_classification_dataset
+    from xgpr_tpu_torch.ops.conv import conv_row_scale
+    from xgpr_tpu_torch.ops.cuda.conv import conv_parts_plain
+    from xgpr_tpu_torch.ops.layout import assemble_cos_sin
+    x, y, lens = corpus
+    cls = quartile_classes(y)
+    tex, te_y, te_l = (a[n_held:n_held + n_test] for a in (x, cls, lens))
+    dset = build_classification_dataset(x[:n_train], cls[:n_train],
+                                        lens[:n_train], chunk_size=chunk)
+    model = GPClassification(num_rffs=num_rffs, kernel_choice="Conv1dRBF",
+                             kernel_settings={"conv_width": MOTIF_W},
+                             device=dev, verbose=True)
+    model.set_hyperparams(CONV_CLASS_HPARAMS, dset)
+    reset_counts()
+    t0 = time.perf_counter()
+    n_iter, hist = model.fit(dset, run_diagnostics=True)
+    sync(torch, dev)
+    fit_s = time.perf_counter() - t0
+    fit_counts = read_counts()
+    model.verbose = False
+    reset_counts()
+    t0 = time.perf_counter()
+    probs = model.predict(tex, te_l)
+    predict_s = time.perf_counter() - t0
+    predict_counts = read_counts()
+    print(f"Conv1dRBF classifier on {n_train} rows: fit {fit_s:.3f}s, "
+          f"{n_iter} NCG iterations; predict {predict_s:.3f}s for {n_test} "
+          f"rows; launches fit {counts_text(fit_counts)}, predict "
+          f"{counts_text(predict_counts)} [{card}]", flush=True)
+    kern = model.kernel
+    params = kern.feature_params()
+    xs, ls = kern._cast_input(tex[:4096]), kern._cast_lengths(te_l[:4096])
+    scale = conv_row_scale(ls, kern.conv_width, kern.num_freqs,
+                           kern.scaling_type, kern.dtype, kern.device)
+    c, s = conv_parts_plain(xs, ls, params["proj"], params["sigma"],
+                            kern.conv_width, scale)
+    c[:, 0] = 1.0
+    z = assemble_cos_sin(c, s, kern.padded_dims)
+    plain = softmax_np((z @ model.weights.to(z.dtype)).double().cpu()
+                       .numpy())
+    class_gates(torch, card, "Conv1dRBF classifier", model, hist, probs,
+                te_y, plain, fit_counts, predict_counts, "K3", floor, dev)
+    if torch.device(dev).type == "cuda":
+        classifier_passes(torch, model, dset, card, "Conv1dRBF classifier")
+    return {k: fit_counts[k] + predict_counts[k] for k in fit_counts}
+
+
 def counts_text(counts):
     return ", ".join(f"{k} {v}" for k, v in sorted(totals(counts).items()))
 
@@ -1291,7 +1687,8 @@ def kernel_rows(path, counts, timed):
                 "bound_by": res["bound"]["by"],
                 "cuda_core_bound_ms": res["bound"]["cuda_core_ms"],
                 "cuda_core_bound_by": res["bound"]["cuda_core_by"],
-                "library_ms": None, "shape": res["shape"]})
+                "library_ms": None, "shape": res["shape"],
+                "sincos": None if name == "K4" else key[-1]})
     return rows
 
 
@@ -1361,6 +1758,8 @@ def main(argv):
                           else "this")
         return 0
     timed = phase_kernels(torch, card)
+    for mode in SINCOS_MODES:
+        timed.update(phase_kernels(torch, card, mode))
     t0 = time.perf_counter()
     (trx, tr_y), (tex, te_y) = tabular_data(N_TRAIN, N_TEST, N_FEATURES,
                                             seed=SEED)
@@ -1368,20 +1767,35 @@ def main(argv):
     tab = (build_regression_dataset(trx, tr_y, chunk_size=CHUNK), tex, te_y)
     print(f"data: {N_TRAIN} x {N_FEATURES} train, {N_TEST} test, made in "
           f"{time.perf_counter() - t0:.2f}s", flush=True)
-    paths = [("slice A fit + predict", phase_slice(torch, card, tab))]
+    slice_counts, slice_preds = phase_slice(torch, card, tab)
+    paths = [("slice A fit + predict", slice_counts)]
     t0 = time.perf_counter()
     corpus = motif_corpus(N_TRAIN + N_TEST)
     print(f"motif corpus: {N_TRAIN} + {N_TEST} rows x {MOTIF_L} x "
           f"{MOTIF_D}, made in {time.perf_counter() - t0:.2f}s", flush=True)
     timed.update(phase_conv_kernels(torch, card, corpus))
-    conv_counts, n_iter, preds = phase_conv_slice(
+    for mode in SINCOS_MODES:
+        timed.update(phase_conv_kernels(torch, card, corpus, mode=mode))
+    conv_counts, n_iter, preds, conv_model = phase_conv_slice(
         torch, card, corpus, profile="--profile" in argv)
     paths.append(("Conv1dRBF fit + predict", conv_counts))
+    for mode in SINCOS_MODES:
+        rbf_counts, mode_counts = phase_mode_paths(
+            torch, card, tab, corpus, slice_preds, conv_model, preds, mode)
+        paths.append((f"slice A fit + predict ({mode})", rbf_counts))
+        paths.append((f"Conv1dRBF predict ({mode})", mode_counts))
+        mode_summary(timed, mode, card)
+    del conv_model
     paths.append(("K4 path", phase_k4_path(torch, card, corpus)))
     paths.append(("tuning", phase_tuning(torch, card, tab, corpus)))
     paths.append(("streamed Conv1dRBF fit + predict",
                   phase_streamed(torch, card, corpus, (n_iter, preds))))
     paths.append(("referee", phase_referee(torch, card, corpus)))
+    del tab
+    paths.append(("RBF classifier fit + predict",
+                  phase_rbf_classifier(torch, card)))
+    paths.append(("Conv1dRBF classifier fit + predict",
+                  phase_conv_classifier(torch, card, corpus)))
     print(f"total {time.perf_counter() - t_start:.1f}s [{card}]", flush=True)
     kernels = [row for path, counts in paths
                for row in kernel_rows(path, counts, timed)]

@@ -48,4 +48,4 @@ def test_load_jax_model_predicts_the_same(tmp_path, kernel_choice, settings):
 
 def test_from_numpy_state_rejects_other_models():
     with pytest.raises(RuntimeError):
-        from_numpy_state({"class": "GPClassification"}, {}, device="cpu")
+        from_numpy_state({"class": "KernelFGen"}, {}, device="cpu")

@@ -8,7 +8,8 @@ JAX, so it runs on a machine without it:
 Tolerances as in chip_smoke.py: fp32 on both sides with a different
 summation order, features to 1e-5 absolute, the matvec and the conv
 window loops (sums of up to nw terms of fp32 projections) to 1e-4 of
-max(1, max |ref|).
+max(1, max |ref|).  K1, K2 and K3 are held in each sincos mode against
+their plain versions in the same mode.
 """
 import numpy as np
 import pytest
@@ -18,6 +19,8 @@ from xgpr_tpu_torch.ops.cuda import conv, feature_map, ztzv
 from xgpr_tpu_torch.ops.cuda.operands import split_tf32
 
 pytestmark = pytest.mark.cuda
+
+MODES = ["hi", "exact", "fast", "poly"]
 
 
 @pytest.fixture
@@ -40,7 +43,7 @@ FEATURE_CASES = [(100, 84, 256, 128), (257, 10, 200, 16), (64, 200, 300, 256),
                  (300, 1024, 2100, 1024), (1000, 1024, 2048, 1024)]
 
 
-@pytest.mark.parametrize("mode", ["hi", "exact"])
+@pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("n,d,f,padded", FEATURE_CASES)
 def test_feature_map_kernel(cuda, mode, n, d, f, padded):
     rng = np.random.default_rng(n + f)
@@ -77,13 +80,15 @@ def _ztzv_inputs(dev, n, d, f, k):
     return x, m, proj, vc, vs
 
 
+@pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("intercept", [False, True])
 @pytest.mark.parametrize("n,d,f,k", ZTZV_CASES)
-def test_ztzv_kernel(cuda, intercept, n, d, f, k):
+def test_ztzv_kernel(cuda, mode, intercept, n, d, f, k):
     x, m, proj, vc, vs = _ztzv_inputs(cuda, n, d, f, k)
     before = ztzv.LAUNCHES.total()
-    oc, os_ = ztzv.ztzv_parts(x, m, proj, 0.7, vc, vs, intercept)
-    rc, rs = ztzv.ztzv_parts_plain(x, m, proj, 0.7, vc, vs, intercept)
+    oc, os_ = ztzv.ztzv_parts(x, m, proj, 0.7, vc, vs, intercept, mode)
+    rc, rs = ztzv.ztzv_parts_plain(x, m, proj, 0.7, vc, vs, intercept,
+                                   mode)
     torch.cuda.synchronize()
     assert ztzv.LAUNCHES.total() == before + 1
     tol = 1e-4 * max(1.0, float(rc.abs().max()))
@@ -130,7 +135,7 @@ def _conv_inputs(dev, n, l, d, width, f, kind):
     return x, lengths, proj
 
 
-@pytest.mark.parametrize("mode", ["hi", "exact"])
+@pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("n,l,d,width,f,kind", CONV_CASES)
 def test_conv_parts_kernel(cuda, mode, n, l, d, width, f, kind):
     x, lengths, proj = _conv_inputs(cuda, n, l, d, width, f, kind)
@@ -184,8 +189,9 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     proj = torch.zeros((3, 8), dtype=torch.float64, device=cuda)
     with pytest.raises(TypeError):
         feature_map.rbf_feature_map(x, proj, True, 4)
-    with pytest.raises(NotImplementedError):
-        feature_map.rbf_feature_map(x.float(), proj.float(), True, 4, "fast")
+    with pytest.raises(ValueError):
+        feature_map.rbf_feature_map(x.float(), proj.float(), True, 4,
+                                    "cephes")
     xs = torch.zeros((4, 5, 3), dtype=torch.float32, device=cuda)
     lengths = torch.full((4,), 5, dtype=torch.int32, device=cuda)
     proj2 = torch.zeros((6, 8), dtype=torch.float32, device=cuda)
@@ -193,5 +199,28 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         conv.conv_parts(xs.double(), lengths, proj2.double(), 0.5, 2)
     with pytest.raises(TypeError):
         conv.conv_maxpool(xs, lengths.long(), proj2, 2)
-    with pytest.raises(NotImplementedError):
-        conv.conv_parts(xs, lengths, proj2, 0.5, 2, None, "poly")
+    with pytest.raises(ValueError):
+        conv.conv_parts(xs, lengths, proj2, 0.5, 2, None, "cephes")
+
+
+@pytest.mark.parametrize("mode", ["fast", "poly"])
+def test_a_mode_runs_its_own_instantiation(cuda, mode):
+    """The configured mode reaches each kernel, whose launch is counted
+    under it; the kernel's values are the mode's, not "hi"'s."""
+    from xgpr_tpu_torch import config
+    x, m, proj, vc, vs = _ztzv_inputs(cuda, 300, 84, 256, 1)
+    saved = config.sincos_mode()
+    config.set_sincos_mode(mode)
+    try:
+        feats = feature_map.rbf_feature_map(x * 0.5, proj, True, 128)
+        oc, _ = ztzv.ztzv_parts(x, m, proj, 0.7, vc, vs, True)
+    finally:
+        config.set_sincos_mode(saved)
+    hi = feature_map.rbf_feature_map_plain(x * 0.5, proj, True, 128, "hi")
+    own = feature_map.rbf_feature_map_plain(x * 0.5, proj, True, 128, mode)
+    torch.cuda.synchronize()
+    assert (300, 84, 256, mode) in feature_map.LAUNCHES
+    assert (300, 84, 256, 1, mode) in ztzv.LAUNCHES
+    assert float((feats - own).abs().max()) < 1e-5
+    assert float((own - hi).abs().max()) > 0.0
+    assert torch.isfinite(oc).all()

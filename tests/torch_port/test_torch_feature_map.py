@@ -78,9 +78,10 @@ def test_cpu_tensor_takes_the_plain_version_and_modes_are_checked():
                                     True, 16)
     assert feature_map.kernel_sincos_flag("auto") == 0
     assert feature_map.kernel_sincos_flag("exact") == 1
-    for mode in ("fast", "poly"):
-        with pytest.raises(NotImplementedError):
-            feature_map.kernel_sincos_flag(mode)
+    assert feature_map.kernel_sincos_flag("fast") == 2
+    assert feature_map.kernel_sincos_flag("poly") == 3
+    with pytest.raises(ValueError):
+        feature_map.kernel_sincos_flag("builtin")
 
 
 @pytest.mark.parametrize("name,settings", [

@@ -1,13 +1,13 @@
 """Checkpoints across the packages (models/serialization.py) and the
 Nystrom preconditioner's state.
 
-The .npz layout is xgpr_tpu's, so a checkpoint crosses both ways: a port
-model saved and loaded predicts identically; an xgpr_tpu checkpoint loads
-in the port, and a port checkpoint in xgpr_tpu, and each predicts the same
-mean and variance in float64 to 1e-10 relative (the feature maps sum in
-another order).  A preconditioner rebuilt from its ``to_state`` snapshot
-applies the same operator: bitwise from the port's own snapshot, to
-1e-12 from xgpr_tpu's.
+The .npz layout is xgpr_tpu's, so a checkpoint crosses both ways: a port model
+saved and loaded predicts identically; an xgpr_tpu checkpoint loads in the
+port, and a port checkpoint in xgpr_tpu, and each predicts the same mean and
+variance (a classifier: the same probabilities) in float64 to 1e-10 relative
+(the feature maps sum in another order).  A preconditioner rebuilt from its
+``to_state`` snapshot applies the same operator: bitwise from the port's own
+snapshot, to 1e-12 from xgpr_tpu's.
 """
 import json
 
@@ -25,7 +25,8 @@ from xgpr_tpu.preconditioners.nystrom import \
 from xgpr_tpu_torch.fitting.engine import Engine
 from xgpr_tpu_torch.models.serialization import load_model, save_model
 from xgpr_tpu_torch.preconditioners.nystrom import NystromPreconditioner
-from tests.utils.synthetic import sequence_data, tabular_data
+from tests.utils.synthetic import (classification_data, sequence_data,
+                                   tabular_data)
 
 torch.set_num_threads(1)
 
@@ -95,15 +96,58 @@ def test_port_checkpoint_loads_in_jax(tmp_path, kernel_choice, settings):
 
 
 def test_classification_checkpoint_raises(tmp_path):
+    """A classifier's record now loads as a port GPClassification (the
+    fitted round trips are in test_torch_classification.py); a record of a
+    model class the port does not have raises."""
     meta = {"class": "GPClassification", "kernel_choice": "RBF",
             "num_rffs": 64, "variance_rffs": 0, "random_seed": 123,
             "trainy_mean": 0.0, "trainy_std": 1.0, "n_classes": 3,
             "xdim": [10, 4]}
     path = tmp_path / "model.npz"
-    np.savez(path, _meta=np.frombuffer(json.dumps(meta).encode(),
-                                       dtype=np.uint8))
-    with pytest.raises(RuntimeError, match="classification"):
+
+    def save(meta):
+        np.savez(path, _meta=np.frombuffer(json.dumps(meta).encode(),
+                                           dtype=np.uint8))
+    save(meta)
+    loaded = load_model(str(path), device="cpu")
+    assert type(loaded).__name__ == "GPClassification"
+    assert loaded.n_classes == 3 and loaded.weights is None
+    save(dict(meta, **{"class": "KernelFGen"}))
+    with pytest.raises(RuntimeError, match="KernelFGen"):
         load_model(str(path), device="cpu")
+
+
+def _fitted_classifier(pkg, **kw):
+    (trx, tr_y), (tex, _) = classification_data(n_train=300, n_test=40)
+    dset = pkg.build_classification_dataset(trx, tr_y, chunk_size=100)
+    model = pkg.GPClassification(num_rffs=128, kernel_choice="RBF",
+                                 verbose=False, **kw)
+    model.set_hyperparams(np.log(np.array([0.1, 0.2])), dset)
+    model.fit(dset, max_iter=10)
+    return model, tex
+
+
+@pytest.mark.parametrize("source,target", [("port", "jax"), ("jax", "port"),
+                                           ("port", "port")])
+def test_classifier_checkpoint_crosses(tmp_path, source, target):
+    """A fitted GPClassification saved by one package loads in the other
+    (n_classes, weights (M, C), gamma) and gives the same probabilities
+    in float64 to 1e-10 (bitwise within the port)."""
+    pkgs = {"port": (xgpr_tpu_torch, {"device": "cpu"}, save_model,
+                     lambda path: load_model(path, device="cpu")),
+            "jax": (xgpr_tpu, {}, jax_save, jax_load)}
+    pkg, kw, save, _ = pkgs[source]
+    model, tex = _fitted_classifier(pkg, **kw)
+    path = str(tmp_path / "classifier.npz")
+    save(model, path)
+    loaded = pkgs[target][3](path)
+    assert type(loaded).__name__ == "GPClassification"
+    assert loaded.n_classes == 3 and np.array_equal(
+        np.asarray(loaded.gamma), np.zeros(3))
+    assert tuple(loaded.weights.shape) == (128, 3)
+    want, got = model.predict(tex), loaded.predict(tex)
+    assert got.shape == (tex.shape[0], 3)
+    _same((got,), (want,), 0.0 if source == target else 1e-10)
 
 
 def test_preconditioner_state_round_trip(tmp_path):

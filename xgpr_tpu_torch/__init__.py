@@ -1,7 +1,8 @@
 """xgpr_tpu_torch: the PyTorch/CUDA port of xgpr_tpu.
 
 Same module tree and names as the JAX package; each module's reference is
-its namesake in ``xgpr_tpu``.  Plain tensor code is PyTorch; the feature
+its namesake in ``xgpr_tpu``.  The models are GPRegression and
+GPClassification (alias xGPClassification).  Plain tensor code is PyTorch; the feature
 map, the fused CG matvec and the conv window loops are CUDA C++ kernels
 for Hopper (``ops/cuda``).  This package never imports jax.
 """
@@ -16,6 +17,9 @@ def __getattr__(name):
     if name in ("GPRegression", "xGPRegression"):
         from .models.regression import GPRegression
         return GPRegression
+    if name in ("GPClassification", "xGPClassification"):
+        from .models.classification import GPClassification
+        return GPClassification
     if name == "FastConv1d":
         from .models.static_layers import FastConv1d
         return FastConv1d

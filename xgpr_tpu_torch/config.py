@@ -70,7 +70,7 @@ def working_dtype(dtype):
 # "hi") is the full-period deg-13/14 polynomial pair for float32 and the
 # builtin for float64; "exact" forces the builtin; "fast" and "poly" are
 # the cheaper and the legacy quadrant-folded evaluators.  The CUDA kernels
-# implement "hi" and "exact" and raise NotImplementedError for the others.
+# (K1, K2 and K3) run each mode as its own instantiation.
 _SINCOS_MODES = ("auto", "exact", "poly", "hi", "fast")
 _SINCOS_MODE = "auto"
 

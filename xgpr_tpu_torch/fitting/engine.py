@@ -16,7 +16,10 @@ kernel's device:
   converted in place.
 
 Padded rows are zeroed with the row mask after featurisation, so padding
-never perturbs a reduction.  The CG matvec's and the sketch's chunk
+never perturbs a reduction.  A classifier's labels travel as torch.long
+(float targets in the working dtype otherwise), and its two reductions,
+``classification_loss_grad`` and ``softmax_linesearch``, serve
+fitting/softmax_solver.py.  The CG matvec's and the sketch's chunk
 products run in the working dtype (float32 on the card); the sums over
 chunks, and every result, are float64.  That costs O(M * K) per chunk and
 keeps the rounding of a float32 sum over hundreds of thousands of rows
@@ -54,6 +57,9 @@ class Engine:
         self.ndatapoints = dataset.get_ndatapoints()
         self.device = kernel.device
         self._dtype = kernel.dtype
+        # A classifier's labels reach the reductions as torch.long.
+        self.is_classification = dataset.get_n_classes() is not None
+        self._ydtype = torch.long if self.is_classification else self._dtype
         if mode is None:
             n_elements = int(np.prod(dataset.get_xdim()))
             mode = "stacked" if (isinstance(dataset, OnlineDataset) and
@@ -68,11 +74,15 @@ class Engine:
             self._build_stack()
         elif self.device.type == "cuda":
             self.prefetcher = ChunkPrefetcher(dataset, self._dtype,
-                                              self.device)
+                                              self.device, self._ydtype)
 
     # ------------------------------------------------------------------
     def _to_device(self, arr):
         return torch.as_tensor(np.asarray(arr), dtype=self._dtype,
+                               device=self.device)
+
+    def _y_to_device(self, yb):
+        return torch.as_tensor(np.asarray(yb), dtype=self._ydtype,
                                device=self.device)
 
     def _lengths_to_device(self, lb):
@@ -88,7 +98,7 @@ class Engine:
         stack, masks = None, []
         for i, (xb, yb, lb, mb) in enumerate(
                 self.dataset.padded_batches(with_y=True)):
-            fields = {"x": self._to_device(xb), "y": self._to_device(yb),
+            fields = {"x": self._to_device(xb), "y": self._y_to_device(yb),
                       "m": self._to_device(mb),
                       "l": self._lengths_to_device(lb)}
             if stack is None:
@@ -122,7 +132,7 @@ class Engine:
             return
         for xb, yb, lb, mb in self.dataset.padded_batches(with_y=with_y):
             yield (self._to_device(xb),
-                   None if yb is None else self._to_device(yb),
+                   None if yb is None else self._y_to_device(yb),
                    self._lengths_to_device(lb), self._to_device(mb), mb)
 
     def _features(self, params, xb, lb, mb):
@@ -166,6 +176,70 @@ class Engine:
     def gauss_pass(self, q_mat):
         """Z^T Z Q for a dense (M, rank) Q: ztzv with a matrix RHS."""
         return self.ztzv(q_mat)
+
+    # ------------------------------------------------------------------
+    # The classifier's reductions (fitting/softmax_solver.py).  The chunk
+    # products with the weights run in the working dtype (z @ W outside any
+    # kernel, as xgpr_tpu's ops/contract.py::mm); the softmax, the loss and
+    # every sum over chunks are float64: the solver accepts a step by
+    # comparing totals of ~1e5 against a margin of 1e-4 * step * slope.
+    @staticmethod
+    def _softmax_loss_grad(z, w, yb, mb):
+        """One masked chunk's cross-entropy loss and its (M, C) gradient
+        Z^T (P - onehot(y)), both float64."""
+        pred = mm(z, w).double()
+        pred = pred - torch.max(pred, dim=1, keepdim=True).values
+        p = torch.exp(pred)
+        p = p / torch.sum(p, dim=1, keepdim=True)
+        logp = torch.log(torch.clamp(p, min=1e-16))
+        picked = torch.gather(logp, 1, yb[:, None])[:, 0]
+        mb = mb.double()
+        loss = -torch.sum(picked * mb)
+        resid = p - torch.nn.functional.one_hot(yb, w.shape[1]).double()
+        grad = mm(z.T, (resid * mb[:, None]).to(z.dtype))
+        return loss, grad.double()
+
+    def classification_loss_grad(self, wvec, lambda_):
+        """(gradient (M, C), objective): softmax cross-entropy over the
+        dataset plus the L2(lambda^2) ridge, which exempts the intercept
+        row; float64 on the device."""
+        w = torch.as_tensor(wvec, dtype=torch.float64, device=self.device)
+        wz = w.to(self._dtype)
+        loss, grad = self._zeros(), self._zeros(*w.shape)
+        params = self._params()
+        for xb, yb, lb, mb, _ in self._batches():
+            bl, bg = self._softmax_loss_grad(
+                self._features(params, xb, lb, mb), wz, yb, mb)
+            loss += bl
+            grad += bg
+        grad[1:, :] += (lambda_ ** 2) * w[1:, :]
+        total = float(loss) + 0.5 * (lambda_ ** 2) * \
+            float(torch.sum(w[1:, :] ** 2))
+        return grad, total
+
+    def softmax_linesearch(self, wvec, direction, steps, lambda_):
+        """The data-side cross-entropy of W + t D for every step t of
+        ``steps``, in one dataset pass (float64, on the device): the
+        logits are affine in t, so each chunk's z [W | D] is formed once.
+        The solver adds the ridge term in closed form."""
+        w = torch.as_tensor(wvec, dtype=torch.float64, device=self.device)
+        d = torch.as_tensor(direction, dtype=torch.float64,
+                            device=self.device)
+        t = torch.as_tensor(np.asarray(steps), dtype=torch.float64,
+                            device=self.device)
+        wd = torch.cat([w, d], dim=1).to(self._dtype)
+        n_cls = w.shape[1]
+        acc = self._zeros(t.shape[0])
+        params = self._params()
+        for xb, yb, lb, mb, _ in self._batches():
+            zwd = mm(self._features(params, xb, lb, mb), wd).double()
+            logits = zwd[None, :, :n_cls] + t[:, None, None] * \
+                zwd[None, :, n_cls:]
+            lse = torch.logsumexp(logits, dim=2)
+            hit = torch.gather(
+                logits, 2, yb[None, :, None].expand(t.shape[0], -1, 1))[..., 0]
+            acc += torch.sum((lse - hit) * mb.double()[None, :], dim=1)
+        return acc
 
     def design_mat(self):
         """(Z^T Z, Z^T y, y^T y) in one pass, each chunk's products in

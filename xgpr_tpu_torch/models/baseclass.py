@@ -17,7 +17,7 @@ from ..preconditioners.nystrom import NystromPreconditioner, srht_ratio_check
 
 
 class ModelBaseclass:
-    """Base class for the regression model."""
+    """Base class of the regression and classification models."""
 
     def __init__(self, num_rffs=256, variance_rffs=16, kernel_choice="RBF",
                  device="cuda", kernel_settings=None, verbose=True,
@@ -41,6 +41,10 @@ class ModelBaseclass:
         self.kernel_spec_parms = kernel_settings
         self.verbose = verbose
         self.is_regression = True
+        # The classifier's (models/classification.py); a regression model
+        # keeps n_classes 1 and no gamma.
+        self.n_classes = 1
+        self.gamma = None
         self._random_seed = random_seed
         self._engines = {}
         self._nmll_rank_cache = None

@@ -9,10 +9,15 @@ Each source compiles in its own nvcc process, all started together, and
 one more call links the objects:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-         -Xcompiler -fPIC -c csrc/<name>.cu -o <name>.o      (one per source)
+         -Xcompiler -fPIC --split-compile=0
+         -c csrc/<name>.cu -o <name>.o                        (one per source)
     nvcc -shared -o libxgpr_kernels_<hash>.so *.o
 
-No --use_fast_math: it would turn sincosf into the inaccurate __sincosf.
+Each sincos kernel has one instantiation per mode (csrc/common.cuh), so
+a source holds several large kernels; ``--split-compile=0`` optimises
+them on all the host's cores, which halves the build on an 8-core host
+(PERF.md).  No --use_fast_math: it would turn sincosf into the
+inaccurate __sincosf.
 """
 import ctypes
 import hashlib
@@ -26,7 +31,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC", "--split-compile=0"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {

@@ -17,8 +17,10 @@ folded in.  Window j of row i counts while j < seq_lengths[i] - w + 1.
 
 Each wrapper runs its plain version for CPU tensors and its kernel for
 CUDA tensors (float32 x and proj, int32 lengths); anything else raises.
-``PARTS_LAUNCHES`` and ``MAXPOOL_LAUNCHES`` count kernel launches by
-their shape (N, L, D, w, F).
+``conv_parts`` on the card runs the K3 instantiation of the sincos mode it
+asks for (the configured one by default).  ``PARTS_LAUNCHES`` and
+``MAXPOOL_LAUNCHES`` count kernel launches by their shape,
+(N, L, D, w, F, mode) and (N, L, D, w, F).
 
 Before a launch the wrapper prepares the kernels' operands with the plain
 torch functions below: ``row_order`` (the rows ordered by valid-window
@@ -37,7 +39,8 @@ import torch.nn.functional as F
 
 from .. import sincos as _sincos
 from . import build
-from .feature_map import check_cuda_operands, kernel_sincos_flag
+from .feature_map import (check_cuda_operands, kernel_mode,
+                          kernel_sincos_flag)
 from .operands import split_tf32
 
 PARTS_LAUNCHES = Counter()
@@ -163,7 +166,7 @@ def conv_parts(x, seq_lengths, proj, sigma, width, row_scale=None,
     if all(t.device.type == "cpu" for t in (x, seq_lengths, proj) + extra):
         return conv_parts_plain(x, seq_lengths, proj, sigma, width,
                                 row_scale, mode)
-    exact = kernel_sincos_flag(mode)
+    mode = kernel_mode(mode)
     xh, xl, order, nk, hi, lo = _kernel_operands(
         "conv_parts", x, seq_lengths, proj, width, *extra)
     n, l, dp = xh.shape
@@ -180,9 +183,9 @@ def conv_parts(x, seq_lengths, proj, sigma, width, row_scale=None,
             hi.data_ptr(), lo.data_ptr(),
             None if row_scale is None else row_scale.data_ptr(),
             c.data_ptr(), s.data_ptr(), n, l, dp, width, f, float(sigma),
-            exact, stream)
+            kernel_sincos_flag(mode), stream)
     build.check(rc, "conv parts kernel")
-    PARTS_LAUNCHES[tuple(x.shape) + (width, f)] += 1
+    PARTS_LAUNCHES[tuple(x.shape) + (width, f, mode)] += 1
     return c, s
 
 

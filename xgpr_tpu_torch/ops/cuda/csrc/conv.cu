@@ -53,7 +53,9 @@
 //   the same thread's registers (accumulator rows g and g + 8 of a warp),
 //   so K3's sincos sums and K4's max fold into register accumulators at
 //   the end of each group, and each output is written once, with no
-//   atomics: results are the same from run to run.
+//   atomics: results are the same from run to run.  K3's epilogue is
+//   instantiated once per sincos mode of xgpr_tpu's switch ("hi", "exact",
+//   "fast", "poly"; common.cuh), chosen on the host at launch.
 // - Any shape: rows past N, windows past nw, channel chunks past D and
 //   frequencies past F are zero-filled by the copies and masked at the
 //   store.  The wrapper pads D to a multiple of 4 (16-byte copies).
@@ -79,14 +81,15 @@ struct ConvArgs {
   int n, l, dp, width, f;
 };
 
-// K3: running cos/sin sums of this thread's sequence x 32 frequencies.
+// K3: running cos/sin sums of this thread's sequence x 32 frequencies, in
+// one sincos mode (common.cuh).
+template <int MODE>
 struct PartsEpilogue {
   struct Args {
     const float* row_scale;
     float* c_out;
     float* s_out;
     float sigma;
-    int exact;
   };
   Args a;
   float cs[16][2], sn[16][2];
@@ -100,7 +103,7 @@ struct PartsEpilogue {
   }
   __device__ __forceinline__ void fold(int j, int e, float g) {
     float c, s;
-    sincos_scaled(g * a.sigma, 1.0f, a.exact, &c, &s);
+    sincos_scaled<MODE>(g * a.sigma, 1.0f, &c, &s);
     cs[j][e] += c;
     sn[j][e] += s;
   }
@@ -274,11 +277,25 @@ extern "C" int xgpr_conv_parts(const float* x_hi, const float* x_lo,
                                const float* proj_hi, const float* proj_lo,
                                const float* row_scale, float* c_out,
                                float* s_out, int n, int l, int dp, int width,
-                               int f, float sigma, int exact, void* stream) {
+                               int f, float sigma, int mode, void* stream) {
   const ConvArgs p{x_hi, x_lo, order, nk, proj_hi, proj_lo,
                    n,    l,    dp,    width, f};
-  return launch<PartsEpilogue>(p, {row_scale, c_out, s_out, sigma, exact},
-                               stream);
+  switch (mode) {
+    case MODE_HI:
+      return launch<PartsEpilogue<MODE_HI>>(
+          p, {row_scale, c_out, s_out, sigma}, stream);
+    case MODE_EXACT:
+      return launch<PartsEpilogue<MODE_EXACT>>(
+          p, {row_scale, c_out, s_out, sigma}, stream);
+    case MODE_FAST:
+      return launch<PartsEpilogue<MODE_FAST>>(
+          p, {row_scale, c_out, s_out, sigma}, stream);
+    case MODE_POLY:
+      return launch<PartsEpilogue<MODE_POLY>>(
+          p, {row_scale, c_out, s_out, sigma}, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int xgpr_conv_maxpool(const float* x_hi, const float* x_lo,

@@ -34,13 +34,16 @@
 //   blocks that walk the frequency tiles of one row tile; PERF.md).
 // - The epilogue evaluates sincos on the accumulator fragment
 //   (with_sincos: a straight-line polynomial body unless an argument needs
-//   the builtin).  Where a tile lies in one block of the layout (blocks a
-//   multiple of 128 wide, F even), its cos and then its sin values go
-//   through shared memory, in the stage the tile's last step read, and
-//   out as 512-byte rows; elsewhere each thread stores its pairs of
-//   adjacent frequencies from the fragment as 8-byte stores (scalars where
-//   a pair is split or unaligned).  At RBF's chunk the rows measured
-//   0.203 ms against 0.231-0.240 ms for the fragment stores (PERF.md).
+//   the builtin), in one of the four modes of xgpr_tpu's sincos switch ("hi",
+//   "exact", "fast", "poly"): the kernel is instantiated once per mode and
+//   the host picks the instantiation at launch, so no mode branch sits in the
+//   64-value loop.  Where a tile lies in one block of the layout (blocks a
+//   multiple of 128 wide, F even), its cos and then its sin values go through
+//   shared memory, in the stage the tile's last step read, and out as
+//   512-byte rows; elsewhere each thread stores its pairs of adjacent
+//   frequencies from the fragment as 8-byte stores (scalars where a pair is
+//   split or unaligned).  At RBF's chunk the rows measured 0.203 ms against
+//   0.231-0.240 ms for the fragment stores (PERF.md).
 //   No (N, F) intermediate reaches device memory, and each feature is
 //   written once.
 #include "common.cuh"
@@ -54,7 +57,6 @@ struct FeatureArgs {
   float* out;  // (n, 2f)
   int padded;
   float scale;
-  int exact;
 };
 
 __device__ __forceinline__ void store_feature(const FeatureArgs& a, float* o,
@@ -67,6 +69,7 @@ __device__ __forceinline__ void store_feature(const FeatureArgs& a, float* o,
   o[col + width] = s;
 }
 
+template <int MODE>
 __global__ void __launch_bounds__(GT, 1)
     feature_map_kernel(DenseOperands p, FeatureArgs a) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -102,7 +105,7 @@ __global__ void __launch_bounds__(GT, 1)
               smem + (((i + 1) * kc - 1) % STAGES) * STAGE_BYTES);
           float sn[64];
           __syncthreads();  // both warpgroups' products are done
-          with_sincos(acc, 1.0f, a.exact, [&](auto sincos) {
+          with_sincos<MODE>(acc, 1.0f, [&](auto sincos) {
 #pragma unroll
             for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -149,7 +152,7 @@ __global__ void __launch_bounds__(GT, 1)
           return;
         }
         const int fb = w.col0(i) + 2 * t4;
-        with_sincos(acc, 1.0f, a.exact, [&](auto sincos) {
+        with_sincos<MODE>(acc, 1.0f, [&](auto sincos) {
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int r = row0 + rbase + 8 * h;
@@ -181,21 +184,35 @@ __global__ void __launch_bounds__(GT, 1)
       });
 }
 
+template <int MODE>
+int launch(const DenseOperands& p, const FeatureArgs& a, int rsplit,
+           cudaStream_t stream) {
+  cudaError_t err = allow_ring_smem(feature_map_kernel<MODE>);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((p.f + GN - 1) / GN, rsplit);
+  feature_map_kernel<MODE><<<grid, GT, SMEM_BYTES, stream>>>(p, a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // K2's C entry point.  x_hi/x_lo (n, dp) and proj_hi/proj_lo (f, dp) are
 // the TF32 splits of x and of proj transposed, dp % 4 == 0; out is
-// (n, 2f); rsplit blocks share each frequency tile's row tiles.
+// (n, 2f); rsplit blocks share each frequency tile's row tiles; mode is a
+// SincosMode (common.cuh), and any other value is refused.
 extern "C" int xgpr_feature_map(const float* x_hi, const float* x_lo,
                                 const float* proj_hi, const float* proj_lo,
                                 float* out, int n, int dp, int f, int padded,
-                                float scale, int exact, int rsplit,
+                                float scale, int mode, int rsplit,
                                 void* stream) {
-  cudaError_t err = allow_ring_smem(feature_map_kernel);
-  if (err != cudaSuccess) return (int)err;
   const DenseOperands p{x_hi, x_lo, proj_hi, proj_lo, n, dp, f};
-  const FeatureArgs a{out, padded, scale, exact};
-  const dim3 grid((f + GN - 1) / GN, rsplit);
-  feature_map_kernel<<<grid, GT, SMEM_BYTES, (cudaStream_t)stream>>>(p, a);
-  return (int)cudaGetLastError();
+  const FeatureArgs a{out, padded, scale};
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (mode) {
+    case MODE_HI: return launch<MODE_HI>(p, a, rsplit, st);
+    case MODE_EXACT: return launch<MODE_EXACT>(p, a, rsplit, st);
+    case MODE_FAST: return launch<MODE_FAST>(p, a, rsplit, st);
+    case MODE_POLY: return launch<MODE_POLY>(p, a, rsplit, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

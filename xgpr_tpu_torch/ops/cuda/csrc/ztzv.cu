@@ -50,6 +50,8 @@
 // 8 when K > 1); pass (b) keeps 64 column sums a thread, so it takes one
 // right-hand side per block (grid z = K).
 // The wrapper picks the slice counts that fill the SMs in the fewest waves.
+// Each kernel is instantiated once per sincos mode (common.cuh); the host
+// picks the instantiation at launch.
 #include "common.cuh"
 #include "tf32_gemm.cuh"
 
@@ -62,11 +64,11 @@ struct ZtzvArgs {
   const float* vc;  // (f, k)
   const float* vs;  // (f, k)
   float sigma, scale;
-  int k, intercept, exact;
+  int k, intercept;
 };
 
 // Partial zv over the frequency tiles of this block's walk.
-template <int KC>
+template <int MODE, int KC>
 __global__ void __launch_bounds__(GT, 1)
     ztzv_zv_kernel(DenseOperands p, ZtzvArgs a, float* __restrict__ zv_part) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -113,7 +115,7 @@ __global__ void __launch_bounds__(GT, 1)
     const float* vct = vcs[i % 3];
     const float* vst = vss[i % 3];
     const int f0 = w.col0(i);
-    with_sincos(acc, a.sigma, a.exact, [&](auto sincos) {
+    with_sincos<MODE>(acc, a.sigma, [&](auto sincos) {
 #pragma unroll
       for (int j = 0; j < 16; ++j)
 #pragma unroll
@@ -157,6 +159,7 @@ __global__ void __launch_bounds__(GT, 1)
 
 // Partial oc/os of one frequency tile over the row tiles of this block's
 // walk, for right-hand side q = blockIdx.z.
+template <int MODE>
 __global__ void __launch_bounds__(GT, 1)
     ztzv_out_kernel(DenseOperands p, ZtzvArgs a,
                     const float* __restrict__ zv_part, int zsplit,
@@ -195,7 +198,7 @@ __global__ void __launch_bounds__(GT, 1)
         }
       },
       [&](int i) {
-        with_sincos(acc, a.sigma, a.exact, [&](auto sincos) {
+        with_sincos<MODE>(acc, a.sigma, [&](auto sincos) {
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int rl = rbase + 8 * h;
@@ -259,13 +262,36 @@ __global__ void sum_splits_kernel(const float* __restrict__ oc_part,
   os[i] = b;
 }
 
-template <int KC>
+template <int MODE, int KC>
 cudaError_t launch_zv(const DenseOperands& p, const ZtzvArgs& a,
                       float* zv_part, int zsplit, cudaStream_t stream) {
-  cudaError_t err = allow_ring_smem(ztzv_zv_kernel<KC>);
+  cudaError_t err = allow_ring_smem(ztzv_zv_kernel<MODE, KC>);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.n + GM - 1) / GM, zsplit, (a.k + KC - 1) / KC);
-  ztzv_zv_kernel<KC><<<grid, GT, SMEM_BYTES, stream>>>(p, a, zv_part);
+  ztzv_zv_kernel<MODE, KC><<<grid, GT, SMEM_BYTES, stream>>>(p, a, zv_part);
+  return cudaGetLastError();
+}
+
+// The three launches of one call in one sincos mode.
+template <int MODE>
+cudaError_t launch_all(const DenseOperands& p, const ZtzvArgs& a,
+                       float* zv_part, float* oc_part, float* os_part,
+                       float* oc, float* os, int zsplit, int osplit,
+                       cudaStream_t st) {
+  cudaError_t err = a.k == 1
+                        ? launch_zv<MODE, 1>(p, a, zv_part, zsplit, st)
+                        : launch_zv<MODE, 8>(p, a, zv_part, zsplit, st);
+  if (err != cudaSuccess) return err;
+  err = allow_ring_smem(ztzv_out_kernel<MODE>);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_b((p.f + GN - 1) / GN, osplit, a.k);
+  ztzv_out_kernel<MODE><<<grid_b, GT, SMEM_BYTES, st>>>(p, a, zv_part, zsplit,
+                                                        oc_part, os_part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t len = (size_t)p.f * a.k;
+  sum_splits_kernel<<<(unsigned)((len + 255) / 256), 256, 0, st>>>(
+      oc_part, os_part, oc, os, osplit, len);
   return cudaGetLastError();
 }
 
@@ -274,29 +300,32 @@ cudaError_t launch_zv(const DenseOperands& p, const ZtzvArgs& a,
 // K1's C entry point.  x_hi/x_lo (n, dp) and proj_hi/proj_lo (f, dp) are
 // the TF32 splits of x and of proj transposed, dp % 4 == 0; zv_part is
 // (zsplit, n, k); oc_part/os_part are (osplit, f, k); oc/os are (f, k).
-// All fp32, contiguous, on `stream`.
+// All fp32, contiguous, on `stream`.  mode is a SincosMode (common.cuh),
+// and any other value is refused.
 extern "C" int xgpr_ztzv(const float* x_hi, const float* x_lo, const float* m,
                          const float* proj_hi, const float* proj_lo,
                          float sigma, const float* vc, const float* vs,
                          float* zv_part, float* oc_part, float* os_part,
                          float* oc, float* os, int n, int dp, int f, int k,
                          int zsplit, int osplit, float scale, int intercept,
-                         int exact, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+                         int mode, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
   const DenseOperands p{x_hi, x_lo, proj_hi, proj_lo, n, dp, f};
-  const ZtzvArgs a{m, vc, vs, sigma, scale, k, intercept, exact};
-  cudaError_t err = k == 1 ? launch_zv<1>(p, a, zv_part, zsplit, st)
-                           : launch_zv<8>(p, a, zv_part, zsplit, st);
-  if (err != cudaSuccess) return (int)err;
-  err = allow_ring_smem(ztzv_out_kernel);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid_b((f + GN - 1) / GN, osplit, k);
-  ztzv_out_kernel<<<grid_b, GT, SMEM_BYTES, st>>>(p, a, zv_part, zsplit,
-                                                  oc_part, os_part);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const size_t len = (size_t)f * k;
-  sum_splits_kernel<<<(unsigned)((len + 255) / 256), 256, 0, st>>>(
-      oc_part, os_part, oc, os, osplit, len);
-  return (int)cudaGetLastError();
+  const ZtzvArgs a{m, vc, vs, sigma, scale, k, intercept};
+  switch (mode) {
+    case MODE_HI:
+      return (int)launch_all<MODE_HI>(p, a, zv_part, oc_part, os_part, oc,
+                                      os, zsplit, osplit, st);
+    case MODE_EXACT:
+      return (int)launch_all<MODE_EXACT>(p, a, zv_part, oc_part, os_part, oc,
+                                         os, zsplit, osplit, st);
+    case MODE_FAST:
+      return (int)launch_all<MODE_FAST>(p, a, zv_part, oc_part, os_part, oc,
+                                        os, zsplit, osplit, st);
+    case MODE_POLY:
+      return (int)launch_all<MODE_POLY>(p, a, zv_part, oc_part, os_part, oc,
+                                        os, zsplit, osplit, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

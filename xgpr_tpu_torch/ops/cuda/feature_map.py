@@ -14,8 +14,11 @@ elementwise passes over x, 2.75 MB at RBF's 8192 x 84 chunk); the split
 of proj's transpose is cached with proj (``projT_split``).
 
 ``rbf_feature_map`` runs the plain version for a CPU tensor and the
-kernel for a CUDA tensor; anything else raises.  ``LAUNCHES`` counts
-kernel launches by their shape (N, D, F).
+kernel for a CUDA tensor; anything else raises.  A CUDA tensor gets the
+kernel of the sincos mode it asks for (the configured one by default):
+"hi", "exact", "fast" and "poly" are each a kernel instantiation.
+``LAUNCHES`` counts kernel launches by their shape and mode
+(N, D, F, mode).
 """
 from collections import Counter
 
@@ -43,18 +46,26 @@ def rbf_feature_map_plain(x, proj, fit_intercept, padded, mode=None):
     return assemble_cos_sin(c, s, padded)
 
 
-def kernel_sincos_flag(mode=None) -> int:
-    """The kernels' sincos switch: 0 = "hi", 1 = "exact".  The other modes
-    are not implemented in the kernels and raise rather than silently
-    computing another one."""
+# The kernels' sincos switch (csrc/common.cuh: SincosMode), one
+# instantiation of each kernel per mode.
+_MODE_FLAGS = {"hi": 0, "exact": 1, "fast": 2, "poly": 3}
+
+
+def kernel_mode(mode=None) -> str:
+    """The sincos mode a kernel launch runs: ``mode``, or the configured
+    one when None, with "auto" read as "hi".  Anything else raises."""
     mode = sincos_mode() if mode is None else mode
-    if mode in ("auto", "hi"):
-        return 0
-    if mode == "exact":
-        return 1
-    raise NotImplementedError(
-        f"sincos mode {mode!r} is not implemented in the CUDA kernels; "
-        "use 'hi' (the default) or 'exact'.")
+    mode = "hi" if mode == "auto" else mode
+    if mode not in _MODE_FLAGS:
+        raise ValueError(f"unknown sincos mode {mode!r}; the kernels take "
+                         f"auto, {', '.join(_MODE_FLAGS)}.")
+    return mode
+
+
+def kernel_sincos_flag(mode=None) -> int:
+    """The kernels' sincos switch for ``mode`` (``kernel_mode``): 0 "hi",
+    1 "exact", 2 "fast", 3 "poly"."""
+    return _MODE_FLAGS[kernel_mode(mode)]
 
 
 def check_cuda_operands(name, *tensors):
@@ -81,7 +92,7 @@ def rbf_feature_map(x, proj, fit_intercept, padded, mode=None):
     if x.device.type != "cuda":
         raise ValueError(f"rbf_feature_map: no kernel for {x.device}.")
     check_cuda_operands("rbf_feature_map", x, proj)
-    exact = kernel_sincos_flag(mode)
+    mode = kernel_mode(mode)
     n = x.shape[0]
     f = proj.shape[1]
     out = torch.empty((n, 2 * f), dtype=torch.float32, device=x.device)
@@ -98,7 +109,8 @@ def rbf_feature_map(x, proj, fit_intercept, padded, mode=None):
         rc = lib.xgpr_feature_map(xh.data_ptr(), xl.data_ptr(),
                                   ph.data_ptr(), pl.data_ptr(),
                                   out.data_ptr(), n, xh.shape[1], f,
-                                  int(padded), scale, exact, rsplit, stream)
+                                  int(padded), scale,
+                                  kernel_sincos_flag(mode), rsplit, stream)
     build.check(rc, "feature map kernel")
-    LAUNCHES[(n, x.shape[1], f)] += 1
+    LAUNCHES[(n, x.shape[1], f, mode)] += 1
     return out

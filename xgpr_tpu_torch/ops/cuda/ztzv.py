@@ -12,9 +12,11 @@ scale = rbf_norm_constant(F, intercept), mask * scale folded into both
 parts, and with an intercept cos column 0 equals the mask.
 
 ``ztzv_parts`` runs the plain version for CPU tensors and the kernel for
-CUDA tensors; anything else raises.  ``LAUNCHES`` counts kernel launches
-(one per call, covering its three CUDA launches) by their shape
-(R, D, F, K): K is 1 in a fit's CG and 26 in SLQ's.  Two calls on the same
+CUDA tensors; anything else raises.  A CUDA call runs the kernels of the
+sincos mode it asks for (the configured one by default).  ``LAUNCHES``
+counts kernel launches (one per call, covering its three CUDA launches) by
+their shape and mode (R, D, F, K, mode): K is 1 in a fit's CG and 26 in
+SLQ's.  Two calls on the same
 inputs give the same bits.
 """
 from collections import Counter
@@ -25,7 +27,8 @@ from .. import sincos as _sincos
 from ..contract import parts_contract
 from ..sorf import rbf_norm_constant
 from . import build
-from .feature_map import TILE, check_cuda_operands, kernel_sincos_flag
+from .feature_map import (TILE, check_cuda_operands, kernel_mode,
+                          kernel_sincos_flag)
 from .operands import (pad_depth, projT_split, sm_count, split_tf32,
                        tile_split)
 
@@ -65,7 +68,7 @@ def ztzv_parts(x, m, proj, sigma, v_c, v_s, fit_intercept, mode=None):
     if x.device.type != "cuda":
         raise ValueError(f"ztzv_parts: no kernel for {x.device}.")
     check_cuda_operands("ztzv_parts", x, m, proj, v_c, v_s)
-    exact = kernel_sincos_flag(mode)
+    mode = kernel_mode(mode)
     opts = dict(dtype=torch.float32, device=x.device)
     if n == 0 or f == 0:
         return torch.zeros((f, k), **opts), torch.zeros((f, k), **opts)
@@ -93,7 +96,7 @@ def ztzv_parts(x, m, proj, sigma, v_c, v_s, fit_intercept, mode=None):
             zv_part.data_ptr(), oc_part.data_ptr(), os_part.data_ptr(),
             oc.data_ptr(), os_.data_ptr(), n, xh.shape[1], f, k, zsplit,
             osplit, rbf_norm_constant(f, fit_intercept),
-            int(bool(fit_intercept)), exact, stream)
+            int(bool(fit_intercept)), kernel_sincos_flag(mode), stream)
     build.check(rc, "ztzv kernel")
-    LAUNCHES[(n, d, f, k)] += 1
+    LAUNCHES[(n, d, f, k, mode)] += 1
     return oc, os_

@@ -9,7 +9,8 @@ card so that the host->device copy of chunk k+1 overlaps the compute on
 chunk k:
 
 - a ring of ``PREFETCH_DEPTH`` slots, each a set of pinned host staging
-  buffers and device buffers of one padded chunk (x, y, lengths, mask);
+  buffers and device buffers of one padded chunk (x, y, lengths, mask; y
+  in ``label_dtype``, torch.long for a classifier's labels);
 - a dedicated copy stream issuing ``non_blocking`` copies from the pinned
   buffers (a copy from pageable memory would synchronise first);
 - CUDA events: the compute stream waits for a slot's copy before its
@@ -42,9 +43,10 @@ class ChunkPrefetcher:
     docstring.  Slots are allocated at the first chunk and reused by every
     later pass."""
 
-    def __init__(self, dataset, dtype, device):
+    def __init__(self, dataset, dtype, device, label_dtype=None):
         self.dataset = dataset
         self.dtype = dtype
+        self.label_dtype = dtype if label_dtype is None else label_dtype
         self.device = torch.device(device)
         self.depth = PREFETCH_DEPTH
         self._copy_stream = torch.cuda.Stream(self.device)
@@ -62,7 +64,7 @@ class ChunkPrefetcher:
         slots = []
         for _ in range(self.depth):
             slot = {"x": pair(xb.shape, self.dtype),
-                    "y": pair((rows,), self.dtype),
+                    "y": pair((rows,), self.label_dtype),
                     "m": pair((rows,), self.dtype)}
             if lb is not None:
                 slot["l"] = pair((rows,), torch.int32)
