@@ -25,7 +25,11 @@ built beforehand.  Phases (any failure raises and the exit code is not 0):
    shape the main path launches, each kernel's time beside the plain
    version's.  Then the same in the sincos modes "fast" and "poly", each
    kernel against the plain version of the same mode, with a guard case
-   (arguments past POLY_ARG_LIMIT, which take the builtin).
+   (arguments past POLY_ARG_LIMIT, which take the builtin); then K1 in its
+   one-pass bf16 body ("default" feature precision, in "fast": what the
+   "max" preset launches) and K1 at "highest" (its 3xTF32 body) with K2,
+   in "exact" (the "reference" preset), each against the plain version of
+   the same mode and precision.
 3. Slice A at a real size: 262,144 x 84 training rows, 8192 RFFs, RBF,
    fit(mode="cg") with the autoselected Nystrom preconditioner, then
    predict(get_var=True) on 16,384 rows.  Checks CG convergence, finite
@@ -43,7 +47,8 @@ built beforehand.  Phases (any failure raises and the exit code is not 0):
    the kernel's time beside both bounds, the (row, window) slots its
    tiles project against the valid windows, and its achieved TFLOP/s on
    the valid-window work.  K3 again in "fast" and "poly", with a guard
-   case.
+   case, and K3 (in "fast") and K4 in their bf16 body ("default"); each
+   "default" time is printed beside the 3xTF32 body's.
 6. The sequence slice: Conv1dRBF, 8192 RFFs, fit(mode="cg") with the
    autoselected preconditioner (the model prints the rank it chose),
    predict(get_var=True).  Checks CG convergence, that K3 ran during fit
@@ -98,15 +103,31 @@ built beforehand.  Phases (any failure raises and the exit code is not 0):
    ran during fit and predict, the engine stayed on the card, held-out
    accuracy at or above the floor.  Prints one NCG iteration's two data
    passes timed apart.
+12. The speed presets (``phase_presets``, run after phase 7).  Under
+   ``set_speed_preset("max")`` (bf16 bodies of K1, K3 and K4, bf16
+   feature materialisation, "fast" sincos): slice A (phase 3's fit and
+   predict), the Conv1dRBF slice (phase 6's) and the K4 path (phase 7's),
+   each to MAX_TOL with its own gates, and one RBF approximate_nmll
+   against its exact_nmll (K1 at K 26).  Under "reference" ("highest",
+   which runs the 3xTF32 body, and "exact" sincos): slice A refit and
+   predicted.  Gates: held-out Spearman
+   within 0.02 of the "balanced" run's, the exact NMLL within 1e-3 of
+   "balanced"'s, SLQ within 1% of exact, every K1/K3/K4 launch at the
+   preset's precision and every K1-K3 launch in its sincos mode.  Prints
+   each fit's CG recurrence residual beside its true residual (float64,
+   from the design matrix), its time and iterations beside "balanced"'s,
+   and the Conv1dRBF chunk contraction's time with bf16 operands (a
+   library call) beside fp32.  Restores "balanced".
 
-The launch counters count by shape and, for K1-K3, sincos mode.  The line
-before the last is one JSON object describing the kernels: one row per
-path (slice A, Conv1dRBF, both under "fast" and "poly", streamed
-Conv1dRBF, the referee, the K4 path, tuning, the two classifiers),
-kernel and launch shape less its row count, with the
-launches at that shape (by row count) and the times and bound measured
-at it; a launch at a shape phases 2 and 5 did not check and time fails
-the run.  The last line is {"ok": true, "device": {...}}.
+The launch counters count by shape and, for K1-K3, sincos mode, and for
+K1, K3 and K4 feature precision.  The line before the last is one JSON
+object describing the kernels: one row per path (slice A, Conv1dRBF,
+both under "fast" and "poly", streamed Conv1dRBF, the referee, the K4
+path, the presets' paths, tuning, the two classifiers), kernel and
+launch shape less its row count, with the launches at that shape (by row
+count) and the times and bound measured at it; a launch at a shape, mode
+or precision that phases 2 and 5 did not check and time fails the run.
+The last line is {"ok": true, "device": {...}}.
 Without a CUDA device, or outside a checkout, it exits with code 1 and
 prints no result.
 """
@@ -196,6 +217,13 @@ PROB_ATOL = 1e-5
 # so they are held to 1e-4 * max(1, max |ref|).
 FEATURE_ATOL = 1e-5
 ZTZV_RTOL = 1e-4
+# K1's bf16 body ("default") rounds c, s and the summed zv to bf16 as its
+# plain version does, but sums in another fp32 order, so a value near a
+# bf16 rounding boundary can round apart: a step of up to
+# 2^-7 * scale * |zv| in that row's terms (1.4e-4 of max|ref| at 2000 rows
+# and 500 frequencies, less at the slice's shape).  Held to 1e-3 of
+# max|ref|: room for a few such steps.
+K1_DEFAULT_RTOL = 1e-3
 CONV_RTOL = 1e-4
 PREDICT_RTOL = 1e-4
 # The sincos modes beside "hi" that K1, K2 and K3 are instantiated for,
@@ -204,14 +232,32 @@ PREDICT_RTOL = 1e-4
 SINCOS_MODES = ("fast", "poly")
 MODE_RTOL = 1e-3
 
-# Published H100 SXM peaks (NVIDIA data sheet): dense TF32 on the tensor
-# cores, fp32 on CUDA cores and HBM3 bandwidth.  The bounds count each
-# input read once, each output written once, and the multiply-adds of the
-# projections (2 flops each): as three TF32 products each at fp32 grade
-# (3xTF32) for the tensor-core bound, as fp32 FMAs for the CUDA-core one.
+# Published H100 SXM peaks (NVIDIA data sheet): dense TF32 and bf16 on the
+# tensor cores, fp32 on CUDA cores and HBM3 bandwidth.  The bounds count
+# each input read once, each output written once, and the multiply-adds of
+# the projections (2 flops each) on the tensor cores in the body of the
+# launch's feature precision (PRODUCTS: 3xTF32 for "high" and "highest",
+# one bf16 product for "default"), and as fp32 FMAs for the CUDA-core
+# bound.
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+PRODUCTS = {"high": (3, PEAK_TF32_FLOPS), "highest": (3, PEAK_TF32_FLOPS),
+            "default": (1, PEAK_BF16_FLOPS)}
+BODY = {"high": "3xTF32", "highest": "3xTF32", "default": "bf16"}
+
+# The speed presets (phase 12, ``phase_presets``).  Under "max" the fits
+# run K1, K3 and K4 in their one-pass bf16 body with bf16 feature
+# materialisation and "fast" sincos; under "reference" K1 at "highest"
+# (the 3xTF32 body) with the builtin sincos.  Gates (xgpr_tpu's own for
+# "max", tests/numerics_tests/test_fast_features.py): held-out Spearman
+# within PRESET_RHO of the "balanced" run's, exact NMLL within PRESET_NMLL_RTOL
+# of it, predictions within PREDICT_RTOL x max|pred| of the same preset's
+# plain path, SLQ within NMLL_RTOL of exact, every launch of K1, K3 and K4
+# at the preset's precision.  CG runs to MAX_TOL under "max".
+PRESET_RHO, PRESET_NMLL_RTOL = 0.02, 1e-3
+MAX_TOL = 1e-6
 
 
 def check(cond, msg):
@@ -346,13 +392,14 @@ def time_ms(torch, fn, reps=10, dev="cuda"):
     return start.elapsed_time(stop) / reps
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, precision="high"):
     """Least ms on the published peaks and what sets it: "ms"/"by" with
-    the flops on the tensor cores (3xTF32), "cuda_core_ms"/"cuda_core_by"
-    with them on CUDA cores."""
+    the flops on the tensor cores in the body of ``precision``,
+    "cuda_core_ms"/"cuda_core_by" with them on CUDA cores."""
     t_bytes = nbytes / PEAK_BYTES
-    out = {}
-    for key, t_ops in (("", 3 * flops / PEAK_TF32_FLOPS),
+    products, peak = PRODUCTS[precision]
+    out = {"body": BODY[precision]}
+    for key, t_ops in (("", products * flops / peak),
                        ("cuda_core_", flops / PEAK_FP32_FLOPS)):
         out[key + "ms"] = max(t_bytes, t_ops) * 1e3
         out[key + "by"] = "bytes" if t_bytes >= t_ops else "operations"
@@ -360,9 +407,9 @@ def bound(nbytes, flops):
 
 
 def bound_text(b):
-    return (f"bound {b['ms']:.4f} ms ({b['by']}, tensor cores 3xTF32) / "
-            f"{b['cuda_core_ms']:.4f} ms ({b['cuda_core_by']}, fp32 CUDA "
-            f"cores)")
+    return (f"bound {b['ms']:.4f} ms ({b['by']}, tensor cores "
+            f"{b['body']}) / {b['cuda_core_ms']:.4f} ms "
+            f"({b['cuda_core_by']}, fp32 CUDA cores)")
 
 
 def counters():
@@ -427,11 +474,12 @@ def guard_dense(torch, rng, t, n, d, f):
     return x, proj
 
 
-def phase_kernels(torch, card, mode="hi"):
-    """K1 and K2 in sincos ``mode`` against their plain versions in the
-    same mode on the card, timed at every shape the main path launches
-    them at; the ragged cases and a guard case (arguments past
-    POLY_ARG_LIMIT) are checked, not timed."""
+def phase_kernels(torch, card, mode="hi", precision="high", k2=True):
+    """K1 in sincos ``mode`` and feature ``precision``, and K2 (unless not
+    ``k2``; it has no precision variant) in ``mode``, against their plain
+    versions in the same mode and precision on the card, timed at every
+    shape the main path launches them at; the ragged cases and a guard
+    case (arguments past POLY_ARG_LIMIT) are checked, not timed."""
     from xgpr_tpu_torch.kernels import RBF, Conv1dTwoLayer
     from xgpr_tpu_torch.ops.cuda import feature_map, ztzv
     dev = torch.device("cuda")
@@ -466,7 +514,7 @@ def phase_kernels(torch, card, mode="hi"):
                       intercept, f"ragged intercept={intercept}"))
     cases.append((*guard_dense(torch, rng, t, 300, 16, 256), 16, True,
                   "ragged guard"))
-    for x, pr, padded, intercept, label in cases:
+    for x, pr, padded, intercept, label in cases if k2 else ():
         n = x.shape[0]
         got = feature_map.rbf_feature_map(x, pr, intercept, padded, mode)
         want = feature_map.rbf_feature_map_plain(x, pr, intercept, padded,
@@ -502,6 +550,8 @@ def phase_kernels(torch, card, mode="hi"):
                 (2000, t(rng.standard_normal((N_FEATURES, 500)) * 0.3), 3,
                  0.7, "ragged", None),
                 (xg.shape[0], pg, 2, 1.0, "ragged guard", xg)]
+    tag = f"{mode}, {precision}"
+    rtol = K1_DEFAULT_RTOL if precision == "default" else ZTZV_RTOL
     for n, pr, k, sig, label, xfix in k1_cases:
         x = t(rng.standard_normal((n, pr.shape[0]))) if xfix is None \
             else xfix
@@ -510,81 +560,90 @@ def phase_kernels(torch, card, mode="hi"):
         vs = t(rng.standard_normal((pr.shape[1], k)))
         k1_err = 0.0
         for intercept in (True, False):
-            oc, os_ = ztzv.ztzv_parts(x, m, pr, sig, vc, vs, intercept, mode)
+            oc, os_ = ztzv.ztzv_parts(x, m, pr, sig, vc, vs, intercept, mode,
+                                      precision)
             rc, rs = ztzv.ztzv_parts_plain(x, m, pr, sig, vc, vs, intercept,
-                                           mode)
+                                           mode, precision)
             torch.cuda.synchronize()
             scale = max(1.0, float(rc.abs().max()), float(rs.abs().max()))
             err = max(float((oc - rc).abs().max()),
                       float((os_ - rs).abs().max()))
-            print(f"K1 ztzv ({mode}) {label} intercept={intercept}: R={n} "
+            print(f"K1 ztzv ({tag}) {label} intercept={intercept}: R={n} "
                   f"D={pr.shape[0]} F={pr.shape[1]} K={k} "
                   f"max_abs_err={err:.3e} max|ref|={scale:.3e} "
-                  f"(tol {ZTZV_RTOL:g} * max|ref|)", flush=True)
-            check(err < ZTZV_RTOL * scale,
-                  f"K1 ({mode}) {label} disagrees ({err})")
+                  f"(tol {rtol:g} * max|ref|)", flush=True)
+            check(err < rtol * scale, f"K1 ({tag}) {label} disagrees ({err})")
             k1_err = max(k1_err, err)
         if label.startswith("ragged"):
             continue
         if k == 1:
-            again = ztzv.ztzv_parts(x, m, pr, sig, vc, vs, False, mode)
+            again = ztzv.ztzv_parts(x, m, pr, sig, vc, vs, False, mode,
+                                    precision)
             torch.cuda.synchronize()
             same = torch.equal(again[0], oc) and torch.equal(again[1], os_)
-            print(f"K1 ({mode}) determinism at slice shape (K=1): two calls "
+            print(f"K1 ({tag}) determinism at slice shape (K=1): two calls "
                   f"bitwise equal: {same}", flush=True)
             check(same, "two K1 calls on the same inputs differ")
         d, f = pr.shape
         ms = time_ms(torch, lambda: ztzv.ztzv_parts(
-            x, m, pr, sig, vc, vs, True, mode))
+            x, m, pr, sig, vc, vs, True, mode, precision))
         plain_ms = time_ms(torch, lambda: ztzv.ztzv_parts_plain(
-            x, m, pr, sig, vc, vs, True, mode))
+            x, m, pr, sig, vc, vs, True, mode, precision))
         kb = bound(4 * (n * d + n + d * f + 4 * f * k),
-                   2 * n * d * f + 8 * n * f * k)
-        print(f"K1 ({mode}) time at slice shape (K={k}): kernel {ms:.4f} ms, "
+                   2 * n * d * f + 8 * n * f * k, precision)
+        print(f"K1 ({tag}) time at slice shape (K={k}): kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, {bound_text(kb)} [{card}]",
               flush=True)
-        results.update(timed_entry("K1", (d, f, k, mode), k1_err, ms,
-                                   plain_ms, kb, f"R {n}, D {d}, F {f}, "
-                                   f"K {k}, sincos {mode}"))
+        results.update(timed_entry("K1", (d, f, k, mode, precision), k1_err,
+                                   ms, plain_ms, kb, f"R {n}, D {d}, F {f}, "
+                                   f"K {k}, sincos {mode}, {precision}"))
     return results
 
 
-def phase_slice(torch, card, tab):
-    """Slice A: fit(mode="cg") + predict(get_var=True) at a real size, on
-    ``tab`` = (train dataset, test x, test y)."""
+def phase_slice(torch, card, tab, dev="cuda", num_rffs=NUM_RFFS,
+                variance_rffs=VARIANCE_RFFS, tol=1e-6, label="slice A"):
+    """Slice A: fit(mode="cg", tol) + predict(get_var=True) at a real size,
+    on ``tab`` = (train dataset, test x, test y).  Returns the launches,
+    the predictions and the fit's record (model, fit_s, n_iter, residual,
+    rho)."""
     from scipy.stats import spearmanr
     from xgpr_tpu_torch import GPRegression
     from xgpr_tpu_torch.ops.cuda import feature_map
 
     dset, tex, te_y = tab
-    model = GPRegression(num_rffs=NUM_RFFS, variance_rffs=VARIANCE_RFFS,
-                         kernel_choice="RBF", device="cuda", verbose=False)
+    on_card = torch.device(dev).type == "cuda"
+    model = GPRegression(num_rffs=num_rffs, variance_rffs=variance_rffs,
+                         kernel_choice="RBF", device=dev, verbose=False)
     model.set_hyperparams(HPARAMS, dset)
 
     reset_counts()
     t0 = time.perf_counter()
-    n_iter, losses = model.fit(dset, mode="cg", run_diagnostics=True)
-    torch.cuda.synchronize()
+    n_iter, losses = model.fit(dset, mode="cg", tol=tol,
+                               run_diagnostics=True)
+    sync(torch, dev)
     fit_s = time.perf_counter() - t0
     fit_counts = read_counts()
     fit_n = totals(fit_counts)
-    print(f"fit: {fit_s:.3f}s, CG iterations {n_iter}, final relative "
-          f"residual {losses[-1]:.3e}; launches during fit: {fit_n}",
-          flush=True)
-    check(n_iter < 500 and losses[-1] < 1e-6, "CG did not converge")
-    check(fit_n["K1"] > 0, "K1 was not launched during fit")
-    check(fit_n["K2"] > 0, "K2 was not launched during fit")
+    print(f"{label} fit: {fit_s:.3f}s, CG iterations {n_iter}, final "
+          f"relative residual {losses[-1]:.3e} (tol {tol:g}); launches "
+          f"during fit: {fit_n}", flush=True)
+    check(n_iter < 500 and losses[-1] < tol, f"{label}: CG did not converge")
+    if on_card:
+        check(fit_n["K1"] > 0, "K1 was not launched during fit")
+        check(fit_n["K2"] > 0, "K2 was not launched during fit")
 
     reset_counts()
     t0 = time.perf_counter()
     preds, var = model.predict(tex, get_var=True)
     predict_s = time.perf_counter() - t0
     predict_counts = read_counts()
-    print(f"predict: {predict_s:.3f}s for {N_TEST} rows; launches "
+    n_test = len(tex)
+    print(f"{label} predict: {predict_s:.3f}s for {n_test} rows; launches "
           f"{totals(predict_counts)}", flush=True)
-    check(predict_counts["K2"].total() > 0,
-          "K2 was not launched during predict")
-    check(preds.shape == (N_TEST,) and var.shape == (N_TEST,),
+    if on_card:
+        check(predict_counts["K2"].total() > 0,
+              "K2 was not launched during predict")
+    check(preds.shape == (n_test,) and var.shape == (n_test,),
           "prediction shapes")
     check(bool(np.all(np.isfinite(preds)) and np.all(np.isfinite(var))),
           "non-finite predictions")
@@ -603,8 +662,10 @@ def phase_slice(torch, card, tab):
                                           kern.padded_dims)
     z[:, 0] = 1.0
     check_predictions(model, z, preds[:4096], "the plain feature map")
-    report_times(model, n_iter, predict_s, card, "slice A")
-    return {k: fit_counts[k] + predict_counts[k] for k in fit_counts}, preds
+    report_times(model, n_iter, predict_s, card, label)
+    return ({k: fit_counts[k] + predict_counts[k] for k in fit_counts}, preds,
+            {"model": model, "fit_s": fit_s, "n_iter": n_iter,
+             "residual": float(losses[-1]), "rho": rho})
 
 
 def check_predictions(model, z, preds, what):
@@ -630,13 +691,14 @@ def report_times(model, n_iter, predict_s, card, label):
 def phase_conv_kernels(torch, card, corpus, dev="cuda", chunk=CHUNK,
                        num_rffs=NUM_RFFS, init_rffs=INIT_RFFS,
                        tune_rffs=TUNE_RFFS, verify_rffs=VERIFY_RFFS,
-                       mode="hi"):
-    """K3 (in sincos ``mode``) and K4 against their plain versions, at the
-    shapes the main path launches them at (chunks of the corpus, the
-    models' own projections: the sequence slice's, and K3 at the tuning
-    and verify widths too), a ragged case, w = 1 and, for K3, a guard case
-    (arguments past POLY_ARG_LIMIT); each main-path shape is timed.  K4
-    has no sincos: it runs only with ``mode`` "hi"."""
+                       mode="hi", precision="high", with_k4=True):
+    """K3 (in sincos ``mode``) and, with ``with_k4``, K4, both at feature
+    ``precision``, against their plain versions at the same mode and
+    precision, at the shapes the main path launches them at (chunks of the
+    corpus, the models' own projections: the sequence slice's, and K3 at
+    the tuning and verify widths too), a ragged case, w = 1 and, for K3, a
+    guard case (arguments past POLY_ARG_LIMIT); each main-path shape is
+    timed.  K4 has no sincos."""
     from xgpr_tpu_torch.kernels import Conv1dRBF, Conv1dTwoLayer
     from xgpr_tpu_torch.ops.conv import conv_row_scale
     from xgpr_tpu_torch.ops.cuda import conv
@@ -695,19 +757,19 @@ def phase_conv_kernels(torch, card, corpus, dev="cuda", chunk=CHUNK,
         + [guard],
         "K4": [("slice", x_slice, l_slice, proj4, MOTIF_W, None)] + others,
     }
-    if mode != "hi":
+    if not with_k4:
         del cases["K4"]
 
     def sig(label):
         return 1.0 if label == "guard" else sigma
     runs = {"K3": (lambda x, l, p, w, rs, sg: conv.conv_parts(
-                       x, l, p, sg, w, rs, mode),
+                       x, l, p, sg, w, rs, mode, precision),
                    lambda x, l, p, w, rs, sg: conv.conv_parts_plain(
-                       x, l, p, sg, w, rs, mode)),
-            "K4": (lambda x, l, p, w, rs, sg: (conv.conv_maxpool(x, l, p,
-                                                                 w),),
+                       x, l, p, sg, w, rs, mode, precision)),
+            "K4": (lambda x, l, p, w, rs, sg: (conv.conv_maxpool(
+                       x, l, p, w, precision),),
                    lambda x, l, p, w, rs, sg: (conv.conv_maxpool_plain(
-                       x, l, p, w),))}
+                       x, l, p, w, precision),))}
     results = {}
     for name, kcases in cases.items():
         kernel_fn, plain_fn = runs[name]
@@ -719,7 +781,8 @@ def phase_conv_kernels(torch, card, corpus, dev="cuda", chunk=CHUNK,
             err = max(float((g - w).abs().max()) for g, w in zip(got, want))
             n, l, d = x.shape
             f = proj.shape[1]
-            tag = name if name == "K4" else f"{name} ({mode})"
+            tag = f"{name} ({precision})" if name == "K4" else \
+                f"{name} ({mode}, {precision})"
             print(f"{tag} {label}: N={n} L={l} D={d} w={width} F={f} "
                   f"max_abs_err={err:.3e} max|ref|={scale:.3e} "
                   f"(tol {CONV_RTOL:g} * max(1, max|ref|))", flush=True)
@@ -736,28 +799,30 @@ def phase_conv_kernels(torch, card, corpus, dev="cuda", chunk=CHUNK,
             out_cols = 2 * f if name == "K3" else f
             flops = 2 * width * d * f * nk_sum
             kb = bound(4 * (n * l * d + n + width * d * f + n * out_cols)
-                       + (4 * n if name == "K3" else 0), flops)
+                       + (4 * n if name == "K3" else 0), flops, precision)
             slots, valid = conv.window_slots(lens, width, l - width + 1)
             print(f"{tag} time at {label} shape: kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, {bound_text(kb)}; {nk_sum} valid "
                   f"windows, {flops / 1e9:.1f} GFLOP; projection matmul "
                   f"alone (partial yardstick, no mask/sincos/sum) "
                   f"{mm_ms:.4f} ms [{card}]", flush=True)
-            tc_flops = 3 * flops * slots / valid
+            products, peak = PRODUCTS[precision]
+            tc_flops = products * flops * slots / valid
             print(f"{tag} at {label} shape: {slots} window slots projected "
                   f"for {valid} valid windows ({slots / valid:.3f} : 1); "
                   f"achieved {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s on the "
                   f"valid-window work "
                   f"({flops * 1e3 / ms / PEAK_FP32_FLOPS:.1%} of the fp32 "
                   f"CUDA-core peak; the tensor cores run "
-                  f"{tc_flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s of TF32 "
-                  f"products on the projected slots, "
-                  f"{tc_flops * 1e3 / ms / PEAK_TF32_FLOPS:.1%} of peak) "
+                  f"{tc_flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s of "
+                  f"{BODY[precision]} products on the projected slots, "
+                  f"{tc_flops * 1e3 / ms / peak:.1%} of peak) "
                   f"[{card}]", flush=True)
             key = (l, d, width, f)
             shape = f"N {n}, L {l}, D {d}, w {width}, F {f}"
             if name == "K3":
                 key, shape = key + (mode,), shape + f", sincos {mode}"
+            key, shape = key + (precision,), shape + f", {precision}"
             results.update(timed_entry(name, key, err, ms, plain_ms, kb,
                                        shape))
     return results
@@ -765,8 +830,11 @@ def phase_conv_kernels(torch, card, corpus, dev="cuda", chunk=CHUNK,
 
 def phase_conv_slice(torch, card, corpus, n_train=N_TRAIN, n_test=N_TEST,
                      dev="cuda", chunk=CHUNK, num_rffs=NUM_RFFS,
-                     variance_rffs=VARIANCE_RFFS, profile=False):
-    """The sequence slice: Conv1dRBF fit(mode="cg") + predict."""
+                     variance_rffs=VARIANCE_RFFS, profile=False, tol=1e-6,
+                     label="Conv1dRBF"):
+    """The sequence slice: Conv1dRBF fit(mode="cg", tol) + predict.
+    Returns the launches, the CG iterations, the predictions, the model and
+    the fit's record (fit_s, n_iter, residual, rho, dset)."""
     from scipy.stats import spearmanr
     from xgpr_tpu_torch import GPRegression, build_regression_dataset
     from xgpr_tpu_torch.ops.conv import conv_row_scale
@@ -786,14 +854,14 @@ def phase_conv_slice(torch, card, corpus, n_train=N_TRAIN, n_test=N_TEST,
 
     reset_counts()
     t0 = time.perf_counter()
-    n_iter, losses = model.fit(dset, mode="cg", run_diagnostics=True)
+    n_iter, losses = model.fit(dset, mode="cg", tol=tol, run_diagnostics=True)
     sync(torch, dev)
     fit_s = time.perf_counter() - t0
     fit_counts = read_counts()
-    print(f"Conv1dRBF fit: {fit_s:.3f}s, CG iterations {n_iter}, final "
-          f"relative residual {losses[-1]:.3e}; launches during fit: "
-          f"{totals(fit_counts)}", flush=True)
-    check(n_iter < 500 and losses[-1] < 1e-6, "Conv1dRBF CG did not converge")
+    print(f"{label} fit: {fit_s:.3f}s, CG iterations {n_iter}, final "
+          f"relative residual {losses[-1]:.3e} (tol {tol:g}); launches "
+          f"during fit: {totals(fit_counts)}", flush=True)
+    check(n_iter < 500 and losses[-1] < tol, f"{label} CG did not converge")
     model.verbose = False
 
     reset_counts()
@@ -801,7 +869,7 @@ def phase_conv_slice(torch, card, corpus, n_train=N_TRAIN, n_test=N_TEST,
     preds, var = model.predict(tex, te_l, get_var=True)
     predict_s = time.perf_counter() - t0
     predict_counts = read_counts()
-    print(f"Conv1dRBF predict: {predict_s:.3f}s for {n_test} rows; "
+    print(f"{label} predict: {predict_s:.3f}s for {n_test} rows; "
           f"launches {totals(predict_counts)}", flush=True)
     if torch.device(dev).type == "cuda":
         check(fit_counts["K3"].total() > 0, "K3 was not launched during fit")
@@ -813,7 +881,7 @@ def phase_conv_slice(torch, card, corpus, n_train=N_TRAIN, n_test=N_TEST,
           "non-finite predictions")
     check(bool(np.all(var >= 0)), "negative variance")
     rho = float(spearmanr(preds, te_y)[0])
-    print(f"Conv1dRBF held-out Spearman {rho:.4f} (floor "
+    print(f"{label} held-out Spearman {rho:.4f} (floor "
           f"{MOTIF_SPEARMAN_FLOOR})", flush=True)
 
     # Recompute 4096 predictions through the plain K3 on the card.
@@ -827,18 +895,22 @@ def phase_conv_slice(torch, card, corpus, n_train=N_TRAIN, n_test=N_TEST,
     c[:, 0] = 1.0
     check_predictions(model, assemble_cos_sin(c, s, kern.padded_dims),
                       preds[:4096], "the plain K3")
-    report_times(model, n_iter, predict_s, card, "Conv1dRBF")
+    report_times(model, n_iter, predict_s, card, label)
     if profile:
         profile_fit(torch, model, dset, card)
-    check(rho > MOTIF_SPEARMAN_FLOOR, "Conv1dRBF Spearman below the floor")
+    check(rho > MOTIF_SPEARMAN_FLOOR, f"{label} Spearman below the floor")
     return ({k: fit_counts[k] + predict_counts[k] for k in fit_counts},
-            n_iter, preds, model)
+            n_iter, preds, model,
+            {"fit_s": fit_s, "n_iter": n_iter, "residual": float(losses[-1]),
+             "rho": rho, "dset": dset})
 
 
 def phase_k4_path(torch, card, corpus, n_train=K4_ROWS, n_test=N_TEST,
                   dev="cuda", chunk=CHUNK, num_rffs=K4_RFFS,
-                  init_rffs=INIT_RFFS):
-    """Conv1dTwoLayer fit(mode="cg") + predict, then FastConv1d."""
+                  init_rffs=INIT_RFFS, tol=1e-6, label="Conv1dTwoLayer"):
+    """Conv1dTwoLayer fit(mode="cg", tol) + predict, then FastConv1d.
+    Returns the launches and the fit's record (model, fit_s, n_iter,
+    residual, rho, dset)."""
     from scipy.stats import spearmanr
     from xgpr_tpu_torch import (FastConv1d, GPRegression,
                                 build_regression_dataset)
@@ -858,7 +930,8 @@ def phase_k4_path(torch, card, corpus, n_train=K4_ROWS, n_test=N_TEST,
 
     reset_counts()
     t0 = time.perf_counter()
-    n_iter, losses = model.fit(dset, mode="cg", run_diagnostics=True)
+    n_iter, losses = model.fit(dset, mode="cg", tol=tol,
+                               run_diagnostics=True)
     sync(torch, dev)
     fit_s = time.perf_counter() - t0
     preds, var = model.predict(tex, te_l, get_var=True)
@@ -866,18 +939,18 @@ def phase_k4_path(torch, card, corpus, n_train=K4_ROWS, n_test=N_TEST,
     fv = FastConv1d(seq_width=MOTIF_D, device=dev, num_features=init_rffs)
     fast = fv.predict(tex[:4096], te_l[:4096])
     counts = read_counts()
-    print(f"Conv1dTwoLayer fit: {fit_s:.3f}s, CG iterations {n_iter}, "
-          f"final relative residual {losses[-1]:.3e}; launches over fit, "
-          f"predict and FastConv1d: {totals(counts)}", flush=True)
-    check(n_iter < 500 and losses[-1] < 1e-6,
-          "Conv1dTwoLayer CG did not converge")
+    print(f"{label} fit: {fit_s:.3f}s, CG iterations {n_iter}, "
+          f"final relative residual {losses[-1]:.3e} (tol {tol:g}); "
+          f"launches over fit, predict and FastConv1d: {totals(counts)}",
+          flush=True)
+    check(n_iter < 500 and losses[-1] < tol, f"{label} CG did not converge")
     if torch.device(dev).type == "cuda":
         check(counts["K4"].total() > 0, "K4 was not launched on the K4 path")
         check(counts["K2"].total() > 0, "K2 was not launched on the K4 path")
     check(bool(np.all(np.isfinite(preds)) and np.all(var >= 0)),
           "Conv1dTwoLayer predictions not finite or var < 0")
     rho = float(spearmanr(preds, te_y)[0])
-    print(f"Conv1dTwoLayer held-out Spearman {rho:.4f} (floor "
+    print(f"{label} held-out Spearman {rho:.4f} (floor "
           f"{TWOLAYER_SPEARMAN_FLOOR})", flush=True)
 
     kern = model.kernel
@@ -895,11 +968,11 @@ def phase_k4_path(torch, card, corpus, n_train=K4_ROWS, n_test=N_TEST,
     print(f"FastConv1d vs the plain K4: max_abs_err {err:.3e} (tol "
           f"{tol:.3e})", flush=True)
     check(err < tol, "FastConv1d disagrees with the plain K4")
-    check(rho > TWOLAYER_SPEARMAN_FLOOR,
-          "Conv1dTwoLayer Spearman below the floor")
-    print(f"Conv1dTwoLayer fit phases: {dict(model.fit_phase_times)} "
+    check(rho > TWOLAYER_SPEARMAN_FLOOR, f"{label} Spearman below the floor")
+    print(f"{label} fit phases: {dict(model.fit_phase_times)} "
           f"[{card}]", flush=True)
-    return counts
+    return counts, {"model": model, "fit_s": fit_s, "n_iter": n_iter,
+                    "residual": float(losses[-1]), "rho": rho, "dset": dset}
 
 
 def phase_streamed(torch, card, corpus, stacked, n_train=N_TRAIN,
@@ -1315,13 +1388,28 @@ def phase_conv_tune(torch, card, corpus, dev="cuda", tune_rows=TUNE_ROWS,
                            "exact")
 
 
+def key_mode(name, key):
+    """The sincos mode of a launch key (with or without its row count):
+    K1 (.., mode, precision), K2 (.., mode), K3 (.., mode, precision);
+    None for K4, which has no sincos."""
+    return {"K1": key[-2], "K2": key[-1], "K3": key[-2]}.get(name)
+
+
+def key_precision(name, key):
+    """The feature precision of a launch key: its last entry for K1, K3
+    and K4; K2 has no precision variant and runs its 3xTF32 body."""
+    return "high" if name == "K2" else key[-1]
+
+
 def mode_summary(timed, mode, card):
-    """Each timed (kernel, shape) of ``mode`` beside the "hi" time at the
-    same shape."""
+    """Each timed (kernel, shape) of ``mode`` at "high" beside the "hi"
+    time at the same shape."""
     for (name, key), res in sorted(timed.items(), key=str):
-        if key[-1] != mode:
+        if key_mode(name, key) != mode or key_precision(name, key) != "high":
             continue
-        hi = timed.get((name, key[:-1] + ("hi",)))
+        hi_key = key[:-1] + ("hi",) if name == "K2" else \
+            key[:-2] + ("hi", key[-1])
+        hi = timed.get((name, hi_key))
         hi_text = "not timed" if hi is None else f"{hi['ms']:.4f} ms"
         faster = "" if hi is None else (
             f"; {mode} {'faster' if res['ms'] < hi['ms'] else 'not faster'}"
@@ -1329,6 +1417,22 @@ def mode_summary(timed, mode, card):
         print(f"{name} {res['shape']}: {res['ms']:.4f} ms against hi "
               f"{hi_text}{faster}; bound {res['bound']['ms']:.4f} ms "
               f"({res['bound']['by']}) [{card}]", flush=True)
+
+
+def precision_summary(timed, precision, card):
+    """Each timed (kernel, shape) at ``precision`` beside the 3xTF32
+    ("high") body's time and bound at the same shape and mode."""
+    for (name, key), res in sorted(timed.items(), key=str):
+        if name == "K2" or key[-1] != precision:
+            continue
+        high = timed.get((name, key[:-1] + ("high",)))
+        high_text = "not timed" if high is None else (
+            f"{high['ms']:.4f} ms (bound {high['bound']['ms']:.4f} ms, "
+            f"plain {high['plain_ms']:.4f} ms)")
+        print(f"{name} {res['shape']} ({res['bound']['body']}): "
+              f"{res['ms']:.4f} ms, bound {res['bound']['ms']:.4f} ms "
+              f"({res['bound']['by']}), plain {res['plain_ms']:.4f} ms; "
+              f"3xTF32 body {high_text} [{card}]", flush=True)
 
 
 def phase_mode_paths(torch, card, tab, corpus, hi_preds, conv_model,
@@ -1423,7 +1527,7 @@ def phase_mode_paths(torch, card, tab, corpus, hi_preds, conv_model,
         if torch.device(dev).type == "cuda":
             check(counts[name].total() > 0,
                   f"{name} did not run with sincos {mode}")
-        check(all(key[-1] == mode for key in counts[name]),
+        check(all(key_mode(name, key) == mode for key in counts[name]),
               f"{name} ran in another mode than {mode}")
     for label, err_plain, err_hi, top, r, floor in rows:
         check(err_plain < PREDICT_RTOL * top,
@@ -1432,6 +1536,160 @@ def phase_mode_paths(torch, card, tab, corpus, hi_preds, conv_model,
               f"{label} ({mode}) is not within {MODE_RTOL} of hi's")
         check(r > floor, f"{label} ({mode}) Spearman below the floor")
     return rbf_counts, conv_counts
+
+
+def true_residual(torch, model, dset):
+    """||A w - b|| / ||b|| in float64 for a fitted model's weights w, with
+    A = Z^T Z + lambda^2 I and b = Z^T y from the model's own features
+    (Engine.design_mat: float64 chunk products, no bf16 materialisation):
+    the residual of the system the inexact bf16 operator stands for."""
+    ztz, zty, _ = model._engine(dset).design_mat()
+    lam = float(model.kernel.get_lambda())
+    w = model.weights.double().reshape(-1)
+    r = ztz @ w + lam ** 2 * w - zty
+    return float(torch.linalg.norm(r) / torch.linalg.norm(zty))
+
+
+def contraction_times(torch, card, model, dset, reps=10):
+    """One chunk's (cos, sin) contraction on the Conv1dRBF path (K = 1) as
+    the engine runs it under bf16 feature materialisation (bf16 operands,
+    torch.mm with fp32 output) and in fp32; ms each on the card."""
+    from xgpr_tpu_torch.ops.contract import parts_contract_bf16
+    engine = model._engine(dset)
+    xb, _, lb, mb, _ = next(engine._batches(with_y=False))
+    c, s = model.kernel.pure_feature_parts_fn()(engine._params(), xb, lb)
+    c, s = c * mb[:, None], s * mb[:, None]
+    rng = np.random.default_rng(9)
+    v_c, v_s = (torch.as_tensor(rng.standard_normal((c.shape[1], 1)),
+                                dtype=c.dtype, device=c.device)
+                for _ in range(2))
+
+    def fp32():
+        zv = c @ v_c + s @ v_s
+        return c.T @ zv, s.T @ zv
+    bf_ms = time_ms(torch, lambda: parts_contract_bf16(c, s, v_c, v_s),
+                    reps=reps, dev=c.device)
+    fp_ms = time_ms(torch, fp32, reps=reps, dev=c.device)
+    n, f = c.shape
+    t_bytes = 2 * n * f * 4 / PEAK_BYTES * 1e3
+    print(f"Conv1dRBF chunk contraction (R {n}, F {f}, K 1; the engine's "
+          f"parts_contract, library calls): bf16 operands with fp32 output "
+          f"(torch.mm out_dtype) {bf_ms:.4f} ms, fp32 {fp_ms:.4f} ms; "
+          f"reading the fp32 parts once takes {t_bytes:.4f} ms at 3.35 TB/s "
+          f"[{card}]", flush=True)
+    return bf_ms, fp_ms
+
+
+def preset_launches(counts, mode, precision, what):
+    """Every K1/K3/K4 launch at ``precision`` and every K1/K2/K3 launch in
+    sincos ``mode``."""
+    for name, counter in counts.items():
+        for key in counter:
+            if name != "K2":
+                check(key_precision(name, key) == precision,
+                      f"{name} ran at {key_precision(name, key)} during "
+                      f"{what}, not {precision}")
+            if name != "K4":
+                check(key_mode(name, key) == mode,
+                      f"{name} ran in sincos {key_mode(name, key)} during "
+                      f"{what}, not {mode}")
+
+
+def phase_presets(torch, card, tab, corpus, balanced, dev="cuda",
+                  num_rffs=NUM_RFFS):
+    """The speed presets on the main paths (``set_speed_preset``).  Under
+    "max": slice A fit by CG and predict with variance, the Conv1dRBF
+    sequence slice fit and predict, the K4 path, and one RBF
+    approximate_nmll (K1 at K 26) against its exact_nmll; under
+    "reference": slice A refit and predict.  ``balanced`` holds the
+    "balanced" runs' records of the same paths.  Gates as PRESET_RHO's
+    comment says; prints each fit's recurrence residual beside its true
+    residual in float64, and each preset's fit time and CG iterations
+    beside "balanced"'s.  Restores "balanced".  Returns the paths'
+    launches."""
+    from xgpr_tpu_torch import GPRegression, config
+    from xgpr_tpu_torch.constants import DEFAULT_NMLL_PARAMS
+    dset = tab[0]
+    on_card = torch.device(dev).type == "cuda"
+    t_phase = time.perf_counter()
+    rbf = GPRegression(num_rffs=num_rffs, kernel_choice="RBF", device=dev,
+                       verbose=False)
+    rbf.set_hyperparams(HPARAMS, dset)
+    exact_bal = nmll_call(torch, dev, rbf.exact_nmll, HPARAMS, dset)[0]
+    paths, records = [], []
+    try:
+        config.set_speed_preset("max")
+        counts, _, rec = phase_slice(torch, card, tab, dev=dev, tol=MAX_TOL,
+                                     label='slice A ("max")')
+        rec["true_residual"] = true_residual(torch, rec.pop("model"), dset)
+        paths.append(('slice A fit + predict ("max")', counts))
+        records.append(("max", "slice A", rec))
+
+        counts, _, _, model, rec = phase_conv_slice(
+            torch, card, corpus, dev=dev, tol=MAX_TOL,
+            label='Conv1dRBF ("max")')
+        rec["true_residual"] = true_residual(torch, model, rec["dset"])
+        contraction_times(torch, card, model, rec.pop("dset"))
+        del model
+        paths.append(('Conv1dRBF fit + predict ("max")', counts))
+        records.append(("max", "Conv1dRBF", rec))
+
+        counts, rec = phase_k4_path(torch, card, corpus, dev=dev,
+                                    tol=MAX_TOL,
+                                    label='Conv1dTwoLayer ("max")')
+        rec["true_residual"] = true_residual(torch, rec.pop("model"),
+                                             rec.pop("dset"))
+        paths.append(('K4 path ("max")', counts))
+        records.append(("max", "K4 path", rec))
+
+        before = read_counts()
+        exact, exact_s, _ = nmll_call(torch, dev, rbf.exact_nmll, HPARAMS,
+                                      dset)
+        approx, approx_s, nmll_counts = nmll_call(
+            torch, dev, rbf.approximate_nmll, HPARAMS, dset)
+        k26 = k1_by_k(nmll_counts)[DEFAULT_NMLL_PARAMS["nsamples"] + 1]
+        paths.append(('RBF NMLL ("max")', counts_since(before)))
+        gap, drift = rel_gap(approx, exact), rel_gap(exact, exact_bal)
+        print(f'RBF NMLL at {num_rffs} RFFs under "max": exact {exact:.6f} '
+              f"in {exact_s:.3f}s (balanced {exact_bal:.6f}, relative "
+              f"{drift:.3e}, gate {PRESET_NMLL_RTOL}), approximate "
+              f"{approx:.6f} in {approx_s:.3f}s, relative gap {gap:.3e} "
+              f"(gate {NMLL_RTOL}); K1 launches at K=26 {k26} [{card}]",
+              flush=True)
+        check(gap < NMLL_RTOL, 'RBF approximate NMLL under "max" is not '
+                               "within 1% of exact")
+        check(drift < PRESET_NMLL_RTOL, 'RBF exact NMLL under "max" is not '
+                                        'within 1e-3 of "balanced"\'s')
+        check(k26 > 0 or not on_card,
+              'K1 was not launched at K=26 under "max"')
+        for path, counts in paths:
+            preset_launches(counts, "fast", "default", path)
+
+        config.set_speed_preset("reference")
+        counts, _, rec = phase_slice(torch, card, tab, dev=dev,
+                                     label='slice A ("reference")')
+        rec["true_residual"] = true_residual(torch, rec.pop("model"), dset)
+        preset_launches(counts, "exact", "highest", "slice A (reference)")
+        check(counts["K1"].total() > 0 or not on_card,
+              'K1 was not launched under "reference"')
+        paths.append(('slice A fit + predict ("reference")', counts))
+        records.append(("reference", "slice A", rec))
+    finally:
+        config.set_speed_preset("balanced")
+    for preset, path, rec in records:
+        bal = balanced[path]
+        print(f"{path} under \"{preset}\": fit {rec['fit_s']:.3f}s, CG "
+              f"iterations {rec['n_iter']}, recurrence residual "
+              f"{rec['residual']:.3e}, true residual (float64) "
+              f"{rec['true_residual']:.3e}, held-out Spearman "
+              f"{rec['rho']:.4f}; balanced: fit {bal['fit_s']:.3f}s, CG "
+              f"iterations {bal['n_iter']}, Spearman {bal['rho']:.4f} "
+              f"(gate |d| < {PRESET_RHO}) [{card}]", flush=True)
+        check(abs(rec["rho"] - bal["rho"]) < PRESET_RHO,
+              f"{path} under {preset}: Spearman moved from balanced's")
+    print(f"presets phase: {time.perf_counter() - t_phase:.1f}s [{card}]",
+          flush=True)
+    return paths
 
 
 def class_gates(torch, card, label, model, hist, probs, te_y, plain_probs,
@@ -1688,7 +1946,8 @@ def kernel_rows(path, counts, timed):
                 "cuda_core_bound_ms": res["bound"]["cuda_core_ms"],
                 "cuda_core_bound_by": res["bound"]["cuda_core_by"],
                 "library_ms": None, "shape": res["shape"],
-                "sincos": None if name == "K4" else key[-1]})
+                "sincos": key_mode(name, key),
+                "precision": key_precision(name, key)})
     return rows
 
 
@@ -1760,6 +2019,10 @@ def main(argv):
     timed = phase_kernels(torch, card)
     for mode in SINCOS_MODES:
         timed.update(phase_kernels(torch, card, mode))
+    # The precisions where the presets launch them: K1 "default" in "fast"
+    # ("max"), K1 "highest" and K2 in "exact" ("reference").
+    timed.update(phase_kernels(torch, card, "fast", "default", k2=False))
+    timed.update(phase_kernels(torch, card, "exact", "highest"))
     t0 = time.perf_counter()
     (trx, tr_y), (tex, te_y) = tabular_data(N_TRAIN, N_TEST, N_FEATURES,
                                             seed=SEED)
@@ -1767,7 +2030,8 @@ def main(argv):
     tab = (build_regression_dataset(trx, tr_y, chunk_size=CHUNK), tex, te_y)
     print(f"data: {N_TRAIN} x {N_FEATURES} train, {N_TEST} test, made in "
           f"{time.perf_counter() - t0:.2f}s", flush=True)
-    slice_counts, slice_preds = phase_slice(torch, card, tab)
+    slice_counts, slice_preds, slice_rec = phase_slice(torch, card, tab)
+    del slice_rec["model"]
     paths = [("slice A fit + predict", slice_counts)]
     t0 = time.perf_counter()
     corpus = motif_corpus(N_TRAIN + N_TEST)
@@ -1775,9 +2039,14 @@ def main(argv):
           f"{MOTIF_D}, made in {time.perf_counter() - t0:.2f}s", flush=True)
     timed.update(phase_conv_kernels(torch, card, corpus))
     for mode in SINCOS_MODES:
-        timed.update(phase_conv_kernels(torch, card, corpus, mode=mode))
-    conv_counts, n_iter, preds, conv_model = phase_conv_slice(
+        timed.update(phase_conv_kernels(torch, card, corpus, mode=mode,
+                                        with_k4=False))
+    timed.update(phase_conv_kernels(torch, card, corpus, mode="fast",
+                                    precision="default"))
+    precision_summary(timed, "default", card)
+    conv_counts, n_iter, preds, conv_model, conv_rec = phase_conv_slice(
         torch, card, corpus, profile="--profile" in argv)
+    del conv_rec["dset"]
     paths.append(("Conv1dRBF fit + predict", conv_counts))
     for mode in SINCOS_MODES:
         rbf_counts, mode_counts = phase_mode_paths(
@@ -1786,7 +2055,12 @@ def main(argv):
         paths.append((f"Conv1dRBF predict ({mode})", mode_counts))
         mode_summary(timed, mode, card)
     del conv_model
-    paths.append(("K4 path", phase_k4_path(torch, card, corpus)))
+    k4_counts, k4_rec = phase_k4_path(torch, card, corpus)
+    del k4_rec["model"], k4_rec["dset"]
+    paths.append(("K4 path", k4_counts))
+    paths += phase_presets(torch, card, tab, corpus,
+                           {"slice A": slice_rec, "Conv1dRBF": conv_rec,
+                            "K4 path": k4_rec})
     paths.append(("tuning", phase_tuning(torch, card, tab, corpus)))
     paths.append(("streamed Conv1dRBF fit + predict",
                   phase_streamed(torch, card, corpus, (n_iter, preds))))

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from xgpr_tpu_torch.ops.cuda import conv
+from xgpr_tpu_torch.ops.cuda import conv, operands
 
 
 def _lengths(n, l, width, seed, kind):
@@ -107,7 +107,7 @@ def test_tf32_split_is_exact(seed):
                         1 + 3 * 2 ** -12, 2 - 2 ** -23, 2.0 ** -126],
                        dtype=np.float32)
     a = torch.as_tensor(np.concatenate([a, special]))
-    hi, lo = conv.split_tf32(a)
+    hi, lo = operands.split_tf32(a)
     assert hi.dtype == lo.dtype == torch.float32
     assert torch.equal(hi + lo, a)                       # exact, in fp32
     assert int((hi.view(torch.int32) & 0x1FFF).abs().sum()) == 0

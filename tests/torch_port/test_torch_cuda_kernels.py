@@ -9,7 +9,17 @@ Tolerances as in chip_smoke.py: fp32 on both sides with a different
 summation order, features to 1e-5 absolute, the matvec and the conv
 window loops (sums of up to nw terms of fp32 projections) to 1e-4 of
 max(1, max |ref|).  K1, K2 and K3 are held in each sincos mode against
-their plain versions in the same mode.
+their plain versions in the same mode, and K1, K3 and K4 in each feature
+precision ("high" and "highest" 3xTF32, "default" one bf16 pass)
+against their plain versions at the same precision.  Under "default" the
+kernel and the plain version round the same operands to bf16 and their
+products are exact in fp32, so what differs is the fp32 summation order:
+K3 and K4 keep the tolerances above.  In K1 that order can also round a
+zv (or a c, s) to the neighbouring bf16 value on one side, which moves
+that row's terms by one bf16 step, up to 2^-7 * scale * |zv|: 1.4e-4 of
+max |ref| at 2000 rows and 500 frequencies, less at the slice's 8192 x
+4096.  K1 "default" is held to K1_DEFAULT_RTOL = 1e-3 of max(1, max
+|ref|), room for a few such steps.
 """
 import numpy as np
 import pytest
@@ -220,7 +230,151 @@ def test_a_mode_runs_its_own_instantiation(cuda, mode):
     own = feature_map.rbf_feature_map_plain(x * 0.5, proj, True, 128, mode)
     torch.cuda.synchronize()
     assert (300, 84, 256, mode) in feature_map.LAUNCHES
-    assert (300, 84, 256, 1, mode) in ztzv.LAUNCHES
+    assert (300, 84, 256, 1, mode, "high") in ztzv.LAUNCHES
     assert float((feats - own).abs().max()) < 1e-5
     assert float((own - hi).abs().max()) > 0.0
     assert torch.isfinite(oc).all()
+
+
+PRECISIONS = ["default", "highest"]
+K1_DEFAULT_RTOL = 1e-3
+
+
+@pytest.mark.parametrize("precision", PRECISIONS)
+@pytest.mark.parametrize("mode", ["hi", "fast"])
+@pytest.mark.parametrize("intercept", [False, True])
+@pytest.mark.parametrize("n,d,f,k", ZTZV_CASES)
+def test_ztzv_kernel_precision(cuda, precision, mode, intercept, n, d, f, k):
+    x, m, proj, vc, vs = _ztzv_inputs(cuda, n, d, f, k)
+    before = ztzv.LAUNCHES[(n, d, f, k, mode, precision)]
+    oc, os_ = ztzv.ztzv_parts(x, m, proj, 0.7, vc, vs, intercept, mode,
+                              precision)
+    rc, rs = ztzv.ztzv_parts_plain(x, m, proj, 0.7, vc, vs, intercept,
+                                   mode, precision)
+    torch.cuda.synchronize()
+    assert ztzv.LAUNCHES[(n, d, f, k, mode, precision)] == before + 1
+    rtol = K1_DEFAULT_RTOL if precision == "default" else 1e-4
+    for got, want in ((oc, rc), (os_, rs)):
+        tol = rtol * max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) < tol
+
+
+@pytest.mark.parametrize("precision", PRECISIONS)
+@pytest.mark.parametrize("n,l,d,width,f,kind", CONV_CASES)
+def test_conv_kernels_precision(cuda, precision, n, l, d, width, f, kind):
+    x, lengths, proj = _conv_inputs(cuda, n, l, d, width, f, kind)
+    scale = torch.linspace(0.5, 1.5, n, device=cuda)
+    got = conv.conv_parts(x, lengths, proj, 0.7, width, scale, "hi",
+                          precision) + \
+        (conv.conv_maxpool(x, lengths, proj, width, precision),)
+    want = conv.conv_parts_plain(x, lengths, proj, 0.7, width, scale, "hi",
+                                 precision) + \
+        (conv.conv_maxpool_plain(x, lengths, proj, width, precision),)
+    torch.cuda.synchronize()
+    assert (n, l, d, width, f, "hi", precision) in conv.PARTS_LAUNCHES
+    assert (n, l, d, width, f, precision) in conv.MAXPOOL_LAUNCHES
+    for g, w in zip(got, want):
+        tol = 1e-4 * max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) < tol
+
+
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_precision_bodies_are_deterministic(cuda, precision):
+    """Two calls on the same inputs give the same bits in every body."""
+    x, m, proj, vc, vs = _ztzv_inputs(cuda, 8192, 84, 4096, 1)
+    xs, lengths, projc = _conv_inputs(cuda, 1000, 16, 64, 9, 4096, "spread")
+    runs = [ztzv.ztzv_parts(x, m, proj, 0.7, vc, vs, True, None, precision)
+            + conv.conv_parts(xs, lengths, projc, 0.7, 9, None, None,
+                              precision)
+            + (conv.conv_maxpool(xs, lengths, projc, 9, precision),)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_balanced_runs_the_3xtf32_body(cuda):
+    """With every knob at its default ("balanced") K1, K3 and K4 launch
+    their "high" body: the same bits as a call that names it."""
+    from xgpr_tpu_torch import config
+    config.set_speed_preset("balanced")
+    x, m, proj, vc, vs = _ztzv_inputs(cuda, 300, 84, 256, 1)
+    xs, lengths, projc = _conv_inputs(cuda, 300, 16, 64, 9, 256, "spread")
+    default = ztzv.ztzv_parts(x, m, proj, 0.7, vc, vs, True) \
+        + conv.conv_parts(xs, lengths, projc, 0.7, 9) \
+        + (conv.conv_maxpool(xs, lengths, projc, 9),)
+    named = ztzv.ztzv_parts(x, m, proj, 0.7, vc, vs, True, "hi", "high") \
+        + conv.conv_parts(xs, lengths, projc, 0.7, 9, None, "hi", "high") \
+        + (conv.conv_maxpool(xs, lengths, projc, 9, "high"),)
+    torch.cuda.synchronize()
+    for a, b in zip(default, named):
+        assert torch.equal(a, b)
+
+
+def test_highest_runs_the_3xtf32_body(cuda):
+    """"highest" launches under its own precision key and gives the bits
+    of "high": both run the 3xTF32 body."""
+    x, m, proj, vc, vs = _ztzv_inputs(cuda, 300, 84, 256, 1)
+    xs, lengths, projc = _conv_inputs(cuda, 300, 16, 64, 9, 256, "spread")
+    out = {p: ztzv.ztzv_parts(x, m, proj, 0.7, vc, vs, True, "hi", p)
+           + conv.conv_parts(xs, lengths, projc, 0.7, 9, None, "hi", p)
+           + (conv.conv_maxpool(xs, lengths, projc, 9, p),)
+           for p in ("highest", "high")}
+    torch.cuda.synchronize()
+    assert (300, 84, 256, 1, "hi", "highest") in ztzv.LAUNCHES
+    assert (300, 16, 64, 9, 256, "highest") in conv.MAXPOOL_LAUNCHES
+    for a, b in zip(out["highest"], out["high"]):
+        assert torch.equal(a, b)
+
+
+def test_max_preset_runs_the_bf16_bodies(cuda):
+    """Under set_speed_preset("max") K1, K3 and K4 launch their "default"
+    bodies in the "fast" mode, and their values are the bf16 plain
+    versions', not the 3xTF32 ones'."""
+    from xgpr_tpu_torch import config
+    x, m, proj, vc, vs = _ztzv_inputs(cuda, 300, 84, 256, 1)
+    xs, lengths, projc = _conv_inputs(cuda, 300, 16, 64, 9, 256, "spread")
+    config.set_speed_preset("max")
+    try:
+        oc, _ = ztzv.ztzv_parts(x, m, proj, 0.7, vc, vs, True)
+        c, _ = conv.conv_parts(xs, lengths, projc, 0.7, 9)
+        mx = conv.conv_maxpool(xs, lengths, projc, 9)
+    finally:
+        config.set_speed_preset("balanced")
+    torch.cuda.synchronize()
+    assert (300, 84, 256, 1, "fast", "default") in ztzv.LAUNCHES
+    assert (300, 16, 64, 9, 256, "fast", "default") in conv.PARTS_LAUNCHES
+    assert (300, 16, 64, 9, 256, "default") in conv.MAXPOOL_LAUNCHES
+    for got, (bf, hi), rtol in (
+            (oc, [ztzv.ztzv_parts_plain(x, m, proj, 0.7, vc, vs, True,
+                                        "fast", p)[0]
+                  for p in ("default", "high")], K1_DEFAULT_RTOL),
+            (c, [conv.conv_parts_plain(xs, lengths, projc, 0.7, 9, None,
+                                       "fast", p)[0]
+                 for p in ("default", "high")], 1e-4),
+            (mx, [conv.conv_maxpool_plain(xs, lengths, projc, 9, p)
+                  for p in ("default", "high")], 1e-4)):
+        tol = rtol * max(1.0, float(bf.abs().max()))
+        assert float((got - bf).abs().max()) < tol
+        assert float((got - hi).abs().max()) > tol
+
+
+def test_unknown_precisions_are_refused(cuda):
+    """The wrappers refuse a precision they do not know, and the C entry
+    points refuse an unknown flag (cudaErrorInvalidValue) before any
+    launch."""
+    from xgpr_tpu_torch.ops.cuda import build
+    x, m, proj, vc, vs = _ztzv_inputs(cuda, 10, 8, 16, 1)
+    with pytest.raises(ValueError):
+        ztzv.ztzv_parts(x, m, proj, 0.7, vc, vs, True, None, "bf16")
+    xs, lengths, projc = _conv_inputs(cuda, 10, 6, 4, 3, 16, "equal")
+    with pytest.raises(ValueError):
+        conv.conv_maxpool(xs, lengths, projc, 3, "tf32")
+    lib = build.library()
+    invalid = 1  # cudaErrorInvalidValue
+    assert lib.xgpr_ztzv(*([None] * 5), 1.0, *([None] * 7), 10, 8, 16, 1,
+                         1, 1, 1.0, 0, 0, 7, None) == invalid
+    assert lib.xgpr_conv_parts(*([None] * 9), 10, 6, 4, 3, 16, 1.0, 0, 7,
+                               None) == invalid
+    assert lib.xgpr_conv_maxpool(*([None] * 7), 10, 6, 4, 3, 16, 7,
+                                 None) == invalid

@@ -97,3 +97,20 @@ def test_streamed_engine_matches_stacked(engines, name):
     for a, b in zip(first, second):
         assert torch.equal(torch.as_tensor(a), torch.as_tensor(b))
     _close(first, want)
+
+
+def test_streamed_matvec_under_max_equals_stacked(engines):
+    """Under set_speed_preset("max") both engines contract the same K3
+    parts (its bf16 body) in bfloat16, chunk by chunk in the same order:
+    the same bits."""
+    from xgpr_tpu_torch import config
+    streamed, stacked, _ = engines
+    vec = np.random.default_rng(4).standard_normal((NUM_RFFS, 2))
+    config.set_speed_preset("max")
+    try:
+        got, want = streamed.ztzv(vec), stacked.ztzv(vec)
+        torch.cuda.synchronize()
+    finally:
+        config.set_speed_preset("balanced")
+    assert torch.equal(torch.as_tensor(got), torch.as_tensor(want))
+    assert any(key[-1] == "default" for key in conv.PARTS_LAUNCHES)

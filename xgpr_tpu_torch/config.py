@@ -11,6 +11,11 @@
   matmuls and cuDNN, mirroring xgpr_tpu's HIGHEST pin on every solve-path
   contraction (xgpr_tpu/ops/contract.py): TF32 keeps ~3 decimal digits,
   which the Nystrom algebra and CG recurrences cannot afford.
+- Precision knobs (xgpr_tpu/config.py's, same names, values and errors):
+  the solve-path and feature-path matmul precisions, the feature
+  materialisation dtype, fast features and the speed presets.  Each is
+  read at call time; a float64 working dtype ignores them, as xgpr_tpu's
+  x64 runs do.
 - sincos mode: which (cos, sin) evaluator the feature maps use (see
   ops/sincos.py).
 - Stacked-element limit: datasets with fewer raw x elements than this live
@@ -85,6 +90,123 @@ def set_sincos_mode(mode: str):
 def sincos_mode() -> str:
     """The configured mode with the "auto" alias resolved to "hi"."""
     return "hi" if _SINCOS_MODE == "auto" else _SINCOS_MODE
+
+
+# ----------------------------------------------------------------------
+# Matmul precision of the solve path (ops/contract.py ``mm``): "highest"
+# and "high" are full fp32 on the card ("high" is the TPU's 3-pass bf16,
+# which an fp32 product already exceeds); "default" rounds the operands to
+# bfloat16 and sums in fp32, as the TPU's DEFAULT dot does.  float64
+# operands ignore it.
+_PRECISIONS = ("highest", "high", "default")
+_MATMUL_PRECISION = "highest"
+
+
+def set_matmul_precision(p: str):
+    global _MATMUL_PRECISION
+    if p not in _PRECISIONS:
+        raise ValueError("matmul precision must be highest/high/default")
+    _MATMUL_PRECISION = p
+
+
+def matmul_precision() -> str:
+    return _MATMUL_PRECISION
+
+
+# Precision of the feature-path matmuls: the projections of K1, K3 and K4
+# and the CG matvec's contractions (``fmm``).  On the card "high" and
+# "highest" are the kernels' 3xTF32 body (no TF32 body measured closer to
+# fp32, PERF.md) and "default" their one-pass bf16 body.  K2 stays at
+# 3xTF32 in every setting, as xgpr_tpu's Pallas feature map pins
+# HIGHEST.
+_FEATURE_PRECISION = "high"
+
+
+def set_feature_precision(p: str):
+    global _FEATURE_PRECISION
+    if p not in _PRECISIONS:
+        raise ValueError("feature precision must be highest/high/default")
+    _FEATURE_PRECISION = p
+
+
+def feature_precision(device="cuda") -> str:
+    """The configured feature precision; "highest" when the working dtype
+    on ``device`` is float64."""
+    if fp_dtype(device) == torch.float64:
+        return "highest"
+    return _FEATURE_PRECISION
+
+
+# Feature materialisation dtype of the CG matvec: with "bfloat16" the
+# chunk's (cos, sin) parts, the direction and Z v are rounded to bfloat16
+# before each product, and the products sum in float32 (ops/contract.py).
+_FEATURE_DTYPE = "float32"
+
+
+def set_feature_dtype(d: str):
+    global _FEATURE_DTYPE
+    if d not in ("float32", "bfloat16"):
+        raise ValueError("feature dtype must be float32 or bfloat16")
+    _FEATURE_DTYPE = d
+
+
+def feature_dtype(device="cuda"):
+    """torch.bfloat16 when bf16 materialisation is on and the working
+    dtype on ``device`` is not float64, else None (keep the working
+    dtype)."""
+    if _FEATURE_DTYPE == "bfloat16" and fp_dtype(device) != torch.float64:
+        return torch.bfloat16
+    return None
+
+
+# Fast features: the kernels' projections at "default" (one bf16 pass)
+# and bf16 feature materialisation.
+_FAST_FEATURES = False
+
+
+def set_fast_features(enabled: bool):
+    global _FAST_FEATURES
+    _FAST_FEATURES = bool(enabled)
+    if enabled:
+        set_feature_dtype("bfloat16")
+
+
+def feature_matmul_precision(device="cuda") -> str:
+    """The precision K1, K3 and K4 (and their plain versions) run at."""
+    if _FAST_FEATURES and fp_dtype(device) != torch.float64:
+        return "default"
+    return feature_precision(device)
+
+
+# Speed presets: one call that sets the throughput knobs to an operating
+# point of xgpr_tpu (docs/speed_modes.md).
+_SPEED_PRESETS = {
+    # The TPU's fp32-exact matmuls (on the card the kernels' 3xTF32 body)
+    # and builtin sin/cos.
+    "reference": dict(feature_precision="highest", sincos="exact",
+                      fast_features=False),
+    # The default: 3xTF32 projections and the "hi" polynomial sincos.
+    "balanced": dict(feature_precision="high", sincos="auto",
+                     fast_features=False),
+    # One bf16 pass per projection, bf16 feature materialisation and the
+    # "fast" polynomial sincos.
+    "max": dict(feature_precision="high", sincos="fast",
+                fast_features=True),
+}
+
+
+def set_speed_preset(name: str):
+    """Set all throughput knobs to a named operating point
+    ("reference" / "balanced" / "max"); see _SPEED_PRESETS."""
+    preset = _SPEED_PRESETS.get(name)
+    if preset is None:
+        raise ValueError(
+            f"speed preset must be one of {sorted(_SPEED_PRESETS)}")
+    set_feature_precision(preset["feature_precision"])
+    set_sincos_mode(preset["sincos"])
+    set_fast_features(preset["fast_features"])
+    if not preset["fast_features"]:
+        set_feature_dtype("float32")
 
 
 # ----------------------------------------------------------------------

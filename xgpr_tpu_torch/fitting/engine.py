@@ -20,11 +20,15 @@ never perturbs a reduction.  A classifier's labels travel as torch.long
 (float targets in the working dtype otherwise), and its two reductions,
 ``classification_loss_grad`` and ``softmax_linesearch``, serve
 fitting/softmax_solver.py.  The CG matvec's and the sketch's chunk
-products run in the working dtype (float32 on the card); the sums over
-chunks, and every result, are float64.  That costs O(M * K) per chunk and
-keeps the rounding of a float32 sum over hundreds of thousands of rows
-out of the solver.  The design matrix's and the exact NMLL gradient's
-chunk products are float64 too (features stay in the working dtype):
+products run in the working dtype (float32 on the card), or under bf16
+feature materialisation (config.feature_dtype(): fast features, the "max"
+preset) on the chunk's features, the direction and Z v rounded to
+bfloat16 with float32 sums (ops/contract.py, as xgpr_tpu contracts them
+in its CG); the sums over chunks, and every result, are float64.  That
+costs O(M * K) per chunk and keeps the rounding of a float32 sum over
+hundreds of thousands of rows out of the solver.  The design matrix's
+and the exact NMLL gradient's chunk products are float64 too (features
+stay in the working dtype):
 with float32 products the exact NMLL is rough in sigma at 262,144 rows
 (its central differences 31% off), the gradient's sigma component 0.1-0.7%
 off, and at 1e6 rows the float32 noise in Z^T Z is of the order of

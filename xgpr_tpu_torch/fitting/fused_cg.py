@@ -8,7 +8,10 @@ decide whether to go on.  Where the kernel has a fused chunk matvec (the
 K1 kernel on the card) it runs on the cos/sin halves of the direction, so
 no (chunk, num_rffs) feature matrix is ever written; otherwise (the
 convolution kernels) the matvec is the engine's ``ztzv``, which contracts
-each chunk's (cos, sin) parts with torch.matmul.
+each chunk's (cos, sin) parts with torch.matmul (ops/contract.py:
+``parts_contract``, in bfloat16 under bf16 feature materialisation, as
+xgpr_tpu's matvec contracts them).  Under the "default" feature
+precision K1 rounds every product's operands to bfloat16 itself.
 
 The solver state (iterates, residuals, the preconditioner) is float64 on
 the device whatever the working dtype: it is O(M * K) per iteration,

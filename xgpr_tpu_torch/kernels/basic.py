@@ -13,7 +13,10 @@ With the dense projection (D * F <= 32M) the feature fn is the K2 kernel
 (ops/cuda/ztzv.py): kernels on a CUDA tensor, their plain versions on a
 CPU tensor.  The kernels guard the polynomial sincos per element, so
 xgpr_tpu's Pallas gate, host range check and lax.cond fallback are not
-needed.  Larger D * F take the structured FWHT path in plain torch.  The
+needed.  K1 runs the configured feature precision
+(config.feature_matmul_precision, resolved by its wrapper at call time:
+its 3xTF32 or bf16 body); K2 keeps full precision in every
+preset.  Larger D * F take the structured FWHT path in plain torch.  The
 gradient fn (features and d features / d sigma, for the exact NMLL
 gradient) is plain torch on both paths.
 """

@@ -14,9 +14,12 @@ projection the masked window loop is the K3 kernel (ops/cuda/conv.py, via
 ops/conv.py); row averaging and the intercept are applied on the (N, F)
 parts, averaging in K3's epilogue.  The kernel guards its polynomial
 sincos per element, so xgpr_tpu's Pallas shape gate, config switch and
-lax.cond range guard are not needed.  Conv kernels have no fused matvec:
-CG contracts the K3 parts with torch.matmul (fitting/engine.py), as
-xgpr_tpu's ``matvec_parts`` does.  The gradient fn (features and
+lax.cond range guard are not needed.  K3 runs the configured feature
+precision (config.feature_matmul_precision, resolved at call time: its
+3xTF32 or bf16 body).  Conv kernels have no fused matvec: CG
+contracts the K3 parts with torch.matmul (fitting/engine.py; bf16
+operands under bf16 feature materialisation), as xgpr_tpu's
+``matvec_parts`` does.  The gradient fn (features and
 d features / d sigma, for the exact NMLL gradient) is plain torch
 (ops/conv.py ``with_grad``), as in xgpr_tpu, where it is not a Pallas
 kernel.

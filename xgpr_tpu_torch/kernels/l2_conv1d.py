@@ -3,10 +3,10 @@ xgpr_tpu/kernels/l2_conv1d.py).
 
 - Conv1dTwoLayer: layer 1 is a hyperparameter-free ReLU + global-maxpool
   conv SORF map with init_rffs outputs (the K4 kernel with the dense
-  projection); layer 2 is a plain RBF SORF map on that profile, sigma
-  applied between the layers (the K2 feature-map kernel with the dense
-  projection).  Layer 2's state comes from a second seed drawn from the
-  first, as in xgpr_tpu.
+  projection, at the configured feature precision); layer 2 is a plain
+  RBF SORF map on that profile, sigma applied between the layers (the K2
+  feature-map kernel with the dense projection).  Layer 2's state comes
+  from a second seed drawn from the first, as in xgpr_tpu.
 - FHTMaxpoolConv1dFeatureExtractor: the same layer-1 operation on its own,
   for the FastConv1d static layer (models/static_layers.py).
 

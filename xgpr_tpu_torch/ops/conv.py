@@ -19,14 +19,16 @@ Two routes, as in xgpr_tpu:
 
 ``with_grad`` (features and d features / d sigma, for the exact NMLL
 gradient) is plain torch on both routes, over blocks of windows, as
-xgpr_tpu computes it outside its Pallas kernels.
+xgpr_tpu computes it outside its Pallas kernels; its dense projection
+follows the feature precision (``feature_projection``: bfloat16 operands
+under "default"), as xgpr_tpu's ``_conv_project`` does.
 """
 import torch
 
 from .cuda.conv import conv_maxpool, conv_parts, window_mask, window_slab
 from .layout import assemble_cos_sin
 from .sincos import sincos
-from .sorf import rbf_norm_constant, sorf_project
+from .sorf import feature_projection, rbf_norm_constant, sorf_project
 
 SCALING_NONE = 0
 SCALING_SQRT = 1
@@ -55,7 +57,7 @@ def _sorf_window_blocks(x, radem, chi, width, block_size, proj=None):
     for start in range(0, wins.shape[1], block_size):
         blk = wins[:, start:start + block_size]
         if proj is not None:
-            yield start, torch.matmul(blk, proj)
+            yield start, feature_projection(blk, proj)
             continue
         g = sorf_project(blk.reshape(-1, blk.shape[-1]), radem,
                          chi.shape[0]) * chi

@@ -16,7 +16,10 @@ one more call links the objects:
 Each sincos kernel has one instantiation per mode (csrc/common.cuh), so
 a source holds several large kernels; ``--split-compile=0`` optimises
 them on all the host's cores, which halves the build on an 8-core host
-(PERF.md).  No --use_fast_math: it would turn sincosf into the
+(PERF.md).  K1, K3 and K4 also have one instantiation per feature
+precision (csrc/tf32_gemm.cuh: Format), each format in its own source
+(``ztzv_bf16.cu``, ``conv_bf16.cu``), so that their nvcc processes
+run side by side.  No --use_fast_math: it would turn sincosf into the
 inaccurate __sincosf.
 """
 import ctypes
@@ -37,9 +40,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # name: argtypes (pointers and the stream are c_void_p)
     "xgpr_feature_map": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
-    "xgpr_ztzv": [_P] * 5 + [_F] + [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
-    "xgpr_conv_parts": [_P] * 9 + [_I] * 5 + [_F, _I, _P],
-    "xgpr_conv_maxpool": [_P] * 7 + [_I] * 5 + [_P],
+    "xgpr_ztzv": [_P] * 5 + [_F] + [_P] * 7 + [_I] * 6
+    + [_F, _I, _I, _I, _P],
+    "xgpr_conv_parts": [_P] * 9 + [_I] * 5 + [_F, _I, _I, _P],
+    "xgpr_conv_maxpool": [_P] * 7 + [_I] * 6 + [_P],
 }
 
 _LIB = None

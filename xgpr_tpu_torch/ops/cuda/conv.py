@@ -17,20 +17,25 @@ folded in.  Window j of row i counts while j < seq_lengths[i] - w + 1.
 
 Each wrapper runs its plain version for CPU tensors and its kernel for
 CUDA tensors (float32 x and proj, int32 lengths); anything else raises.
-``conv_parts`` on the card runs the K3 instantiation of the sincos mode it
-asks for (the configured one by default).  ``PARTS_LAUNCHES`` and
-``MAXPOOL_LAUNCHES`` count kernel launches by their shape,
-(N, L, D, w, F, mode) and (N, L, D, w, F).
+On the card ``conv_parts`` runs the K3 instantiation of the sincos mode
+it asks for, and both run the body of the feature precision they ask for
+(the configured ones by default), never another: "high" and "highest"
+3xTF32, "default" one bf16 pass on a bf16 copy of x and projT
+(sigma still multiplies the fp32 product), as the TPU's DEFAULT dot rounds
+both operands.  The plain versions round x and proj at the same points.
+``PARTS_LAUNCHES`` and ``MAXPOOL_LAUNCHES`` count kernel launches by
+their shape, (N, L, D, w, F, mode, precision) and
+(N, L, D, w, F, precision).
 
 Before a launch the wrapper prepares the kernels' operands with the plain
 torch functions below: ``row_order`` (the rows ordered by valid-window
 count, so that a tile stops at its own rows' largest count),
-``pad_operands`` (channels padded to a multiple of 4, and proj transposed
-to the K-major projT the tiles read) and ``split_tf32`` (x and projT as
-TF32 high parts and remainders, the operands of the kernels' 3xTF32
-products; in operands.py, shared with K1 and K2).  ``window_slots``
-counts the (row, window) slots the kernels project against the valid
-windows.
+``pad_operands`` (channels padded to a multiple of 4, 8 for bf16, and
+proj transposed to the K-major projT the tiles read) and
+``kernel_planes`` (x and projT as the planes of the precision's body:
+TF32 high parts and remainders, or bf16 values; in operands.py, shared
+with K1 and K2).  ``window_slots`` counts the (row, window) slots the
+kernels project against the valid windows.
 """
 from collections import Counter
 
@@ -38,10 +43,12 @@ import torch
 import torch.nn.functional as F
 
 from .. import sincos as _sincos
+from ..contract import bf16_mm
 from . import build
 from .feature_map import (check_cuda_operands, kernel_mode,
+                          kernel_precision, kernel_precision_flag,
                           kernel_sincos_flag)
-from .operands import split_tf32
+from .operands import data_ptr, depth_multiple, kernel_planes
 
 PARTS_LAUNCHES = Counter()
 MAXPOOL_LAUNCHES = Counter()
@@ -61,11 +68,22 @@ def window_mask(seq_lengths, width, num_windows):
     return torch.arange(num_windows, device=nk.device)[None, :] < nk[:, None]
 
 
+def window_projection(x, proj, width, precision):
+    """(N, nw, F) projections of every window of x: torch.matmul, or
+    ``bf16_mm`` (operands rounded to bf16, fp32 sums) under "default"."""
+    slab = window_slab(x, width)
+    if precision == "default":
+        return bf16_mm(slab, proj)
+    return torch.matmul(slab, proj)
+
+
 def conv_parts_plain(x, seq_lengths, proj, sigma, width, row_scale=None,
-                     mode=None):
-    """Plain PyTorch version of K3: window slabs, torch.matmul, the
-    masked sincos of ops/sincos.py, and a sum over windows."""
-    arg = torch.matmul(window_slab(x, width), proj) * sigma
+                     mode=None, precision=None):
+    """Plain PyTorch version of K3: window slabs, their projection at the
+    precision, the masked sincos of ops/sincos.py, and a sum over
+    windows."""
+    precision = kernel_precision(precision, x.device)
+    arg = window_projection(x, proj, width, precision) * sigma
     mask = window_mask(seq_lengths.to(x.device), width, arg.shape[1])
     c, s = _sincos.sincos(arg, mask.to(x.dtype)[:, :, None], mode)
     c, s = c.sum(dim=1), s.sum(dim=1)
@@ -75,10 +93,11 @@ def conv_parts_plain(x, seq_lengths, proj, sigma, width, row_scale=None,
     return c, s
 
 
-def conv_maxpool_plain(x, seq_lengths, proj, width):
+def conv_maxpool_plain(x, seq_lengths, proj, width, precision=None):
     """Plain PyTorch version of K4: masked windows are -inf against a
     zero start (the implicit ReLU)."""
-    g = torch.matmul(window_slab(x, width), proj)
+    g = window_projection(x, proj, width,
+                          kernel_precision(precision, x.device))
     mask = window_mask(seq_lengths.to(x.device), width, g.shape[1])
     g = torch.where(mask[:, :, None], g, float("-inf"))
     return torch.clamp_min(g.amax(dim=1), 0.0)
@@ -101,14 +120,15 @@ def row_order(seq_lengths, width, num_windows):
     return order.to(torch.int32), nk.to(torch.int32)
 
 
-def pad_operands(x, proj, width):
+def pad_operands(x, proj, width, multiple=4):
     """(x, projT) as the kernels read them: x (N, L, dp) with the channels
-    padded by zeros to dp, the next multiple of 4 (16-byte rows), and projT
-    (F, w*dp) the K-major transpose of proj (w*D, F) with the matching zero
-    columns.  The padding adds zero terms only."""
+    padded by zeros to dp, the next multiple of ``multiple`` (16-byte rows:
+    4 for the TF32 bodies, 8 for bf16), and projT (F, w*dp) the K-major
+    transpose of proj (w*D, F) with the matching zero columns.  The
+    padding adds zero terms only."""
     d = x.shape[2]
     f = proj.shape[1]
-    dp = -(-d // 4) * 4
+    dp = -(-d // multiple) * multiple
     proj = proj.reshape(width, d, f)
     if dp != d:
         x = F.pad(x, (0, dp - d))
@@ -139,10 +159,11 @@ def _check_shapes(name, x, seq_lengths, proj, width):
         raise ValueError("Sequence axis shorter than conv_width.")
 
 
-def _kernel_operands(name, x, seq_lengths, proj, width, *more):
-    """Checks for the CUDA route; returns (x_hi, x_lo, order, nk, projT_hi,
-    projT_lo) as the kernel reads them (``row_order``, ``pad_operands``,
-    ``split_tf32``, whose outputs are fresh, 16-byte aligned tensors)."""
+def _kernel_operands(name, x, seq_lengths, proj, width, precision, *more):
+    """Checks for the CUDA route; returns (x planes, order, nk, projT
+    planes) as the kernel of ``precision`` reads them (``row_order``,
+    ``pad_operands``, ``kernel_planes``, whose outputs are fresh, 16-byte
+    aligned tensors; the second plane is None for bf16)."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {x.device}.")
     check_cuda_operands(name, x, proj, *more)
@@ -153,22 +174,24 @@ def _kernel_operands(name, x, seq_lengths, proj, width, *more):
     if -(-proj.shape[1] // TILE_FREQS) > 65535:
         raise ValueError(f"{name}: too many frequencies for the grid.")
     order, nk = row_order(seq_lengths, width, x.shape[1] - width + 1)
-    xp, projT = pad_operands(x, proj, width)
-    return split_tf32(xp) + (order, nk) + split_tf32(projT)
+    xp, projT = pad_operands(x, proj, width, depth_multiple(precision))
+    return (kernel_planes(xp, precision) + (order, nk)
+            + kernel_planes(projT, precision))
 
 
 def conv_parts(x, seq_lengths, proj, sigma, width, row_scale=None,
-               mode=None):
+               mode=None, precision=None):
     """(c, s), each (N, F): masked window sums of cos/sin of
     (window @ proj) * sigma, times row_scale (N,) when given."""
     _check_shapes("conv_parts", x, seq_lengths, proj, width)
     extra = () if row_scale is None else (row_scale,)
     if all(t.device.type == "cpu" for t in (x, seq_lengths, proj) + extra):
         return conv_parts_plain(x, seq_lengths, proj, sigma, width,
-                                row_scale, mode)
+                                row_scale, mode, precision)
     mode = kernel_mode(mode)
+    precision = kernel_precision(precision, x.device)
     xh, xl, order, nk, hi, lo = _kernel_operands(
-        "conv_parts", x, seq_lengths, proj, width, *extra)
+        "conv_parts", x, seq_lengths, proj, width, precision, *extra)
     n, l, dp = xh.shape
     f = proj.shape[1]
     c = torch.empty((n, f), dtype=torch.float32, device=x.device)
@@ -179,23 +202,24 @@ def conv_parts(x, seq_lengths, proj, sigma, width, row_scale=None,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.xgpr_conv_parts(
-            xh.data_ptr(), xl.data_ptr(), order.data_ptr(), nk.data_ptr(),
-            hi.data_ptr(), lo.data_ptr(),
-            None if row_scale is None else row_scale.data_ptr(),
+            xh.data_ptr(), data_ptr(xl), order.data_ptr(), nk.data_ptr(),
+            hi.data_ptr(), data_ptr(lo), data_ptr(row_scale),
             c.data_ptr(), s.data_ptr(), n, l, dp, width, f, float(sigma),
-            kernel_sincos_flag(mode), stream)
+            kernel_sincos_flag(mode), kernel_precision_flag(precision),
+            stream)
     build.check(rc, "conv parts kernel")
-    PARTS_LAUNCHES[tuple(x.shape) + (width, f, mode)] += 1
+    PARTS_LAUNCHES[tuple(x.shape) + (width, f, mode, precision)] += 1
     return c, s
 
 
-def conv_maxpool(x, seq_lengths, proj, width):
+def conv_maxpool(x, seq_lengths, proj, width, precision=None):
     """(N, F): max(0, max over valid windows of window @ proj)."""
     _check_shapes("conv_maxpool", x, seq_lengths, proj, width)
     if all(t.device.type == "cpu" for t in (x, seq_lengths, proj)):
-        return conv_maxpool_plain(x, seq_lengths, proj, width)
+        return conv_maxpool_plain(x, seq_lengths, proj, width, precision)
+    precision = kernel_precision(precision, x.device)
     xh, xl, order, nk, hi, lo = _kernel_operands(
-        "conv_maxpool", x, seq_lengths, proj, width)
+        "conv_maxpool", x, seq_lengths, proj, width, precision)
     n, l, dp = xh.shape
     f = proj.shape[1]
     out = torch.empty((n, f), dtype=torch.float32, device=x.device)
@@ -205,9 +229,9 @@ def conv_maxpool(x, seq_lengths, proj, width):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.xgpr_conv_maxpool(
-            xh.data_ptr(), xl.data_ptr(), order.data_ptr(), nk.data_ptr(),
-            hi.data_ptr(), lo.data_ptr(), out.data_ptr(), n, l, dp, width, f,
-            stream)
+            xh.data_ptr(), data_ptr(xl), order.data_ptr(), nk.data_ptr(),
+            hi.data_ptr(), data_ptr(lo), out.data_ptr(), n, l, dp, width, f,
+            kernel_precision_flag(precision), stream)
     build.check(rc, "conv maxpool kernel")
-    MAXPOOL_LAUNCHES[tuple(x.shape) + (width, f)] += 1
+    MAXPOOL_LAUNCHES[tuple(x.shape) + (width, f, precision)] += 1
     return out

@@ -18,7 +18,10 @@ kernel for a CUDA tensor; anything else raises.  A CUDA tensor gets the
 kernel of the sincos mode it asks for (the configured one by default):
 "hi", "exact", "fast" and "poly" are each a kernel instantiation.
 ``LAUNCHES`` counts kernel launches by their shape and mode
-(N, D, F, mode).
+(N, D, F, mode).  K2 has no precision variant: xgpr_tpu's Pallas feature
+map pins HIGHEST, so it runs its 3xTF32 body under every preset.  The
+precision switch of K1, K3 and K4 (``kernel_precision``,
+``kernel_precision_flag``) lives here beside the sincos switch.
 """
 from collections import Counter
 
@@ -27,7 +30,7 @@ import torch
 from .. import sincos as _sincos
 from ..layout import assemble_cos_sin
 from ..sorf import rbf_norm_constant
-from ...config import sincos_mode
+from ...config import feature_matmul_precision, sincos_mode
 from . import build
 from .operands import (pad_depth, projT_split, sm_count, split_tf32,
                        tile_split)
@@ -66,6 +69,30 @@ def kernel_sincos_flag(mode=None) -> int:
     """The kernels' sincos switch for ``mode`` (``kernel_mode``): 0 "hi",
     1 "exact", 2 "fast", 3 "poly"."""
     return _MODE_FLAGS[kernel_mode(mode)]
+
+
+# The bodies of K1, K3 and K4 by feature precision (csrc/tf32_gemm.cuh:
+# Format): "high" 3xTF32, "highest" the same 3xTF32 body (PREC_HIGHEST),
+# "default" one bf16 pass.
+_PRECISION_FLAGS = {"high": 0, "highest": 1, "default": 2}
+
+
+def kernel_precision(precision=None, device="cuda") -> str:
+    """The feature precision a launch (or a plain version) runs at:
+    ``precision``, or the configured one on ``device`` when None.
+    Anything else raises."""
+    if precision is None:
+        precision = feature_matmul_precision(device)
+    if precision not in _PRECISION_FLAGS:
+        raise ValueError(f"unknown feature precision {precision!r}; the "
+                         f"kernels take {', '.join(_PRECISION_FLAGS)}.")
+    return precision
+
+
+def kernel_precision_flag(precision=None) -> int:
+    """The kernels' precision switch for ``precision``
+    (``kernel_precision``): 0 "high", 1 "highest", 2 "default"."""
+    return _PRECISION_FLAGS[kernel_precision(precision)]
 
 
 def check_cuda_operands(name, *tensors):

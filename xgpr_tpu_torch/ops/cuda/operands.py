@@ -1,15 +1,23 @@
 """Host-side preparation of the tensor-core kernels' operands.
 
-Every kernel of csrc/ computes its projection as a 3xTF32 product on the
-tensor cores (csrc/tf32_gemm.cuh) and reads both operands K-major, in
-16-byte copies, already split into TF32 high parts and remainders.  These
-plain torch functions prepare them:
+Every kernel of csrc/ computes its projection on the tensor cores
+(csrc/tf32_gemm.cuh) in the body of its feature precision and reads both
+operands K-major, in 16-byte copies, as that body's planes:
 
-- ``split_tf32``: (hi, lo) with hi + lo == a exactly;
-- ``pad_depth``: the contraction axis padded by zeros to a multiple of 4;
-- ``projT_split``: a dense projection (D, F) as the split of its padded
-  transpose (F, dp), cached with the projection tensor: the RBF kernels
-  and Conv1dTwoLayer's second layer pass the same tensor on every call;
+- "high" and "highest": 3xTF32, the operand split into TF32 high parts
+  and remainders (``split_tf32``: hi + lo == a exactly);
+- "default": one bfloat16 plane (``to_bf16``, rounded to nearest even),
+  the TPU's DEFAULT dot; K2 has no such body.
+
+These plain torch functions prepare them:
+
+- ``kernel_planes``: an operand's planes at a precision;
+- ``pad_depth``: the contraction axis padded by zeros to a multiple of
+  ``depth_multiple(precision)`` (16-byte rows: 4 fp32 or 8 bf16 values);
+- ``projT_planes``: a dense projection (D, F) as the planes of its padded
+  transpose (F, dp), cached with the projection tensor and keyed on the
+  body: the RBF kernels and Conv1dTwoLayer's second layer pass the
+  same tensor on every call;
 - ``tile_split``: how many blocks share a loop over tiles.
 """
 import weakref
@@ -19,42 +27,81 @@ import torch
 import torch.nn.functional as F
 
 
-def split_tf32(a):
-    """(hi, lo), float32 with hi + lo == a exactly: hi is a rounded to TF32
-    (10 explicit mantissa bits; to nearest, ties away from zero, as
-    cvt.rna.tf32.f32 rounds) and lo = a - hi, of which the tensor cores
-    read the top TF32 bits."""
+def _round_tf32(a):
+    """a rounded to TF32 (10 explicit mantissa bits; to nearest, ties away
+    from zero, as cvt.rna.tf32.f32 rounds)."""
     bits = a.contiguous().view(torch.int32)
-    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(a):
+    """(hi, lo), float32: hi is a rounded to TF32 and lo = a - hi, of which
+    the tensor cores read the top TF32 bits (hi + lo == a exactly)."""
+    hi = _round_tf32(a)
     return hi, a - hi
 
 
-def pad_depth(a):
+def to_bf16(a):
+    """a rounded to bfloat16 (to nearest even, as __float2bfloat16_rn),
+    contiguous."""
+    return a.to(torch.bfloat16).contiguous()
+
+
+def depth_multiple(precision):
+    """The depth padding of a body: 16 bytes of its values."""
+    return 8 if precision == "default" else 4
+
+
+def kernel_planes(a, precision):
+    """The planes of operand ``a`` (already padded) that the body of
+    ``precision`` reads: (hi, lo) of a TF32 split, or (bf16 values, None)."""
+    if precision == "default":
+        return to_bf16(a), None
+    return split_tf32(a)
+
+
+def pad_depth(a, multiple=4):
     """a (..., d) contiguous, with the last axis padded by zeros to the
-    next multiple of 4 (16-byte rows); a itself when it is already so."""
+    next multiple of ``multiple``; a itself when it is already so."""
     d = a.shape[-1]
-    dp = -(-d // 4) * 4
+    dp = -(-d // multiple) * multiple
     if dp != d:
         a = F.pad(a, (0, dp - d))
     return a.contiguous()
 
 
-# id(proj) -> (weak reference to proj, proj._version, (hi, lo))
+# id(proj) -> (weak reference to proj, proj._version, {bf16: planes})
 _PROJ_SPLITS = {}
 
 
-def projT_split(proj):
-    """split_tf32(pad_depth(proj.T)) for proj (D, F): the (F, dp) K-major
-    operand of the dense kernels.  Kept while proj lives and is not
-    modified in place (its version counter), and built anew otherwise."""
+def projT_planes(proj, precision="high"):
+    """kernel_planes(pad_depth(proj.T), precision) for proj (D, F): the
+    (F, dp) K-major operand of the dense kernels.  Kept, for each body
+    asked for (bf16 or TF32), while proj lives and is not modified in
+    place (its version counter), and built anew otherwise."""
     key = id(proj)
     hit = _PROJ_SPLITS.get(key)
-    if hit is not None and hit[0]() is proj and hit[1] == proj._version:
-        return hit[2]
-    out = split_tf32(pad_depth(proj.t()))
-    ref = weakref.ref(proj, lambda _, key=key: _PROJ_SPLITS.pop(key, None))
-    _PROJ_SPLITS[key] = (ref, proj._version, out)
-    return out
+    if hit is None or hit[0]() is not proj or hit[1] != proj._version:
+        ref = weakref.ref(proj,
+                          lambda _, key=key: _PROJ_SPLITS.pop(key, None))
+        hit = _PROJ_SPLITS[key] = (ref, proj._version, {})
+    bf16 = precision == "default"
+    planes = hit[2].get(bf16)
+    if planes is None:
+        planes = hit[2][bf16] = kernel_planes(
+            pad_depth(proj.t(), depth_multiple(precision)), precision)
+    return planes
+
+
+def projT_split(proj):
+    """projT_planes at "high": the 3xTF32 split of proj's padded
+    transpose."""
+    return projT_planes(proj, "high")
+
+
+def data_ptr(t):
+    """t's device address for the C entry points; None (NULL) for None."""
+    return None if t is None else t.data_ptr()
 
 
 @lru_cache(maxsize=None)

@@ -3,54 +3,73 @@
 Replaces xgpr_tpu/ops/pallas/ztzv_pallas.py (``ztzv_parts_pallas``, whose
 ``pallas_call`` is in ``_ztzv_parts_impl``) with the CUDA C++ kernels in
 csrc/ztzv.cu; see that file for the design and what bounds it on the card.
-Before a launch the wrapper pads x's columns to a multiple of 4 and splits
-x into TF32 high parts and remainders (operands.py: three elementwise
-passes over the chunk, 2.75 MB at 8192 x 84); the split of proj's
-transpose is cached with proj (``projT_split``).
+Before a launch the wrapper pads x's columns to a multiple of 4 (8 for
+bf16) and makes x the planes of the body's precision (operands.py: TF32
+high parts and remainders, or bf16 values; a few elementwise passes over
+the chunk, 2.75 MB at 8192 x 84); proj's transpose is prepared once per
+precision and cached with proj (``projT_planes``).
 Same semantics: x raw (not sigma-scaled), sigma multiplies the product,
 scale = rbf_norm_constant(F, intercept), mask * scale folded into both
 parts, and with an intercept cos column 0 equals the mask.
 
+The feature precision (``precision``, the configured
+``feature_matmul_precision`` by default) picks the body: "high" and
+"highest" 3xTF32, "default" one bf16 pass with every product's operands
+rounded to bf16 as the TPU's DEFAULT dot rounds them in ``_ztzv_kernel``:
+x and proj, then c and s (after scale * mask and the intercept column),
+v_c / v_s and the summed zv, each product summed in fp32.
+
 ``ztzv_parts`` runs the plain version for CPU tensors and the kernel for
 CUDA tensors; anything else raises.  A CUDA call runs the kernels of the
-sincos mode it asks for (the configured one by default).  ``LAUNCHES``
+sincos mode and precision it asks for, never another.  ``LAUNCHES``
 counts kernel launches (one per call, covering its three CUDA launches) by
-their shape and mode (R, D, F, K, mode): K is 1 in a fit's CG and 26 in
-SLQ's.  Two calls on the same
-inputs give the same bits.
+their shape, mode and precision (R, D, F, K, mode, precision): K is 1 in
+a fit's CG and 26 in SLQ's.  Two calls on the same inputs give the same
+bits.
 """
 from collections import Counter
 
 import torch
 
 from .. import sincos as _sincos
-from ..contract import parts_contract
+from ..contract import bf16_mm, parts_contract_bf16
 from ..sorf import rbf_norm_constant
 from . import build
 from .feature_map import (TILE, check_cuda_operands, kernel_mode,
+                          kernel_precision, kernel_precision_flag,
                           kernel_sincos_flag)
-from .operands import (pad_depth, projT_split, sm_count, split_tf32,
-                       tile_split)
+from .operands import (data_ptr, depth_multiple, kernel_planes, pad_depth,
+                       projT_planes, sm_count, tile_split)
 
 LAUNCHES = Counter()
 
 ZV_RHS = 8  # right-hand sides per block of the zv pass when K > 1
 
 
-def ztzv_parts_plain(x, m, proj, sigma, v_c, v_s, fit_intercept, mode=None):
+def ztzv_parts_plain(x, m, proj, sigma, v_c, v_s, fit_intercept, mode=None,
+                     precision=None):
     """Plain PyTorch version: materialises the (R, F) parts and contracts
-    them with torch.matmul."""
+    them with torch.matmul, under "default" on operands rounded to bf16
+    at the kernel's points (ops/contract.py: ``bf16_mm``)."""
+    precision = kernel_precision(precision, x.device)
     scale = torch.tensor(rbf_norm_constant(proj.shape[1], fit_intercept),
                          dtype=x.dtype, device=x.device)
     sig = torch.as_tensor(sigma, dtype=x.dtype, device=x.device)
-    arg = torch.matmul(x, proj) * sig
+    if precision == "default":
+        arg = bf16_mm(x, proj) * sig
+    else:
+        arg = torch.matmul(x, proj) * sig
     c, s = _sincos.sincos(arg, (m * scale)[:, None], mode)
     if fit_intercept:
         c[:, 0] = m
-    return parts_contract(c, s, v_c, v_s)
+    if precision == "default":
+        return parts_contract_bf16(c, s, v_c, v_s)
+    zv = torch.matmul(c, v_c) + torch.matmul(s, v_s)
+    return torch.matmul(c.T, zv), torch.matmul(s.T, zv)
 
 
-def ztzv_parts(x, m, proj, sigma, v_c, v_s, fit_intercept, mode=None):
+def ztzv_parts(x, m, proj, sigma, v_c, v_s, fit_intercept, mode=None,
+               precision=None):
     """(oc, os), each (F, K): the chunk's Z^T (Z v) in cos/sin halves.
 
     x (R, D) raw rows; m (R,) row mask; proj (D, F); sigma a float;
@@ -64,11 +83,12 @@ def ztzv_parts(x, m, proj, sigma, v_c, v_s, fit_intercept, mode=None):
         raise ValueError("ztzv_parts: inconsistent operand shapes.")
     if all(t.device.type == "cpu" for t in (x, m, proj, v_c, v_s)):
         return ztzv_parts_plain(x, m, proj, sigma, v_c, v_s, fit_intercept,
-                                mode)
+                                mode, precision)
     if x.device.type != "cuda":
         raise ValueError(f"ztzv_parts: no kernel for {x.device}.")
     check_cuda_operands("ztzv_parts", x, m, proj, v_c, v_s)
     mode = kernel_mode(mode)
+    precision = kernel_precision(precision, x.device)
     opts = dict(dtype=torch.float32, device=x.device)
     if n == 0 or f == 0:
         return torch.zeros((f, k), **opts), torch.zeros((f, k), **opts)
@@ -76,8 +96,9 @@ def ztzv_parts(x, m, proj, sigma, v_c, v_s, fit_intercept, mode=None):
     if k > 65535:
         raise ValueError("ztzv_parts: too many right-hand sides for the "
                          "launch grid.")
-    xh, xl = split_tf32(pad_depth(x))
-    ph, pl = projT_split(proj)
+    xh, xl = kernel_planes(pad_depth(x, depth_multiple(precision)),
+                           precision)
+    ph, pl = projT_planes(proj, precision)
     row_tiles, f_tiles = -(-n // TILE), -(-f // TILE)
     sms = sm_count(x.device.index)
     zsplit = tile_split(f_tiles, row_tiles * zv_blocks, sms, 16)
@@ -91,12 +112,13 @@ def ztzv_parts(x, m, proj, sigma, v_c, v_s, fit_intercept, mode=None):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.xgpr_ztzv(
-            xh.data_ptr(), xl.data_ptr(), m.data_ptr(), ph.data_ptr(),
-            pl.data_ptr(), float(sigma), v_c.data_ptr(), v_s.data_ptr(),
+            xh.data_ptr(), data_ptr(xl), m.data_ptr(), ph.data_ptr(),
+            data_ptr(pl), float(sigma), v_c.data_ptr(), v_s.data_ptr(),
             zv_part.data_ptr(), oc_part.data_ptr(), os_part.data_ptr(),
             oc.data_ptr(), os_.data_ptr(), n, xh.shape[1], f, k, zsplit,
             osplit, rbf_norm_constant(f, fit_intercept),
-            int(bool(fit_intercept)), kernel_sincos_flag(mode), stream)
+            int(bool(fit_intercept)), kernel_sincos_flag(mode),
+            kernel_precision_flag(precision), stream)
     build.check(rc, "ztzv kernel")
-    LAUNCHES[(n, d, f, k, mode)] += 1
+    LAUNCHES[(n, d, f, k, mode, precision)] += 1
     return oc, os_

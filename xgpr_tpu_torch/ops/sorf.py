@@ -7,7 +7,11 @@
   layout of ops/layout.py.
 - The dense projection materialises SORF * chi as one (D, F) matrix, so
   the feature map is x @ proj; on the card that product and the sincos run
-  inside the feature-map kernel (ops/cuda/feature_map.py).
+  inside the feature-map kernel (ops/cuda/feature_map.py), at full
+  precision in every preset, as xgpr_tpu's Pallas feature map pins
+  HIGHEST.  The XLA-path twins ``rbf_feature_map_dense`` and
+  ``rbf_feature_parts_dense`` project through ``feature_projection``,
+  which follows the feature precision as xgpr_tpu's XLA path does.
 
 These are the plain tensor versions.  The ``_grad`` variants (features
 and d features / d sigma, for the exact NMLL gradient) stay plain torch on
@@ -17,6 +21,8 @@ import math
 
 import torch
 
+from .. import config
+from .contract import bf16_mm
 from .hadamard import fwht
 from .layout import assemble_cos_sin
 from .sincos import sincos
@@ -113,10 +119,19 @@ def dense_threshold_ok(input_dim: int, num_freqs: int,
     return input_dim * num_freqs <= max_elements
 
 
+def feature_projection(x, proj):
+    """x @ proj at the configured feature precision (port of xgpr_tpu's
+    ``_feature_projection``): under "default" both operands are rounded to
+    bfloat16 and the products sum in float32."""
+    if config.feature_matmul_precision(x.device) == "default":
+        return bf16_mm(x, proj)
+    return torch.matmul(x, proj)
+
+
 def rbf_feature_map_dense(x, proj, fit_intercept: bool, padded: int):
     """RBF features via the dense projection of sigma-scaled rows."""
     num_freqs = proj.shape[1]
-    return cos_sin_features(torch.matmul(x, proj),
+    return cos_sin_features(feature_projection(x, proj),
                             rbf_norm_constant(num_freqs, fit_intercept),
                             padded)
 
@@ -127,7 +142,7 @@ def rbf_feature_parts_dense(x_scaled, proj, fit_intercept: bool):
     num_freqs = proj.shape[1]
     scale = torch.tensor(rbf_norm_constant(num_freqs, fit_intercept),
                          dtype=x_scaled.dtype, device=x_scaled.device)
-    cosv, sinv = sincos(torch.matmul(x_scaled, proj))
+    cosv, sinv = sincos(feature_projection(x_scaled, proj))
     cosv = cosv * scale
     sinv = sinv * scale
     if fit_intercept:
