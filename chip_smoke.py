@@ -18,6 +18,7 @@ built beforehand.  Phases (any failure raises and the exit code is not 0):
    parallel) and print the build time and ptxas's register counts.
 2. K1 and K2 against their plain PyTorch versions on the card, in fp32:
    the feature map (K2) at slice A's shape, at the tuning width (F 1024),
+   at the auxiliary tools' k-means width (F 2048),
    at the K4 path's second layer (D 1024, F 2048, padded 1024) and at a
    ragged one, and the fused CG matvec (K1) at slice A's shape for K = 1
    and 26 and at a ragged one with masked rows; two K1 calls on the same
@@ -118,15 +119,44 @@ built beforehand.  Phases (any failure raises and the exit code is not 0):
    from the design matrix), its time and iterations beside "balanced"'s,
    and the Conv1dRBF chunk contraction's time with bf16 operands (a
    library call) beside fp32.  Restores "balanced".
+13. Slice D2 (``phase_surface``, after the classifiers):
+   a. Linear on slice A's rows (85 features, Nystrom variance of rank 64):
+      a crude tune of lambda, the exact fit, a CG fit (its weights within
+      1e-6 x max|w| of the exact fit's) and predict with variance, against
+      the port's float64 fit on the CPU (predictions within 1e-4 x
+      max|pred|, Spearman at least the CPU fit's less 0.005).  No kernel
+      runs on this path; the kernels line names it under
+      "paths_without_kernels".
+   b. MiniARD on slice A's rows, split at column 42: a crude tune at 2048
+      RFFs on 65,536 rows, exact_nmll_gradient against a float64 witness
+      (0.5%) and the witness against its central difference (0.5%), a CG
+      fit at 8192 RFFs with the tuned point, predict with variance, and
+      the same predict again under ``diagnostics.trace`` (the same
+      results; the trace must name K2's kernel); K2 ran in fit and
+      predict, 4096 predictions agree with the plain feature
+      map, Spearman > 0.62; MiniARD at slice A's sigma in both groups
+      gives slice A's RBF features bitwise.
+   c. export_predict_fn on slice A's RBF model (with variance), the
+      Conv1dRBF model and the RBF classifier: within 1e-6 x max|pred| of
+      predict, the same bits after the state went through numpy.
+   d. KernelFGen at 8192 RFFs on RBF (slice A's held-out rows) and
+      Conv1dRBF (the corpus's), bitwise ``transform_x`` and within 1e-5 of
+      the plain feature maps; KernelPCA at 8192 RFFs, 16 components, on
+      slice A's training rows (orthonormal components, non-increasing
+      variances, the transformed rows' variance within 1e-3); KernelKMeans
+      at 4096 RFFs on 262,144 rows of 8 blobs (purity > 0.9, labels_ equal
+      predict).
 
 The launch counters count by shape and, for K1-K3, sincos mode, and for
 K1, K3 and K4 feature precision.  The line before the last is one JSON
 object describing the kernels: one row per path (slice A, Conv1dRBF,
 both under "fast" and "poly", streamed Conv1dRBF, the referee, the K4
-path, the presets' paths, tuning, the two classifiers), kernel and
+path, the presets' paths, tuning, the two classifiers, MiniARD, the
+exports, KernelFGen, KernelPCA, KernelKMeans), kernel and
 launch shape less its row count, with the launches at that shape (by row
 count) and the times and bound measured at it; a launch at a shape, mode
-or precision that phases 2 and 5 did not check and time fails the run.
+or precision that phases 2 and 5 did not check and time fails the run;
+and "paths_without_kernels", the paths that launch none (Linear).
 The last line is {"ok": true, "device": {...}}.
 Without a CUDA device, or outside a checkout, it exits with code 1 and
 prints no result.
@@ -209,6 +239,36 @@ CONV_CLASS_HPARAMS = np.array([np.log(0.3), MOTIF_HPARAMS[1]])
 CONV_CLASS_ACC_FLOOR = 0.5026
 # Probability rows sum to 1, and agree with the plain feature map's, to:
 PROB_ATOL = 1e-5
+
+# Slice D2 (``phase_surface``).  Linear on slice A's rows: 85 features
+# (84 and the intercept), a Nystrom variance of rank LINEAR_VARIANCE_RFFS;
+# CG to LINEAR_CG_TOL (so that the weights' gap is the float32 matvec's,
+# not the solver's), its weights within LINEAR_CG_RTOL x max|w| of the
+# exact fit's (float64 products of the same features), predictions
+# within PREDICT_RTOL x max|pred| of the port's float64 CPU fit, held-out
+# Spearman at least the CPU fit's less LINEAR_RHO_DROP.  MiniARD on slice
+# A's rows, split at column ARD_SPLIT (two groups of 42; xgpr_tpu's own
+# test splits at 40): a crude tune at TUNE_RFFS on the first TUNE_ROWS
+# rows, the gradient at ARD_GRAD_POINT (slice B's GRAD_POINT with sigma in
+# both groups) against a float64 witness, a CG fit at NUM_RFFS with the
+# tuned point, held-out Spearman above slice A's floor.  The exports within
+# EXPORT_RTOL x max|pred| of predict.  KernelFGen at NUM_RFFS on RBF and
+# Conv1dRBF, within FEATURE_ATOL of the plain feature maps; KernelPCA at
+# PCA_RFFS on slice A's training rows (PCA_COMPONENTS components:
+# orthonormal to PCA_ORTHO_TOL, variances non-increasing and >= -1e-8, the
+# transformed rows' variance within PCA_VAR_RTOL of each); KernelKMeans at
+# KMEANS_RFFS on a blob corpus (KMEANS_CENTRES centres in 84 dimensions,
+# noise KMEANS_NOISE, sigma KMEANS_SIGMA), purity above KMEANS_PURITY,
+# xgpr_tpu's own gate (tests/auxiliary_tests/test_clustering.py).
+LINEAR_VARIANCE_RFFS = 64
+LINEAR_CG_TOL, LINEAR_CG_RTOL, LINEAR_RHO_DROP = 1e-8, 1e-6, 0.005
+ARD_SPLIT = 42
+ARD_GRAD_POINT = np.array([GRAD_POINT[0], GRAD_POINT[1], GRAD_POINT[1]])
+EXPORT_RTOL = 1e-6
+PCA_RFFS, PCA_COMPONENTS = 8192, 16
+PCA_ORTHO_TOL, PCA_VAR_RTOL = 1e-8, 1e-3
+KMEANS_RFFS, KMEANS_CENTRES, KMEANS_NOISE = 4096, 8, 0.05
+KMEANS_SIGMA, KMEANS_PURITY = 0.1, 0.9
 
 # Tolerances, fp32 on both sides with a different summation order:
 # features are O(1/sqrt(F)) in magnitude and match to ~1e-5 absolute;
@@ -487,6 +547,7 @@ def phase_kernels(torch, card, mode="hi", precision="high", k2=True):
     kernel = RBF((CHUNK, N_FEATURES), NUM_RFFS, SEED, device="cuda")
     proj = kernel._dense_proj()                       # (84, 4096), fp32
     tune = RBF((CHUNK, N_FEATURES), TUNE_RFFS, SEED, device="cuda")
+    aux = RBF((CHUNK, N_FEATURES), KMEANS_RFFS, SEED, device="cuda")
     two = Conv1dTwoLayer((CHUNK, MOTIF_L, MOTIF_D), K4_RFFS, SEED,
                          device="cuda",
                          kernel_spec_parms={"conv_width": MOTIF_W,
@@ -499,13 +560,16 @@ def phase_kernels(torch, card, mode="hi", precision="high", k2=True):
 
     results = {}
     # --- K2: slice A's shape (padded 128, 32 blocks), the tuning width's
-    # (F 1024), ragged cases, and the K4 path's second layer (D 1024,
+    # (F 1024), the auxiliary tools' (F 2048), ragged cases, and the K4
+    # path's second layer (D 1024,
     # F 2048, padded 1024) on nonnegative rows like its sigma-scaled
     # maxpool profiles ------------------------------------------------
     x_tab = t(rng.standard_normal((CHUNK, N_FEATURES)) * 0.5)
     cases = [(x_tab, proj, kernel.padded_dims, True, "slice"),
              (x_tab, tune._dense_proj(), tune.padded_dims, True,
               f"tuning ({TUNE_RFFS} RFFs)"),
+             (x_tab, aux._dense_proj(), aux.padded_dims, False,
+              f"auxiliary ({KMEANS_RFFS} RFFs)"),
              (t(rng.random((CHUNK, proj2.shape[0])) * 0.1), proj2,
               two._feature_padded, True, "K4 path")]
     for intercept in (False, True):
@@ -669,7 +733,9 @@ def phase_slice(torch, card, tab, dev="cuda", num_rffs=NUM_RFFS,
 
 
 def check_predictions(model, z, preds, what):
-    ref = (z @ model.weights).cpu().numpy().astype(np.float64)
+    """Predictions against the plain features' own, formed as predict
+    forms them (float64 products with the weights)."""
+    ref = (z.double() @ model.weights.double()).cpu().numpy()
     ref = ref * model.trainy_std + model.trainy_mean
     err = float(np.abs(ref - preds).max())
     tol = PREDICT_RTOL * float(np.abs(ref).max())
@@ -1473,7 +1539,7 @@ def phase_mode_paths(torch, card, tab, corpus, hi_preds, conv_model,
                                   params["sigma"], params["proj"],
                                   kern.fit_intercept, kern.padded_dims, mode)
         z[:, 0] = 1.0
-        plain = (z @ model.weights).cpu().numpy().astype(np.float64) * \
+        plain = (z.double() @ model.weights.double()).cpu().numpy() * \
             model.trainy_std + model.trainy_mean
         del model
 
@@ -1494,8 +1560,8 @@ def phase_mode_paths(torch, card, tab, corpus, hi_preds, conv_model,
                                  kern.conv_width, scale, mode)
         c[:, 0] = 1.0
         zc = assemble_cos_sin(c, s_, kern.padded_dims)
-        conv_plain = (zc @ conv_model.weights).cpu().numpy().astype(
-            np.float64) * conv_model.trainy_std + conv_model.trainy_mean
+        conv_plain = (zc.double() @ conv_model.weights.double()).cpu() \
+            .numpy() * conv_model.trainy_std + conv_model.trainy_mean
     finally:
         config.set_sincos_mode(saved)
     rho = float(spearmanr(preds, te_y)[0])
@@ -1755,7 +1821,8 @@ def phase_rbf_classifier(torch, card, dev="cuda", n_train=N_TRAIN,
                          floor=CLASS_ACC_FLOOR):
     """GPClassification with RBF at slice A's width: fit (autoselected
     preconditioner, NCG) and predict on the classification generator's
-    held-out rows; class_gates."""
+    held-out rows; class_gates.  Returns the launches, the model and the
+    held-out rows."""
     from xgpr_tpu_torch import GPClassification, build_classification_dataset
     from xgpr_tpu_torch.ops.cuda.feature_map import rbf_feature_map_plain
     t0 = time.perf_counter()
@@ -1790,13 +1857,13 @@ def phase_rbf_classifier(torch, card, dev="cuda", n_train=N_TRAIN,
                               params["proj"], kern.fit_intercept,
                               kern.padded_dims)
     z[:, 0] = 1.0
-    plain = softmax_np((z @ model.weights.to(z.dtype)).double().cpu()
-                       .numpy())
+    plain = softmax_np((z.double() @ model.weights).cpu().numpy())
     class_gates(torch, card, "RBF classifier", model, hist, probs, te_y,
                 plain, fit_counts, predict_counts, "K2", floor, dev)
     if torch.device(dev).type == "cuda":
         classifier_passes(torch, model, dset, card, "RBF classifier")
-    return {k: fit_counts[k] + predict_counts[k] for k in fit_counts}
+    return {k: fit_counts[k] + predict_counts[k] for k in fit_counts}, \
+        model, tex
 
 
 def phase_conv_classifier(torch, card, corpus, dev="cuda",
@@ -1844,8 +1911,7 @@ def phase_conv_classifier(torch, card, corpus, dev="cuda",
                             kern.conv_width, scale)
     c[:, 0] = 1.0
     z = assemble_cos_sin(c, s, kern.padded_dims)
-    plain = softmax_np((z @ model.weights.to(z.dtype)).double().cpu()
-                       .numpy())
+    plain = softmax_np((z.double() @ model.weights).cpu().numpy())
     class_gates(torch, card, "Conv1dRBF classifier", model, hist, probs,
                 te_y, plain, fit_counts, predict_counts, "K3", floor, dev)
     if torch.device(dev).type == "cuda":
@@ -1906,6 +1972,445 @@ def phase_tuning(torch, card, tab, corpus, dev="cuda"):
             check(counts[name].total() > 0,
                   f"{name} was not launched during the tuning phase")
     return counts
+
+
+def blob_corpus(n_rows, n_features=N_FEATURES, n_centres=KMEANS_CENTRES,
+                noise=KMEANS_NOISE, seed=SEED):
+    """Blobs for the k-means gate: ``n_centres`` standard-normal centres,
+    each row one of them (drawn uniformly) plus ``noise`` times a standard
+    normal.  Returns x (n, n_features) float64 and the true labels."""
+    rng = np.random.default_rng(seed)
+    centres = rng.standard_normal((n_centres, n_features))
+    labels = rng.integers(0, n_centres, n_rows)
+    return centres[labels] + noise * rng.standard_normal(
+        (n_rows, n_features)), labels
+
+
+def spearman(a, b):
+    from scipy.stats import spearmanr
+    return float(spearmanr(a, b)[0])
+
+
+def phase_linear(torch, card, tab, dev="cuda",
+                 variance_rffs=LINEAR_VARIANCE_RFFS):
+    """The Linear kernel on slice A's rows: a crude tune of lambda, the
+    exact fit, the CG fit and predict with its Nystrom variance, against
+    the port's own float64 fit on the CPU.  Returns the path's launches
+    (none: Linear has no projection, so no kernel)."""
+    from xgpr_tpu_torch import GPRegression
+    dset, tex, te_y = tab
+    model = GPRegression(num_rffs=2, variance_rffs=variance_rffs,
+                         kernel_choice="Linear", device=dev, verbose=False)
+    reset_counts()
+    t0 = time.perf_counter()
+    hparams, _, score = model.tune_hyperparams_crude(dset)
+    model.fit(dset, mode="exact")
+    exact_w = model.weights.double()
+    n_iter, losses = model.fit(dset, mode="cg", tol=LINEAR_CG_TOL,
+                               run_diagnostics=True)
+    preds, var = model.predict(tex, get_var=True)
+    sync(torch, dev)
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    cpu = GPRegression(num_rffs=2, variance_rffs=variance_rffs,
+                       kernel_choice="Linear", device="cpu", verbose=False)
+    cpu.set_hyperparams(hparams, dset)
+    cpu.fit(dset, mode="exact")
+    cpu_preds = cpu.predict(tex)
+    w_err = float((model.weights.double() - exact_w).abs().max())
+    w_tol = LINEAR_CG_RTOL * float(exact_w.abs().max())
+    p_err = float(np.abs(preds - cpu_preds).max())
+    p_tol = PREDICT_RTOL * float(np.abs(cpu_preds).max())
+    rho, rho_cpu = spearman(preds, te_y), spearman(cpu_preds, te_y)
+    print(f"Linear ({model.num_rffs} features, Nystrom variance rank "
+          f"{model.var.get_rank()}): crude tune log lambda {hparams} (score "
+          f"{score}), exact fit, CG fit ({n_iter} iterations, residual "
+          f"{losses[-1]:.3e}) and predict in {secs:.3f}s; CG vs exact "
+          f"weights max_abs_err {w_err:.3e} (tol {w_tol:.3e}); predictions "
+          f"vs the float64 CPU fit {p_err:.3e} (tol {p_tol:.3e}); held-out "
+          f"Spearman {rho:.4f} (CPU {rho_cpu:.4f}, floor CPU - "
+          f"{LINEAR_RHO_DROP}); launches {counts_text(counts)} [{card}]",
+          flush=True)
+    check(not model.exact_var_calculation, "Linear kept no Nystrom variance")
+    check(n_iter < 500 and losses[-1] < LINEAR_CG_TOL,
+          "Linear CG did not converge")
+    check(w_err < w_tol, "Linear CG weights disagree with the exact fit's")
+    check(p_err < p_tol, "Linear predictions disagree with the CPU fit's")
+    check(bool(np.all(np.isfinite(var)) and np.all(var >= 0)),
+          "Linear variances not finite or negative")
+    check(rho >= rho_cpu - LINEAR_RHO_DROP, "Linear Spearman below the CPU "
+                                            "fit's")
+    check(sum(totals(counts).values()) == 0, "the Linear path launched a "
+                                             "kernel")
+    return counts
+
+
+def plain_rbf_features(torch, kern, x, params):
+    """The plain K2 features of an RBF or MiniARD kernel's rows, intercept
+    applied."""
+    from xgpr_tpu_torch.ops.cuda.feature_map import rbf_feature_map_plain
+    scale = params["ard_weights"] if "ard_weights" in params \
+        else params["sigma"]
+    z = rbf_feature_map_plain(x * scale, params["proj"], kern.fit_intercept,
+                              kern.padded_dims)
+    if kern.fit_intercept:
+        z[:, 0] = 1.0
+    return z
+
+
+def phase_mini_ard(torch, card, tab, trx, tr_y, dev="cuda",
+                   tune_rows=TUNE_ROWS, tune_rffs=TUNE_RFFS,
+                   num_rffs=NUM_RFFS, variance_rffs=VARIANCE_RFFS,
+                   chunk=CHUNK, bayes_iter=BAYES_ITER,
+                   spearman_floor=SPEARMAN_FLOOR, trace_dir=None):
+    """MiniARD on slice A's rows (two groups, split at ARD_SPLIT): a crude
+    tune on the first ``tune_rows`` rows, exact_nmll_gradient against a
+    float64 witness, a CG fit at ``num_rffs`` with the tuned point and
+    predict(get_var=True), then the same predict traced into
+    ``trace_dir`` (the same results; the trace must name K2's kernel on
+    the card).  Then a MiniARD whose
+    lengthscales both equal slice A's sigma against slice A's RBF
+    features, bitwise.  Returns the path's launches."""
+    from xgpr_tpu_torch import GPRegression, build_regression_dataset, config
+    from xgpr_tpu_torch.kernels import RBF, MiniARD
+    from xgpr_tpu_torch.utils import diagnostics
+    dset, tex, te_y = tab
+    on_card = torch.device(dev).type == "cuda"
+    settings = {"split_points": [ARD_SPLIT]}
+    tune_set = build_regression_dataset(trx[:tune_rows], tr_y[:tune_rows],
+                                        chunk_size=chunk)
+    reset_counts()
+    t0 = time.perf_counter()
+    tuner = GPRegression(num_rffs=tune_rffs, kernel_choice="MiniARD",
+                         kernel_settings=settings, device=dev, verbose=False)
+    tuned, n_feval, best = tuner.tune_hyperparams_crude(
+        tune_set, max_bayes_iter=bayes_iter)
+    sync(torch, dev)
+    tune_s = time.perf_counter() - t0
+    del tuner, tune_set
+
+    t0 = time.perf_counter()
+    grad_model = GPRegression(num_rffs=tune_rffs, kernel_choice="MiniARD",
+                              kernel_settings=settings, device=dev,
+                              verbose=False)
+    grad_model.set_hyperparams(ARD_GRAD_POINT, dset)
+    (score, grad), grad_s, _ = nmll_call(
+        torch, dev, grad_model.exact_nmll_gradient, ARD_GRAD_POINT, dset)
+    del grad_model
+    with config.working_dtype(torch.float64):
+        wit = GPRegression(num_rffs=tune_rffs, kernel_choice="MiniARD",
+                           kernel_settings=settings, device=dev,
+                           verbose=False)
+        wit.set_hyperparams(ARD_GRAD_POINT, dset)
+        (score64, grad64), _, _ = nmll_call(
+            torch, dev, wit.exact_nmll_gradient, ARD_GRAD_POINT, dset)
+        num64 = central_difference(
+            lambda h: nmll_call(torch, dev, wit.exact_nmll_gradient, h,
+                                dset)[0][0], ARD_GRAD_POINT, GRAD_STEP)
+        check(wit.kernel.dtype == torch.float64, "the witness is not float64")
+    del wit
+    sync(torch, dev)
+    gradient_s = time.perf_counter() - t0
+    err32, err64 = rel_err(grad, grad64), rel_err(grad64, num64)
+
+    model = GPRegression(num_rffs=num_rffs, variance_rffs=variance_rffs,
+                         kernel_choice="MiniARD", kernel_settings=settings,
+                         device=dev, verbose=False)
+    model.set_hyperparams(tuned, dset)
+    t0 = time.perf_counter()
+    n_iter, losses = model.fit(dset, mode="cg", run_diagnostics=True)
+    sync(torch, dev)
+    fit_s = time.perf_counter() - t0
+    fit_counts = read_counts()
+    reset_counts()
+    t0 = time.perf_counter()
+    preds, var = model.predict(tex, get_var=True)
+    sync(torch, dev)
+    predict_s = time.perf_counter() - t0
+    trace_path, traced_s = None, None
+    if trace_dir is not None:
+        t0 = time.perf_counter()
+        with diagnostics.trace(str(trace_dir)):
+            traced = model.predict(tex, get_var=True)
+        traced_s = time.perf_counter() - t0
+        trace_path = Path(trace_dir) / "trace.json"
+        check(all(np.array_equal(a, b) for a, b in zip(traced,
+                                                         (preds, var))),
+              "the traced MiniARD predict differs from the untraced one")
+    predict_counts = read_counts()
+    rho = spearman(preds, te_y)
+    kern = model.kernel
+    params = kern.feature_params()
+    z = plain_rbf_features(torch, kern, kern._cast_input(tex[:4096]), params)
+    print(f"MiniARD (split at {ARD_SPLIT}): crude tune on {tune_rows} rows "
+          f"at {tune_rffs} RFFs -> {tuned} (score {best}, {n_feval} "
+          f"evaluations) in {tune_s:.3f}s; gradient at {ARD_GRAD_POINT} on "
+          f"{dset.get_ndatapoints()} rows: float32 features NMLL "
+          f"{score:.6f}, analytic {grad}; float64 witness NMLL "
+          f"{score64:.6f}, analytic {grad64}, central difference {num64}; "
+          f"relative error float32 vs witness {err32}, witness vs central "
+          f"difference {err64} (gate {GRAD_RTOL} each), {gradient_s:.3f}s "
+          f"with the witness; fit at {num_rffs} RFFs {fit_s:.3f}s, CG "
+          f"iterations {n_iter}, residual {losses[-1]:.3e}; predict "
+          f"{predict_s:.3f}s for {len(tex)} rows, again under "
+          f"diagnostics.trace {traced_s}s; held-out Spearman {rho:.4f} (floor "
+          f"{spearman_floor}); launches fit {counts_text(fit_counts)}, "
+          f"predict {counts_text(predict_counts)} [{card}]", flush=True)
+    check(np.all(err32 < GRAD_RTOL), "the MiniARD gradient disagrees with "
+                                     "its float64 witness")
+    check(np.all(err64 < GRAD_RTOL), "the MiniARD float64 gradient "
+                                     "disagrees with the central difference")
+    check(n_iter < 500 and losses[-1] < 1e-6, "MiniARD CG did not converge")
+    check(bool(np.all(np.isfinite(preds)) and np.all(np.isfinite(var))
+               and np.all(var >= 0)), "MiniARD predictions not finite or "
+                                      "var < 0")
+    check_predictions(model, z, preds[:4096], "the plain feature map "
+                                              "(MiniARD)")
+    check(rho > spearman_floor, "MiniARD Spearman below the floor")
+    if on_card:
+        check(fit_counts["K2"].total() > 0, "K2 did not run in the MiniARD "
+                                            "fit")
+        check(predict_counts["K2"].total() > 0, "K2 did not run in the "
+                                                "MiniARD predict")
+    if trace_path is not None:
+        text = trace_path.read_text() if trace_path.exists() else ""
+        named = "feature_map_kernel" in text
+        print(f"MiniARD predict trace {trace_path} "
+              f"({len(text)} bytes): names K2's feature_map_kernel: {named}",
+              flush=True)
+        check(trace_path.exists(), "the trace file was not written")
+        check(named or not on_card, "the trace does not name K2's kernel")
+    del model
+    counts = {k: fit_counts[k] + predict_counts[k] for k in fit_counts}
+
+    # Equal lengthscales give slice A's RBF features bit for bit (these
+    # launches compare two kernels and are not the path's).
+    x = torch.as_tensor(tex[:chunk], dtype=config.fp_dtype(dev),
+                        device=dev)
+    rbf = RBF((chunk, N_FEATURES), num_rffs, SEED, device=dev)
+    rbf.set_hyperparams(HPARAMS)
+    ard = MiniARD((chunk, N_FEATURES), num_rffs, SEED, device=dev,
+                  kernel_spec_parms=settings)
+    ard.set_hyperparams(np.array([HPARAMS[0], HPARAMS[1], HPARAMS[1]]))
+    same = torch.equal(ard.transform_x(x), rbf.transform_x(x))
+    print(f"MiniARD with both lengthscales at slice A's sigma vs slice A's "
+          f"RBF features on {chunk} held-out rows: bitwise equal {same}",
+          flush=True)
+    check(same, "MiniARD at equal lengthscales differs from RBF")
+    return counts
+
+
+def state_roundtrip(torch, state, dev):
+    """An exported state through numpy and back onto ``dev``."""
+    if isinstance(state, dict):
+        return {k: state_roundtrip(torch, v, dev) for k, v in state.items()}
+    if torch.is_tensor(state):
+        return torch.as_tensor(state.cpu().numpy(), device=dev)
+    return state
+
+
+def phase_export(torch, card, rbf_model, tex, conv_model, conv_test,
+                 classifier, class_tex, dev="cuda"):
+    """export_predict_fn on models earlier phases fitted: slice A's RBF
+    with variance, the Conv1dRBF slice's (mean), the RBF classifier's.
+    Each exported fn against the model's predict on the held-out rows
+    (within EXPORT_RTOL x max|pred|), and the same bits from a state that
+    went through numpy.  Returns the launches of the exported fns."""
+    dtype = rbf_model.kernel.dtype
+    cases = []
+    fn, state = rbf_model.export_predict_fn(get_var=True)
+    cases.append(("RBF (mean, variance)", fn, state,
+                  (torch.as_tensor(tex, dtype=dtype, device=dev),),
+                  rbf_model.predict(tex, get_var=True)))
+    xc, lc = conv_test
+    fn, state = conv_model.export_predict_fn()
+    cases.append(("Conv1dRBF (mean)", fn, state,
+                  (torch.as_tensor(xc, dtype=dtype, device=dev),
+                   torch.as_tensor(lc, dtype=torch.int32, device=dev)),
+                  (conv_model.predict(xc, lc),)))
+    fn, state = classifier.export_predict_fn()
+    cases.append(("RBF classifier (probabilities)", fn, state,
+                  (torch.as_tensor(class_tex, dtype=dtype, device=dev),),
+                  (classifier.predict(class_tex),)))
+    reset_counts()
+    results = []
+    for label, fn, state, args, refs in cases:
+        t0 = time.perf_counter()
+        out = fn(state, *args)
+        sync(torch, dev)
+        secs = time.perf_counter() - t0
+        out = out if isinstance(out, tuple) else (out,)
+        again = fn(state_roundtrip(torch, state, dev), *args)
+        again = again if isinstance(again, tuple) else (again,)
+        same = all(torch.equal(a, b) for a, b in zip(again, out))
+        errs = [(float(np.abs(o.cpu().numpy() - r).max()),
+                 EXPORT_RTOL * float(np.abs(r).max()))
+                for o, r in zip(out, refs)]
+        results.append((label, errs, same))
+        print(f"export_predict_fn {label}: {secs:.3f}s for {args[0].shape[0]} "
+              f"rows; vs predict max_abs_err / tol "
+              f"{[f'{e:.3e} / {t:.3e}' for e, t in errs]}; same bits after "
+              f"the state went through numpy: {same} [{card}]", flush=True)
+    counts = read_counts()
+    print(f"export_predict_fn launches {counts_text(counts)}", flush=True)
+    for label, errs, same in results:
+        check(all(e < t for e, t in errs),
+              f"the exported {label} fn disagrees with predict")
+        check(same, f"the exported {label} fn changed after a numpy round "
+                    "trip")
+    if torch.device(dev).type == "cuda":
+        check(counts["K2"].total() > 0 and counts["K3"].total() > 0,
+              "the exported fns did not launch K2 and K3")
+    return counts
+
+
+def phase_aux(torch, card, tex, trx, corpus_test, dev="cuda",
+              num_rffs=NUM_RFFS, pca_rffs=PCA_RFFS, kmeans_rffs=KMEANS_RFFS,
+              kmeans_rows=N_TRAIN, chunk=CHUNK):
+    """KernelFGen on RBF (slice A's held-out rows) and on Conv1dRBF (the
+    motif corpus's held-out rows), KernelPCA on slice A's training rows,
+    KernelKMeans on the blob corpus.  Returns the launches of each tool."""
+    from xgpr_tpu_torch import KernelFGen, KernelKMeans, KernelPCA
+    from xgpr_tpu_torch.ops.conv import conv_row_scale
+    from xgpr_tpu_torch.ops.cuda.conv import conv_parts_plain
+    from xgpr_tpu_torch.ops.layout import assemble_cos_sin
+    on_card = torch.device(dev).type == "cuda"
+    paths = []
+    xc, lc = corpus_test
+    for label, kernel_choice, x, lens, hparams, settings, nfeat in (
+            ("RBF", "RBF", tex, None, HPARAMS[1:], None, N_FEATURES),
+            ("Conv1dRBF", "Conv1dRBF", xc, lc, MOTIF_HPARAMS[1:],
+             {"conv_width": MOTIF_W}, MOTIF_D)):
+        fgen = KernelFGen(num_rffs=num_rffs, hyperparams=hparams,
+                          num_features=nfeat, kernel_choice=kernel_choice,
+                          kernel_settings=settings, device=dev,
+                          verbose=False)
+        reset_counts()
+        t0 = time.perf_counter()
+        feats = fgen.predict(x, lens, chunk_size=chunk)
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        kern = fgen.kernel
+        direct = np.vstack([kern.transform_x(
+            x[i:i + chunk], None if lens is None else lens[i:i + chunk])
+            .cpu().numpy() for i in range(0, x.shape[0], chunk)])
+        params = kern.feature_params()
+        xs = kern._cast_input(x[:chunk])
+        if lens is None:
+            ref = plain_rbf_features(torch, kern, xs, params)
+        else:
+            ls = kern._cast_lengths(lens[:chunk])
+            scale = conv_row_scale(ls, kern.conv_width, kern.num_freqs,
+                                   kern.scaling_type, kern.dtype,
+                                   kern.device)
+            c, s_ = conv_parts_plain(xs, ls, params["proj"],
+                                     params["sigma"], kern.conv_width, scale)
+            ref = assemble_cos_sin(c, s_, kern.padded_dims)
+        ref = ref.cpu().numpy()
+        err = float(np.abs(feats[:chunk] - ref).max())
+        same = bool(np.array_equal(feats, direct))
+        print(f"KernelFGen {label} at {num_rffs} RFFs: {feats.shape} in "
+              f"{secs:.3f}s; equal to kernel.transform_x bitwise: {same}; vs "
+              f"the plain feature map on {chunk} rows max_abs_err {err:.3e} "
+              f"(tol {FEATURE_ATOL:g}); launches {counts_text(counts)} "
+              f"[{card}]", flush=True)
+        check(feats.shape == (x.shape[0], num_rffs), "KernelFGen shape")
+        check(same, f"KernelFGen {label} differs from transform_x")
+        check(err < FEATURE_ATOL, f"KernelFGen {label} disagrees with the "
+                                  "plain feature map")
+        check(not kern.fit_intercept, "KernelFGen kept an intercept")
+        if on_card:
+            check(counts["K3" if lens is not None else "K2"].total() > 0,
+                  f"KernelFGen {label} launched no kernel")
+        paths.append((f"KernelFGen {label}", counts))
+
+    pca = KernelPCA(n_components=PCA_COMPONENTS, num_rffs=pca_rffs,
+                    hyperparams=HPARAMS[1:], num_features=N_FEATURES,
+                    device=dev, verbose=False)
+    reset_counts()
+    t0 = time.perf_counter()
+    pca.fit(trx, chunk_size=chunk)
+    sync(torch, dev)
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proj = pca.transform(trx, chunk_size=chunk)
+    transform_s = time.perf_counter() - t0
+    counts = read_counts()
+    comp = pca.components_
+    ortho = float((comp @ comp.T - torch.eye(
+        comp.shape[0], dtype=comp.dtype, device=comp.device)).abs().max())
+    ev = pca.explained_variance_.cpu().numpy()
+    var_err = np.abs(proj.var(axis=0) - ev) / np.abs(ev)
+    print(f"KernelPCA at {pca_rffs} RFFs, {PCA_COMPONENTS} components on "
+          f"{trx.shape[0]} rows: fit {fit_s:.3f}s (features, float64 "
+          f"covariance, eigh of {pca_rffs}^2 in float64), transform "
+          f"{transform_s:.3f}s; explained variance {ev[:4]} ... {ev[-1]:.4e}; "
+          f"|C C^T - I| {ortho:.3e} (tol {PCA_ORTHO_TOL:g}); transformed "
+          f"rows' variance vs explained variance, largest relative gap "
+          f"{var_err.max():.3e} (tol {PCA_VAR_RTOL:g}); launches "
+          f"{counts_text(counts)} [{card}]", flush=True)
+    check(ortho < PCA_ORTHO_TOL, "KernelPCA components are not orthonormal")
+    check(bool(np.all(np.diff(ev) <= 0) and np.all(ev >= -1e-8)),
+          "KernelPCA explained variances not non-increasing and >= 0")
+    check(bool(np.all(var_err < PCA_VAR_RTOL)),
+          "KernelPCA transformed variance disagrees with explained_variance_")
+    paths.append(("KernelPCA fit + transform", counts))
+    del pca, proj
+
+    xb, yb = blob_corpus(kmeans_rows)
+    km = KernelKMeans(n_clusters=KMEANS_CENTRES, num_rffs=kmeans_rffs,
+                      hyperparams=np.array([np.log(KMEANS_SIGMA)]),
+                      num_features=N_FEATURES, device=dev, verbose=False)
+    reset_counts()
+    t0 = time.perf_counter()
+    km.fit(xb, chunk_size=chunk)
+    sync(torch, dev)
+    fit_s = time.perf_counter() - t0
+    labels = km.predict(xb, chunk_size=chunk)
+    counts = read_counts()
+    purity = sum(np.unique(labels[yb == k], return_counts=True)[1].max()
+                 for k in range(KMEANS_CENTRES)) / xb.shape[0]
+    agree = bool(np.array_equal(km.labels_, labels))
+    print(f"KernelKMeans at {kmeans_rffs} RFFs, {KMEANS_CENTRES} clusters on "
+          f"{xb.shape[0]} blob rows: fit {fit_s:.3f}s; purity {purity:.4f} "
+          f"(floor {KMEANS_PURITY}); labels_ equal predict(x): {agree}; "
+          f"launches {counts_text(counts)} [{card}]", flush=True)
+    check(purity > KMEANS_PURITY, "KernelKMeans purity below the floor")
+    check(agree, "KernelKMeans labels_ differ from predict(x)")
+    paths.append(("KernelKMeans fit + predict", counts))
+    if on_card:
+        for path, counts in paths[2:]:
+            check(counts["K2"].total() > 0, f"{path} launched no K2")
+    return paths
+
+
+def phase_surface(torch, card, tab, trx, tr_y, corpus, fitted, dev="cuda",
+                  n_train=N_TRAIN, n_test=N_TEST, ard=None, aux=None):
+    """Slice D2: the Linear kernel, MiniARD, the exports and the auxiliary
+    tools (``fitted``: slice A's RBF model, the Conv1dRBF model and the
+    RBF classifier with its held-out rows; the corpus's held-out rows
+    start at ``n_train``).  ``ard`` and ``aux`` override the sizes of
+    phase_mini_ard and phase_aux (a CPU rehearsal).  Returns the paths'
+    launches and the names of the paths that launch no kernel."""
+    t0 = time.perf_counter()
+    tex = tab[1]
+    conv_test = (corpus[0][n_train:n_train + n_test],
+                 corpus[2][n_train:n_train + n_test])
+    paths = [("Linear tune + fit + predict",
+              phase_linear(torch, card, tab, dev))]
+    paths.append(("MiniARD tune + gradient + fit + predict", phase_mini_ard(
+        torch, card, tab, trx, tr_y, dev,
+        trace_dir=ROOT / "build" / "trace" / "mini_ard_predict",
+        **(ard or {}))))
+    paths.append(("export_predict_fn", phase_export(
+        torch, card, fitted["rbf"], tex, fitted["conv"], conv_test,
+        fitted["classifier"], fitted["class_tex"], dev)))
+    paths += phase_aux(torch, card, tex, trx, conv_test, dev, **(aux or {}))
+    print(f"slice D2 phase: {time.perf_counter() - t0:.1f}s [{card}]",
+          flush=True)
+    without = [path for path, counts in paths
+               if sum(totals(counts).values()) == 0]
+    return [(p, c) for p, c in paths if p not in without], without
 
 
 SRC, PALLAS = "xgpr_tpu_torch/ops/cuda/csrc/", "xgpr_tpu/ops/pallas/"
@@ -2031,7 +2536,10 @@ def main(argv):
     print(f"data: {N_TRAIN} x {N_FEATURES} train, {N_TEST} test, made in "
           f"{time.perf_counter() - t0:.2f}s", flush=True)
     slice_counts, slice_preds, slice_rec = phase_slice(torch, card, tab)
-    del slice_rec["model"]
+    # Kept for the exports (phase_surface), without its engine's device copy
+    # of the dataset.
+    fitted = {"rbf": slice_rec.pop("model")}
+    fitted["rbf"]._engines = {}
     paths = [("slice A fit + predict", slice_counts)]
     t0 = time.perf_counter()
     corpus = motif_corpus(N_TRAIN + N_TEST)
@@ -2054,6 +2562,8 @@ def main(argv):
         paths.append((f"slice A fit + predict ({mode})", rbf_counts))
         paths.append((f"Conv1dRBF predict ({mode})", mode_counts))
         mode_summary(timed, mode, card)
+    fitted["conv"] = conv_model
+    conv_model._engines = {}
     del conv_model
     k4_counts, k4_rec = phase_k4_path(torch, card, corpus)
     del k4_rec["model"], k4_rec["dset"]
@@ -2065,16 +2575,22 @@ def main(argv):
     paths.append(("streamed Conv1dRBF fit + predict",
                   phase_streamed(torch, card, corpus, (n_iter, preds))))
     paths.append(("referee", phase_referee(torch, card, corpus)))
-    del tab
-    paths.append(("RBF classifier fit + predict",
-                  phase_rbf_classifier(torch, card)))
+    class_counts, fitted["classifier"], fitted["class_tex"] = \
+        phase_rbf_classifier(torch, card)
+    fitted["classifier"]._engines = {}
+    paths.append(("RBF classifier fit + predict", class_counts))
     paths.append(("Conv1dRBF classifier fit + predict",
                   phase_conv_classifier(torch, card, corpus)))
+    surface, without = phase_surface(torch, card, tab, trx, tr_y, corpus,
+                                     fitted)
+    paths += surface
+    del tab, fitted
     print(f"total {time.perf_counter() - t_start:.1f}s [{card}]", flush=True)
     kernels = [row for path, counts in paths
                for row in kernel_rows(path, counts, timed)]
     print(card, flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels,
+                      "paths_without_kernels": without}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -186,3 +186,50 @@ def test_preconditioner_state_round_trip(tmp_path):
         np.testing.assert_allclose(getattr(from_jax, op)(x).numpy(),
                                    np.asarray(getattr(jax_pre, op)(vec)),
                                    rtol=1e-12, atol=1e-12)
+
+
+ARD_CASES = {"Linear": (None, np.array([-0.7]), 8),
+             "MiniARD": ({"split_points": [5]},
+                         np.array([-1.5, -3.0, -2.5]), 16)}
+
+
+@pytest.mark.parametrize("kernel_choice", sorted(ARD_CASES))
+@pytest.mark.parametrize("source,target", [("port", "jax"), ("jax", "port"),
+                                           ("port", "port")])
+def test_linear_and_mini_ard_checkpoints_cross(tmp_path, kernel_choice,
+                                               source, target):
+    """A fitted Linear or MiniARD model saved by one package loads in the
+    other and predicts the same mean in float64 to 1e-10 (bitwise within
+    the port).  MiniARD carries its split points and exact variance;
+    Linear's Nystrom variance is not stored, so it loads with its weights
+    and no variance, as xgpr_tpu's load_model has it."""
+    settings, hparams, var_rffs = ARD_CASES[kernel_choice]
+    pkgs = {"port": (xgpr_tpu_torch, {"device": "cpu"}, save_model,
+                     lambda path: load_model(path, device="cpu")),
+            "jax": (xgpr_tpu, {}, jax_save, jax_load)}
+    pkg, kw, save, _ = pkgs[source]
+    (trx, tr_y, _), (tex, _) = _data("RBF")
+    dset = pkg.build_regression_dataset(trx, tr_y, chunk_size=200)
+    model = pkg.GPRegression(num_rffs=128, variance_rffs=var_rffs,
+                             kernel_choice=kernel_choice,
+                             kernel_settings=settings, verbose=False, **kw)
+    model.set_hyperparams(hparams, dset)
+    model.fit(dset, mode="exact")
+    path = str(tmp_path / "model.npz")
+    save(model, path)
+    with np.load(path) as data:
+        meta = json.loads(bytes(data["_meta"].tobytes()).decode())
+        assert ("var" in data.files) == (kernel_choice == "MiniARD")
+    assert meta["exact_var_calculation"] == (kernel_choice == "MiniARD")
+    loaded = pkgs[target][3](path)
+    assert loaded.kernel_spec_parms == model.kernel_spec_parms
+    assert np.array_equal(loaded.get_hyperparams(), model.get_hyperparams())
+    rtol = 0.0 if source == target else 1e-10
+    if kernel_choice == "Linear":
+        assert loaded.var is None
+        with pytest.raises(RuntimeError):
+            loaded.predict(tex, get_var=True)
+        _same((loaded.predict(tex),), (model.predict(tex),), rtol)
+    else:
+        _same(loaded.predict(tex, get_var=True),
+              model.predict(tex, get_var=True), rtol)

@@ -2,7 +2,8 @@
 
 Same module tree and names as the JAX package; each module's reference is
 its namesake in ``xgpr_tpu``.  The models are GPRegression and
-GPClassification (alias xGPClassification).  Plain tensor code is PyTorch; the feature
+GPClassification (alias xGPClassification); the auxiliary tools are
+KernelFGen, KernelPCA and KernelKMeans.  Plain tensor code is PyTorch; the feature
 map, the fused CG matvec and the conv window loops are CUDA C++ kernels
 for Hopper (``ops/cuda``).  This package never imports jax.
 """
@@ -20,6 +21,12 @@ def __getattr__(name):
     if name in ("GPClassification", "xGPClassification"):
         from .models.classification import GPClassification
         return GPClassification
+    if name == "KernelFGen":
+        from .models.kernel_fgen import KernelFGen
+        return KernelFGen
+    if name in ("KernelPCA", "KernelKMeans"):
+        from .models import clustering
+        return getattr(clustering, name)
     if name == "FastConv1d":
         from .models.static_layers import FastConv1d
         return FastConv1d

@@ -321,8 +321,10 @@ class Engine:
         z = z.double() * mb[:, None]
         dz = dz.double() * mb[:, None, None]
         ym = yb.double() * mb
+        # A kernel with no sigma (Linear) has a derivative of width 0.
         inner = torch.stack([mm(dz[:, :, i].T, z)
-                             for i in range(dz.shape[2])], dim=2)
+                             for i in range(dz.shape[2])], dim=2) \
+            if dz.shape[2] else z.new_zeros((z.shape[1], z.shape[1], 0))
         return (mm(z.T, z), mm(z.T, ym), ym @ ym,
                 torch.einsum("nmi,n->mi", dz, ym), inner, torch.sum(mb))
 

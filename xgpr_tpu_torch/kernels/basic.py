@@ -1,4 +1,5 @@
-"""Fixed-vector SORF kernels: RBF, Matern, Cauchy (port of xgpr_tpu/kernels/basic.py).
+"""Fixed-vector kernels: the SORF kernels RBF, Matern and Cauchy, and
+Linear (port of xgpr_tpu/kernels/basic.py).
 
 The three share ``SORFKernelBaseclass`` and differ only in chi:
 - SORF state: padded dim = next_pow2(D), ceil(F / padded) blocks, int8
@@ -19,6 +20,11 @@ its 3xTF32 or bf16 body); K2 keeps full precision in every
 preset.  Larger D * F take the structured FWHT path in plain torch.  The
 gradient fn (features and d features / d sigma, for the exact NMLL
 gradient) is plain torch on both paths.
+
+Linear has identity features, with a column of ones in front when it
+fits an intercept (its feature count is D + 1 or D, whatever num_rffs
+the model asked for), one hyperparameter (lambda) and a gradient of
+width 0.  No kernel runs for it on any device: there is no projection.
 """
 from math import ceil
 
@@ -194,3 +200,47 @@ class Cauchy(SORFKernelBaseclass):
         modifier = state_rng.cauchy_chi_modifier(
             random_seed, self.num_freqs, self._chi_np.dtype)
         self._set_chi(self._chi_np * modifier)
+
+
+class Linear(KernelBaseclass):
+    """Linear kernel: identity features plus an optional intercept
+    column."""
+
+    def __init__(self, xdim, num_rffs, random_seed=123, device="cuda",
+                 kernel_spec_parms=None):
+        parms = kernel_spec_parms or {}
+        if len(xdim) != 2:
+            raise ValueError("Linear kernels accept 2d (rows, features) "
+                             "arrays only, not sequence or graph input.")
+        fit_intercept = parms.get("intercept", True) is not False
+        actual_rffs = xdim[1] + 1 if fit_intercept else xdim[1]
+        super().__init__(xdim, actual_rffs, kernel_spec_parms=parms,
+                         device=device)
+        self.hyperparams = np.ones((1,))
+        self.bounds = np.asarray([[1e-3, 1e1]])
+
+    def kernel_specific_transform(self, input_x, sequence_length=None):
+        # Column 0 is 0 here; transform_x sets it to 1 with an intercept.
+        if self.fit_intercept:
+            return torch.nn.functional.pad(input_x, (1, 0))
+        return input_x
+
+    def feature_params(self):
+        return {}
+
+    def pure_feature_fn(self):
+        intercept = self.fit_intercept
+
+        def fn(params, x, seq_len=None):
+            if intercept:
+                return torch.nn.functional.pad(x, (1, 0), value=1.0)
+            return x
+        return fn
+
+    def pure_gradient_fn(self):
+        feat = self.pure_feature_fn()
+
+        def fn(params, x, seq_len=None):
+            z = feat(params, x, seq_len)
+            return z, z.new_zeros((z.shape[0], z.shape[1], 0))
+        return fn

@@ -32,6 +32,9 @@ class ModelBaseclass:
         self.kernel = None
         self.weights = None
         self.var = None
+        # False when ``var`` is a Nystrom preconditioner (Linear kernels,
+        # models/regression.py) rather than the exact variance matrix.
+        self.exact_var_calculation = True
         self.trainy_mean = 0.0
         self.trainy_std = 1.0
         self.kernel_choice = kernel_choice
@@ -141,6 +144,8 @@ class ModelBaseclass:
         self.kernel = KERNEL_NAME_TO_CLASS[self.kernel_choice](
             input_xdim, self.num_rffs, self.random_seed, self._device,
             kernel_spec_parms=self.kernel_spec_parms)
+        # Linear sets its feature count itself (D + 1 with an intercept),
+        # whatever num_rffs asked for; the check is against that count.
         self._num_rffs = self.kernel.get_num_rffs()
         if self.variance_rffs >= self.num_rffs and self.is_regression:
             raise RuntimeError("variance_rffs cannot reach num_rffs; "
@@ -336,7 +341,11 @@ class ModelBaseclass:
         if value > constants.MAX_VARIANCE_RFFS:
             raise RuntimeError(
                 f"variance_rffs is capped at {constants.MAX_VARIANCE_RFFS}.")
-        if self.kernel is not None and value > self.num_rffs:
+        # Linear is exempt, as in xgpr_tpu: its variance is a Nystrom
+        # preconditioner of that rank, not a block of the feature columns
+        # (the fit still refuses a rank above its feature count).
+        if self.kernel is not None and value > self.num_rffs and \
+                self.kernel_choice != "Linear":
             raise RuntimeError("variance_rffs cannot exceed num_rffs.")
         self._variance_rffs = value
         if self.var is not None:

@@ -13,7 +13,8 @@ The weights are (num_rffs, n_classes) float64 on the model's device and
 ``gamma`` is zeros (n_classes,), xgpr_tpu's layout, so a checkpoint
 crosses between the packages (models/serialization.py).  Each chunk of
 rows is featurised on the model's device (K2, or K3 for the convolution
-kernels, on the card).  ``export_predict_fn`` is not ported.
+kernels, on the card).  ``export_predict_fn`` returns the same
+prediction as a plain function of tensors and its state.
 """
 import numpy as np
 import torch
@@ -32,29 +33,56 @@ class GPClassification(ModelBaseclass):
                          random_seed=random_seed)
         self.is_regression = False
 
+    @staticmethod
+    def _softmax(z, weights, gamma):
+        """Class probabilities of a chunk's features: the logits and a
+        stable softmax in float64.  In float32 the logits' rounding
+        depends on the chunk's shape and moved probabilities by up to
+        2e-5 on an H100 (see GPRegression.predict)."""
+        pred = z.double() @ weights + gamma[None, :]
+        pred = pred - torch.max(pred, dim=1, keepdim=True).values
+        pred = torch.exp(pred)
+        return pred / torch.sum(pred, dim=1, keepdim=True)
+
+    def _predict_state(self):
+        if self.kernel is None or self.weights is None or \
+                self.gamma is None:
+            raise RuntimeError("Call fit() before predicting.")
+        return {"params": self.kernel.feature_params(),
+                "weights": self.weights.double(),
+                "gamma": torch.as_tensor(np.asarray(self.gamma),
+                                         dtype=torch.float64,
+                                         device=self.kernel.device)}
+
     def predict(self, input_x, sequence_lengths=None, chunk_size=2000):
         """Class probabilities (N, n_classes) as a float64 numpy array: per
-        chunk the features, their product with the weights in the working
-        dtype, and a stable softmax in float64."""
+        chunk the features (in the working dtype), the logits and a stable
+        softmax in float64."""
         self.pre_prediction_checks(input_x, sequence_lengths, False)
-        if self.gamma is None:
-            raise RuntimeError("Call fit() before predicting.")
+        state = self._predict_state()
         feature_fn = self.kernel.pure_feature_fn()
-        params = self.kernel.feature_params()
-        weights = self.weights.to(self.kernel.dtype)
-        gamma = torch.as_tensor(np.asarray(self.gamma), dtype=torch.float64,
-                                device=self.kernel.device)
         probs = []
         for i in range(0, input_x.shape[0], chunk_size):
             slen = None if sequence_lengths is None else \
                 self.kernel._cast_lengths(sequence_lengths[i:i + chunk_size])
-            z = feature_fn(params, self.kernel._cast_input(
+            z = feature_fn(state["params"], self.kernel._cast_input(
                 input_x[i:i + chunk_size]), slen)
-            pred = (z @ weights).double() + gamma[None, :]
-            pred = pred - torch.max(pred, dim=1, keepdim=True).values
-            pred = torch.exp(pred)
-            probs.append(pred / torch.sum(pred, dim=1, keepdim=True))
+            probs.append(self._softmax(z, state["weights"], state["gamma"]))
         return torch.cat(probs).cpu().numpy()
+
+    def export_predict_fn(self):
+        """(fn, state): ``fn(state, x, seq_len=None)`` gives ``predict``'s
+        probabilities for a tensor x on the model's device as a float64
+        tensor; ``state`` holds ``params`` from ``feature_params()``, the
+        weights and gamma.  See GPRegression.export_predict_fn."""
+        state = self._predict_state()
+        feature_fn = self.kernel.pure_feature_fn()
+        softmax = self._softmax
+
+        def fn(state, x, seq_len=None):
+            z = feature_fn(state["params"], x, seq_len)
+            return softmax(z, state["weights"], state["gamma"])
+        return fn, state
 
     def fit(self, dataset, preconditioner=None, tol=1e-3, max_iter=500,
             max_rank=3000, min_rank=512, autoselect_target_ratio=30.,

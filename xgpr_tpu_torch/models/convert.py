@@ -23,7 +23,10 @@ def from_numpy_state(meta, arrays, device="cuda"):
     (kernel_settings and verbose optional); ``arrays`` holds hyperparams
     (log-space) and, when fitted, weights and var (regression) or weights
     and gamma (classification).  A classifier's weights stay float64, the
-    solver's precision; a regression model's take the kernel's dtype.
+    solver's precision; a regression model's take the kernel's dtype.  A
+    model whose variance was a Nystrom preconditioner (Linear kernels)
+    has no ``var`` in its state: it loads with its weights and no
+    variance, as xgpr_tpu's ``load_model`` loads it.
     """
     cls_name = meta.get("class", "GPRegression")
     if cls_name not in ("GPRegression", "GPClassification"):
@@ -38,9 +41,6 @@ def from_numpy_state(meta, arrays, device="cuda"):
         model = GPClassification(**common)
         model.n_classes = int(meta["n_classes"])
     else:
-        if not meta.get("exact_var_calculation", True):
-            raise RuntimeError("Models with the Nystrom (Linear-kernel) "
-                               "variance cannot be converted yet.")
         model = GPRegression(variance_rffs=meta["variance_rffs"], **common)
     model.trainy_mean = float(meta["trainy_mean"])
     model.trainy_std = float(meta["trainy_std"])

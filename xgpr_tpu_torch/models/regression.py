@@ -9,7 +9,11 @@ and the crude and scipy.optimize tuners.
     mean, var = model.predict(x, get_var=True)
 
 ``fit`` keeps its per-phase wall times (synchronised on the card) in
-``fit_phase_times``.  ``export_predict_fn`` is not ported.
+``fit_phase_times``.  A Linear kernel's fit keeps a Nystrom
+preconditioner of rank ``variance_rffs`` as its variance, and its predict
+gives lambda^2 (1 + z P^-1 z^T) per row, as xgpr_tpu's does.
+``export_predict_fn`` returns a plain function of tensors and its state
+(see its docstring).
 
 An NMLL evaluation at a degenerate hyperparameter point (a singular
 design matrix or sketch, CG or SLQ breakdown) returns
@@ -59,6 +63,13 @@ def exact_nmll_from_design(z_trans_z, z_trans_y, y_trans_y, lambda_,
     return negloglik
 
 
+def _exact_variance(zv, var_mat, lam2):
+    """lambda^2 (1 + z_v V z_v^T) for each row of the variance columns
+    z_v, with V the fit's exact variance matrix."""
+    pv = (var_mat @ zv.T).T
+    return lam2 + lam2 * torch.sum(zv * pv, dim=1)
+
+
 class GPRegression(ModelBaseclass):
     """GP regression on random Fourier features."""
 
@@ -67,7 +78,13 @@ class GPRegression(ModelBaseclass):
         """Posterior mean (and optionally variance) for new datapoints, as
         numpy arrays.  Each chunk of rows, with its slice of the sequence
         lengths for 3d input, is featurised on the model's device (the K2
-        kernel, or K3/K4 for the convolution kernels, on the card).
+        kernel, or K3/K4 for the convolution kernels, on the card).  The
+        features' products with the weights and the variance matrix are
+        float64: in float32 their rounding depends on the chunk's shape
+        and moved the mean by up to 5e-6 of max|pred| (cancellation
+        between large weights) between a 2000-row chunk and a 16,384-row
+        call on an H100, so an exported fn (``export_predict_fn``) and
+        predict could not agree.
 
         xgpr_tpu pads the sequence axis to a bucket first
         (``_bucket_sequence_axis``) only so that XLA reuses one compiled
@@ -77,28 +94,87 @@ class GPRegression(ModelBaseclass):
         feature_fn = self.kernel.pure_feature_fn()
         params = self.kernel.feature_params()
         lam2 = self.kernel.get_lambda() ** 2
-        if get_var:
+        weights = self.weights.double()
+        if get_var and self.exact_var_calculation:
             var_idx = torch.as_tensor(
                 self.kernel.variance_column_indices(self.variance_rffs),
                 device=self.kernel.device)
+            var_mat = self.var.double()
         means, variances = [], []
         for i in range(0, input_x.shape[0], chunk_size):
             slen = None if sequence_lengths is None else \
                 self.kernel._cast_lengths(sequence_lengths[i:i + chunk_size])
             z = feature_fn(params, self.kernel._cast_input(
-                input_x[i:i + chunk_size]), slen)
-            means.append(z @ self.weights)
-            if get_var:
-                zv = z[:, var_idx]
-                pv = (self.var @ zv.T).T
-                variances.append(lam2 + lam2 * torch.sum(zv * pv, dim=1))
-        preds = torch.cat(means).cpu().numpy().astype(np.float64)
+                input_x[i:i + chunk_size]), slen).double()
+            means.append(z @ weights)
+            if not get_var:
+                continue
+            if self.exact_var_calculation:
+                variances.append(_exact_variance(z[:, var_idx], var_mat,
+                                                 lam2))
+            else:
+                # The Nystrom variance (Linear): P^-1 z^T with the
+                # preconditioner's float64 factors.
+                pv = self.var.batch_matvec(z.T).T
+                variances.append(lam2 + lam2 * torch.sum(z * pv, dim=1))
+        preds = torch.cat(means).cpu().numpy()
         preds = preds * self.trainy_std + self.trainy_mean
         if not get_var:
             return preds
-        var = torch.cat(variances).cpu().numpy().astype(np.float64)
+        var = torch.cat(variances).cpu().numpy()
         var[var < 0] = 0
         return preds, var * self.trainy_std ** 2
+
+    def export_predict_fn(self, get_var=False):
+        """(fn, state) for serving without the model object.
+
+        ``fn(state, x, seq_len=None)`` maps a tensor x on the model's
+        device (and int32 lengths for a convolution kernel) to the mean,
+        or (mean, variance) with ``get_var``, y-denormalisation folded in.
+        ``state`` is a dict of tensors (and the kernel's float
+        hyperparameters) on the model's device: ``params`` from
+        ``feature_params()``, the weights, y's mean and scale, and with
+        ``get_var`` the variance matrix, its column indices and lambda^2,
+        all float64, as predict forms its products.
+        fn reads nothing else, so a state that went through numpy and back
+        gives the same bits.  On the card fn reaches the K2 or K3 kernel
+        through ``pure_feature_fn``; the custom kernels have no batching
+        rule, so unlike xgpr_tpu's exported fn it is not meant for
+        torch.func.vmap or torch.compile.  The Linear kernel's Nystrom
+        variance is not exported, as in xgpr_tpu.
+        """
+        if self.kernel is None or self.weights is None:
+            raise RuntimeError("No fitted weights present; call fit() first.")
+        if get_var and (self.var is None or not self.exact_var_calculation):
+            raise RuntimeError(
+                "Variance export requires a fitted model with the exact "
+                "variance calculation (not the Linear-kernel Nystrom "
+                "path).")
+        feature_fn = self.kernel.pure_feature_fn()
+        dev = self.weights.device
+
+        def scalar(value):
+            return torch.tensor(value, dtype=torch.float64, device=dev)
+        state = {"params": self.kernel.feature_params(),
+                 "weights": self.weights.double(),
+                 "y_mean": scalar(self.trainy_mean),
+                 "y_std": scalar(self.trainy_std)}
+        if get_var:
+            state["var_mat"] = self.var.double()
+            state["var_idx"] = torch.as_tensor(
+                self.kernel.variance_column_indices(self.variance_rffs),
+                device=dev)
+            state["lam2"] = scalar(self.kernel.get_lambda() ** 2)
+
+        def fn(state, x, seq_len=None):
+            z = feature_fn(state["params"], x, seq_len).double()
+            mean = (z @ state["weights"]) * state["y_std"] + state["y_mean"]
+            if not get_var:
+                return mean
+            pred_var = _exact_variance(z[:, state["var_idx"]],
+                                       state["var_mat"], state["lam2"])
+            return mean, torch.clamp(pred_var, min=0.0) * state["y_std"] ** 2
+        return fn, state
 
     # ------------------------------------------------------------------
     def exact_nmll(self, hyperparams, dataset):
@@ -200,6 +276,7 @@ class GPRegression(ModelBaseclass):
         exact variance unless suppressed."""
         self._run_pre_fitting_prep(dataset)
         self.weights, self.var = None, None
+        self.exact_var_calculation = True
         dev = self.kernel.device
         times = PhaseTimes()
         with phase_timer(times, "engine_build", dev):
@@ -229,7 +306,14 @@ class GPRegression(ModelBaseclass):
                 "and 'exact'.")
         if not suppress_var:
             with phase_timer(times, "variance", dev):
-                self.var = calc_variance_exact(engine, self.variance_rffs)
+                if self.kernel_choice == "Linear":
+                    self.var = NystromPreconditioner(
+                        engine, self.variance_rffs, False, self.random_seed,
+                        "srht")
+                    self.exact_var_calculation = False
+                else:
+                    self.var = calc_variance_exact(engine,
+                                                   self.variance_rffs)
         self.fit_phase_times = times
         if self.verbose:
             print("Fitting complete.")

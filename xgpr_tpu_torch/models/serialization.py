@@ -1,7 +1,8 @@
 """Model checkpointing (port of xgpr_tpu/models/serialization.py).
 
 ``save_model`` writes one .npz with a JSON ``_meta`` record and the arrays
-hyperparams, weights and var (GPRegression) or weights and gamma
+hyperparams, weights and the exact variance matrix var (GPRegression;
+a Linear kernel's Nystrom variance is not stored) or weights and gamma
 (GPClassification, with ``n_classes`` in the record), in xgpr_tpu's layout, so
 a checkpoint crosses between the packages both ways.  The projection state
 (radem, chi) is not stored: it regenerates from the seed through utils/rng.py,
@@ -29,9 +30,7 @@ def save_model(model, path):
         "verbose": bool(model.verbose),
         "trainy_mean": float(model.trainy_mean),
         "trainy_std": float(model.trainy_std),
-        # The port's variance is always the exact one; xgpr_tpu reads
-        # these two fields back.
-        "exact_var_calculation": True,
+        "exact_var_calculation": bool(model.exact_var_calculation),
         "n_classes": int(model.n_classes),
         "xdim": list(model.kernel.get_xdim()) if model.kernel is not None
                 else None,
@@ -42,7 +41,8 @@ def save_model(model, path):
         arrays["hyperparams"] = model.kernel.get_hyperparams()
     if model.weights is not None:
         arrays["weights"] = model.weights.cpu().numpy()
-    if model.var is not None:
+    # A Nystrom variance (Linear kernels) is not stored, as in xgpr_tpu.
+    if model.var is not None and model.exact_var_calculation:
         arrays["var"] = model.var.cpu().numpy()
     if model.gamma is not None:
         arrays["gamma"] = np.asarray(model.gamma)
