@@ -147,12 +147,45 @@ built beforehand.  Phases (any failure raises and the exit code is not 0):
       at 4096 RFFs on 262,144 rows of 8 blobs (purity > 0.9, labels_ equal
       predict).
 
+14. Slice E, the scale-out layer (``phase_scale_out``, after phase 13):
+   a. E0: ``torch.compile(fn, fullgraph=True)`` of phase 13c's three
+      exported fns (K2 and K3 are custom operators), each within 1e-6 x
+      max|pred| of predict; prints the first call's (compile) and a warm
+      call's time.
+   b. E1, in a child process at world size 1 over NCCL: slice A fit by CG
+      (autoselected preconditioner), predict with variance and one
+      approximate_nmll, on the single Engine and then under
+      ``set_engine_mode("sharded")`` on the ShardedEngine: the engines
+      route, and weights, predictions, iterations and the NMLL are
+      bitwise equal.
+   c. E2, two gloo ranks spawned on the one card (a free port, a join
+      timeout), each with its own rows and y standardised over all of
+      them: (a) slice A split 131,072 / 131,072 at 8192 RFFs, fit and
+      predict; (b) the same rows at 32768 RFFs, config's M-sharding
+      threshold, the M-sharded fit against ``set_m_sharding("off")``'s
+      replicated one and SLQ's CG coefficients (K 5) under both; (c) the
+      Conv1dRBF on the corpus's first 65,536 rows split 5 chunks against
+      3, through the StreamingShardedEngine; (d) the RBF classifier on
+      the classification rows' first 65,536.  Every fit takes an explicit
+      rank-1024 srht_2 preconditioner; gates: CG converged, iterations
+      within one of the one-process fit's (E1's, or this process's for (c)
+      and (d); the replicated fit for (b)), weights within 1e-6 x max|w|,
+      both ranks the same bits, slice A's Spearman floor and the
+      classifier's accuracy floor; (c)'s Spearman equal to the
+      one-process fit's (the depth is cut below the slice's floor's).
+   The ranks load the parent's kernel build and hand their records and
+   launch counts back through build/scale_out/; each phase prints its
+   time, its collectives and their seconds (synchronised).  Phase 2
+   checks and times K1 (K 1 and 5) and K2 at E2(b)'s 32768 RFFs (F 16384)
+   too, in "hi".
+
 The launch counters count by shape and, for K1-K3, sincos mode, and for
 K1, K3 and K4 feature precision.  The line before the last is one JSON
 object describing the kernels: one row per path (slice A, Conv1dRBF,
 both under "fast" and "poly", streamed Conv1dRBF, the referee, the K4
 path, the presets' paths, tuning, the two classifiers, MiniARD, the
-exports, KernelFGen, KernelPCA, KernelKMeans), kernel and
+exports, KernelFGen, KernelPCA, KernelKMeans, the compiled exports and
+slice E's rank paths, their launches summed over the ranks), kernel and
 launch shape less its row count, with the launches at that shape (by row
 count) and the times and bound measured at it; a launch at a shape, mode
 or precision that phases 2 and 5 did not check and time fails the run;
@@ -548,6 +581,9 @@ def phase_kernels(torch, card, mode="hi", precision="high", k2=True):
     proj = kernel._dense_proj()                       # (84, 4096), fp32
     tune = RBF((CHUNK, N_FEATURES), TUNE_RFFS, SEED, device="cuda")
     aux = RBF((CHUNK, N_FEATURES), KMEANS_RFFS, SEED, device="cuda")
+    # E2(b)'s M-sharded width (phase_scale_out), launched in "hi" only.
+    wide = RBF((CHUNK, N_FEATURES), MSHARD_RFFS, SEED, device="cuda") \
+        if (mode, precision) == ("hi", "high") else None
     two = Conv1dTwoLayer((CHUNK, MOTIF_L, MOTIF_D), K4_RFFS, SEED,
                          device="cuda",
                          kernel_spec_parms={"conv_width": MOTIF_W,
@@ -572,6 +608,9 @@ def phase_kernels(torch, card, mode="hi", precision="high", k2=True):
               f"auxiliary ({KMEANS_RFFS} RFFs)"),
              (t(rng.random((CHUNK, proj2.shape[0])) * 0.1), proj2,
               two._feature_padded, True, "K4 path")]
+    if wide is not None:
+        cases.append((x_tab, wide._dense_proj(), wide.padded_dims, True,
+                      f"M-sharded ({MSHARD_RFFS} RFFs)"))
     for intercept in (False, True):
         cases.append((t(rng.standard_normal((257, 10)) * 0.5),
                       t(rng.standard_normal((10, 200)) * 0.7), 16,
@@ -614,6 +653,9 @@ def phase_kernels(torch, card, mode="hi", precision="high", k2=True):
                 (2000, t(rng.standard_normal((N_FEATURES, 500)) * 0.3), 3,
                  0.7, "ragged", None),
                 (xg.shape[0], pg, 2, 1.0, "ragged guard", xg)]
+    if wide is not None:
+        k1_cases += [(CHUNK, wide._dense_proj(), k, sigma,
+                      f"M-sharded K={k}", None) for k in (1, SLQ_PROBES + 1)]
     tag = f"{mode}, {precision}"
     rtol = K1_DEFAULT_RTOL if precision == "default" else ZTZV_RTOL
     for n, pr, k, sig, label, xfix in k1_cases:
@@ -645,7 +687,7 @@ def phase_kernels(torch, card, mode="hi", precision="high", k2=True):
                                     precision)
             torch.cuda.synchronize()
             same = torch.equal(again[0], oc) and torch.equal(again[1], os_)
-            print(f"K1 ({tag}) determinism at slice shape (K=1): two calls "
+            print(f"K1 ({tag}) determinism at {label}: two calls "
                   f"bitwise equal: {same}", flush=True)
             check(same, "two K1 calls on the same inputs differ")
         d, f = pr.shape
@@ -655,7 +697,7 @@ def phase_kernels(torch, card, mode="hi", precision="high", k2=True):
             x, m, pr, sig, vc, vs, True, mode, precision))
         kb = bound(4 * (n * d + n + d * f + 4 * f * k),
                    2 * n * d * f + 8 * n * f * k, precision)
-        print(f"K1 ({tag}) time at slice shape (K={k}): kernel {ms:.4f} ms, "
+        print(f"K1 ({tag}) time at {label}: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, {bound_text(kb)} [{card}]",
               flush=True)
         results.update(timed_entry("K1", (d, f, k, mode, precision), k1_err,
@@ -2209,13 +2251,11 @@ def state_roundtrip(torch, state, dev):
     return state
 
 
-def phase_export(torch, card, rbf_model, tex, conv_model, conv_test,
-                 classifier, class_tex, dev="cuda"):
-    """export_predict_fn on models earlier phases fitted: slice A's RBF
-    with variance, the Conv1dRBF slice's (mean), the RBF classifier's.
-    Each exported fn against the model's predict on the held-out rows
-    (within EXPORT_RTOL x max|pred|), and the same bits from a state that
-    went through numpy.  Returns the launches of the exported fns."""
+def export_cases(torch, rbf_model, tex, conv_model, conv_test, classifier,
+                 class_tex, dev="cuda"):
+    """(label, fn, state, args, predict's outputs) of export_predict_fn on
+    models earlier phases fitted: slice A's RBF with variance, the
+    Conv1dRBF slice's (mean), the RBF classifier's."""
     dtype = rbf_model.kernel.dtype
     cases = []
     fn, state = rbf_model.export_predict_fn(get_var=True)
@@ -2232,6 +2272,14 @@ def phase_export(torch, card, rbf_model, tex, conv_model, conv_test,
     cases.append(("RBF classifier (probabilities)", fn, state,
                   (torch.as_tensor(class_tex, dtype=dtype, device=dev),),
                   (classifier.predict(class_tex),)))
+    return cases
+
+
+def phase_export(torch, card, cases, dev="cuda"):
+    """Each exported fn (``export_cases``) against the model's predict on
+    the held-out rows (within EXPORT_RTOL x max|pred|), and the same bits
+    from a state that went through numpy.  Returns the launches of the
+    exported fns."""
     reset_counts()
     results = []
     for label, fn, state, args, refs in cases:
@@ -2396,6 +2444,9 @@ def phase_surface(torch, card, tab, trx, tr_y, corpus, fitted, dev="cuda",
     tex = tab[1]
     conv_test = (corpus[0][n_train:n_train + n_test],
                  corpus[2][n_train:n_train + n_test])
+    fitted["cases"] = export_cases(
+        torch, fitted["rbf"], tex, fitted["conv"], conv_test,
+        fitted["classifier"], fitted["class_tex"], dev)
     paths = [("Linear tune + fit + predict",
               phase_linear(torch, card, tab, dev))]
     paths.append(("MiniARD tune + gradient + fit + predict", phase_mini_ard(
@@ -2403,14 +2454,615 @@ def phase_surface(torch, card, tab, trx, tr_y, corpus, fitted, dev="cuda",
         trace_dir=ROOT / "build" / "trace" / "mini_ard_predict",
         **(ard or {}))))
     paths.append(("export_predict_fn", phase_export(
-        torch, card, fitted["rbf"], tex, fitted["conv"], conv_test,
-        fitted["classifier"], fitted["class_tex"], dev)))
+        torch, card, fitted["cases"], dev)))
     paths += phase_aux(torch, card, tex, trx, conv_test, dev, **(aux or {}))
     print(f"slice D2 phase: {time.perf_counter() - t0:.1f}s [{card}]",
           flush=True)
     without = [path for path, counts in paths
                if sum(totals(counts).values()) == 0]
     return [(p, c) for p, c in paths if p not in without], without
+
+
+# ----------------------------------------------------------------------
+# Slice E: the scale-out engines (phase_scale_out).
+SCALE_OUT_DIR = ROOT / "build" / "scale_out"
+SCALE_OUT_TIMEOUT = 600          # seconds, each group of ranks
+SCALE_OUT_RANK, SCALE_OUT_METHOD = 1024, "srht_2"
+MSHARD_RFFS = 32768              # config's M-sharding threshold
+SLQ_PROBES, SLQ_ITER = 4, 30
+SCALE_OUT_ROWS = 65_536          # (c) and (d): the depth is cut
+SPLIT_CHUNKS = (5, 3)            # (c): chunks on rank 0 and rank 1
+SHARD_RTOL = 1e-6                # weights vs the one-process fit, x max|w|
+
+
+def standardised(y):
+    """y on a scale common to every rank: the multi-process contract
+    builds each rank's rows with normalize_y=False."""
+    return (y - y.mean()) / y.std()
+
+
+def rel_max(a, b):
+    a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def counts_to_json(counts):
+    return {k: [[list(shape), n] for shape, n in c.items()]
+            for k, c in counts.items()}
+
+
+def counts_from_json(data):
+    return {k: Counter({tuple(shape): n for shape, n in pairs})
+            for k, pairs in data.items()}
+
+
+def collectives():
+    """A copy of the collective counts and seconds (distributed.py)."""
+    from xgpr_tpu_torch.parallel import distributed
+    return (Counter(distributed.COLLECTIVES),
+            Counter(distributed.COLLECTIVE_SECONDS))
+
+
+def collectives_since(before):
+    calls, secs = collectives()
+    return ({k: calls[k] - before[0][k] for k in calls},
+            sum(secs.values()) - sum(before[1].values()))
+
+
+def phase_compiled_exports(torch, card, cases, dev="cuda"):
+    """E0: ``torch.compile(fn, fullgraph=True)`` of each exported fn
+    (``export_cases``) against the model's predict, within EXPORT_RTOL x
+    max|pred|; prints the first call's time (the compile) and a warm
+    call's.  Returns the launches of the compiled calls."""
+    reset_counts()
+    results = []
+    for label, fn, state, args, refs in cases:
+        compiled = torch.compile(fn, fullgraph=True)
+        t0 = time.perf_counter()
+        out = compiled(state, *args)
+        sync(torch, dev)
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = compiled(state, *args)
+        sync(torch, dev)
+        warm_s = time.perf_counter() - t0
+        out = out if isinstance(out, tuple) else (out,)
+        errs = [(float(np.abs(o.cpu().numpy() - r).max()),
+                 EXPORT_RTOL * float(np.abs(r).max()))
+                for o, r in zip(out, refs)]
+        results.append((label, errs))
+        print(f"E0 compiled export {label}: first call (compile) "
+              f"{first_s:.3f}s, warm call {warm_s:.4f}s for "
+              f"{args[0].shape[0]} rows; vs predict max_abs_err / tol "
+              f"{[f'{e:.3e} / {t:.3e}' for e, t in errs]} [{card}]",
+              flush=True)
+    counts = read_counts()
+    for label, errs in results:
+        check(all(e < t for e, t in errs),
+              f"the compiled {label} export disagrees with predict")
+    if torch.device(dev).type == "cuda":
+        check(counts["K2"].total() > 0 and counts["K3"].total() > 0,
+              "the compiled exports did not launch K2 and K3")
+    return counts
+
+
+def scale_out_rank(rank, job, world, port, workdir, dev, sizes):
+    """One rank of a scale-out job (the target of phase_scale_out's
+    spawn): takes the parent's ``sizes`` (module constants a CPU
+    rehearsal lowers), joins the group (NCCL at world size 1, gloo for
+    ranks that share the card), loads the parent's kernel build, runs
+    ``job`` and writes its record to ``workdir``."""
+    sys.path.insert(0, str(ROOT))
+    globals().update(sizes)
+    import torch
+    from xgpr_tpu_torch.ops.cuda import build
+    from xgpr_tpu_torch.parallel import distributed
+    if torch.device(dev).type == "cuda":
+        check(build.library_path().exists(),
+              "the kernels were not built before the ranks started")
+    backend = "nccl" if world == 1 and torch.device(dev).type == "cuda" \
+        else "gloo"
+    distributed.initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                                       local_device_ids=[0],
+                                       backend=backend)
+    distributed.SYNC_TIMING = True
+    try:
+        record = SCALE_OUT_JOBS[job](torch, rank, world, Path(workdir), dev)
+    finally:
+        torch.distributed.destroy_process_group()
+    record["backend"] = backend
+    with open(Path(workdir) / f"{job}_{rank}.json", "w") as f:
+        json.dump(record, f)
+
+
+def start_ranks(job, world, workdir, dev, sizes):
+    """Spawn ``world`` ranks of ``job`` on a free port; returns the
+    processes' context and the time they started (``join_ranks``)."""
+    import socket
+    import torch.multiprocessing as mp
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.start_processes(scale_out_rank,
+                             args=(job, world, port, str(workdir), dev,
+                                   sizes),
+                             nprocs=world, join=False, start_method="spawn")
+    return ctx, time.monotonic()
+
+
+def stop_ranks(started):
+    """Kill whatever of ``start_ranks``' processes still runs."""
+    for p in started[0].processes:
+        if p.is_alive():
+            p.kill()
+            p.join()
+
+
+def join_ranks(started, job, world, workdir, timeout=SCALE_OUT_TIMEOUT):
+    """Wait for ``start_ranks``' processes within ``timeout`` seconds of
+    their start (every rank is killed if it is hit); returns each rank's
+    record."""
+    ctx, t0 = started
+    deadline = t0 + timeout
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            check(time.monotonic() < deadline,
+                  f"scale-out job {job} did not end within {timeout} s")
+    finally:
+        stop_ranks(started)
+    records = []
+    for rank in range(world):
+        with open(Path(workdir) / f"{job}_{rank}.json") as f:
+            records.append(json.load(f))
+    return records
+
+
+def drive(torch, dev, label, fn):
+    """Run ``fn`` with the launch and collective counts set to 0 just
+    before; returns (its result, its record: seconds, launches,
+    collectives and their seconds, which the parent prints)."""
+    reset_counts()
+    before = collectives()
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(torch, dev)
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    calls, coll_s = collectives_since(before)
+    return out, {"label": label, "seconds": secs,
+                 "counts": counts_to_json(counts), "collectives": calls,
+                 "collective_s": coll_s}
+
+
+def warm_up(torch, dev, label):
+    """A small fit, predict and SLQ NMLL at slice A's width under the
+    sharded engine, so that a fresh process's first uses (the CUDA
+    libraries and their handles, the first collective) stay out of the
+    timed phases; prints its time."""
+    from xgpr_tpu_torch import GPRegression, build_regression_dataset, config
+    t0 = time.perf_counter()
+    config.set_engine_mode("sharded")
+    (x, y), (tx, _) = tabular_data(2 * CHUNK, 64, N_FEATURES, seed=SEED + 1)
+    data = build_regression_dataset(x, y, chunk_size=CHUNK)
+    model = GPRegression(num_rffs=NUM_RFFS, variance_rffs=VARIANCE_RFFS,
+                         device=dev, verbose=False)
+    model.set_hyperparams(HPARAMS, data)
+    precond, _ = model.build_preconditioner(data, max_rank=64,
+                                            method=SCALE_OUT_METHOD)
+    model.fit(data, preconditioner=precond)
+    model.predict(tx, get_var=True)
+    model.approximate_nmll(HPARAMS, data)
+    sync(torch, dev)
+    config.set_engine_mode("auto")
+    print(f"{label} warm-up (a fresh process's first uses): "
+          f"{time.perf_counter() - t0:.3f}s", flush=True)
+
+
+def job_e1(torch, rank, world, workdir, dev):
+    """E1 (NCCL, world size 1): slice A fit by CG (autoselected
+    preconditioner), predict with variance and one approximate_nmll, on
+    the single Engine and then, under set_engine_mode("sharded"), on the
+    ShardedEngine; and the one-process reference fit of E2(a) (slice A
+    with the explicit preconditioner E2 uses)."""
+    from xgpr_tpu_torch import GPRegression, build_regression_dataset, config
+    (trx, tr_y), (tex, _) = tabular_data(N_TRAIN, N_TEST, N_FEATURES,
+                                         seed=SEED)
+    dset = build_regression_dataset(trx, standardised(tr_y),
+                                    chunk_size=CHUNK, normalize_y=False)
+    warm_up(torch, dev, "E1")
+    record = {"paths": []}
+    for mode in ("single", "sharded"):
+        config.set_engine_mode(mode)
+        model = GPRegression(num_rffs=NUM_RFFS, variance_rffs=VARIANCE_RFFS,
+                             kernel_choice="RBF", device=dev, verbose=False)
+        model.set_hyperparams(HPARAMS, dset)
+
+        def run():
+            n_iter, losses = model.fit(dset, mode="cg", tol=1e-6,
+                                       run_diagnostics=True)
+            weights = model.weights.cpu().numpy()
+            preds, var = model.predict(tex, get_var=True)
+            return n_iter, losses[-1], weights, np.stack([preds, var]), \
+                model.approximate_nmll(HPARAMS, dset)
+        out, rec = drive(torch, dev, f"E1 {mode} engine: CG fit + predict "
+                                     "+ approximate_nmll", run)
+        rec["engine"] = type(model._engine(dset)).__name__
+        np.save(workdir / f"e1_{mode}.npy", out[2])
+        np.save(workdir / f"e1_{mode}_pred.npy", out[3])
+        rec.update(n_iter=out[0], residual=out[1], nmll=out[4])
+        record[mode] = rec
+        if mode == "single":
+            precond, _ = model.build_preconditioner(
+                dset, max_rank=SCALE_OUT_RANK, method=SCALE_OUT_METHOD)
+            n_ref = model.fit(dset, preconditioner=precond, tol=1e-6,
+                              run_diagnostics=True)[0]
+            np.save(workdir / "e2a_ref.npy", model.weights.cpu().numpy())
+            record["e2a_ref_iter"] = n_ref
+        del model
+    config.set_engine_mode("auto")
+    record["paths"] += [record["single"], record["sharded"]]
+    return record
+
+
+def split_rows(n, rank, world, cuts=None):
+    cuts = cuts or [n * r // world for r in range(world + 1)]
+    return slice(cuts[rank], cuts[rank + 1])
+
+
+def job_e2(torch, rank, world, workdir, dev):
+    """E2: two gloo ranks on one card, each with its own rows: (a) slice A
+    at 8192 RFFs, (b) slice A at MSHARD_RFFS, M-sharded against the
+    replicated solver (fit and SLQ's coefficients), (c) the Conv1dRBF on
+    SCALE_OUT_ROWS motif rows split SPLIT_CHUNKS through the
+    StreamingShardedEngine, (d) the RBF classifier on SCALE_OUT_ROWS rows.
+    Every fit takes the explicit preconditioner (SCALE_OUT_RANK,
+    SCALE_OUT_METHOD) of its one-process reference."""
+    from xgpr_tpu_torch import (GPClassification, GPRegression,
+                                build_classification_dataset,
+                                build_regression_dataset, config)
+    from xgpr_tpu_torch.fitting.cg import ConjugateGrad
+    record = {"paths": []}
+    (trx, tr_y), (tex, _) = tabular_data(N_TRAIN, N_TEST, N_FEATURES,
+                                         seed=SEED)
+    rows = split_rows(N_TRAIN, rank, world)
+    dset = build_regression_dataset(trx[rows], standardised(tr_y)[rows],
+                                    chunk_size=CHUNK, normalize_y=False)
+    # The ranks start while E1 runs; the card is theirs once the parent
+    # has E1's result and the references (its "go" file).
+    deadline = time.monotonic() + SCALE_OUT_TIMEOUT
+    while not (workdir / "e2_go").exists():
+        check(time.monotonic() < deadline, "E2 was never started")
+        time.sleep(0.1)
+    warm_up(torch, dev, f"E2 rank {rank}")
+    config.set_engine_mode("sharded")
+
+    def fit(model, data, **kw):
+        precond, _ = model.build_preconditioner(
+            data, max_rank=SCALE_OUT_RANK, method=SCALE_OUT_METHOD)
+        return model.fit(data, preconditioner=precond, run_diagnostics=True,
+                         **kw)[0]
+
+    # (a)
+    model = GPRegression(num_rffs=NUM_RFFS, variance_rffs=VARIANCE_RFFS,
+                         kernel_choice="RBF", device=dev, verbose=False)
+    model.set_hyperparams(HPARAMS, dset)
+    (n_iter, preds), rec = drive(torch, dev, "E2(a) slice A, 2 ranks: fit "
+                                 "+ predict", lambda: (
+                                     fit(model, dset, tol=1e-6),
+                                     model.predict(tex, get_var=True)[0]))
+    rec.update(n_iter=n_iter, engine=type(model._engine(dset)).__name__,
+               rows=dset.get_ndatapoints())
+    np.save(workdir / f"e2a_{rank}.npy", model.weights.cpu().numpy())
+    np.save(workdir / f"e2a_pred_{rank}.npy", preds)
+    record["a"] = rec
+    record["paths"].append(rec)
+    del model
+
+    # (b)
+    model = GPRegression(num_rffs=MSHARD_RFFS, kernel_choice="RBF",
+                         device=dev, verbose=False)
+    model.set_hyperparams(HPARAMS, dset)
+    precond, _ = model.build_preconditioner(
+        dset, max_rank=SCALE_OUT_RANK, method=SCALE_OUT_METHOD)
+    engine = model._engine(dset)
+    n = engine.ndatapoints
+    rhs = torch.cat([precond.get_zty()[:, None] / n, torch.as_tensor(
+        np.random.default_rng(1).standard_normal((MSHARD_RFFS, SLQ_PROBES)),
+        dtype=torch.float64, device=dev)], dim=1)
+    lam = model.kernel.get_lambda()
+    out = {}
+    for mode in ("auto", "off"):
+        # MSHARD_RFFS is config's threshold (a rehearsal lowers both).
+        config.set_m_sharding(mode, threshold=MSHARD_RFFS)
+        engine = model._engine(dset)
+        m_sharded = config.use_m_sharding(MSHARD_RFFS, engine.n_dev)
+
+        def run():
+            n_iter = model.fit(dset, preconditioner=precond, tol=1e-6,
+                               suppress_var=True, run_diagnostics=True)[0]
+            _, a, b = ConjugateGrad(engine).fit(rhs, lam, precond, SLQ_ITER,
+                                                1e-6, nmll_settings=True)
+            return n_iter, a.cpu().numpy(), b.cpu().numpy()
+        res, rec = drive(torch, dev, f"E2(b) {MSHARD_RFFS} RFFs, 2 ranks, "
+                                     f"M-sharding {mode} ({m_sharded}): fit "
+                                     f"+ SLQ's CG at K {SLQ_PROBES + 1}",
+                         run)
+        rec.update(n_iter=res[0], m_sharded=m_sharded)
+        np.save(workdir / f"e2b_{mode}_{rank}.npy",
+                model.weights.cpu().numpy())
+        np.save(workdir / f"e2b_{mode}_ab_{rank}.npy", np.stack(res[1:]))
+        out[mode] = rec
+        record["paths"].append(rec)
+    config.set_m_sharding("auto", threshold=32768)
+    record["b"] = out
+    del model, precond, engine, dset
+
+    # (c)
+    x = np.load(workdir / "motif_x.npy", mmap_mode="r")
+    y = np.load(workdir / "motif_y.npy")
+    lengths = np.load(workdir / "motif_l.npy")
+    cuts = [0, SPLIT_CHUNKS[0] * CHUNK, SCALE_OUT_ROWS]
+    rows = split_rows(SCALE_OUT_ROWS, rank, world, cuts)
+    cset = build_regression_dataset(np.array(x[rows]), y[rows],
+                                    lengths[rows], chunk_size=CHUNK,
+                                    normalize_y=False)
+    config.set_stacked_limit(1)
+    model = GPRegression(num_rffs=NUM_RFFS, variance_rffs=VARIANCE_RFFS,
+                         kernel_choice="Conv1dRBF",
+                         kernel_settings={"conv_width": MOTIF_W},
+                         device=dev, verbose=False)
+    model.set_hyperparams(MOTIF_HPARAMS, cset)
+    ctex = np.load(workdir / "motif_test_x.npy")
+    ctel = np.load(workdir / "motif_test_l.npy")
+    (n_iter, preds), rec = drive(
+        torch, dev, "E2(c) Conv1dRBF, 2 ranks streamed "
+                    f"({SPLIT_CHUNKS[0]} chunks against {SPLIT_CHUNKS[1]}): "
+                    "fit + predict",
+        lambda: (fit(model, cset, tol=1e-6), model.predict(ctex, ctel)))
+    engine = model._engine(cset)
+    rec.update(n_iter=n_iter, engine=type(engine).__name__,
+               local_chunks=engine.local_batches,
+               global_chunks=engine.global_batches)
+    np.save(workdir / f"e2c_{rank}.npy", model.weights.cpu().numpy())
+    np.save(workdir / f"e2c_pred_{rank}.npy", preds)
+    record["c"] = rec
+    record["paths"].append(rec)
+    config.set_stacked_limit(10 ** 9)
+    del model, engine, cset, x
+
+    # (d)
+    (ktx, kty), (ktex, _) = classification_data(
+        N_TRAIN, N_TEST, N_FEATURES, CLASS_N_CLASSES, seed=SEED)
+    rows = split_rows(SCALE_OUT_ROWS, rank, world)
+    kset = build_classification_dataset(ktx[rows], kty[rows],
+                                        chunk_size=CHUNK)
+    model = GPClassification(num_rffs=NUM_RFFS, kernel_choice="RBF",
+                             device=dev, verbose=False)
+    model.set_hyperparams(CLASS_HPARAMS, kset)
+    (n_iter, probs), rec = drive(
+        torch, dev, "E2(d) RBF classifier, 2 ranks: fit + predict",
+        lambda: (fit(model, kset), model.predict(ktex)))
+    rec.update(n_iter=n_iter)
+    np.save(workdir / f"e2d_{rank}.npy", model.weights.cpu().numpy())
+    np.save(workdir / f"e2d_pred_{rank}.npy", probs)
+    record["d"] = rec
+    record["paths"].append(rec)
+    config.set_engine_mode("auto")
+    return record
+
+
+SCALE_OUT_JOBS = {"e1": job_e1, "e2": job_e2}
+
+
+def single_references(torch, card, corpus, workdir, dev="cuda"):
+    """The one-process fits E2(c) and E2(d) are held against, on this
+    process's card with the explicit preconditioner E2 uses: the
+    Conv1dRBF on the corpus's first SCALE_OUT_ROWS rows (whose arrays go
+    to ``workdir`` for the ranks) and the RBF classifier on the
+    classification rows' first SCALE_OUT_ROWS."""
+    from xgpr_tpu_torch import (GPClassification, GPRegression,
+                                build_classification_dataset,
+                                build_regression_dataset)
+    x, y, lengths = corpus
+    n = SCALE_OUT_ROWS
+    y = standardised(y[:n])
+    for name, arr in (("motif_x", x[:n]), ("motif_y", y),
+                      ("motif_l", lengths[:n]),
+                      ("motif_test_x", x[N_TRAIN:N_TRAIN + N_TEST]),
+                      ("motif_test_l", lengths[N_TRAIN:N_TRAIN + N_TEST])):
+        np.save(workdir / f"{name}.npy", arr)
+    refs = {}
+    t0 = time.perf_counter()
+    cset = build_regression_dataset(x[:n], y, lengths[:n], chunk_size=CHUNK,
+                                    normalize_y=False)
+    model = GPRegression(num_rffs=NUM_RFFS, variance_rffs=VARIANCE_RFFS,
+                         kernel_choice="Conv1dRBF",
+                         kernel_settings={"conv_width": MOTIF_W},
+                         device=dev, verbose=False)
+    model.set_hyperparams(MOTIF_HPARAMS, cset)
+    precond, _ = model.build_preconditioner(cset, max_rank=SCALE_OUT_RANK,
+                                            method=SCALE_OUT_METHOD)
+    refs["c_iter"] = model.fit(cset, preconditioner=precond, tol=1e-6,
+                               run_diagnostics=True)[0]
+    refs["c_w"] = model.weights.cpu().numpy()
+    refs["c_pred"] = model.predict(x[N_TRAIN:N_TRAIN + N_TEST],
+                                   lengths[N_TRAIN:N_TRAIN + N_TEST])
+    del model, precond, cset
+    (ktx, kty), (ktex, kte_y) = classification_data(
+        N_TRAIN, N_TEST, N_FEATURES, CLASS_N_CLASSES, seed=SEED)
+    kset = build_classification_dataset(ktx[:n], kty[:n], chunk_size=CHUNK)
+    model = GPClassification(num_rffs=NUM_RFFS, kernel_choice="RBF",
+                             device=dev, verbose=False)
+    model.set_hyperparams(CLASS_HPARAMS, kset)
+    precond, _ = model.build_preconditioner(kset, max_rank=SCALE_OUT_RANK,
+                                            method=SCALE_OUT_METHOD)
+    refs["d_iter"] = model.fit(kset, preconditioner=precond,
+                               run_diagnostics=True)[0]
+    refs["d_w"] = model.weights.cpu().numpy()
+    refs["d_probs"] = model.predict(ktex)
+    refs["d_te_y"] = kte_y
+    print(f"E2 one-process references (Conv1dRBF and RBF classifier on "
+          f"{n} rows): {time.perf_counter() - t0:.2f}s, CG iterations "
+          f"{refs['c_iter']}, NCG iterations {refs['d_iter']} [{card}]",
+          flush=True)
+    return refs
+
+
+def shard_gate(label, got_w, want_w, got_iter, want_iter,
+               against="the one-process fit's"):
+    err = rel_max(got_w, want_w)
+    print(f"{label}: iterations {got_iter} against {want_iter}; weights "
+          f"{err:.3e} x max|w| from {against} (tol {SHARD_RTOL:g})",
+          flush=True)
+    check(abs(got_iter - want_iter) <= 1,
+          f"{label}: iterations differ by more than one")
+    check(err < SHARD_RTOL, f"{label}: weights differ")
+
+
+def report_ranks(record, name, card):
+    for rec in record["paths"]:
+        print(f"{rec['label']}: {rec['seconds']:.3f}s; launches "
+              f"{counts_text(counts_from_json(rec['counts']))}; collectives "
+              f"{rec['collectives']} in {rec['collective_s']:.3f}s "
+              f"({name}, {record['backend']}) [{card}]", flush=True)
+
+
+def check_e1(e1, workdir, te_y, card, t_start):
+    """E1's gates: the engines routed, the sharded run bitwise the single
+    one's, CG converged, Spearman above slice A's floor.  Returns the
+    sharded run's path for the kernels line."""
+    report_ranks(e1, "rank 0 of 1", card)
+    single, sharded = e1["single"], e1["sharded"]
+    same = {
+        "weights": np.array_equal(np.load(workdir / "e1_single.npy"),
+                                  np.load(workdir / "e1_sharded.npy")),
+        "predictions": np.array_equal(np.load(workdir / "e1_single_pred.npy"),
+                                      np.load(workdir /
+                                              "e1_sharded_pred.npy")),
+        "iterations": single["n_iter"] == sharded["n_iter"],
+        "NMLL": single["nmll"] == sharded["nmll"]}
+    rho = spearman(np.load(workdir / "e1_sharded_pred.npy")[0], te_y)
+    print(f"E1 ({e1['backend']}, world size 1): engine "
+          f"{sharded['engine']}, CG "
+          f"{sharded['n_iter']} iterations (single {single['n_iter']}), "
+          f"approximate NMLL {sharded['nmll']!r} (single "
+          f"{single['nmll']!r}); bitwise equal to the single engine: {same};"
+          f" held-out Spearman {rho:.4f} (floor {SPEARMAN_FLOOR}); the "
+          f"child, E0 beside it, {time.perf_counter() - t_start:.1f}s "
+          f"[{card}]", flush=True)
+    check(sharded["engine"] == "ShardedEngine" and
+          single["engine"] == "Engine", "E1 did not route the engines")
+    check(all(same.values()), "E1: the sharded fit is not bitwise the "
+                              "single engine's")
+    check(sharded["residual"] < 1e-6, "E1: CG did not converge")
+    check(rho > SPEARMAN_FLOOR, "E1: Spearman below the floor")
+    return ("E1 sharded fit + predict + NMLL (NCCL, world size 1)",
+            counts_from_json(sharded["counts"]))
+
+
+def phase_scale_out(torch, card, te_y, corpus, cases, dev="cuda",
+                    sizes=None):
+    """Slice E (after phase_surface): E0 the compiled exports (``cases``
+    from ``export_cases``), E1 the sharded path at world size 1 over NCCL
+    in a child process, bitwise against the single engine, and E2 two
+    gloo ranks on the one card (job_e2), each against its one-process
+    fit.  The kernels are already built: the ranks load the parent's
+    build.  ``te_y`` are slice A's held-out targets.  ``sizes`` (module
+    constants by name) reach the ranks as the parent's: a CPU rehearsal
+    sets them in both.  Returns the paths' launches."""
+    sizes = sizes or {}
+    t0 = time.perf_counter()
+    workdir = SCALE_OUT_DIR
+    workdir.mkdir(parents=True, exist_ok=True)
+    for old in workdir.iterdir():
+        old.unlink()
+    # E0 runs here while E1's child starts and warms up (the compiles are
+    # host work), and E2's ranks start, make their rows and wait for E1.
+    t1 = time.perf_counter()
+    e1_ranks = start_ranks("e1", 1, workdir, dev, sizes)
+    e2_ranks = start_ranks("e2", 2, workdir, dev, sizes)
+    try:
+        paths = [("E0 compiled exports",
+                  phase_compiled_exports(torch, card, cases, dev))]
+        (e1,) = join_ranks(e1_ranks, "e1", 1, workdir)
+        paths.append(check_e1(e1, workdir, te_y, card, t1))
+        refs = single_references(torch, card, corpus, workdir, dev)
+    except BaseException:
+        stop_ranks(e1_ranks)
+        stop_ranks(e2_ranks)
+        raise
+    t1 = time.perf_counter()
+    (workdir / "e2_go").touch()
+    ranks = join_ranks(e2_ranks, "e2", 2, workdir)
+    for rank, record in enumerate(ranks):
+        report_ranks(record, f"rank {rank} of 2", card)
+    print(f"E2 (gloo, 2 ranks on one card): {time.perf_counter() - t1:.1f}s "
+          f"[{card}]", flush=True)
+    r0 = ranks[0]
+
+    def rank_arrays(name):
+        arrays = [np.load(workdir / f"{name}_{r}.npy") for r in range(2)]
+        check(np.array_equal(*arrays), f"E2: the ranks' {name} differ")
+        return arrays[0]
+    check(r0["a"]["engine"] == "ShardedEngine" and
+          r0["a"]["rows"] == N_TRAIN // 2, "E2(a) did not shard its rows")
+    shard_gate("E2(a) slice A", rank_arrays("e2a"),
+               np.load(workdir / "e2a_ref.npy"), r0["a"]["n_iter"],
+               e1["e2a_ref_iter"])
+    rho = spearman(rank_arrays("e2a_pred"), te_y)
+    print(f"E2(a) held-out Spearman {rho:.4f} (floor {SPEARMAN_FLOOR})",
+          flush=True)
+    check(rho > SPEARMAN_FLOOR, "E2(a): Spearman below the floor")
+    b = r0["b"]
+    check(b["auto"]["m_sharded"] and not b["off"]["m_sharded"],
+          f"E2(b): M-sharding did not switch on at {MSHARD_RFFS} RFFs")
+    shard_gate(f"E2(b) M-sharded against replicated at {MSHARD_RFFS} RFFs",
+               rank_arrays("e2b_auto"), rank_arrays("e2b_off"),
+               b["auto"]["n_iter"], b["off"]["n_iter"],
+               "the replicated fit's")
+    ab_m, ab_r = rank_arrays("e2b_auto_ab"), rank_arrays("e2b_off_ab")
+    check(ab_m.shape == ab_r.shape, "E2(b): SLQ ran different lengths")
+    err = rel_max(ab_m, ab_r)
+    print(f"E2(b) SLQ's alphas and betas ({ab_m.shape[1]} iterations x "
+          f"{SLQ_PROBES} probes): M-sharded {err:.3e} x max from the "
+          f"replicated (tol {SHARD_RTOL:g})", flush=True)
+    check(err < SHARD_RTOL, "E2(b): SLQ's coefficients differ")
+    c = r0["c"]
+    check(c["engine"] == "StreamingShardedEngine" and
+          [r["c"]["local_chunks"] for r in ranks] == list(SPLIT_CHUNKS) and
+          c["global_chunks"] == SPLIT_CHUNKS[0],
+          "E2(c) did not stream its unequal split")
+    shard_gate("E2(c) Conv1dRBF streamed", rank_arrays("e2c"), refs["c_w"],
+               c["n_iter"], refs["c_iter"])
+    preds = rank_arrays("e2c_pred")
+    rho_c = spearman(preds, corpus[1][N_TRAIN:N_TRAIN + N_TEST])
+    rho_ref = spearman(refs["c_pred"], corpus[1][N_TRAIN:N_TRAIN + N_TEST])
+    print(f"E2(c) held-out Spearman {rho_c:.4f} (one-process fit "
+          f"{rho_ref:.4f}; the floor {MOTIF_SPEARMAN_FLOOR} is for "
+          f"{N_TRAIN} rows)", flush=True)
+    check(abs(rho_c - rho_ref) < 1e-4, "E2(c): Spearman moved")
+    shard_gate("E2(d) RBF classifier", rank_arrays("e2d"), refs["d_w"],
+               r0["d"]["n_iter"], refs["d_iter"])
+    acc = float((np.argmax(rank_arrays("e2d_pred"), axis=1) ==
+                 refs["d_te_y"]).mean())
+    acc_ref = float((np.argmax(refs["d_probs"], axis=1) ==
+                     refs["d_te_y"]).mean())
+    print(f"E2(d) held-out accuracy {acc:.4f} (one-process fit "
+          f"{acc_ref:.4f}, floor {CLASS_ACC_FLOOR})", flush=True)
+    check(acc >= CLASS_ACC_FLOOR, "E2(d): accuracy below the floor")
+    for tag, rec in (("(a)", r0["a"]), ("(b) M-sharded", b["auto"]),
+                     ("(b) replicated", b["off"]), ("(c)", c),
+                     ("(d)", r0["d"])):
+        counts = counts_from_json(rec["counts"])
+        for other in ranks[1:]:
+            more = {r["label"]: r for r in other["paths"]}[rec["label"]]
+            for k, v in counts_from_json(more["counts"]).items():
+                counts[k] = counts[k] + v
+        paths.append((f"E2{tag} 2 gloo ranks", counts))
+    print(f"slice E phase: {time.perf_counter() - t0:.1f}s [{card}]",
+          flush=True)
+    return paths
 
 
 SRC, PALLAS = "xgpr_tpu_torch/ops/cuda/csrc/", "xgpr_tpu/ops/pallas/"
@@ -2584,6 +3236,7 @@ def main(argv):
     surface, without = phase_surface(torch, card, tab, trx, tr_y, corpus,
                                      fitted)
     paths += surface
+    paths += phase_scale_out(torch, card, tab[2], corpus, fitted["cases"])
     del tab, fitted
     print(f"total {time.perf_counter() - t_start:.1f}s [{card}]", flush=True)
     kernels = [row for path, counts in paths

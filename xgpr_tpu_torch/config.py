@@ -20,10 +20,19 @@
   ops/sincos.py).
 - Stacked-element limit: datasets with fewer raw x elements than this live
   on the device for the whole fit; larger ones stream chunk by chunk.
+- Scale-out (xgpr_tpu/config.py's knobs, same names, values and
+  warning): the engine mode (``should_shard``: the sharded engines of
+  parallel/ over an initialised torch.distributed process group), M
+  sharding of the fused sharded CG, and the CG lowering.  Each of them
+  and the stacked limit bumps ``config_epoch``, which keys a model's
+  engine cache, so a switch rebuilds the engine instead of reusing one of
+  the old kind.
 """
 import contextlib
+import warnings
 
 import torch
+import torch.distributed as dist
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -217,6 +226,7 @@ _STACKED_ELEMENT_LIMIT = 10 ** 9
 
 
 def set_stacked_limit(n_elements: int):
+    _bump_epoch()
     global _STACKED_ELEMENT_LIMIT
     n_elements = int(n_elements)
     if n_elements <= 0:
@@ -226,3 +236,103 @@ def set_stacked_limit(n_elements: int):
 
 def stacked_element_limit() -> int:
     return _STACKED_ELEMENT_LIMIT
+
+
+# ----------------------------------------------------------------------
+# The epoch of the knobs that choose an engine: models key their engine
+# cache on it (models/baseclass.py::_engine).
+_CONFIG_EPOCH = 0
+
+
+def _bump_epoch():
+    global _CONFIG_EPOCH
+    _CONFIG_EPOCH += 1
+
+
+def config_epoch() -> int:
+    return _CONFIG_EPOCH
+
+
+# ----------------------------------------------------------------------
+# CG lowering.  "fused" (the default) runs the solvers of
+# fitting/fused_cg.py on a device-resident engine: K1's fused matvec, and
+# on a sharded engine the solvers that all-reduce (or reduce-scatter)
+# once per iteration.  "looped" sends every engine to the plain loop over
+# the engine's ``ztzv`` (fitting/cg.py), one reduction per iteration.
+_CG_MODE = "fused"
+
+
+def set_cg_mode(mode: str):
+    _bump_epoch()
+    global _CG_MODE
+    if mode not in ("fused", "looped"):
+        raise ValueError("cg mode must be fused or looped")
+    _CG_MODE = mode
+
+
+def cg_mode() -> str:
+    return _CG_MODE
+
+
+# ----------------------------------------------------------------------
+# M sharding of the fused sharded CG (fitting/fused_cg.py
+# ``fused_cg_solve_msharded``): the CG iterates, residuals and the
+# Nystrom factor U sharded over the feature axis across the ranks, the
+# matvec's sum a reduce-scatter.  "auto" turns it on when num_rffs
+# reaches the threshold and divides the group's size; "on"/"off" force.
+_M_SHARDING = "auto"
+_M_SHARDING_THRESHOLD = 32768
+
+
+def set_m_sharding(mode: str, threshold: int = None):
+    _bump_epoch()
+    global _M_SHARDING, _M_SHARDING_THRESHOLD
+    if mode not in ("auto", "on", "off"):
+        raise ValueError("m_sharding must be auto, on or off")
+    _M_SHARDING = mode
+    if threshold is not None:
+        _M_SHARDING_THRESHOLD = int(threshold)
+
+
+def use_m_sharding(num_rffs: int, n_dev: int) -> bool:
+    if _M_SHARDING == "off" or n_dev <= 1 or num_rffs % n_dev != 0:
+        if _M_SHARDING == "on":
+            # Forced on but impossible: say so rather than hide the
+            # replicated state the user tried to avoid.
+            reason = "only one device is visible" if n_dev <= 1 else \
+                f"num_rffs={num_rffs} is not divisible by {n_dev} devices"
+            warnings.warn(
+                f"M-sharding was forced on but {reason}; running the "
+                "replicated solver instead.", UserWarning)
+        return False
+    if _M_SHARDING == "on":
+        return True
+    return num_rffs >= _M_SHARDING_THRESHOLD
+
+
+# ----------------------------------------------------------------------
+# Engine selection (models/baseclass.py::_engine).  "auto" uses the
+# sharded engines when an initialised process group has more than one
+# rank; "single" never does; "sharded" does whenever a group is
+# initialised, a group of one included (the sharded path on one card).
+_ENGINE_MODE = "auto"
+
+
+def set_engine_mode(mode: str):
+    _bump_epoch()
+    global _ENGINE_MODE
+    if mode not in ("auto", "single", "sharded"):
+        raise ValueError("engine mode must be auto, single or sharded")
+    _ENGINE_MODE = mode
+
+
+def engine_mode() -> str:
+    return _ENGINE_MODE
+
+
+def should_shard() -> bool:
+    if _ENGINE_MODE == "single":
+        return False
+    if not (dist.is_available() and dist.is_initialized()):
+        return False
+    return _ENGINE_MODE == "sharded" or dist.get_world_size() > 1

@@ -2,16 +2,22 @@
 
 The matvec is the chunked (Z^T Z + lambda^2) v reduction; per-RHS alpha
 and beta, convergence when the relative residual norm of every column is
-below tol.  Stacked engines use the fused-matvec solver
-(fitting/fused_cg.py); streaming engines use the loop below with the
-engine's ztzv.  Both carry the same per-column breakdown freeze and
-record each iteration's alphas and betas for SLQ.
+below tol.  Stacked engines use the fused-matvec solvers
+(fitting/fused_cg.py): a sharded engine the sharded one (M-sharded when
+``config.use_m_sharding`` says so), a single engine the stacked one.
+Streaming engines, sharded or not, and every engine under
+``config.set_cg_mode("looped")`` use the loop over the engine's ztzv
+(all-reduced on a sharded engine).  All carry the same per-column
+breakdown freeze and record each iteration's alphas and betas for SLQ.
 """
 import warnings
 
 import torch
 
-from .fused_cg import _cg_while, fused_cg_solve_stacked
+from .. import config
+from ..parallel.sharded import ShardedEngine
+from .fused_cg import (_cg_while, fused_cg_solve_sharded,
+                       fused_cg_solve_stacked)
 
 
 class ConjugateGrad:
@@ -19,6 +25,15 @@ class ConjugateGrad:
 
     def __init__(self, engine):
         self.engine = engine
+
+    def _fused_solver(self):
+        """The solver for a device-resident engine, or None for the loop
+        (xgpr_tpu's ``ConjugateGrad._fused_solver``)."""
+        if config.cg_mode() == "looped" or self.engine._stacked is None:
+            return None
+        if isinstance(self.engine, ShardedEngine):
+            return fused_cg_solve_sharded
+        return fused_cg_solve_stacked
 
     def fit(self, rhs, lambda_, preconditioner=None, maxiter=200, tol=1e-4,
             nmll_settings=False):
@@ -32,8 +47,9 @@ class ConjugateGrad:
         """
         rhs = torch.as_tensor(rhs, dtype=torch.float64,
                               device=self.engine.device)
-        if self.engine._stacked is not None:
-            x_k, done, niter, alphas, betas, errs = fused_cg_solve_stacked(
+        fused = self._fused_solver()
+        if fused is not None:
+            x_k, done, niter, alphas, betas, errs = fused(
                 self.engine, rhs, lambda_, preconditioner, maxiter, tol)
         else:
             precond = (lambda v: v) if preconditioner is None \

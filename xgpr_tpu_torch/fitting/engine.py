@@ -46,7 +46,6 @@ from .. import config
 from ..data.dataset import OnlineDataset
 from ..ops.contract import mm, parts_contract, ztzv_contract
 from ..ops.sorf import srht_rows
-from ..parallel.streaming import ChunkPrefetcher
 from ..utils import rng as state_rng
 
 
@@ -62,7 +61,8 @@ class Engine:
         self.device = kernel.device
         self._dtype = kernel.dtype
         # A classifier's labels reach the reductions as torch.long.
-        self.is_classification = dataset.get_n_classes() is not None
+        self.n_classes = dataset.get_n_classes()
+        self.is_classification = self.n_classes is not None
         self._ydtype = torch.long if self.is_classification else self._dtype
         if mode is None:
             n_elements = int(np.prod(dataset.get_xdim()))
@@ -77,6 +77,9 @@ class Engine:
         if mode == "stacked":
             self._build_stack()
         elif self.device.type == "cuda":
+            # Imported here: parallel/ imports this module (its engines
+            # subclass Engine).
+            from ..parallel.streaming import ChunkPrefetcher
             self.prefetcher = ChunkPrefetcher(dataset, self._dtype,
                                               self.device, self._ydtype)
 
@@ -151,9 +154,14 @@ class Engine:
 
     # ------------------------------------------------------------------
     def ztzv(self, vec):
-        """Sum over chunks of Z^T (Z v); vec is (M,) or (M, K).  With the
-        kernel's (cos, sin) parts the contraction skips the block layout
-        and only the small (M, K) vectors are gathered and scattered."""
+        """Sum over chunks of Z^T (Z v); vec is (M,) or (M, K)."""
+        return self.local_ztzv(vec)
+
+    def local_ztzv(self, vec):
+        """``ztzv`` over this process's chunks (a sharded engine's ``ztzv``
+        sums it over the ranks).  With the kernel's (cos, sin) parts the
+        contraction skips the block layout and only the small (M, K)
+        vectors are gathered and scattered."""
         params = self._params()
         v2 = self._as_matrix(vec)
         parts_fn = self.kernel.pure_feature_parts_fn()
@@ -203,11 +211,9 @@ class Engine:
         grad = mm(z.T, (resid * mb[:, None]).to(z.dtype))
         return loss, grad.double()
 
-    def classification_loss_grad(self, wvec, lambda_):
-        """(gradient (M, C), objective): softmax cross-entropy over the
-        dataset plus the L2(lambda^2) ridge, which exempts the intercept
-        row; float64 on the device."""
-        w = torch.as_tensor(wvec, dtype=torch.float64, device=self.device)
+    def softmax_data_terms(self, w):
+        """(loss, gradient (M, C)) of the softmax cross-entropy over the
+        dataset at float64 weights w, without the ridge term."""
         wz = w.to(self._dtype)
         loss, grad = self._zeros(), self._zeros(*w.shape)
         params = self._params()
@@ -216,6 +222,14 @@ class Engine:
                 self._features(params, xb, lb, mb), wz, yb, mb)
             loss += bl
             grad += bg
+        return loss, grad
+
+    def classification_loss_grad(self, wvec, lambda_):
+        """(gradient (M, C), objective): softmax cross-entropy over the
+        dataset plus the L2(lambda^2) ridge, which exempts the intercept
+        row; float64 on the device."""
+        w = torch.as_tensor(wvec, dtype=torch.float64, device=self.device)
+        loss, grad = self.softmax_data_terms(w)
         grad[1:, :] += (lambda_ ** 2) * w[1:, :]
         total = float(loss) + 0.5 * (lambda_ ** 2) * \
             float(torch.sum(w[1:, :] ** 2))

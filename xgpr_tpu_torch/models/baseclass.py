@@ -1,6 +1,7 @@
 """Shared model state machine (port of xgpr_tpu/models/baseclass.py).
 
-Kernel initialisation through the registry, the cached engine, the
+Kernel initialisation through the registry, the cached engine (the
+sharded engines of parallel/ when ``config.should_shard``), the
 Nystrom preconditioner build with rank autoselection (and its amortized
 form for repeated approximate-NMLL calls, with the rank cached per
 dataset), the NMLL preparation steps, and the property setters that
@@ -13,6 +14,9 @@ import numpy as np
 from .. import config, constants
 from ..fitting.engine import Engine
 from ..kernels import KERNEL_NAME_TO_CLASS
+from ..parallel.distributed import global_host_reduce
+from ..parallel.sharded import ShardedEngine
+from ..parallel.streaming import StreamingShardedEngine
 from ..preconditioners.nystrom import NystromPreconditioner, srht_ratio_check
 
 
@@ -64,15 +68,35 @@ class ModelBaseclass:
                 tuple(dataset.get_xdim()))
 
     def _engine(self, dataset):
-        """Cached Engine for the (dataset, kernel) pair; hyperparameters
+        """Cached engine for the (dataset, kernel) pair; hyperparameters
         flow through feature_params at reduction time, so reuse is safe.
-        At most one engine is kept: a stacked engine pins the dataset on
-        the device."""
-        key = (self._dataset_token(dataset), self.kernel.get_uid())
+        The key holds ``config.config_epoch()``: a switch of engine mode,
+        M sharding, CG mode or stacked limit builds anew.  At most one
+        engine is kept, and the stale one is released before its
+        replacement is built: a stacked engine pins the dataset on the
+        device.
+
+        Under ``config.should_shard()`` the engine is a ShardedEngine if
+        this rank's rows fit the stacked limit and a
+        StreamingShardedEngine if not; the ranks agree on the larger load
+        first (their datasets may differ), since both kinds must be the
+        same on every rank.  Otherwise it is the single Engine, stacked
+        or streaming by the same limit (the counterpart of xgpr_tpu's
+        one-device streaming mesh)."""
+        key = (self._dataset_token(dataset), self.kernel.get_uid(),
+               config.config_epoch())
         engine = self._engines.get(key)
         if engine is None:
             self._engines = {}
-            engine = Engine(self.kernel, dataset)
+            if config.should_shard():
+                load = int(np.prod(dataset.get_xdim())) / \
+                    config.stacked_element_limit()
+                load = global_host_reduce([load], ["max"])[0]
+                kind = ShardedEngine if load < 1.0 \
+                    else StreamingShardedEngine
+                engine = kind(self.kernel, dataset)
+            else:
+                engine = Engine(self.kernel, dataset)
             self._engines = {key: engine}
         return engine
 
@@ -204,7 +228,10 @@ class ModelBaseclass:
         ladder is exhausted, use the largest admissible rank with the
         two-pass srht_2 construction.  Then build the preconditioner."""
         rank_cap = min(max_rank, self.kernel.get_num_rffs() - 1)
-        sample_frac = 1.0 if dataset.get_ndatapoints() < 5000 else 0.2
+        # The engine's row count: on a sharded engine every rank must take
+        # the same ladder.
+        n_rows = self._engine(dataset).ndatapoints
+        sample_frac = 1.0 if n_rows < 5000 else 0.2
         chosen_rank, method = rank_cap, "srht_2"
         if min_rank >= rank_cap:
             chosen_rank, method = rank_cap, "srht"

@@ -14,7 +14,8 @@ The weights are (num_rffs, n_classes) float64 on the model's device and
 crosses between the packages (models/serialization.py).  Each chunk of
 rows is featurised on the model's device (K2, or K3 for the convolution
 kernels, on the card).  ``export_predict_fn`` returns the same
-prediction as a plain function of tensors and its state.
+prediction as a plain function of tensors and its state, which
+``torch.compile(fullgraph=True)`` and ``torch.func.vmap`` take.
 """
 import numpy as np
 import torch
@@ -92,7 +93,8 @@ class GPClassification(ModelBaseclass):
         returns (iterations, objective history)."""
         self._run_pre_fitting_prep(dataset)
         self.weights = None
-        self.n_classes = int(dataset.get_n_classes())
+        # The engine's count: a sharded engine's covers every rank's labels.
+        self.n_classes = int(self._engine(dataset).n_classes)
         if self.verbose:
             print("starting fitting")
         if preconditioner is None:

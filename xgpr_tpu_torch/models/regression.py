@@ -137,11 +137,13 @@ class GPRegression(ModelBaseclass):
         ``get_var`` the variance matrix, its column indices and lambda^2,
         all float64, as predict forms its products.
         fn reads nothing else, so a state that went through numpy and back
-        gives the same bits.  On the card fn reaches the K2 or K3 kernel
-        through ``pure_feature_fn``; the custom kernels have no batching
-        rule, so unlike xgpr_tpu's exported fn it is not meant for
-        torch.func.vmap or torch.compile.  The Linear kernel's Nystrom
-        variance is not exported, as in xgpr_tpu.
+        gives the same bits.  On the card fn reaches the K2, K3 or K4
+        kernel through ``pure_feature_fn``; the kernels are custom
+        operators with fake implementations and batching rules
+        (ops/cuda/), so ``torch.compile(fn, fullgraph=True)`` and
+        ``torch.func.vmap`` over a stacked batch of x take fn, as
+        ``jax.jit`` and ``jax.vmap`` take xgpr_tpu's.  The Linear kernel's
+        Nystrom variance is not exported, as in xgpr_tpu.
         """
         if self.kernel is None or self.weights is None:
             raise RuntimeError("No fitted weights present; call fit() first.")
@@ -182,10 +184,12 @@ class GPRegression(ModelBaseclass):
         the model's device)."""
         self._run_singlepoint_nmll_prep(dataset, exact_method=True)
         self.kernel.set_hyperparams(hyperparams, logspace=True)
-        design = self._engine(dataset).design_mat()
+        engine = self._engine(dataset)
+        design = engine.design_mat()
         try:
+            # The engine's count: a sharded engine's covers every rank.
             negloglik = exact_nmll_from_design(
-                *design, self.kernel.get_lambda(), dataset.get_ndatapoints())
+                *design, self.kernel.get_lambda(), engine.ndatapoints)
         except NUMERICAL_FAILURES:
             negloglik = np.nan
         if np.isnan(negloglik):

@@ -17,6 +17,13 @@ folded in.  Window j of row i counts while j < seq_lengths[i] - w + 1.
 
 Each wrapper runs its plain version for CPU tensors and its kernel for
 CUDA tensors (float32 x and proj, int32 lengths); anything else raises.
+The two are the CPU and CUDA implementations of one custom operator each,
+``torch.ops.xgpr_tpu_torch.conv_parts`` and ``...conv_maxpool``, with a
+fake implementation (the output shapes, for ``torch.compile``) and a
+batching rule (a leading batch axis of x, and of the lengths and row
+scale where they have one, folded into rows, for ``torch.func.vmap``),
+as for K2 (feature_map.py).  Everything the launcher does runs inside
+the operator.
 On the card ``conv_parts`` runs the K3 instantiation of the sincos mode
 it asks for, and both run the body of the feature precision they ask for
 (the configured ones by default), never another: "high" and "highest"
@@ -38,6 +45,7 @@ with K1 and K2).  ``window_slots`` counts the (row, window) slots the
 kernels project against the valid windows.
 """
 from collections import Counter
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -45,7 +53,7 @@ import torch.nn.functional as F
 from .. import sincos as _sincos
 from ..contract import bf16_mm
 from . import build
-from .feature_map import (check_cuda_operands, kernel_mode,
+from .feature_map import (check_cuda_operands, check_device, kernel_mode,
                           kernel_precision, kernel_precision_flag,
                           kernel_sincos_flag)
 from .operands import data_ptr, depth_multiple, kernel_planes
@@ -185,11 +193,61 @@ def conv_parts(x, seq_lengths, proj, sigma, width, row_scale=None,
     (window @ proj) * sigma, times row_scale (N,) when given."""
     _check_shapes("conv_parts", x, seq_lengths, proj, width)
     extra = () if row_scale is None else (row_scale,)
-    if all(t.device.type == "cpu" for t in (x, seq_lengths, proj) + extra):
-        return conv_parts_plain(x, seq_lengths, proj, sigma, width,
-                                row_scale, mode, precision)
-    mode = kernel_mode(mode)
-    precision = kernel_precision(precision, x.device)
+    check_device("conv_parts", x, seq_lengths, proj, *extra)
+    return _conv_parts_op(x, seq_lengths, proj, float(sigma), int(width),
+                          row_scale, kernel_mode(mode),
+                          kernel_precision(precision, x.device))
+
+
+@torch.library.custom_op("xgpr_tpu_torch::conv_parts", mutates_args=(),
+                         device_types="cpu")
+def _conv_parts_op(x: torch.Tensor, seq_lengths: torch.Tensor,
+                   proj: torch.Tensor, sigma: float, width: int,
+                   row_scale: Optional[torch.Tensor], mode: str,
+                   precision: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    return conv_parts_plain(x, seq_lengths, proj, sigma, width, row_scale,
+                            mode, precision)
+
+
+@_conv_parts_op.register_fake
+def _(x, seq_lengths, proj, sigma, width, row_scale, mode, precision):
+    shape = (x.shape[0], proj.shape[1])
+    return x.new_empty(shape), x.new_empty(shape)
+
+
+def _rows_first(t, dim, batch):
+    """t with its batch axis ``dim`` first, expanded over ``batch`` when
+    it has none, and folded into its leading (row) axis."""
+    t = t.movedim(dim, 0) if dim is not None else \
+        t.expand((batch,) + tuple(t.shape))
+    return t.reshape((-1,) + tuple(t.shape[2:])).contiguous()
+
+
+def _fold_rows(name, info, in_dims):
+    if in_dims[2] is not None:
+        raise NotImplementedError(f"{name} maps over rows only, not over "
+                                  "projections")
+    return info.batch_size
+
+
+@torch.library.register_vmap("xgpr_tpu_torch::conv_parts")
+def _(info, in_dims, x, seq_lengths, proj, sigma, width, row_scale, mode,
+      precision):
+    b = _fold_rows("conv_parts", info, in_dims)
+    scale = None if row_scale is None else \
+        _rows_first(row_scale, in_dims[5], b)
+    c, s = _conv_parts_op(_rows_first(x, in_dims[0], b),
+                          _rows_first(seq_lengths, in_dims[1], b), proj,
+                          sigma, width, scale, mode, precision)
+    return (c.reshape(b, -1, c.shape[-1]), s.reshape(b, -1, s.shape[-1])), \
+        (0, 0)
+
+
+@_conv_parts_op.register_kernel("cuda")
+def _conv_parts_kernel(x, seq_lengths, proj, sigma, width, row_scale, mode,
+                       precision):
+    """The K3 launcher: operand checks and preparation, one launch."""
+    extra = () if row_scale is None else (row_scale,)
     xh, xl, order, nk, hi, lo = _kernel_operands(
         "conv_parts", x, seq_lengths, proj, width, precision, *extra)
     n, l, dp = xh.shape
@@ -215,9 +273,36 @@ def conv_parts(x, seq_lengths, proj, sigma, width, row_scale=None,
 def conv_maxpool(x, seq_lengths, proj, width, precision=None):
     """(N, F): max(0, max over valid windows of window @ proj)."""
     _check_shapes("conv_maxpool", x, seq_lengths, proj, width)
-    if all(t.device.type == "cpu" for t in (x, seq_lengths, proj)):
-        return conv_maxpool_plain(x, seq_lengths, proj, width, precision)
-    precision = kernel_precision(precision, x.device)
+    check_device("conv_maxpool", x, seq_lengths, proj)
+    return _conv_maxpool_op(x, seq_lengths, proj, int(width),
+                            kernel_precision(precision, x.device))
+
+
+@torch.library.custom_op("xgpr_tpu_torch::conv_maxpool", mutates_args=(),
+                         device_types="cpu")
+def _conv_maxpool_op(x: torch.Tensor, seq_lengths: torch.Tensor,
+                     proj: torch.Tensor, width: int,
+                     precision: str) -> torch.Tensor:
+    return conv_maxpool_plain(x, seq_lengths, proj, width, precision)
+
+
+@_conv_maxpool_op.register_fake
+def _(x, seq_lengths, proj, width, precision):
+    return x.new_empty((x.shape[0], proj.shape[1]))
+
+
+@torch.library.register_vmap("xgpr_tpu_torch::conv_maxpool")
+def _(info, in_dims, x, seq_lengths, proj, width, precision):
+    b = _fold_rows("conv_maxpool", info, in_dims)
+    out = _conv_maxpool_op(_rows_first(x, in_dims[0], b),
+                           _rows_first(seq_lengths, in_dims[1], b), proj,
+                           width, precision)
+    return out.reshape(b, -1, out.shape[-1]), 0
+
+
+@_conv_maxpool_op.register_kernel("cuda")
+def _conv_maxpool_kernel(x, seq_lengths, proj, width, precision):
+    """The K4 launcher: operand checks and preparation, one launch."""
     xh, xl, order, nk, hi, lo = _kernel_operands(
         "conv_maxpool", x, seq_lengths, proj, width, precision)
     n, l, dp = xh.shape

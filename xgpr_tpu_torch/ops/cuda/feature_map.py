@@ -17,6 +17,14 @@ of proj's transpose is cached with proj (``projT_split``).
 kernel for a CUDA tensor; anything else raises.  A CUDA tensor gets the
 kernel of the sincos mode it asks for (the configured one by default):
 "hi", "exact", "fast" and "poly" are each a kernel instantiation.
+
+The two are the CPU and CUDA implementations of one custom operator,
+``torch.ops.xgpr_tpu_torch.rbf_feature_map`` (``torch.library``), so
+that ``torch.compile(fullgraph=True)`` traces through a caller (the
+operator's fake implementation gives its output's shape) and
+``torch.func.vmap`` maps it (its batching rule folds a leading batch
+axis of x into rows: the map is row-wise).  The whole launcher, the
+operand checks and preparation included, runs inside the operator.
 ``LAUNCHES`` counts kernel launches by their shape and mode
 (N, D, F, mode).  K2 has no precision variant: xgpr_tpu's Pallas feature
 map pins HIGHEST, so it runs its 3xTF32 body under every preset.  The
@@ -109,17 +117,53 @@ def check_cuda_operands(name, *tensors):
             raise ValueError(f"{name}: operands must be contiguous.")
 
 
+def check_device(name, *tensors):
+    """Raise for a device that has neither a kernel nor a plain version."""
+    for t in tensors:
+        if t.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"{name}: no kernel for {t.device}.")
+
+
 def rbf_feature_map(x, proj, fit_intercept, padded, mode=None):
     """(N, 2F) block-layout RBF features of sigma-scaled rows x (N, D)."""
     if x.dim() != 2 or proj.dim() != 2 or x.shape[1] != proj.shape[0]:
         raise ValueError(f"rbf_feature_map: shapes {tuple(x.shape)} and "
                          f"{tuple(proj.shape)} do not contract.")
-    if x.device.type == "cpu" and proj.device.type == "cpu":
-        return rbf_feature_map_plain(x, proj, fit_intercept, padded, mode)
+    check_device("rbf_feature_map", x, proj)
+    return _rbf_feature_map_op(x, proj, bool(fit_intercept), int(padded),
+                               kernel_mode(mode))
+
+
+@torch.library.custom_op("xgpr_tpu_torch::rbf_feature_map", mutates_args=(),
+                         device_types="cpu")
+def _rbf_feature_map_op(x: torch.Tensor, proj: torch.Tensor,
+                        fit_intercept: bool, padded: int,
+                        mode: str) -> torch.Tensor:
+    return rbf_feature_map_plain(x, proj, fit_intercept, padded, mode)
+
+
+@_rbf_feature_map_op.register_fake
+def _(x, proj, fit_intercept, padded, mode):
+    return x.new_empty((x.shape[0], 2 * proj.shape[1]))
+
+
+@torch.library.register_vmap("xgpr_tpu_torch::rbf_feature_map")
+def _(info, in_dims, x, proj, fit_intercept, padded, mode):
+    if in_dims[1] is not None:
+        raise NotImplementedError("rbf_feature_map maps over rows of x "
+                                  "only, not over projections")
+    xb = x.movedim(in_dims[0], 0)
+    out = _rbf_feature_map_op(xb.reshape(-1, xb.shape[-1]).contiguous(),
+                              proj, fit_intercept, padded, mode)
+    return out.reshape(xb.shape[0], xb.shape[1], -1), 0
+
+
+@_rbf_feature_map_op.register_kernel("cuda")
+def _rbf_feature_map_kernel(x, proj, fit_intercept, padded, mode):
+    """The K2 launcher: operand checks, x's TF32 split, one launch."""
     if x.device.type != "cuda":
         raise ValueError(f"rbf_feature_map: no kernel for {x.device}.")
     check_cuda_operands("rbf_feature_map", x, proj)
-    mode = kernel_mode(mode)
     n = x.shape[0]
     f = proj.shape[1]
     out = torch.empty((n, 2 * f), dtype=torch.float32, device=x.device)

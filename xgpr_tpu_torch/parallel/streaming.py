@@ -1,6 +1,18 @@
-"""Chunk streaming to one card with bounded-depth prefetch (the
-single-device part of xgpr_tpu/parallel/streaming.py: the host assembly
-of chunks, ``_stream_steps`` and ``PREFETCH_DEPTH``).
+"""Chunk streaming to a card with bounded-depth prefetch, and the
+streaming sharded engine (port of xgpr_tpu/parallel/streaming.py: the
+host assembly of chunks, ``_stream_steps``, ``PREFETCH_DEPTH`` and
+``StreamingShardedEngine``).
+
+``StreamingShardedEngine`` is the sharded engine (parallel/sharded.py)
+over a streaming ``Engine``: each rank streams its own rows through the
+prefetcher below on every pass and all-reduces the pass's result once.
+xgpr_tpu issues a collective per superbatch, so its ranks pad their
+streams with empty superbatches up to the largest count; here no
+collective runs per chunk, so an unequal or ragged split costs the
+shorter rank a wait at the all-reduce and nothing else.  Its geometry
+(the row total, the largest chunk count, the largest sequence axis) is
+agreed in one exchange when it is made, as for the stacked sharded
+engine.
 
 A streaming engine re-reads the dataset in deterministic chunk order on
 every reduction pass, so streamed and device-resident ("stacked") passes
@@ -29,6 +41,8 @@ import time
 
 import numpy as np
 import torch
+
+from .sharded import ShardedEngine
 
 # Slots in the ring: the chunk being consumed and up to two copies ahead
 # of it.  Two slots would overlap one copy with one chunk's compute; the
@@ -172,6 +186,13 @@ class ChunkPrefetcher:
         copy_s = sum(a.elapsed_time(b) for a, b in copies) / 1e3
         return {"host_s": self._pass["host_s"], "copy_s": copy_s,
                 "bytes": self._pass["bytes"], "chunks": len(copies)}
+
+
+class StreamingShardedEngine(ShardedEngine):
+    """ShardedEngine whose rows stream from the dataset on every pass."""
+
+    def __init__(self, kernel, dataset, group=None):
+        super().__init__(kernel, dataset, group, mode="streaming")
 
 
 def iteration_split(streamed, stacked, vec, reps=3):

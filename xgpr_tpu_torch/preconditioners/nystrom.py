@@ -20,7 +20,10 @@ on the card at 262,144 rows, lambda^2 = 0.028).  In float64 U stays
 orthonormal and P^{-1} positive definite, and the preconditioner is kept
 in float64 for the CG iterations, whose state is float64 too
 (fitting/fused_cg.py).  On the CPU, where the working dtype is float64,
-this changes nothing.
+this changes nothing.  On a sharded engine (parallel/sharded.py) the
+sketch and the Z^T Z Q pass come back all-reduced, so every rank builds
+the same U; the M-sharded solver (``fused_cg_solve_msharded``) takes this
+rank's block of its rows.
 """
 import numpy as np
 import torch
