@@ -178,22 +178,43 @@ built beforehand.  Phases (any failure raises and the exit code is not 0):
    time, its collectives and their seconds (synchronised).  Phase 2
    checks and times K1 (K 1 and 5) and K2 at E2(b)'s 32768 RFFs (F 16384)
    too, in "hi".
+15. Slice G, float64 on the card and the "reference" preset on the
+   sequence path (``phase_g_kernels``, ``phase_g``; G_CONV_ROWS' comment
+   has the gates):
+   a. G1: K1 (K 1 and 26), K2 (D 84 / F 4096, D 1024 / F 2048), K3 (F
+      4096, 1024, 128) and K4 (F 1024) in float64, each against its plain
+      float64 version (F64_RTOL) and timed; K3 and K4 at "highest" (the
+      fp32 CUDA-core body) against the plain fp32 versions, timed; every
+      kernel on non-contiguous operands bitwise its contiguous result, in
+      float64 and float32; mixed dtypes refused.
+   b. G2: slice A in float64 (``double_precision_fht``): fit, predict
+      with variance, against the same model computed through the plain
+      versions on the card (``plain_kernels``) and the float32 fit; an
+      SLQ NMLL (K1 at K 26) against the exact one on all its rows.
+   c. G4 then G3: Conv1dRBF on 65,536 motif rows under "balanced" and
+      "reference" (K3 on its fp32 CUDA-core body), then in float64 against
+      its plain-version twin; FastConv1d (K4) in float64 on 4096 rows.
 
-The launch counters count by shape and, for K1-K3, sincos mode, and for
-K1, K3 and K4 feature precision.  The line before the last is one JSON
-object describing the kernels: one row per path (slice A, Conv1dRBF,
-both under "fast" and "poly", streamed Conv1dRBF, the referee, the K4
-path, the presets' paths, tuning, the two classifiers, MiniARD, the
-exports, KernelFGen, KernelPCA, KernelKMeans, the compiled exports and
-slice E's rank paths, their launches summed over the ranks), kernel and
-launch shape less its row count, with the launches at that shape (by row
-count) and the times and bound measured at it; a launch at a shape, mode
-or precision that phases 2 and 5 did not check and time fails the run;
-and "paths_without_kernels", the paths that launch none (Linear).
+The launch counters count by shape and, for K1-K3, sincos mode, and
+precision: the feature precision of float32 launches (K2's always
+"high", its one body), "float64" for float64 ones, which also count
+their sincos as "exact" (the builtin, in every mode).  The line before
+the last is one JSON object describing the kernels: one row per path
+(slice A, Conv1dRBF, both under "fast" and "poly", streamed Conv1dRBF,
+the referee, the K4 path, the presets' paths, tuning, the two
+classifiers, MiniARD, the exports, KernelFGen, KernelPCA, KernelKMeans,
+the compiled exports, slice E's rank paths, their launches summed over
+the ranks, and slice G's paths), kernel and launch shape less its row
+count, with the launches at that shape (by row count), the source of the
+launch's body and the times and bound measured at it; a launch at a
+shape, mode or precision that phases 2, 5 and 15 did not check and time
+fails the run; and "paths_without_kernels", the paths that launch none
+(Linear).
 The last line is {"ok": true, "device": {...}}.
 Without a CUDA device, or outside a checkout, it exits with code 1 and
 prints no result.
 """
+import contextlib
 import json
 import subprocess
 import sys
@@ -310,6 +331,10 @@ KMEANS_SIGMA, KMEANS_PURITY = 0.1, 0.9
 # so they are held to 1e-4 * max(1, max |ref|).
 FEATURE_ATOL = 1e-5
 ZTZV_RTOL = 1e-4
+# The float64 bodies against their plain float64 versions: the same
+# arithmetic in float64 summed in another order, held to F64_RTOL of
+# max(1, max|ref|) (phase G).
+F64_RTOL = 1e-11
 # K1's bf16 body ("default") rounds c, s and the summed zv to bf16 as its
 # plain version does, but sums in another fp32 order, so a value near a
 # bf16 rounding boundary can round apart: a step of up to
@@ -325,20 +350,25 @@ PREDICT_RTOL = 1e-4
 SINCOS_MODES = ("fast", "poly")
 MODE_RTOL = 1e-3
 
-# Published H100 SXM peaks (NVIDIA data sheet): dense TF32 and bf16 on the
-# tensor cores, fp32 on CUDA cores and HBM3 bandwidth.  The bounds count
-# each input read once, each output written once, and the multiply-adds of
-# the projections (2 flops each) on the tensor cores in the body of the
-# launch's feature precision (PRODUCTS: 3xTF32 for "high" and "highest",
-# one bf16 product for "default"), and as fp32 FMAs for the CUDA-core
+# Published H100 SXM peaks (NVIDIA data sheet): dense TF32, bf16 and FP64
+# on the tensor cores, fp32 and FP64 on the CUDA cores, and HBM3
+# bandwidth.  The bounds count each input read once, each output written
+# once, and the multiply-adds of the projections (2 flops each) in the
+# launch's body (feature_map.py ``kernel_body``; PRODUCTS: three TF32
+# products for 3xTF32, one bf16 product, one fp32 FMA on the CUDA cores,
+# or one FP64 DMMA product on the tensor cores, the card's FP64 peak), and
+# as fp32 FMAs (FP64 for float64) on the CUDA cores for the CUDA-core
 # bound.
 PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
-PEAK_FP32_FLOPS = 67e12
+PEAK_FP64_FLOPS = 67e12
+PEAK_FP32_CORE_FLOPS = 67e12
+PEAK_FP64_CORE_FLOPS = 34e12
 PEAK_BYTES = 3.35e12
-PRODUCTS = {"high": (3, PEAK_TF32_FLOPS), "highest": (3, PEAK_TF32_FLOPS),
-            "default": (1, PEAK_BF16_FLOPS)}
-BODY = {"high": "3xTF32", "highest": "3xTF32", "default": "bf16"}
+PRODUCTS = {"tf32x3": (3, PEAK_TF32_FLOPS), "bf16": (1, PEAK_BF16_FLOPS),
+            "fma32": (1, PEAK_FP32_CORE_FLOPS), "f64": (1, PEAK_FP64_FLOPS)}
+BODY = {"tf32x3": "3xTF32", "bf16": "bf16", "fma32": "fp32 FMA",
+        "f64": "FP64 DMMA"}
 
 # The speed presets (phase 12, ``phase_presets``).  Under "max" the fits
 # run K1, K3 and K4 in their one-pass bf16 body with bf16 feature
@@ -485,24 +515,27 @@ def time_ms(torch, fn, reps=10, dev="cuda"):
     return start.elapsed_time(stop) / reps
 
 
-def bound(nbytes, flops, precision="high"):
+def bound(nbytes, flops, body="tf32x3"):
     """Least ms on the published peaks and what sets it: "ms"/"by" with
-    the flops on the tensor cores in the body of ``precision``,
-    "cuda_core_ms"/"cuda_core_by" with them on CUDA cores."""
+    the flops in ``body`` (tensor cores or CUDA cores, PRODUCTS),
+    "cuda_core_ms"/"cuda_core_by" with them as CUDA-core FMAs (FP64 for
+    the float64 body, fp32 otherwise)."""
     t_bytes = nbytes / PEAK_BYTES
-    products, peak = PRODUCTS[precision]
-    out = {"body": BODY[precision]}
+    products, peak = PRODUCTS[body]
+    core_peak = PEAK_FP64_CORE_FLOPS if body == "f64" \
+        else PEAK_FP32_CORE_FLOPS
+    out = {"body": BODY[body]}
     for key, t_ops in (("", products * flops / peak),
-                       ("cuda_core_", flops / PEAK_FP32_FLOPS)):
+                       ("cuda_core_", flops / core_peak)):
         out[key + "ms"] = max(t_bytes, t_ops) * 1e3
         out[key + "by"] = "bytes" if t_bytes >= t_ops else "operations"
     return out
 
 
 def bound_text(b):
-    return (f"bound {b['ms']:.4f} ms ({b['by']}, tensor cores "
-            f"{b['body']}) / {b['cuda_core_ms']:.4f} ms "
-            f"({b['cuda_core_by']}, fp32 CUDA cores)")
+    return (f"bound {b['ms']:.4f} ms ({b['by']}, {b['body']}) / "
+            f"{b['cuda_core_ms']:.4f} ms ({b['cuda_core_by']}, CUDA-core "
+            f"FMAs)")
 
 
 def counters():
@@ -558,40 +591,48 @@ def guard_dense(torch, rng, t, n, d, f):
     """(x, proj) whose row 0 takes arguments past POLY_ARG_LIMIT: one
     nonzero, 5e4, against a proj rounded to TF32, so that each argument is
     one exact product in the kernel's 3xTF32 sum and in the plain fp32
-    product alike (and sigma must be 1)."""
+    product alike (and sigma must be 1).  In float64 every body forms it
+    as one float64 product, so proj is not rounded."""
     from xgpr_tpu_torch.ops.cuda.operands import split_tf32
     x = t(rng.standard_normal((n, d)) * 0.5)
     x[0] = 0.0
     x[0, 0] = 5e4
-    proj = split_tf32(t(rng.standard_normal((d, f)) * 0.5))[0].contiguous()
+    proj = t(rng.standard_normal((d, f)) * 0.5)
+    if proj.dtype == torch.float32:
+        proj = split_tf32(proj)[0].contiguous()
     return x, proj
 
 
-def phase_kernels(torch, card, mode="hi", precision="high", k2=True):
+def phase_kernels(torch, card, mode="hi", precision="high", k2=True,
+                  double=False):
     """K1 in sincos ``mode`` and feature ``precision``, and K2 (unless not
     ``k2``; it has no precision variant) in ``mode``, against their plain
     versions in the same mode and precision on the card, timed at every
     shape the main path launches them at; the ragged cases and a guard
-    case (arguments past POLY_ARG_LIMIT) are checked, not timed."""
+    case (arguments past POLY_ARG_LIMIT) are checked, not timed.  With
+    ``double`` the same in float64 (the float64 bodies, whatever mode and
+    precision: keyed "exact", "float64") at phase G's shapes, to
+    F64_RTOL."""
     from xgpr_tpu_torch.kernels import RBF, Conv1dTwoLayer
     from xgpr_tpu_torch.ops.cuda import feature_map, ztzv
     dev = torch.device("cuda")
     rng = np.random.default_rng(7)
-    kernel = RBF((CHUNK, N_FEATURES), NUM_RFFS, SEED, device="cuda")
-    proj = kernel._dense_proj()                       # (84, 4096), fp32
-    tune = RBF((CHUNK, N_FEATURES), TUNE_RFFS, SEED, device="cuda")
-    aux = RBF((CHUNK, N_FEATURES), KMEANS_RFFS, SEED, device="cuda")
+    dtype = torch.float64 if double else torch.float32
+    esize = 8 if double else 4
+    kernel = RBF((CHUNK, N_FEATURES), NUM_RFFS, SEED, device="cuda",
+                 double_precision=double)
+    proj = kernel._dense_proj()                       # (84, 4096)
     # E2(b)'s M-sharded width (phase_scale_out), launched in "hi" only.
     wide = RBF((CHUNK, N_FEATURES), MSHARD_RFFS, SEED, device="cuda") \
-        if (mode, precision) == ("hi", "high") else None
+        if (mode, precision, double) == ("hi", "high", False) else None
     two = Conv1dTwoLayer((CHUNK, MOTIF_L, MOTIF_D), K4_RFFS, SEED,
-                         device="cuda",
+                         device="cuda", double_precision=double,
                          kernel_spec_parms={"conv_width": MOTIF_W,
                                             "init_rffs": INIT_RFFS})
-    proj2 = two._dense_projs()[1]                     # (1024, 2048), fp32
+    proj2 = two._dense_projs()[1]                     # (1024, 2048)
 
     def t(a):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32,
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                device=dev)
 
     results = {}
@@ -599,15 +640,18 @@ def phase_kernels(torch, card, mode="hi", precision="high", k2=True):
     # (F 1024), the auxiliary tools' (F 2048), ragged cases, and the K4
     # path's second layer (D 1024,
     # F 2048, padded 1024) on nonnegative rows like its sigma-scaled
-    # maxpool profiles ------------------------------------------------
+    # maxpool profiles; in float64 slice A's and the K4 path's --------
     x_tab = t(rng.standard_normal((CHUNK, N_FEATURES)) * 0.5)
     cases = [(x_tab, proj, kernel.padded_dims, True, "slice"),
-             (x_tab, tune._dense_proj(), tune.padded_dims, True,
-              f"tuning ({TUNE_RFFS} RFFs)"),
-             (x_tab, aux._dense_proj(), aux.padded_dims, False,
-              f"auxiliary ({KMEANS_RFFS} RFFs)"),
              (t(rng.random((CHUNK, proj2.shape[0])) * 0.1), proj2,
               two._feature_padded, True, "K4 path")]
+    if not double:
+        tune = RBF((CHUNK, N_FEATURES), TUNE_RFFS, SEED, device="cuda")
+        aux = RBF((CHUNK, N_FEATURES), KMEANS_RFFS, SEED, device="cuda")
+        cases[1:1] = [(x_tab, tune._dense_proj(), tune.padded_dims, True,
+                       f"tuning ({TUNE_RFFS} RFFs)"),
+                      (x_tab, aux._dense_proj(), aux.padded_dims, False,
+                       f"auxiliary ({KMEANS_RFFS} RFFs)")]
     if wide is not None:
         cases.append((x_tab, wide._dense_proj(), wide.padded_dims, True,
                       f"M-sharded ({MSHARD_RFFS} RFFs)"))
@@ -617,6 +661,8 @@ def phase_kernels(torch, card, mode="hi", precision="high", k2=True):
                       intercept, f"ragged intercept={intercept}"))
     cases.append((*guard_dense(torch, rng, t, 300, 16, 256), 16, True,
                   "ragged guard"))
+    k2_tags = feature_map.launch_tags(dtype, mode, "high")
+    k2_tag = f"{k2_tags[0]}, float64" if double else mode
     for x, pr, padded, intercept, label in cases if k2 else ():
         n = x.shape[0]
         got = feature_map.rbf_feature_map(x, pr, intercept, padded, mode)
@@ -624,10 +670,12 @@ def phase_kernels(torch, card, mode="hi", precision="high", k2=True):
                                                  mode)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        print(f"K2 feature map ({mode}) {label}: N={n} D={pr.shape[0]} "
+        tol = F64_RTOL * max(1.0, float(want.abs().max())) if double \
+            else FEATURE_ATOL
+        print(f"K2 feature map ({k2_tag}) {label}: N={n} D={pr.shape[0]} "
               f"F={pr.shape[1]} padded={padded} max_abs_err={err:.3e} "
-              f"(tol {FEATURE_ATOL:g})", flush=True)
-        check(err < FEATURE_ATOL, f"K2 ({mode}) {label} disagrees ({err})")
+              f"(tol {tol:g})", flush=True)
+        check(err < tol, f"K2 ({k2_tag}) {label} disagrees ({err})")
         if label.startswith("ragged"):
             continue
         ms = time_ms(torch, lambda: feature_map.rbf_feature_map(
@@ -636,14 +684,16 @@ def phase_kernels(torch, card, mode="hi", precision="high", k2=True):
             x, pr, intercept, padded, mode))
         mm_ms = time_ms(torch, lambda: torch.matmul(x, pr))
         d, f = pr.shape
-        kb = bound(4 * (n * d + d * f + n * 2 * f), 2 * n * d * f)
-        print(f"K2 ({mode}) time at {label} shape: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, {bound_text(kb)}; projection matmul "
-              f"alone (partial yardstick) {mm_ms:.4f} ms [{card}]",
+        kb = bound(esize * (n * d + d * f + n * 2 * f), 2 * n * d * f,
+                   feature_map.kernel_body("K2", dtype, "high"))
+        print(f"K2 ({k2_tag}) time at {label} shape: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, {bound_text(kb)}; projection "
+              f"matmul alone (partial yardstick) {mm_ms:.4f} ms [{card}]",
               flush=True)
         results.update(timed_entry(
-            "K2", (d, f, mode), err, ms, plain_ms, kb,
-            f"N {n}, D {d}, F {f}, padded {padded}, sincos {mode}"))
+            "K2", (d, f) + k2_tags, err, ms, plain_ms, kb,
+            f"N {n}, D {d}, F {f}, padded {padded}, sincos {k2_tags[0]}, "
+            f"{k2_tags[1]}"))
 
     # --- K1: slice shape for K = 1, 26 and a ragged masked case --------
     sigma = float(np.exp(HPARAMS[1]))
@@ -656,8 +706,11 @@ def phase_kernels(torch, card, mode="hi", precision="high", k2=True):
     if wide is not None:
         k1_cases += [(CHUNK, wide._dense_proj(), k, sigma,
                       f"M-sharded K={k}", None) for k in (1, SLQ_PROBES + 1)]
-    tag = f"{mode}, {precision}"
-    rtol = K1_DEFAULT_RTOL if precision == "default" else ZTZV_RTOL
+    tags = feature_map.launch_tags(dtype, mode, precision)
+    body = feature_map.kernel_body("K1", dtype, precision)
+    tag = ", ".join(tags)
+    rtol = F64_RTOL if double else \
+        K1_DEFAULT_RTOL if precision == "default" else ZTZV_RTOL
     for n, pr, k, sig, label, xfix in k1_cases:
         x = t(rng.standard_normal((n, pr.shape[0]))) if xfix is None \
             else xfix
@@ -695,23 +748,26 @@ def phase_kernels(torch, card, mode="hi", precision="high", k2=True):
             x, m, pr, sig, vc, vs, True, mode, precision))
         plain_ms = time_ms(torch, lambda: ztzv.ztzv_parts_plain(
             x, m, pr, sig, vc, vs, True, mode, precision))
-        kb = bound(4 * (n * d + n + d * f + 4 * f * k),
-                   2 * n * d * f + 8 * n * f * k, precision)
+        kb = bound(esize * (n * d + n + d * f + 4 * f * k),
+                   2 * n * d * f + 8 * n * f * k, body)
         print(f"K1 ({tag}) time at {label}: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, {bound_text(kb)} [{card}]",
               flush=True)
-        results.update(timed_entry("K1", (d, f, k, mode, precision), k1_err,
+        results.update(timed_entry("K1", (d, f, k) + tags, k1_err,
                                    ms, plain_ms, kb, f"R {n}, D {d}, F {f}, "
-                                   f"K {k}, sincos {mode}, {precision}"))
+                                   f"K {k}, sincos {tags[0]}, {tags[1]}"))
     return results
 
 
 def phase_slice(torch, card, tab, dev="cuda", num_rffs=NUM_RFFS,
-                variance_rffs=VARIANCE_RFFS, tol=1e-6, label="slice A"):
+                variance_rffs=VARIANCE_RFFS, tol=1e-6, label="slice A",
+                double=False, kernels=True):
     """Slice A: fit(mode="cg", tol) + predict(get_var=True) at a real size,
-    on ``tab`` = (train dataset, test x, test y).  Returns the launches,
-    the predictions and the fit's record (model, fit_s, n_iter, residual,
-    rho)."""
+    on ``tab`` = (train dataset, test x, test y), in float64 with
+    ``double`` (``double_precision_fht``); on the card K1 and K2 must run
+    unless not ``kernels`` (inside ``plain_kernels``).  Returns the
+    launches, the predictions and the fit's record (model, fit_s, n_iter,
+    residual, rho)."""
     from scipy.stats import spearmanr
     from xgpr_tpu_torch import GPRegression
     from xgpr_tpu_torch.ops.cuda import feature_map
@@ -719,7 +775,8 @@ def phase_slice(torch, card, tab, dev="cuda", num_rffs=NUM_RFFS,
     dset, tex, te_y = tab
     on_card = torch.device(dev).type == "cuda"
     model = GPRegression(num_rffs=num_rffs, variance_rffs=variance_rffs,
-                         kernel_choice="RBF", device=dev, verbose=False)
+                         kernel_choice="RBF", device=dev, verbose=False,
+                         double_precision_fht=double)
     model.set_hyperparams(HPARAMS, dset)
 
     reset_counts()
@@ -734,7 +791,7 @@ def phase_slice(torch, card, tab, dev="cuda", num_rffs=NUM_RFFS,
           f"relative residual {losses[-1]:.3e} (tol {tol:g}); launches "
           f"during fit: {fit_n}", flush=True)
     check(n_iter < 500 and losses[-1] < tol, f"{label}: CG did not converge")
-    if on_card:
+    if on_card and kernels:
         check(fit_n["K1"] > 0, "K1 was not launched during fit")
         check(fit_n["K2"] > 0, "K2 was not launched during fit")
 
@@ -746,7 +803,7 @@ def phase_slice(torch, card, tab, dev="cuda", num_rffs=NUM_RFFS,
     n_test = len(tex)
     print(f"{label} predict: {predict_s:.3f}s for {n_test} rows; launches "
           f"{totals(predict_counts)}", flush=True)
-    if on_card:
+    if on_card and kernels:
         check(predict_counts["K2"].total() > 0,
               "K2 was not launched during predict")
     check(preds.shape == (n_test,) and var.shape == (n_test,),
@@ -799,30 +856,36 @@ def report_times(model, n_iter, predict_s, card, label):
 def phase_conv_kernels(torch, card, corpus, dev="cuda", chunk=CHUNK,
                        num_rffs=NUM_RFFS, init_rffs=INIT_RFFS,
                        tune_rffs=TUNE_RFFS, verify_rffs=VERIFY_RFFS,
-                       mode="hi", precision="high", with_k4=True):
+                       mode="hi", precision="high", with_k4=True,
+                       double=False):
     """K3 (in sincos ``mode``) and, with ``with_k4``, K4, both at feature
     ``precision``, against their plain versions at the same mode and
     precision, at the shapes the main path launches them at (chunks of the
     corpus, the models' own projections: the sequence slice's, and K3 at
     the tuning and verify widths too), a ragged case, w = 1 and, for K3, a
     guard case (arguments past POLY_ARG_LIMIT); each main-path shape is
-    timed.  K4 has no sincos."""
+    timed.  K4 has no sincos.  With ``double`` the same in float64 (the
+    float64 bodies, keyed "exact", "float64"), to F64_RTOL."""
     from xgpr_tpu_torch.kernels import Conv1dRBF, Conv1dTwoLayer
     from xgpr_tpu_torch.ops.conv import conv_row_scale
-    from xgpr_tpu_torch.ops.cuda import conv
+    from xgpr_tpu_torch.ops.cuda import conv, feature_map
     from xgpr_tpu_torch.ops.cuda.operands import split_tf32
     rng = np.random.default_rng(11)
     x_np, _, l_np = corpus
     xdim = (chunk, MOTIF_L, MOTIF_D)
     spec = {"conv_width": MOTIF_W}
-    k3 = Conv1dRBF(xdim, num_rffs, SEED, device=dev, kernel_spec_parms=spec)
+    k3 = Conv1dRBF(xdim, num_rffs, SEED, device=dev, double_precision=double,
+                   kernel_spec_parms=spec)
     k3_tune = Conv1dRBF(xdim, tune_rffs, SEED, device=dev,
-                        kernel_spec_parms=spec)
+                        double_precision=double, kernel_spec_parms=spec)
     k3_verify = Conv1dRBF(xdim, verify_rffs, SEED, device=dev,
-                          kernel_spec_parms=spec)
+                          double_precision=double, kernel_spec_parms=spec)
     k4 = Conv1dTwoLayer(xdim, K4_RFFS, SEED, device=dev,
+                        double_precision=double,
                         kernel_spec_parms={"conv_width": MOTIF_W,
                                            "init_rffs": init_rffs})
+    esize = 8 if double else 4
+    rtol = F64_RTOL if double else CONV_RTOL
     proj3, proj4 = k3._dense_proj(), k4._dense_projs()[0]
     proj3_tune = k3_tune._dense_proj()
     proj3_verify = k3_verify._dense_proj()
@@ -854,7 +917,9 @@ def phase_conv_kernels(torch, card, corpus, dev="cuda", chunk=CHUNK,
     xg[0] = 0.0
     xg[0, 5, 3] = 5e4
     lg[0] = 12
-    guard = ("guard", xg, lg, split_tf32(pg)[0].contiguous(), 4, None)
+    if not double:
+        pg = split_tf32(pg)[0].contiguous()
+    guard = ("guard", xg, lg, pg, 4, None)
     # Cases whose label does not start with "slice" are checked, not timed.
     cases = {
         "K3": [("slice", x_slice, l_slice, proj3, MOTIF_W, row_scale(proj3)),
@@ -889,12 +954,15 @@ def phase_conv_kernels(torch, card, corpus, dev="cuda", chunk=CHUNK,
             err = max(float((g - w).abs().max()) for g, w in zip(got, want))
             n, l, d = x.shape
             f = proj.shape[1]
-            tag = f"{name} ({precision})" if name == "K4" else \
-                f"{name} ({mode}, {precision})"
+            tags = feature_map.launch_tags(x.dtype, mode, precision)
+            if name == "K4":
+                tags = tags[1:]
+            body = feature_map.kernel_body(name, x.dtype, precision)
+            tag = f"{name} ({', '.join(tags)})"
             print(f"{tag} {label}: N={n} L={l} D={d} w={width} F={f} "
                   f"max_abs_err={err:.3e} max|ref|={scale:.3e} "
-                  f"(tol {CONV_RTOL:g} * max(1, max|ref|))", flush=True)
-            check(err < CONV_RTOL * scale, f"{tag} {label} disagrees ({err})")
+                  f"(tol {rtol:g} * max(1, max|ref|))", flush=True)
+            check(err < rtol * scale, f"{tag} {label} disagrees ({err})")
             if not label.startswith("slice"):
                 continue
             ms = time_ms(torch, lambda: kernel_fn(x, lens, proj, width, rs,
@@ -906,43 +974,49 @@ def phase_conv_kernels(torch, card, corpus, dev="cuda", chunk=CHUNK,
             mm_ms = time_ms(torch, lambda: torch.matmul(slab, proj), dev=dev)
             out_cols = 2 * f if name == "K3" else f
             flops = 2 * width * d * f * nk_sum
-            kb = bound(4 * (n * l * d + n + width * d * f + n * out_cols)
-                       + (4 * n if name == "K3" else 0), flops, precision)
+            kb = bound(esize * (n * l * d + width * d * f + n * out_cols
+                                + (n if name == "K3" else 0)) + 4 * n,
+                       flops, body)
             slots, valid = conv.window_slots(lens, width, l - width + 1)
             print(f"{tag} time at {label} shape: kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, {bound_text(kb)}; {nk_sum} valid "
                   f"windows, {flops / 1e9:.1f} GFLOP; projection matmul "
                   f"alone (partial yardstick, no mask/sincos/sum) "
                   f"{mm_ms:.4f} ms [{card}]", flush=True)
-            products, peak = PRODUCTS[precision]
+            products, peak = PRODUCTS[body]
+            core_peak = PEAK_FP64_CORE_FLOPS if double \
+                else PEAK_FP32_CORE_FLOPS
             tc_flops = products * flops * slots / valid
             print(f"{tag} at {label} shape: {slots} window slots projected "
                   f"for {valid} valid windows ({slots / valid:.3f} : 1); "
                   f"achieved {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s on the "
                   f"valid-window work "
-                  f"({flops * 1e3 / ms / PEAK_FP32_FLOPS:.1%} of the fp32 "
-                  f"CUDA-core peak; the tensor cores run "
+                  f"({flops * 1e3 / ms / core_peak:.1%} of the "
+                  f"{'FP64' if double else 'fp32'} CUDA-core peak; the "
+                  f"{BODY[body]} body runs "
                   f"{tc_flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s of "
-                  f"{BODY[precision]} products on the projected slots, "
-                  f"{tc_flops * 1e3 / ms / peak:.1%} of peak) "
+                  f"products on the projected slots, "
+                  f"{tc_flops * 1e3 / ms / peak:.1%} of its peak) "
                   f"[{card}]", flush=True)
-            key = (l, d, width, f)
-            shape = f"N {n}, L {l}, D {d}, w {width}, F {f}"
-            if name == "K3":
-                key, shape = key + (mode,), shape + f", sincos {mode}"
-            key, shape = key + (precision,), shape + f", {precision}"
-            results.update(timed_entry(name, key, err, ms, plain_ms, kb,
-                                       shape))
+            shape = (f"N {n}, L {l}, D {d}, w {width}, F {f}"
+                     + (f", sincos {tags[0]}" if name == "K3" else "")
+                     + f", {tags[-1]}")
+            results.update(timed_entry(name, (l, d, width, f) + tags, err,
+                                       ms, plain_ms, kb, shape))
     return results
 
 
 def phase_conv_slice(torch, card, corpus, n_train=N_TRAIN, n_test=N_TEST,
                      dev="cuda", chunk=CHUNK, num_rffs=NUM_RFFS,
                      variance_rffs=VARIANCE_RFFS, profile=False, tol=1e-6,
-                     label="Conv1dRBF"):
-    """The sequence slice: Conv1dRBF fit(mode="cg", tol) + predict.
-    Returns the launches, the CG iterations, the predictions, the model and
-    the fit's record (fit_s, n_iter, residual, rho, dset)."""
+                     label="Conv1dRBF", double=False, kernels=True,
+                     floor=MOTIF_SPEARMAN_FLOOR):
+    """The sequence slice: Conv1dRBF fit(mode="cg", tol) + predict, in
+    float64 with ``double`` (``double_precision_fht``); on the card K3
+    must run unless not ``kernels`` (inside ``plain_kernels``), and the
+    held-out Spearman must pass ``floor``.  Returns the launches, the CG
+    iterations, the predictions, the model and the fit's record (fit_s,
+    n_iter, residual, rho, dset)."""
     from scipy.stats import spearmanr
     from xgpr_tpu_torch import GPRegression, build_regression_dataset
     from xgpr_tpu_torch.ops.conv import conv_row_scale
@@ -957,7 +1031,8 @@ def phase_conv_slice(torch, card, corpus, n_train=N_TRAIN, n_test=N_TEST,
     model = GPRegression(num_rffs=num_rffs, variance_rffs=variance_rffs,
                          kernel_choice="Conv1dRBF",
                          kernel_settings={"conv_width": MOTIF_W},
-                         device=dev, verbose=True)
+                         device=dev, verbose=True,
+                         double_precision_fht=double)
     model.set_hyperparams(MOTIF_HPARAMS, dset)
 
     reset_counts()
@@ -979,7 +1054,7 @@ def phase_conv_slice(torch, card, corpus, n_train=N_TRAIN, n_test=N_TEST,
     predict_counts = read_counts()
     print(f"{label} predict: {predict_s:.3f}s for {n_test} rows; "
           f"launches {totals(predict_counts)}", flush=True)
-    if torch.device(dev).type == "cuda":
+    if torch.device(dev).type == "cuda" and kernels:
         check(fit_counts["K3"].total() > 0, "K3 was not launched during fit")
         check(predict_counts["K3"].total() > 0,
               "K3 was not launched during predict")
@@ -989,8 +1064,8 @@ def phase_conv_slice(torch, card, corpus, n_train=N_TRAIN, n_test=N_TEST,
           "non-finite predictions")
     check(bool(np.all(var >= 0)), "negative variance")
     rho = float(spearmanr(preds, te_y)[0])
-    print(f"{label} held-out Spearman {rho:.4f} (floor "
-          f"{MOTIF_SPEARMAN_FLOOR})", flush=True)
+    print(f"{label} held-out Spearman {rho:.4f} (floor {floor})",
+          flush=True)
 
     # Recompute 4096 predictions through the plain K3 on the card.
     kern = model.kernel
@@ -1006,7 +1081,7 @@ def phase_conv_slice(torch, card, corpus, n_train=N_TRAIN, n_test=N_TEST,
     report_times(model, n_iter, predict_s, card, label)
     if profile:
         profile_fit(torch, model, dset, card)
-    check(rho > MOTIF_SPEARMAN_FLOOR, f"{label} Spearman below the floor")
+    check(rho > floor, f"{label} Spearman below the floor")
     return ({k: fit_counts[k] + predict_counts[k] for k in fit_counts},
             n_iter, preds, model,
             {"fit_s": fit_s, "n_iter": n_iter, "residual": float(losses[-1]),
@@ -1498,15 +1573,16 @@ def phase_conv_tune(torch, card, corpus, dev="cuda", tune_rows=TUNE_ROWS,
 
 def key_mode(name, key):
     """The sincos mode of a launch key (with or without its row count):
-    K1 (.., mode, precision), K2 (.., mode), K3 (.., mode, precision);
-    None for K4, which has no sincos."""
-    return {"K1": key[-2], "K2": key[-1], "K3": key[-2]}.get(name)
+    K1, K2 and K3 end in (.., mode, precision); None for K4, which has no
+    sincos."""
+    return None if name == "K4" else key[-2]
 
 
 def key_precision(name, key):
-    """The feature precision of a launch key: its last entry for K1, K3
-    and K4; K2 has no precision variant and runs its 3xTF32 body."""
-    return "high" if name == "K2" else key[-1]
+    """The precision entry of a launch key, its last: the feature
+    precision for float32 launches (K2 has no precision variant and counts
+    as "high"), "float64" for float64 launches."""
+    return key[-1]
 
 
 def mode_summary(timed, mode, card):
@@ -1515,8 +1591,7 @@ def mode_summary(timed, mode, card):
     for (name, key), res in sorted(timed.items(), key=str):
         if key_mode(name, key) != mode or key_precision(name, key) != "high":
             continue
-        hi_key = key[:-1] + ("hi",) if name == "K2" else \
-            key[:-2] + ("hi", key[-1])
+        hi_key = key[:-2] + ("hi", key[-1])
         hi = timed.get((name, hi_key))
         hi_text = "not timed" if hi is None else f"{hi['ms']:.4f} ms"
         faster = "" if hi is None else (
@@ -1529,11 +1604,14 @@ def mode_summary(timed, mode, card):
 
 def precision_summary(timed, precision, card):
     """Each timed (kernel, shape) at ``precision`` beside the 3xTF32
-    ("high") body's time and bound at the same shape and mode."""
+    ("high") body's time and bound at the same shape and mode, or in "hi"
+    where that mode was not timed at "high"."""
     for (name, key), res in sorted(timed.items(), key=str):
-        if name == "K2" or key[-1] != precision:
+        if key[-1] != precision:
             continue
         high = timed.get((name, key[:-1] + ("high",)))
+        if high is None and name != "K4":
+            high = timed.get((name, key[:-2] + ("hi", "high")))
         high_text = "not timed" if high is None else (
             f"{high['ms']:.4f} ms (bound {high['bound']['ms']:.4f} ms, "
             f"plain {high['plain_ms']:.4f} ms)")
@@ -3065,14 +3143,314 @@ def phase_scale_out(torch, card, te_y, corpus, cases, dev="cuda",
     return paths
 
 
+# Phase G: float64 on the card (``double_precision_fht``: every kernel's
+# float64 body) and the "reference" preset on the sequence path (K3's fp32
+# CUDA-core body).  G2 fits slice A in float64 at its full size; G3 fits
+# Conv1dRBF in float64 on the corpus's first G_CONV_ROWS rows (a float64
+# K3 chunk costs several times a 3xTF32 one; the cut of depth), then runs
+# FastConv1d in float64 on G_K4_ROWS rows; G4 fits the same Conv1dRBF rows
+# under "reference" and under "balanced".  The float64 fits are held
+# against the same models computed through the plain versions on the card
+# (``plain_kernels``): predictions within G_PLAIN_RTOL x max|pred|, CG
+# iterations within one; their held-out Spearman within G_RHO of the
+# float32 fit's (phase 3's for G2, G4's "balanced" for G3); G2's SLQ NMLL
+# (K1 at K 26) within NMLL_RTOL of the exact one, on G_NMLL_ROWS rows
+# (all of slice A's).  G4's predictions within PREDICT_RTOL x max|pred| of
+# the plain K3 (phase_conv_slice) and within MODE_RTOL x max|pred| of
+# "balanced"'s, every K3/K4 launch at "highest" in "exact".  The Spearman
+# floors of the full-depth slices do not apply at G_CONV_ROWS rows.
+G_CONV_ROWS, G_K4_ROWS, G_NMLL_ROWS = 65_536, 4096, N_TRAIN
+G_PLAIN_RTOL, G_RHO = 1e-8, 0.005
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Inside the block the port's kernels compute through the kernels'
+    plain versions on every device: the names the kernel classes and the
+    conv feature ops call at run time are pointed at the plain versions.
+    It gives the same model computed without the kernels, on the card, as
+    a reference; no launch is counted inside it."""
+    from xgpr_tpu_torch.kernels import basic, l2_conv1d, mini_ard
+    from xgpr_tpu_torch.ops import conv as conv_ops
+    from xgpr_tpu_torch.ops.cuda import conv, feature_map, ztzv
+    swaps = [(basic, "fused_feature_map", feature_map.rbf_feature_map_plain),
+             (basic, "ztzv_parts", ztzv.ztzv_parts_plain),
+             (mini_ard, "fused_feature_map",
+              feature_map.rbf_feature_map_plain),
+             (l2_conv1d, "fused_feature_map",
+              feature_map.rbf_feature_map_plain),
+             (conv_ops, "conv_parts", conv.conv_parts_plain),
+             (conv_ops, "conv_maxpool", conv.conv_maxpool_plain)]
+    saved = [(module, name, getattr(module, name))
+             for module, name, _ in swaps]
+    for module, name, fn in swaps:
+        setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
+def strided(torch, a):
+    """a's values in a non-contiguous layout (every other element of a
+    buffer twice as long in the last axis)."""
+    out = torch.stack([a, torch.zeros_like(a)], dim=-1)[..., 0]
+    check(not out.is_contiguous() and torch.equal(out, a),
+          "the strided copy is not a non-contiguous copy")
+    return out
+
+
+def check_layouts(torch, card, dev="cuda"):
+    """K1-K4 on non-contiguous operands against the same values laid out
+    contiguously: the same bits, in float64 and in float32 ("high"; K3
+    and K4 also at "highest")."""
+    from xgpr_tpu_torch.ops.cuda import conv, feature_map, ztzv
+    rng = np.random.default_rng(13)
+    for dtype in (torch.float64, torch.float32):
+        def t(a, dt=dtype):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                                   device=dev)
+        x, proj = t(rng.standard_normal((300, 84)) * 0.5), \
+            t(rng.standard_normal((84, 256)) * 0.3)
+        m = t(rng.random(300) > 0.25)
+        vc, vs = (t(rng.standard_normal((256, 3))) for _ in range(2))
+        xs = t(rng.standard_normal((300, 16, 64)) * 0.5)
+        lens = t(rng.integers(8, 17, size=300), torch.int32)
+        pc = t(rng.standard_normal((9 * 64, 256)) * 0.3)
+        rs = t(rng.random(300) + 0.5)
+        calls = [("K2", lambda f: (feature_map.rbf_feature_map(
+                      f(x), f(proj), True, 128),)),
+                 ("K1", lambda f: ztzv.ztzv_parts(
+                      f(x), f(m), f(proj), 0.7, f(vc), f(vs), True))]
+        for precision in ("high", "highest"):
+            calls += [
+                ("K3", lambda f, p=precision: conv.conv_parts(
+                    f(xs), f(lens), f(pc), 0.7, 9, f(rs), None, p)),
+                ("K4", lambda f, p=precision: (conv.conv_maxpool(
+                    f(xs), f(lens), f(pc), 9, p),))]
+        for name, call in calls:
+            want = call(lambda a: a)
+            got = call(lambda a: strided(torch, a))
+            sync(torch, dev)
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            print(f"{name} ({dtype}) on non-contiguous operands: bitwise "
+                  f"equal to contiguous: {same}", flush=True)
+            check(same, f"{name} ({dtype}) differs on non-contiguous "
+                        "operands")
+    mixed = t(rng.standard_normal((4, 84)), torch.float32)
+    try:
+        feature_map.rbf_feature_map(mixed, proj.double(), True, 128)
+    except TypeError as err:
+        print(f"mixed dtypes refused: {err}", flush=True)
+    else:
+        check(False, "K2 took float32 rows with a float64 projection")
+
+
+def phase_g_kernels(torch, card, corpus, dev="cuda"):
+    """G1: K1 (K 1 and 26), K2 (D 84 / F 4096, D 1024 / F 2048), K3
+    (F 4096, 1024, 128) and K4 (F 1024) in float64 against their plain
+    float64 versions, K3 and K4 at "highest" (the fp32 CUDA-core body)
+    against the plain fp32 versions, each timed at the main path's
+    shapes; the non-contiguous layouts.  Returns the timed cases."""
+    t0 = time.perf_counter()
+    timed = phase_kernels(torch, card, "exact", "highest", double=True)
+    timed.update(phase_conv_kernels(torch, card, corpus, dev=dev,
+                                    mode="exact", double=True))
+    timed.update(phase_conv_kernels(torch, card, corpus, dev=dev,
+                                    mode="exact", precision="highest"))
+    check_layouts(torch, card, dev)
+    print(f"G1 kernels: {time.perf_counter() - t0:.1f}s [{card}]",
+          flush=True)
+    return timed
+
+
+def all_float64(counts, what):
+    for name, counter in counts.items():
+        for key in counter:
+            check(key_precision(name, key) == "float64",
+                  f"{name} ran at {key_precision(name, key)} during {what}, "
+                  "not in float64")
+
+
+def plain_gates(label, got, want, iters, rho, rho32, card):
+    """The float64 run against its plain-version twin and the float32
+    fit: predictions, CG iterations, held-out Spearman."""
+    top = float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    print(f"{label}: predictions vs the plain versions' max_abs_err "
+          f"{err:.3e} (tol {G_PLAIN_RTOL:g} x {top:.3e}); CG iterations "
+          f"{iters[0]} vs {iters[1]} (gate +-1); held-out Spearman "
+          f"{rho:.6f} vs float32 {rho32:.6f} (gate |d| < {G_RHO}) [{card}]",
+          flush=True)
+    check(err < G_PLAIN_RTOL * top,
+          f"{label} disagrees with the plain versions")
+    check(abs(iters[0] - iters[1]) <= 1,
+          f"{label} took other CG iterations than the plain versions")
+    check(abs(rho - rho32) < G_RHO,
+          f"{label} Spearman moved from the float32 fit's")
+
+
+def phase_g(torch, card, tab, raw, corpus, rho32, dev="cuda",
+            nmll_rows=G_NMLL_ROWS, conv_rows=G_CONV_ROWS,
+            k4_rows=G_K4_ROWS, n_test=N_TEST, num_rffs=NUM_RFFS,
+            variance_rffs=VARIANCE_RFFS):
+    """G2-G4 (see G_CONV_ROWS' comment).  ``tab`` is slice A's (dataset,
+    test x, test y), ``raw`` its training (x, y), ``rho32`` the float32
+    slice A fit's held-out Spearman; the corpus's held-out rows follow its
+    first N_TRAIN.  Returns the paths' launches."""
+    from scipy.stats import spearmanr
+    from xgpr_tpu_torch import (FastConv1d, GPRegression,
+                                build_regression_dataset, config)
+    from xgpr_tpu_torch.constants import DEFAULT_NMLL_PARAMS
+    from xgpr_tpu_torch.ops.cuda.conv import conv_maxpool_plain
+    on_card = torch.device(dev).type == "cuda"
+    paths = []
+    t_phase = time.perf_counter()
+
+    # --- G2: slice A in float64 -------------------------------------
+    sizes = dict(num_rffs=num_rffs, variance_rffs=variance_rffs)
+    counts, preds, rec = phase_slice(torch, card, tab, dev=dev, double=True,
+                                     label="G2 slice A (float64)", **sizes)
+    check(rec.pop("model").kernel.dtype == torch.float64,
+          "G2's kernel is not float64")
+    all_float64(counts, "G2")
+    paths.append(("G2 slice A fit + predict (float64)", counts))
+    with plain_kernels():
+        pcounts, ppreds, prec = phase_slice(
+            torch, card, tab, dev=dev, double=True, kernels=False,
+            label="G2 slice A (float64, plain versions)", **sizes)
+    check(sum(totals(pcounts).values()) == 0,
+          "a kernel ran inside plain_kernels")
+    plain_gates("G2 slice A (float64)", preds, ppreds,
+                (rec["n_iter"], prec["n_iter"]), rec["rho"], rho32, card)
+
+    nset = build_regression_dataset(raw[0][:nmll_rows], raw[1][:nmll_rows],
+                                    chunk_size=CHUNK)
+    rbf = GPRegression(num_rffs=num_rffs, kernel_choice="RBF", device=dev,
+                       verbose=False, double_precision_fht=True)
+    rbf.set_hyperparams(HPARAMS, nset)
+    reset_counts()
+    exact, exact_s, _ = nmll_call(torch, dev, rbf.exact_nmll, HPARAMS, nset)
+    approx, approx_s, nmll_counts = nmll_call(
+        torch, dev, rbf.approximate_nmll, HPARAMS, nset)
+    counts = read_counts()
+    del rbf, nset
+    all_float64(counts, "G2's NMLL")
+    paths.append(("G2 RBF NMLL (float64)", counts))
+    k26 = k1_by_k(nmll_counts).get(DEFAULT_NMLL_PARAMS["nsamples"] + 1, 0)
+    gap = rel_gap(approx, exact)
+    print(f"G2 RBF NMLL in float64 at {num_rffs} RFFs on the first "
+          f"{nmll_rows} rows: exact {exact:.8f} in {exact_s:.3f}s, "
+          f"approximate {approx:.8f} in {approx_s:.3f}s, relative gap "
+          f"{gap:.3e} (gate {NMLL_RTOL}); K1 launches at K=26 {k26} "
+          f"[{card}]", flush=True)
+    check(gap < NMLL_RTOL, "G2's approximate NMLL is not within 1% of exact")
+    check(k26 > 0 or not on_card, "K1 was not launched at K=26 in float64")
+
+    # --- G4 (its "balanced" run first: G3's float32 twin) -------------
+    g_corpus = tuple(np.concatenate([a[:conv_rows], a[N_TRAIN:]])
+                     for a in corpus)
+    conv_kw = dict(n_train=conv_rows, n_test=n_test, dev=dev, floor=0.0,
+                   **sizes)
+    bal_counts, bal_iter, bal_preds, model, bal = phase_conv_slice(
+        torch, card, g_corpus, label="G4 Conv1dRBF (balanced)", **conv_kw)
+    del model, bal["dset"]
+    paths.append(("G4 Conv1dRBF fit + predict (balanced)", bal_counts))
+    try:
+        config.set_speed_preset("reference")
+        ref_counts, ref_iter, ref_preds, model, ref = phase_conv_slice(
+            torch, card, g_corpus, label="G4 Conv1dRBF (reference)",
+            **conv_kw)
+    finally:
+        config.set_speed_preset("balanced")
+    del model, ref["dset"]
+    preset_launches({k: ref_counts[k] for k in ("K3", "K4")}, "exact",
+                    "highest", "G4 (reference)")
+    check(ref_counts["K3"].total() > 0 or not on_card,
+          'K3 was not launched under "reference"')
+    paths.append(("G4 Conv1dRBF fit + predict (reference)", ref_counts))
+    top = float(np.abs(bal_preds).max())
+    err = float(np.abs(ref_preds - bal_preds).max())
+    print(f"G4 Conv1dRBF on {conv_rows} rows under \"reference\": fit "
+          f"{ref['fit_s']:.3f}s, CG iterations {ref_iter}, Spearman "
+          f"{ref['rho']:.6f}; \"balanced\": fit {bal['fit_s']:.3f}s, CG "
+          f"iterations {bal_iter}, Spearman {bal['rho']:.6f}; predictions "
+          f"max_abs_err {err:.3e} (tol {MODE_RTOL:g} x {top:.3e}) [{card}]",
+          flush=True)
+    check(err < MODE_RTOL * top,
+          'G4: "reference" is not within 1e-3 of "balanced"')
+
+    # --- G3: Conv1dRBF in float64, then FastConv1d ---------------------
+    counts, iters, preds, model, rec = phase_conv_slice(
+        torch, card, g_corpus, double=True, label="G3 Conv1dRBF (float64)",
+        **conv_kw)
+    check(model.kernel.dtype == torch.float64, "G3's kernel is not float64")
+    del model, rec["dset"]
+    with plain_kernels():
+        pcounts, piters, ppreds, model, prec = phase_conv_slice(
+            torch, card, g_corpus, double=True, kernels=False,
+            label="G3 Conv1dRBF (float64, plain versions)", **conv_kw)
+    del model, prec["dset"]
+    check(sum(totals(pcounts).values()) == 0,
+          "a kernel ran inside plain_kernels")
+    plain_gates("G3 Conv1dRBF (float64)", preds, ppreds, (iters, piters),
+                rec["rho"], bal["rho"], card)
+
+    x, _, lens = corpus
+    tex, te_l = x[N_TRAIN:N_TRAIN + k4_rows], lens[N_TRAIN:N_TRAIN + k4_rows]
+    reset_counts()
+    with config.working_dtype(torch.float64):
+        fv = FastConv1d(seq_width=MOTIF_D, device=dev, num_features=INIT_RFFS)
+    fast = fv.predict(tex, te_l)
+    sync(torch, dev)
+    k4_counts = read_counts()
+    kern = fv.conv_kernel
+    ref_k4 = conv_maxpool_plain(
+        torch.as_tensor(tex, dtype=torch.float64, device=dev),
+        torch.as_tensor(te_l, dtype=torch.int32, device=dev),
+        kern._dense_proj(), MOTIF_W).cpu().numpy()
+    err = float(np.abs(fast - ref_k4).max())
+    tol = F64_RTOL * max(1.0, float(np.abs(ref_k4).max()))
+    print(f"G3 FastConv1d in float64 on {k4_rows} rows: vs the plain K4 "
+          f"max_abs_err {err:.3e} (tol {tol:.3e}); launches "
+          f"{counts_text(k4_counts)} [{card}]", flush=True)
+    check(kern.dtype == torch.float64 and fast.dtype == np.float64,
+          "FastConv1d did not run in float64")
+    check(err < tol, "FastConv1d (float64) disagrees with the plain K4")
+    check(k4_counts["K4"].total() > 0 or not on_card,
+          "K4 was not launched by FastConv1d in float64")
+    all_float64(k4_counts, "FastConv1d (float64)")
+    paths += [("G3 Conv1dRBF fit + predict (float64)", counts),
+              ("G3 FastConv1d (float64)", k4_counts)]
+    print(f"phase G (G2-G4): {time.perf_counter() - t_phase:.1f}s [{card}]",
+          flush=True)
+    return paths
+
+
 SRC, PALLAS = "xgpr_tpu_torch/ops/cuda/csrc/", "xgpr_tpu/ops/pallas/"
 KERNELS = {
-    "K1": ("ztzv_parts", SRC + "ztzv.cu", PALLAS + "ztzv_pallas.py:240"),
-    "K2": ("rbf_feature_map", SRC + "feature_map.cu",
-           PALLAS + "sorf_pallas.py:96"),
-    "K3": ("conv_parts", SRC + "conv.cu", PALLAS + "conv_pallas.py:302"),
-    "K4": ("conv_maxpool", SRC + "conv.cu", PALLAS + "conv_pallas.py:216"),
+    "K1": ("ztzv_parts", PALLAS + "ztzv_pallas.py:240"),
+    "K2": ("rbf_feature_map", PALLAS + "sorf_pallas.py:96"),
+    "K3": ("conv_parts", PALLAS + "conv_pallas.py:302"),
+    "K4": ("conv_maxpool", PALLAS + "conv_pallas.py:216"),
 }
+# The translation unit of each kernel's body, by the launch key's
+# precision entry (the 3xTF32 body's file holds the C entry points).
+SOURCES = {
+    "K1": {"default": "ztzv_bf16.cu", "float64": "ztzv_f64.cu"},
+    "K2": {"float64": "feature_map_f64.cu"},
+    "K3": {"default": "conv_bf16.cu", "highest": "conv_fma.cu",
+           "float64": "conv_f64.cu"},
+    "K4": {"default": "conv_bf16.cu", "highest": "conv_fma.cu",
+           "float64": "conv_f64.cu"},
+}
+ENTRY_SOURCES = {"K1": "ztzv.cu", "K2": "feature_map.cu", "K3": "conv.cu",
+                 "K4": "conv.cu"}
+
+
+def kernel_source(name, precision):
+    return SRC + SOURCES[name].get(precision, ENTRY_SOURCES[name])
 
 
 def kernel_rows(path, counts, timed):
@@ -3090,9 +3468,10 @@ def kernel_rows(path, counts, timed):
             check(res is not None, f"{name} ran on the {path} path at "
                                    f"{key} (its shape less the rows), where "
                                    "it was not held against its plain version")
-            fn, source, replaces = KERNELS[name]
+            fn, replaces = KERNELS[name]
             rows.append({
-                "name": fn, "route": "cuda", "source": source,
+                "name": fn, "route": "cuda",
+                "source": kernel_source(name, key_precision(name, key)),
                 "replaces": replaces, "path": path,
                 "launches": by_rows.total(),
                 "launches_by_rows": {str(r): c
@@ -3237,7 +3616,17 @@ def main(argv):
                                      fitted)
     paths += surface
     paths += phase_scale_out(torch, card, tab[2], corpus, fitted["cases"])
-    del tab, fitted
+    del fitted
+    timed.update(phase_g_kernels(torch, card, corpus))
+    paths += phase_g(torch, card, tab, (trx, tr_y), corpus, slice_rec["rho"])
+    del tab
+    return finish(torch, card, t_start, paths, timed, without)
+
+
+def finish(torch, card, t_start, paths, timed, without):
+    """The summaries, the kernels line and the last line."""
+    precision_summary(timed, "highest", card)
+    precision_summary(timed, "float64", card)
     print(f"total {time.perf_counter() - t_start:.1f}s [{card}]", flush=True)
     kernels = [row for path, counts in paths
                for row in kernel_rows(path, counts, timed)]

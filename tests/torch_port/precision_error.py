@@ -1,25 +1,27 @@
 """The kernels' error against a float64 witness on the card, by precision.
 
 For K1 (slice A's chunk: 8192 x 84 rows, RBF's 4096-frequency projection,
-K 1 and 26), K3 (8192 motif rows, L 16, D 64, w 9, F 4096) and K4 (the
-same rows, Conv1dTwoLayer's first layer, F 1024), in the "exact" sincos
-mode of the "reference" preset, prints one line per case:
+K 1 and 26), K2 (the same rows, sigma-scaled, and projection: its body is
+3xTF32 at every precision), K3 (8192 motif rows, L 16, D 64, w 9, F 4096)
+and K4 (the same rows, Conv1dTwoLayer's first layer, F 1024), in the
+"exact" sincos mode of the "reference" preset, prints one line per case:
 
     PRECISION <kernel> <precision> kernel <e> plain_fp32 <e> ratio <r>
 
 with each error the max absolute difference from the witness (the plain
 version of the same precision in float64 on the card) over max|witness|,
-for the kernel and for the plain version in float32.  The 3xTF32 body
-(which "high" and "highest" run) is fp32-grade where ``ratio`` stays
-within 2.  With ``--tf32-inputs`` x and the projections are first rounded
-to TF32, so that the body's split is exact and its products' only error is
-their accumulation on the tensor cores.  Run it from the root of a
+for the kernel and for the plain version in float32.  A body is
+fp32-grade where ``ratio`` stays within 2: "high" runs 3xTF32 everywhere,
+"highest" 3xTF32 for K1 and fp32 FMAs on the CUDA cores for K3 and K4.
+With ``--tf32-inputs`` x and the projections are first rounded to TF32,
+so that the 3xTF32 body's split is exact and its products' only error
+is their accumulation on the tensor cores.  Run it from the root of a
 checkout (it imports the package and chip_smoke.py from the working
 directory):
 
     python tests/torch_port/precision_error.py [--tf32-inputs] [precision...]
 
-The precisions default to "high" and "default".
+The precisions default to "high", "highest" and "default".
 """
 import sys
 from pathlib import Path
@@ -32,7 +34,8 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from xgpr_tpu_torch.kernels import RBF, Conv1dRBF, Conv1dTwoLayer  # noqa
 from xgpr_tpu_torch.ops.conv import conv_row_scale  # noqa: E402
-from xgpr_tpu_torch.ops.cuda import build, conv, ztzv  # noqa: E402
+from xgpr_tpu_torch.ops.cuda import (build, conv, feature_map,  # noqa
+                                     ztzv)
 from xgpr_tpu_torch.ops.cuda.operands import split_tf32  # noqa: E402
 
 
@@ -56,7 +59,11 @@ def cases(precision, tf32_inputs=False):
     m = torch.as_tensor((rng.random(cs.CHUNK) > 0.25).astype(np.float32),
                         device=dev)
     sig1 = float(np.exp(cs.HPARAMS[1]))
-    out = []
+    x2 = inp(x1 * sig1)
+    out = [("K2", lambda: (feature_map.rbf_feature_map(
+                x2, p1, True, rbf.padded_dims, "exact"),),
+            lambda dt: (feature_map.rbf_feature_map_plain(
+                x2.to(dt), p1.to(dt), True, rbf.padded_dims, "exact"),))]
     for k in (1, 26):
         vc, vs = (torch.as_tensor(rng.standard_normal((cs.NUM_RFFS // 2, k)),
                                   dtype=torch.float32, device=dev)
@@ -116,4 +123,5 @@ def main(precisions, tf32_inputs=False):
 
 if __name__ == "__main__":
     args = [a for a in sys.argv[1:] if a != "--tf32-inputs"]
-    main(args or ["high", "default"], "--tf32-inputs" in sys.argv[1:])
+    main(args or ["high", "highest", "default"],
+         "--tf32-inputs" in sys.argv[1:])

@@ -160,6 +160,7 @@ def test_cuda_tensors_take_no_plain_path(cuda, monkeypatch):
                device=cuda, verbose=False).predict(sx, sl)
     assert conv.PARTS_LAUNCHES.total() > before
     fn = ard.pure_feature_fn()
-    params = {k: v.double() for k, v in ard.feature_params().items()}
-    with pytest.raises(TypeError):
-        fn(params, torch.as_tensor(x, device=cuda))
+    params = dict(ard.feature_params())
+    params["proj"] = params["proj"].double()
+    with pytest.raises(TypeError):  # float32 rows, float64 projection
+        fn(params, torch.as_tensor(x, dtype=torch.float32, device=cuda))

@@ -10,8 +10,12 @@ summation order, features to 1e-5 absolute, the matvec and the conv
 window loops (sums of up to nw terms of fp32 projections) to 1e-4 of
 max(1, max |ref|).  K1, K2 and K3 are held in each sincos mode against
 their plain versions in the same mode, and K1, K3 and K4 in each feature
-precision ("high" and "highest" 3xTF32, "default" one bf16 pass)
-against their plain versions at the same precision.  Under "default" the
+precision ("high" 3xTF32; "highest" 3xTF32 for K1, fp32 FMAs on the CUDA
+cores for K3 and K4; "default" one bf16 pass) against their plain
+versions at the same precision.  The float64 bodies (float64 operands,
+any precision) are held against the plain float64 versions to
+F64_RTOL = 1e-11 of max(1, max |ref|): the same float64 arithmetic summed
+in another order.  Under "default" the
 kernel and the plain version round the same operands to bf16 and their
 products are exact in fp32, so what differs is the fp32 summation order:
 K3 and K4 keep the tolerances above.  In K1 that order can also round a
@@ -195,18 +199,17 @@ def test_conv_kernels_return_input_row_order(cuda):
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
-    x = torch.zeros((4, 3), dtype=torch.float64, device=cuda)
-    proj = torch.zeros((3, 8), dtype=torch.float64, device=cuda)
+    x = torch.zeros((4, 3), dtype=torch.float32, device=cuda)
+    proj = torch.zeros((3, 8), dtype=torch.float32, device=cuda)
     with pytest.raises(TypeError):
-        feature_map.rbf_feature_map(x, proj, True, 4)
+        feature_map.rbf_feature_map(x.half(), proj.half(), True, 4)
     with pytest.raises(ValueError):
-        feature_map.rbf_feature_map(x.float(), proj.float(), True, 4,
-                                    "cephes")
+        feature_map.rbf_feature_map(x, proj, True, 4, "cephes")
     xs = torch.zeros((4, 5, 3), dtype=torch.float32, device=cuda)
     lengths = torch.full((4,), 5, dtype=torch.int32, device=cuda)
     proj2 = torch.zeros((6, 8), dtype=torch.float32, device=cuda)
     with pytest.raises(TypeError):
-        conv.conv_parts(xs.double(), lengths, proj2.double(), 0.5, 2)
+        conv.conv_parts(xs.half(), lengths, proj2.half(), 0.5, 2)
     with pytest.raises(TypeError):
         conv.conv_maxpool(xs, lengths.long(), proj2, 2)
     with pytest.raises(ValueError):
@@ -229,7 +232,7 @@ def test_a_mode_runs_its_own_instantiation(cuda, mode):
     hi = feature_map.rbf_feature_map_plain(x * 0.5, proj, True, 128, "hi")
     own = feature_map.rbf_feature_map_plain(x * 0.5, proj, True, 128, mode)
     torch.cuda.synchronize()
-    assert (300, 84, 256, mode) in feature_map.LAUNCHES
+    assert (300, 84, 256, mode, "high") in feature_map.LAUNCHES
     assert (300, 84, 256, 1, mode, "high") in ztzv.LAUNCHES
     assert float((feats - own).abs().max()) < 1e-5
     assert float((own - hi).abs().max()) > 0.0
@@ -312,19 +315,29 @@ def test_balanced_runs_the_3xtf32_body(cuda):
 
 
 def test_highest_runs_the_3xtf32_body(cuda):
-    """"highest" launches under its own precision key and gives the bits
-    of "high": both run the 3xTF32 body."""
+    """"highest" launches under its own precision key: K1 runs the 3xTF32
+    body (the bits of "high"), K3 and K4 the fp32 CUDA-core body, whose
+    values are the plain fp32 versions' and not the 3xTF32 body's
+    bits."""
     x, m, proj, vc, vs = _ztzv_inputs(cuda, 300, 84, 256, 1)
     xs, lengths, projc = _conv_inputs(cuda, 300, 16, 64, 9, 256, "spread")
     out = {p: ztzv.ztzv_parts(x, m, proj, 0.7, vc, vs, True, "hi", p)
            + conv.conv_parts(xs, lengths, projc, 0.7, 9, None, "hi", p)
            + (conv.conv_maxpool(xs, lengths, projc, 9, p),)
            for p in ("highest", "high")}
+    plain = conv.conv_parts_plain(xs, lengths, projc, 0.7, 9, None, "hi",
+                                  "highest") + \
+        (conv.conv_maxpool_plain(xs, lengths, projc, 9, "highest"),)
     torch.cuda.synchronize()
     assert (300, 84, 256, 1, "hi", "highest") in ztzv.LAUNCHES
+    assert (300, 16, 64, 9, 256, "hi", "highest") in conv.PARTS_LAUNCHES
     assert (300, 16, 64, 9, 256, "highest") in conv.MAXPOOL_LAUNCHES
-    for a, b in zip(out["highest"], out["high"]):
+    for a, b in zip(out["highest"][:2], out["high"][:2]):
         assert torch.equal(a, b)
+    for a, b, want in zip(out["highest"][2:], out["high"][2:], plain):
+        assert float((a - want).abs().max()) < \
+            1e-4 * max(1.0, float(want.abs().max()))
+        assert not torch.equal(a, b)
 
 
 def test_max_preset_runs_the_bf16_bodies(cuda):
@@ -378,3 +391,126 @@ def test_unknown_precisions_are_refused(cuda):
                                None) == invalid
     assert lib.xgpr_conv_maxpool(*([None] * 7), 10, 6, 4, 3, 16, 7,
                                  None) == invalid
+
+
+# ----------------------------------------------------------------------
+# The float64 bodies (float64 operands, whatever the precision).
+F64_RTOL = 1e-11
+
+
+def _f64(*tensors):
+    return tuple(t.double() for t in tensors)
+
+
+def _f64_close(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64
+        tol = F64_RTOL * max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) < tol
+
+
+@pytest.mark.parametrize("n,d,f,padded", FEATURE_CASES)
+def test_feature_map_kernel_float64(cuda, n, d, f, padded):
+    rng = np.random.default_rng(n + f)
+    x, proj = _f64(_t(rng.standard_normal((n, d)) * 0.5, cuda),
+                   _t(rng.standard_normal((d, f)) * 0.5, cuda))
+    x[0] = 0.0
+    x[0, 0] = 5e4          # arguments past the polynomial's range
+    before = feature_map.LAUNCHES[(n, d, f, "exact", "float64")]
+    got = feature_map.rbf_feature_map(x, proj, True, padded, "fast")
+    want = feature_map.rbf_feature_map_plain(x, proj, True, padded, "fast")
+    torch.cuda.synchronize()
+    assert feature_map.LAUNCHES[(n, d, f, "exact", "float64")] == before + 1
+    _f64_close((got,), (want,))
+
+
+@pytest.mark.parametrize("precision", ["high", "highest", "default"])
+@pytest.mark.parametrize("intercept", [False, True])
+@pytest.mark.parametrize("n,d,f,k", ZTZV_CASES)
+def test_ztzv_kernel_float64(cuda, precision, intercept, n, d, f, k):
+    """Every precision runs the float64 body on float64 operands."""
+    x, m, proj, vc, vs = _f64(*_ztzv_inputs(cuda, n, d, f, k))
+    before = ztzv.LAUNCHES[(n, d, f, k, "exact", "float64")]
+    got = ztzv.ztzv_parts(x, m, proj, 0.7, vc, vs, intercept, "hi",
+                          precision)
+    want = ztzv.ztzv_parts_plain(x, m, proj, 0.7, vc, vs, intercept)
+    torch.cuda.synchronize()
+    assert ztzv.LAUNCHES[(n, d, f, k, "exact", "float64")] == before + 1
+    _f64_close(got, want)
+
+
+@pytest.mark.parametrize("n,d,f,k", [(8192, 84, 4096, 1), (3000, 84, 1000, 26)])
+def test_ztzv_kernel_float64_is_deterministic(cuda, n, d, f, k):
+    """The float64 passes (their contractions on DMMA) give the same bits
+    on the same inputs."""
+    x, m, proj, vc, vs = _f64(*_ztzv_inputs(cuda, n, d, f, k))
+    first = ztzv.ztzv_parts(x, m, proj, 0.7, vc, vs, True)
+    second = ztzv.ztzv_parts(x, m, proj, 0.7, vc, vs, True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("precision", ["high", "highest", "default"])
+@pytest.mark.parametrize("n,l,d,width,f,kind", CONV_CASES)
+def test_conv_kernels_float64(cuda, precision, n, l, d, width, f, kind):
+    x, lengths, proj = _conv_inputs(cuda, n, l, d, width, f, kind)
+    x, proj = _f64(x, proj)
+    scale = torch.linspace(0.5, 1.5, n, device=cuda, dtype=torch.float64)
+    got = conv.conv_parts(x, lengths, proj, 0.7, width, scale, "poly",
+                          precision) + \
+        (conv.conv_maxpool(x, lengths, proj, width, precision),)
+    want = conv.conv_parts_plain(x, lengths, proj, 0.7, width, scale) + \
+        (conv.conv_maxpool_plain(x, lengths, proj, width),)
+    torch.cuda.synchronize()
+    assert (n, l, d, width, f, "exact", "float64") in conv.PARTS_LAUNCHES
+    assert (n, l, d, width, f, "float64") in conv.MAXPOOL_LAUNCHES
+    _f64_close(got, want)
+    if kind == "spread":
+        assert float(got[0][0].abs().max()) == 0.0
+
+
+def _strided(a):
+    """a's values in a non-contiguous layout."""
+    out = torch.stack([a, torch.zeros_like(a)], dim=-1)[..., 0]
+    assert not out.is_contiguous()
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("precision", ["high", "highest", "default"])
+def test_non_contiguous_operands_give_the_contiguous_bits(cuda, dtype,
+                                                          precision):
+    x, m, proj, vc, vs = (t.to(dtype) for t in
+                          _ztzv_inputs(cuda, 300, 84, 256, 3))
+    xs, lengths, projc = _conv_inputs(cuda, 300, 16, 64, 9, 256, "spread")
+    xs, projc = xs.to(dtype), projc.to(dtype)
+    scale = torch.linspace(0.5, 1.5, 300, device=cuda, dtype=dtype)
+
+    def run(f):
+        return (feature_map.rbf_feature_map(f(x), f(proj), True, 128),) \
+            + ztzv.ztzv_parts(f(x), f(m), f(proj), 0.7, f(vc), f(vs), True,
+                              None, precision) \
+            + conv.conv_parts(f(xs), f(lengths), f(projc), 0.7, 9, f(scale),
+                              None, precision) \
+            + (conv.conv_maxpool(f(xs), f(lengths), f(projc), 9, precision),)
+    want = run(lambda a: a)
+    got = run(_strided)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_mixed_dtypes_raise(cuda):
+    x, m, proj, vc, vs = _ztzv_inputs(cuda, 30, 8, 16, 1)
+    with pytest.raises(TypeError):
+        feature_map.rbf_feature_map(x, proj.double(), True, 8)
+    with pytest.raises(TypeError):
+        ztzv.ztzv_parts(x.double(), m.double(), proj.double(), 0.7, vc,
+                        vs.double(), True)
+    xs, lengths, projc = _conv_inputs(cuda, 10, 6, 4, 3, 16, "equal")
+    with pytest.raises(TypeError):
+        conv.conv_parts(xs.double(), lengths, projc.double(), 0.7, 3,
+                        torch.ones(10, device=cuda))
+    with pytest.raises(TypeError):
+        conv.conv_maxpool(xs, lengths, projc.double(), 3)

@@ -3,7 +3,7 @@
 Before a launch the K1 and K2 wrappers pad x's columns to a multiple of 4
 (``pad_depth``), split x into TF32 high parts and remainders
 (``split_tf32``), take proj's padded, split transpose from a cache kept
-with proj (``projT_split``) and choose how many blocks share a loop over
+with proj (``projT_planes`` in "tf32x3") and choose how many blocks share a loop over
 tiles (``tile_split``).  These are plain torch functions, held here on the
 CPU: the splits are exact, the padding leaves the plain versions' results
 unchanged at fp64 roundoff, the cache never returns a stale split, and the
@@ -27,7 +27,7 @@ def _proj(d, f, seed, dtype=torch.float32):
                                  (200, 333)])
 def test_projT_split_is_the_exact_split_of_the_padded_transpose(d, f):
     proj = _proj(d, f, d + f)
-    hi, lo = operands.projT_split(proj)
+    hi, lo = operands.projT_planes(proj, "tf32x3")
     dp = -(-d // 4) * 4
     assert hi.shape == lo.shape == (f, dp)
     assert hi.is_contiguous() and lo.is_contiguous()
@@ -39,14 +39,14 @@ def test_projT_split_is_the_exact_split_of_the_padded_transpose(d, f):
 
 def test_projT_split_is_cached_with_proj_and_never_stale():
     proj = _proj(84, 256, 0)
-    first = operands.projT_split(proj)
-    assert operands.projT_split(proj)[0] is first[0]        # a cache hit
+    first = operands.projT_planes(proj, "tf32x3")
+    assert operands.projT_planes(proj, "tf32x3")[0] is first[0]        # a cache hit
     # Equal values in another tensor get their own entry.
     twin = proj.clone()
-    assert operands.projT_split(twin)[0] is not first[0]
+    assert operands.projT_planes(twin, "tf32x3")[0] is not first[0]
     # An in-place change (the version counter moves) builds it anew.
     proj.mul_(2.0)
-    again = operands.projT_split(proj)
+    again = operands.projT_planes(proj, "tf32x3")
     assert again[0] is not first[0]
     assert torch.equal(again[0] + again[1], proj.t())
     # The entry goes with its tensor.

@@ -187,12 +187,15 @@ def test_float64_ignores_the_knobs(knobs, preset):
 
 
 def test_kernel_precision_flags(knobs):
-    flags = {p: feature_map.kernel_precision_flag(p)
+    """The flag K3's C entry point takes for each float32 precision: the
+    body the precision runs (3xTF32, fp32 FMAs, bf16)."""
+    flags = {p: feature_map.BODY_FLAGS[feature_map.kernel_body(
+                 "K3", torch.float32, p)]
              for p in ("high", "highest", "default")}
     assert flags == {"high": 0, "highest": 1, "default": 2}
     for bad in ("bf16", "tf32", "auto"):
         with pytest.raises(ValueError):
-            feature_map.kernel_precision_flag(bad)
+            feature_map.kernel_body("K3", torch.float32, bad)
     assert feature_map.kernel_precision(None, "cpu") == "highest"
     config.set_speed_preset("max")
     assert feature_map.kernel_precision(None, "cuda") == "default"

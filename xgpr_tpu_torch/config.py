@@ -6,7 +6,8 @@
 - Dtype: float64 on the CPU (the tests hold the port against xgpr_tpu run
   in float64), float32 on the card; ``working_dtype`` overrides both for
   the models and kernels made inside it (a float64 witness on the card,
-  or float32 on the CPU).
+  or float32 on the CPU), and a kernel built with ``double_precision``
+  (a model's ``double_precision_fht``) works in float64 on any device.
 - Matmuls: full fp32 on the card.  TF32 is switched off here for both
   matmuls and cuDNN, mirroring xgpr_tpu's HIGHEST pin on every solve-path
   contraction (xgpr_tpu/ops/contract.py): TF32 keeps ~3 decimal digits,
@@ -14,8 +15,10 @@
 - Precision knobs (xgpr_tpu/config.py's, same names, values and errors):
   the solve-path and feature-path matmul precisions, the feature
   materialisation dtype, fast features and the speed presets.  Each is
-  read at call time; a float64 working dtype ignores them, as xgpr_tpu's
-  x64 runs do.
+  read at call time; float64 ignores them, as xgpr_tpu's x64 runs do:
+  a float64 working dtype on the device, or float64 operands where the
+  caller passes their dtype (a float64 kernel under a float32 working
+  dtype).
 - sincos mode: which (cos, sin) evaluator the feature maps use (see
   ops/sincos.py).
 - Stacked-element limit: datasets with fewer raw x elements than this live
@@ -66,11 +69,18 @@ def fp_dtype(device) -> torch.dtype:
         else torch.float32
 
 
+def _is_float64(device, dtype=None):
+    """Whether work on ``device`` counts as float64 for the precision
+    knobs: the working dtype of ``device`` is float64, or the operands'
+    ``dtype`` is (a float64 kernel under a float32 working dtype)."""
+    return fp_dtype(device) == torch.float64 or dtype == torch.float64
+
+
 @contextlib.contextmanager
 def working_dtype(dtype):
     """Models and kernels made inside the block work in ``dtype`` on every
-    device.  The CUDA kernels take float32 only and raise on a float64
-    CUDA tensor; the plain-torch gradient fns run in any dtype."""
+    device.  The CUDA kernels run float32 and float64 operands (float64 in
+    their float64 bodies, whatever the precision knobs say)."""
     global _DTYPE_OVERRIDE
     saved, _DTYPE_OVERRIDE = _DTYPE_OVERRIDE, dtype
     try:
@@ -123,11 +133,12 @@ def matmul_precision() -> str:
 
 
 # Precision of the feature-path matmuls: the projections of K1, K3 and K4
-# and the CG matvec's contractions (``fmm``).  On the card "high" and
-# "highest" are the kernels' 3xTF32 body (no TF32 body measured closer to
-# fp32, PERF.md) and "default" their one-pass bf16 body.  K2 stays at
-# 3xTF32 in every setting, as xgpr_tpu's Pallas feature map pins
-# HIGHEST.
+# and the CG matvec's contractions (``fmm``).  On the card "high" is the
+# kernels' 3xTF32 body, "highest" K3's and K4's fp32 CUDA-core body
+# (fp32-exact, as the TPU's HIGHEST; K1 keeps 3xTF32, which measured
+# fp32-grade, PERF.md) and "default" their one-pass bf16 body.  K2 stays
+# at 3xTF32 in every setting, as xgpr_tpu's Pallas feature map pins
+# HIGHEST.  float64 operands run the float64 bodies whatever it says.
 _FEATURE_PRECISION = "high"
 
 
@@ -138,10 +149,10 @@ def set_feature_precision(p: str):
     _FEATURE_PRECISION = p
 
 
-def feature_precision(device="cuda") -> str:
-    """The configured feature precision; "highest" when the working dtype
-    on ``device`` is float64."""
-    if fp_dtype(device) == torch.float64:
+def feature_precision(device="cuda", dtype=None) -> str:
+    """The configured feature precision; "highest" for float64 work (the
+    working dtype on ``device``, or the operands' ``dtype``)."""
+    if _is_float64(device, dtype):
         return "highest"
     return _FEATURE_PRECISION
 
@@ -159,11 +170,11 @@ def set_feature_dtype(d: str):
     _FEATURE_DTYPE = d
 
 
-def feature_dtype(device="cuda"):
-    """torch.bfloat16 when bf16 materialisation is on and the working
-    dtype on ``device`` is not float64, else None (keep the working
-    dtype)."""
-    if _FEATURE_DTYPE == "bfloat16" and fp_dtype(device) != torch.float64:
+def feature_dtype(device="cuda", dtype=None):
+    """torch.bfloat16 when bf16 materialisation is on and the work is not
+    float64 (the working dtype on ``device``, or the operands' ``dtype``),
+    else None (keep the working dtype)."""
+    if _FEATURE_DTYPE == "bfloat16" and not _is_float64(device, dtype):
         return torch.bfloat16
     return None
 
@@ -180,18 +191,19 @@ def set_fast_features(enabled: bool):
         set_feature_dtype("bfloat16")
 
 
-def feature_matmul_precision(device="cuda") -> str:
-    """The precision K1, K3 and K4 (and their plain versions) run at."""
-    if _FAST_FEATURES and fp_dtype(device) != torch.float64:
+def feature_matmul_precision(device="cuda", dtype=None) -> str:
+    """The precision K1, K3 and K4 (and their plain versions) run at, for
+    operands of ``dtype`` on ``device``."""
+    if _FAST_FEATURES and not _is_float64(device, dtype):
         return "default"
-    return feature_precision(device)
+    return feature_precision(device, dtype)
 
 
 # Speed presets: one call that sets the throughput knobs to an operating
 # point of xgpr_tpu (docs/speed_modes.md).
 _SPEED_PRESETS = {
-    # The TPU's fp32-exact matmuls (on the card the kernels' 3xTF32 body)
-    # and builtin sin/cos.
+    # The TPU's fp32-exact matmuls (on the card K3's and K4's fp32
+    # CUDA-core body, K1's 3xTF32) and builtin sin/cos.
     "reference": dict(feature_precision="highest", sincos="exact",
                       fast_features=False),
     # The default: 3xTF32 projections and the "hi" polynomial sincos.

@@ -4,8 +4,8 @@ Linear (port of xgpr_tpu/kernels/basic.py).
 The three share ``SORFKernelBaseclass`` and differ only in chi:
 - SORF state: padded dim = next_pow2(D), ceil(F / padded) blocks, int8
   Rademacher diagonals and chi(df=padded) scaling, drawn on the host with
-  numpy exactly as xgpr_tpu does (utils/rng.py), so the state is equal bit
-  for bit;
+  numpy exactly as xgpr_tpu does (utils/rng.py: in float32, or in float64
+  with ``double_precision``), so the state is equal bit for bit;
 - Matern divides chi by sqrt(chi2(2nu)/2nu); Cauchy multiplies it by
   sqrt(Exp(1)).
 
@@ -45,9 +45,10 @@ class SORFKernelBaseclass(KernelBaseclass):
     """Shared machinery for fixed-vector sine-cosine SORF kernels."""
 
     def __init__(self, xdim, num_rffs, random_seed=123, device="cuda",
-                 kernel_spec_parms=None):
+                 double_precision=False, kernel_spec_parms=None):
         super().__init__(xdim, num_rffs, sine_cosine_kernel=True,
-                         kernel_spec_parms=kernel_spec_parms, device=device)
+                         kernel_spec_parms=kernel_spec_parms, device=device,
+                         double_precision=double_precision)
         if len(xdim) != 2:
             raise ValueError(
                 "This kernel operates on fixed-length vectors and needs "
@@ -57,15 +58,16 @@ class SORFKernelBaseclass(KernelBaseclass):
         self.padded_dims = padded
         self.nblocks = max(1, ceil(self.num_freqs / padded))
         self._feature_padded = padded
-        # Host state drawn in float32 as in xgpr_tpu, whose float64 runs
-        # cast these float32 draws up (its double_precision option, which
-        # draws in float64, is not ported).
+        # Host state drawn as xgpr_tpu draws it: in float32 (its float64
+        # working dtype casts these draws up) or, with double_precision,
+        # in float64.
+        sdtype = self.state_dtype()
         self.radem_diag = torch.as_tensor(
             state_rng.radem_diagonals(random_seed, self.nblocks, padded,
-                                      np.float32),
+                                      sdtype),
             dtype=self.dtype, device=self.device)
         self._set_chi(state_rng.chi_scaling(random_seed, padded,
-                                            self.num_freqs, np.float32))
+                                            self.num_freqs, sdtype))
         self.use_dense_projection = dense_threshold_ok(xdim[-1],
                                                        self.num_freqs)
         self.hyperparams = np.ones((2,))
@@ -175,9 +177,9 @@ class Matern(SORFKernelBaseclass):
     """Matern kernel (nu in [1/2, 5/2]) via Student-t spectral sampling."""
 
     def __init__(self, xdim, num_rffs, random_seed=123, device="cuda",
-                 kernel_spec_parms=None):
+                 double_precision=False, kernel_spec_parms=None):
         super().__init__(xdim, num_rffs, random_seed, device,
-                         kernel_spec_parms)
+                         double_precision, kernel_spec_parms)
         parms = kernel_spec_parms or {}
         if "matern_nu" not in parms:
             raise ValueError(
@@ -194,9 +196,9 @@ class Cauchy(SORFKernelBaseclass):
     """Cauchy kernel (rational-quadratic, small alpha limit)."""
 
     def __init__(self, xdim, num_rffs, random_seed=123, device="cuda",
-                 kernel_spec_parms=None):
+                 double_precision=False, kernel_spec_parms=None):
         super().__init__(xdim, num_rffs, random_seed, device,
-                         kernel_spec_parms)
+                         double_precision, kernel_spec_parms)
         modifier = state_rng.cauchy_chi_modifier(
             random_seed, self.num_freqs, self._chi_np.dtype)
         self._set_chi(self._chi_np * modifier)
@@ -207,7 +209,7 @@ class Linear(KernelBaseclass):
     column."""
 
     def __init__(self, xdim, num_rffs, random_seed=123, device="cuda",
-                 kernel_spec_parms=None):
+                 double_precision=False, kernel_spec_parms=None):
         parms = kernel_spec_parms or {}
         if len(xdim) != 2:
             raise ValueError("Linear kernels accept 2d (rows, features) "
@@ -215,7 +217,7 @@ class Linear(KernelBaseclass):
         fit_intercept = parms.get("intercept", True) is not False
         actual_rffs = xdim[1] + 1 if fit_intercept else xdim[1]
         super().__init__(xdim, actual_rffs, kernel_spec_parms=parms,
-                         device=device)
+                         device=device, double_precision=double_precision)
         self.hyperparams = np.ones((1,))
         self.bounds = np.asarray([[1e-3, 1e1]])
 

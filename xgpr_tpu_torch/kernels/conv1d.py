@@ -8,8 +8,9 @@
   fixed-vector counterparts.
 - GraphRBF / GraphMatern / GraphCauchy: conv_width fixed to 1.
 
-The state is drawn on the host in float32 with numpy exactly as xgpr_tpu
-draws it (utils/rng.py), so it is equal bit for bit.  With the dense
+The state is drawn on the host with numpy exactly as xgpr_tpu draws it
+(utils/rng.py: in float32, or in float64 with ``double_precision``), so
+it is equal bit for bit.  With the dense
 projection the masked window loop is the K3 kernel (ops/cuda/conv.py, via
 ops/conv.py); row averaging and the intercept are applied on the (N, F)
 parts, averaging in K3's epilogue.  The kernel guards its polynomial
@@ -44,9 +45,11 @@ class ConvKernelBaseclass(KernelBaseclass):
     """Shared setup for k-mer convolution SORF kernels."""
 
     def __init__(self, xdim, num_rffs, random_seed=123, device="cuda",
-                 conv_width=9, kernel_spec_parms=None):
+                 double_precision=False, conv_width=9,
+                 kernel_spec_parms=None):
         super().__init__(xdim, num_rffs, sine_cosine_kernel=True,
-                         kernel_spec_parms=kernel_spec_parms, device=device)
+                         kernel_spec_parms=kernel_spec_parms, device=device,
+                         double_precision=double_precision)
         if len(xdim) != 3:
             raise RuntimeError(
                 f"Convolution kernels expect 3d (rows, seq, channels) "
@@ -65,12 +68,12 @@ class ConvKernelBaseclass(KernelBaseclass):
         nblocks = max(1, ceil(self.num_freqs / padded))
         self.padded_dims, self.nblocks = padded, nblocks
         self._feature_padded = padded
+        sdtype = self.state_dtype()
         self.radem_diag = torch.as_tensor(
-            state_rng.radem_diagonals(random_seed, nblocks, padded,
-                                      np.float32),
+            state_rng.radem_diagonals(random_seed, nblocks, padded, sdtype),
             dtype=self.dtype, device=self.device)
         self._set_chi(state_rng.chi_scaling(random_seed, padded,
-                                            self.num_freqs, np.float32))
+                                            self.num_freqs, sdtype))
         self.use_dense_projection = dense_threshold_ok(
             self.conv_width * xdim[2], self.num_freqs)
         self.hyperparams = np.ones((2,))
@@ -191,20 +194,20 @@ def _matern_nu(name, parms):
 
 class Conv1dRBF(ConvKernelBaseclass):
     def __init__(self, xdim, num_rffs, random_seed=123, device="cuda",
-                 kernel_spec_parms=None):
+                 double_precision=False, kernel_spec_parms=None):
         parms = kernel_spec_parms or {}
         _require_conv_width(parms)
         super().__init__(xdim, num_rffs, random_seed, device,
-                         parms["conv_width"], parms)
+                         double_precision, parms["conv_width"], parms)
 
 
 class Conv1dMatern(ConvKernelBaseclass):
     def __init__(self, xdim, num_rffs, random_seed=123, device="cuda",
-                 kernel_spec_parms=None):
+                 double_precision=False, kernel_spec_parms=None):
         parms = kernel_spec_parms or {}
         _require_conv_width(parms)
         super().__init__(xdim, num_rffs, random_seed, device,
-                         parms["conv_width"], parms)
+                         double_precision, parms["conv_width"], parms)
         self.matern_nu = _matern_nu("Conv1dMatern", parms)
         self._set_chi(self._chi_np / state_rng.matern_chi_modifier(
             random_seed, self.num_freqs, self.matern_nu, self._chi_np.dtype))
@@ -212,11 +215,11 @@ class Conv1dMatern(ConvKernelBaseclass):
 
 class Conv1dCauchy(ConvKernelBaseclass):
     def __init__(self, xdim, num_rffs, random_seed=123, device="cuda",
-                 kernel_spec_parms=None):
+                 double_precision=False, kernel_spec_parms=None):
         parms = kernel_spec_parms or {}
         _require_conv_width(parms)
         super().__init__(xdim, num_rffs, random_seed, device,
-                         parms["conv_width"], parms)
+                         double_precision, parms["conv_width"], parms)
         self._set_chi(self._chi_np * state_rng.cauchy_chi_modifier(
             random_seed, self.num_freqs, self._chi_np.dtype))
 
@@ -225,17 +228,18 @@ class GraphRBF(ConvKernelBaseclass):
     """Node-set kernel: conv_width fixed to 1."""
 
     def __init__(self, xdim, num_rffs, random_seed=123, device="cuda",
-                 kernel_spec_parms=None):
-        super().__init__(xdim, num_rffs, random_seed, device, 1,
-                         kernel_spec_parms or {})
+                 double_precision=False, kernel_spec_parms=None):
+        super().__init__(xdim, num_rffs, random_seed, device,
+                         double_precision, 1, kernel_spec_parms or {})
         self.bounds = np.asarray([[1e-3, 1e2], [1e-2, 1e2]])
 
 
 class GraphMatern(ConvKernelBaseclass):
     def __init__(self, xdim, num_rffs, random_seed=123, device="cuda",
-                 kernel_spec_parms=None):
+                 double_precision=False, kernel_spec_parms=None):
         parms = kernel_spec_parms or {}
-        super().__init__(xdim, num_rffs, random_seed, device, 1, parms)
+        super().__init__(xdim, num_rffs, random_seed, device,
+                         double_precision, 1, parms)
         self.matern_nu = _matern_nu("GraphMatern", parms)
         self._set_chi(self._chi_np / state_rng.matern_chi_modifier(
             random_seed, self.num_freqs, self.matern_nu, self._chi_np.dtype))
@@ -244,9 +248,10 @@ class GraphMatern(ConvKernelBaseclass):
 
 class GraphCauchy(ConvKernelBaseclass):
     def __init__(self, xdim, num_rffs, random_seed=123, device="cuda",
-                 kernel_spec_parms=None):
+                 double_precision=False, kernel_spec_parms=None):
         parms = kernel_spec_parms or {}
-        super().__init__(xdim, num_rffs, random_seed, device, 1, parms)
+        super().__init__(xdim, num_rffs, random_seed, device,
+                         double_precision, 1, parms)
         self._set_chi(self._chi_np * state_rng.cauchy_chi_modifier(
             random_seed, self.num_freqs, self._chi_np.dtype))
         self.bounds = np.asarray([[1e-3, 1e2], [1e-2, 1e2]])

@@ -7,7 +7,10 @@
   fitting an intercept.
 
 Every kernel holds its projection state on an explicit ``device`` in the
-working dtype of that device (config.fp_dtype).  PyTorch runs eagerly, so
+working dtype of that device (config.fp_dtype), or in float64 on any
+device when built with ``double_precision`` (xgpr_tpu's argument of the
+same name, in the same position: its random state is then drawn in
+float64 too, where xgpr_tpu draws it so).  PyTorch runs eagerly, so
 the JAX package's traced-function caches are gone: ``pure_feature_fn`` and
 friends are plain functions of (params, x, seq_len=None), the signature of
 xgpr_tpu's; fixed-vector kernels ignore seq_len, and the convolution
@@ -29,10 +32,13 @@ class KernelBaseclass(ABC):
     """Base class for all kernels."""
 
     def __init__(self, xdim, num_rffs, sine_cosine_kernel=False,
-                 kernel_spec_parms=None, device="cuda"):
+                 kernel_spec_parms=None, device="cuda",
+                 double_precision=False):
         kernel_spec_parms = kernel_spec_parms or {}
         self.device = config.resolve_device(device)
-        self.dtype = config.fp_dtype(self.device)
+        self.double_precision = bool(double_precision)
+        self.dtype = torch.float64 if self.double_precision \
+            else config.fp_dtype(self.device)
         if num_rffs < 2:
             raise RuntimeError("Fewer than 2 random features makes no "
                                "sense; raise num_rffs.")
@@ -56,6 +62,12 @@ class KernelBaseclass(ABC):
     def get_uid(self):
         """Process-unique, never-recycled identity for caching."""
         return self._uid
+
+    def state_dtype(self):
+        """The numpy dtype of the host draws (Rademacher diagonals, chi and
+        its modifiers): float64 with ``double_precision``, else float32, as
+        xgpr_tpu draws them (its ``sdtype``)."""
+        return np.float64 if self.double_precision else np.float32
 
     @abc.abstractmethod
     def kernel_specific_transform(self, input_x, sequence_length=None):

@@ -13,7 +13,8 @@ xgpr_tpu/kernels/l2_conv1d.py).
 Conv1dTwoLayer has no parts fn, so CG contracts its full features.  Its
 gradient fn runs layer 1 as above (K4 on the card) and layer 2's features
 and d features / d sigma through the structured SORF map in plain torch,
-as xgpr_tpu does.
+as xgpr_tpu does.  Both take ``double_precision`` as xgpr_tpu does: the
+state drawn in float64 and held in float64 on any device.
 """
 from math import ceil
 
@@ -30,12 +31,12 @@ from ..ops.sorf import (dense_sorf_projection, dense_threshold_ok,
 from ..utils import rng as state_rng
 
 
-def _maxpool_state(seed, width, dim, num_features, dtype, device):
-    """(radem, chi) of a maxpool conv layer, drawn in float32."""
+def _maxpool_state(seed, width, dim, num_features, dtype, device, sdtype):
+    """(radem, chi) of a maxpool conv layer, drawn in ``sdtype``."""
     padded = next_pow2(width * dim)
     nblocks = max(1, ceil(num_features / padded))
-    radem = state_rng.radem_diagonals(seed, nblocks, padded, np.float32)
-    chi = state_rng.chi_scaling(seed, padded, num_features, np.float32)
+    radem = state_rng.radem_diagonals(seed, nblocks, padded, sdtype)
+    chi = state_rng.chi_scaling(seed, padded, num_features, sdtype)
     return (torch.as_tensor(radem, dtype=dtype, device=device),
             torch.as_tensor(chi, dtype=dtype, device=device))
 
@@ -44,7 +45,7 @@ class Conv1dTwoLayer(KernelBaseclass):
     """ReLU-maxpool conv features fed into an RBF SORF map."""
 
     def __init__(self, xdim, num_rffs, random_seed=123, device="cuda",
-                 kernel_spec_parms=None):
+                 double_precision=False, kernel_spec_parms=None):
         parms = kernel_spec_parms or {}
         if "conv_width" not in parms:
             raise ValueError("conv_width must be included as a "
@@ -58,7 +59,9 @@ class Conv1dTwoLayer(KernelBaseclass):
         if self.init_rffs % 2 != 0:
             raise RuntimeError("init_rffs should be an even number.")
         super().__init__(xdim, num_rffs, sine_cosine_kernel=True,
-                         kernel_spec_parms=parms, device=device)
+                         kernel_spec_parms=parms, device=device,
+                         double_precision=double_precision)
+        sdtype = self.state_dtype()
         self.hyperparams = np.ones((2,))
         self.bounds = np.asarray([[1e-3, 5], [1e-6, 1e2]])
         self.conv_width = int(parms["conv_width"])
@@ -67,17 +70,16 @@ class Conv1dTwoLayer(KernelBaseclass):
         # Layer 1: maxpool conv projection with init_rffs outputs.
         self.radem_diag1, self.chi_arr1 = _maxpool_state(
             random_seed, self.conv_width, xdim[2], self.init_rffs,
-            self.dtype, self.device)
+            self.dtype, self.device, sdtype)
         # Layer 2: RBF on the init_rffs-dim profile.
         padded2 = next_pow2(self.init_rffs)
         self._feature_padded = padded2
         nblocks2 = max(1, ceil(self.num_freqs / padded2))
         self.radem_diag2 = torch.as_tensor(
-            state_rng.radem_diagonals(seed2, nblocks2, padded2, np.float32),
+            state_rng.radem_diagonals(seed2, nblocks2, padded2, sdtype),
             dtype=self.dtype, device=self.device)
         self.chi_arr2 = torch.as_tensor(
-            state_rng.chi_scaling(seed2, padded2, self.num_freqs,
-                                  np.float32),
+            state_rng.chi_scaling(seed2, padded2, self.num_freqs, sdtype),
             dtype=self.dtype, device=self.device)
         self.use_dense_projection = (
             dense_threshold_ok(self.conv_width * xdim[2], self.init_rffs)
@@ -164,15 +166,17 @@ class FHTMaxpoolConv1dFeatureExtractor:
     """Hyperparameter-free maxpool conv extractor used by FastConv1d."""
 
     def __init__(self, seq_width, num_features, conv_width=9,
-                 random_seed=123, device="cuda"):
+                 random_seed=123, device="cuda", double_precision=False):
         self.num_features = int(num_features)
         self.conv_width = int(conv_width)
         self.seq_width = int(seq_width)
         self.device = config.resolve_device(device)
-        self.dtype = config.fp_dtype(self.device)
+        self.dtype = torch.float64 if double_precision \
+            else config.fp_dtype(self.device)
         self.radem_diag, self.chi_arr = _maxpool_state(
             random_seed, self.conv_width, self.seq_width, self.num_features,
-            self.dtype, self.device)
+            self.dtype, self.device,
+            np.float64 if double_precision else np.float32)
         self.use_dense_projection = dense_threshold_ok(
             self.conv_width * seq_width, self.num_features)
         self._proj = None

@@ -35,9 +35,10 @@ class MiniARD(KernelBaseclass):
     """Grouped-lengthscale RBF kernel."""
 
     def __init__(self, xdim, num_rffs, random_seed=123, device="cuda",
-                 kernel_spec_parms=None):
+                 double_precision=False, kernel_spec_parms=None):
         super().__init__(xdim, num_rffs, sine_cosine_kernel=True,
-                         kernel_spec_parms=kernel_spec_parms, device=device)
+                         kernel_spec_parms=kernel_spec_parms, device=device,
+                         double_precision=double_precision)
         parms = kernel_spec_parms or {}
         if len(self._xdim) != 2:
             raise ValueError("MiniARD only accepts fixed-vector input.")
@@ -58,14 +59,15 @@ class MiniARD(KernelBaseclass):
         self.padded_dims = padded
         self.nblocks = max(1, ceil(self.num_freqs / padded))
         self._feature_padded = padded
-        # Drawn in float32 as xgpr_tpu draws them (see kernels/basic.py).
+        # Drawn as xgpr_tpu draws them (see kernels/basic.py).
+        sdtype = self.state_dtype()
         self.radem_diag = torch.as_tensor(
             state_rng.radem_diagonals(random_seed, self.nblocks, padded,
-                                      np.float32),
+                                      sdtype),
             dtype=self.dtype, device=self.device)
         self.chi_arr = torch.as_tensor(
             state_rng.chi_scaling(random_seed, padded, self.num_freqs,
-                                  np.float32),
+                                  sdtype),
             dtype=self.dtype, device=self.device)
 
         self.full_ard_weights = np.zeros((xdim[-1],))

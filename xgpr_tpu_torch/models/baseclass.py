@@ -8,6 +8,10 @@ dataset), the NMLL preparation steps, and the property setters that
 invalidate weights.  ``device`` ("cuda" by default, or "cpu"
 by name) replaces xgpr_tpu's ``_resolve_accelerator``: a CUDA request with
 no card raises, and nothing quietly runs on the CPU instead.
+``double_precision_fht`` (a property as in xgpr_tpu, and a constructor
+argument here) builds the kernel with ``double_precision``: float64 draws
+and float64 features on any device, through the kernels' float64 bodies
+on the card.
 """
 import numpy as np
 
@@ -25,7 +29,7 @@ class ModelBaseclass:
 
     def __init__(self, num_rffs=256, variance_rffs=16, kernel_choice="RBF",
                  device="cuda", kernel_settings=None, verbose=True,
-                 random_seed=123):
+                 random_seed=123, double_precision_fht=False):
         if kernel_settings is None:
             kernel_settings = dict(constants.DEFAULT_KERNEL_SPEC_PARMS)
         if not isinstance(kernel_settings, dict):
@@ -53,6 +57,7 @@ class ModelBaseclass:
         self.n_classes = 1
         self.gamma = None
         self._random_seed = random_seed
+        self._double_precision_fht = bool(double_precision_fht)
         self._engines = {}
         self._nmll_rank_cache = None
 
@@ -167,6 +172,7 @@ class ModelBaseclass:
                                "pass a dataset or an xdim tuple.")
         self.kernel = KERNEL_NAME_TO_CLASS[self.kernel_choice](
             input_xdim, self.num_rffs, self.random_seed, self._device,
+            self.double_precision_fht,
             kernel_spec_parms=self.kernel_spec_parms)
         # Linear sets its feature count itself (D + 1 with an intercept),
         # whatever num_rffs asked for; the check is against that count.
@@ -378,6 +384,23 @@ class ModelBaseclass:
         if self.var is not None:
             self.weights = None
             self.var = None
+
+    @property
+    def double_precision_fht(self):
+        return self._double_precision_fht
+
+    @double_precision_fht.setter
+    def double_precision_fht(self, value):
+        """Generate features in float64 (xgpr_tpu/models/baseclass.py:
+        487-496).  The kernel holds its draws and projection in one dtype,
+        so a built kernel is rebuilt, keeping its hyperparameters and
+        bounds; the fitted weights go."""
+        self._double_precision_fht = bool(value)
+        if self.kernel is not None:
+            self._initialize_kernel(
+                xdim=self.kernel.get_xdim(),
+                hyperparams=self.kernel.get_hyperparams(),
+                bounds=self.kernel.get_bounds())
 
     @property
     def random_seed(self):

@@ -28,10 +28,12 @@ class GPClassification(ModelBaseclass):
     """Approximate kernelized multinomial-logistic classification."""
 
     def __init__(self, num_rffs=256, kernel_choice="RBF", device="cuda",
-                 kernel_settings=None, verbose=True, random_seed=123):
+                 kernel_settings=None, verbose=True, random_seed=123,
+                 double_precision_fht=False):
         super().__init__(num_rffs, 0, kernel_choice, device=device,
                          kernel_settings=kernel_settings, verbose=verbose,
-                         random_seed=random_seed)
+                         random_seed=random_seed,
+                         double_precision_fht=double_precision_fht)
         self.is_regression = False
 
     @staticmethod

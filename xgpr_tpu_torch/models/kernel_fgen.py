@@ -9,8 +9,9 @@ for tools that are not models (the intercept is always off), and
 
 The kernel lives on ``device`` ("cuda" by default, or "cpu" by name), so
 on the card the features are the K2 kernel's (K3's for the convolution
-kernels).  xgpr_tpu's ``double_precision_fht`` is not ported: the port's
-kernels take the working dtype of their device (config.py).
+kernels).  ``double_precision_fht`` builds it with ``double_precision``,
+as xgpr_tpu does: float64 draws and features, on the card through the
+kernels' float64 bodies.
 """
 import numpy as np
 
@@ -23,7 +24,8 @@ class AuxiliaryBaseclass:
 
     def __init__(self, num_rffs, hyperparams, num_features,
                  kernel_choice="RBF", device="cuda", kernel_settings=None,
-                 random_seed=123, verbose=True):
+                 random_seed=123, verbose=True,
+                 double_precision_fht=False):
         if kernel_settings is None:
             kernel_settings = dict(constants.DEFAULT_KERNEL_SPEC_PARMS)
         kernel_settings = dict(kernel_settings)
@@ -40,8 +42,9 @@ class AuxiliaryBaseclass:
             xdim = (1, num_features)
 
         self.kernel = KERNEL_NAME_TO_CLASS[kernel_choice](
-            xdim, num_rffs, random_seed, device,
+            xdim, num_rffs, random_seed, device, double_precision_fht,
             kernel_spec_parms=kernel_settings)
+        self.double_precision_fht = double_precision_fht
         full_hparams = self.kernel.get_hyperparams()
         if full_hparams.shape[0] > 1:
             full_hparams[1:] = hyperparams

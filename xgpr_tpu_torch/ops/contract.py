@@ -7,7 +7,8 @@ The precision knobs of config.py apply as in xgpr_tpu:
   config.py switches TF32 off), "default" rounds float32 operands to
   bfloat16 and sums in float32, as the TPU's DEFAULT dot does.  float64
   operands, which hold the solver state (CG, the Nystrom algebra, the
-  chunk sums), ignore the knob.
+  chunk sums) and a float64 kernel's features, ignore the knobs here,
+  bf16 materialisation included.
 - ``fmm`` (the feature path) the same at ``config.feature_precision()``.
 - With bf16 feature materialisation (``config.feature_dtype()``: on under
   ``set_fast_features(True)`` and the "max" speed preset),
@@ -57,13 +58,13 @@ def mm(a, b):
 
 def fmm(a, b):
     """Feature-path matmul at config.feature_precision()."""
-    return _at(config.feature_precision(a.device), a, b)
+    return _at(config.feature_precision(a.device, a.dtype), a, b)
 
 
 def ztzv_contract(z, v):
     """Z^T (Z v); with bf16 feature materialisation Z, v and Z v are
     rounded to bfloat16 and the result is float32."""
-    if config.feature_dtype(z.device) is not None:
+    if config.feature_dtype(z.device, z.dtype) is not None:
         return bf16_mm(z.T, bf16_mm(z, v))
     return mm(z.T, mm(z, v))
 
@@ -78,7 +79,7 @@ def parts_contract_bf16(c, s, v_c, v_s):
 def parts_contract(c, s, v_c, v_s):
     """Z^T (Z v) from (cos, sin) feature parts: zv = c v_c + s v_s, then
     (c^T zv, s^T zv); in bfloat16 under bf16 feature materialisation."""
-    if config.feature_dtype(c.device) is not None:
+    if config.feature_dtype(c.device, c.dtype) is not None:
         return parts_contract_bf16(c, s, v_c, v_s)
     zv = fmm(c, v_c) + fmm(s, v_s)
     return fmm(c.T, zv), fmm(s.T, zv)

@@ -16,11 +16,14 @@ one more call links the objects:
 Each sincos kernel has one instantiation per mode (csrc/common.cuh), so
 a source holds several large kernels; ``--split-compile=0`` optimises
 them on all the host's cores, which halves the build on an 8-core host
-(PERF.md).  K1, K3 and K4 also have one instantiation per feature
-precision (csrc/tf32_gemm.cuh: Format), each format in its own source
-(``ztzv_bf16.cu``, ``conv_bf16.cu``), so that their nvcc processes
-run side by side.  No --use_fast_math: it would turn sincosf into the
-inaccurate __sincosf.
+(PERF.md).  The kernels also have one instantiation per body
+(csrc/tf32_gemm.cuh: Format), each body in its own source so that their
+nvcc processes run side by side: the 3xTF32 body in ``feature_map.cu``,
+``ztzv.cu`` and ``conv.cu`` (with the C entry points), the bf16 body in
+``ztzv_bf16.cu`` and ``conv_bf16.cu``, the fp32 CUDA-core body of K3/K4
+in ``conv_fma.cu`` and the float64 (DMMA) bodies in ``feature_map_f64.cu``,
+``ztzv_f64.cu`` and ``conv_f64.cu``.  No --use_fast_math: it would turn
+sincosf into the inaccurate __sincosf.
 """
 import ctypes
 import hashlib
@@ -36,14 +39,16 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "--split-compile=0"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
-    # name: argtypes (pointers and the stream are c_void_p)
-    "xgpr_feature_map": [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P],
-    "xgpr_ztzv": [_P] * 5 + [_F] + [_P] * 7 + [_I] * 6
-    + [_F, _I, _I, _I, _P],
-    "xgpr_conv_parts": [_P] * 9 + [_I] * 5 + [_F, _I, _I, _P],
+    # name: argtypes (pointers and the stream are c_void_p; sigma and the
+    # scales are doubles, rounded to float32 by the float32 bodies)
+    "xgpr_feature_map": [_P] * 5 + [_I] * 4 + [_D, _I, _I, _I, _P],
+    "xgpr_ztzv": [_P] * 5 + [_D] + [_P] * 7 + [_I] * 6
+    + [_D, _I, _I, _I, _P],
+    "xgpr_conv_parts": [_P] * 9 + [_I] * 5 + [_D, _I, _I, _P],
     "xgpr_conv_maxpool": [_P] * 7 + [_I] * 6 + [_P],
+    "xgpr_ztzv_rhs_per_block": [_I] * 3,
 }
 
 _LIB = None

@@ -2,8 +2,8 @@
 
 Replaces xgpr_tpu/ops/pallas/conv_pallas.py (``conv_parts_pallas`` and
 ``conv_maxpool_pallas``, whose ``pallas_call``s are in ``_conv_parts_impl``
-and ``_conv_maxpool_impl``) with the CUDA C++ kernels in csrc/conv.cu; see
-that file for the design and what bounds it on the card.  Same calling
+and ``_conv_maxpool_impl``) with the CUDA C++ kernels in csrc/conv.cuh;
+see that file for the design and what bounds it on the card.  Same calling
 convention: x (N, L, D) zero-padded sequences, not scaled by sigma;
 seq_lengths (N,); proj (w*D, F) in window-major row order (t*D + c), chi
 folded in.  Window j of row i counts while j < seq_lengths[i] - w + 1.
@@ -16,7 +16,8 @@ folded in.  Window j of row i counts while j < seq_lengths[i] - w + 1.
   (N, F); no sigma, no sincos.
 
 Each wrapper runs its plain version for CPU tensors and its kernel for
-CUDA tensors (float32 x and proj, int32 lengths); anything else raises.
+CUDA tensors (x, proj and the row scale all float32 or all float64, int32
+lengths, any layout); anything else raises.
 The two are the CPU and CUDA implementations of one custom operator each,
 ``torch.ops.xgpr_tpu_torch.conv_parts`` and ``...conv_maxpool``, with a
 fake implementation (the output shapes, for ``torch.compile``) and a
@@ -25,24 +26,28 @@ scale where they have one, folded into rows, for ``torch.func.vmap``),
 as for K2 (feature_map.py).  Everything the launcher does runs inside
 the operator.
 On the card ``conv_parts`` runs the K3 instantiation of the sincos mode
-it asks for, and both run the body of the feature precision they ask for
-(the configured ones by default), never another: "high" and "highest"
-3xTF32, "default" one bf16 pass on a bf16 copy of x and projT
-(sigma still multiplies the fp32 product), as the TPU's DEFAULT dot rounds
-both operands.  The plain versions round x and proj at the same points.
-``PARTS_LAUNCHES`` and ``MAXPOOL_LAUNCHES`` count kernel launches by
-their shape, (N, L, D, w, F, mode, precision) and
-(N, L, D, w, F, precision).
+it asks for, and both run the body of the dtype and feature precision
+they ask for (the configured ones by default; feature_map.py
+``kernel_body``), never another: for float32 "high" 3xTF32, "highest"
+fp32 FMAs on the CUDA cores (fp32-exact, as xgpr_tpu's HIGHEST),
+"default" one bf16 pass on a bf16 copy of x and projT (sigma still
+multiplies the fp32 product), as the TPU's DEFAULT dot rounds both
+operands; float64 operands the float64 DMMA body with the builtin
+sincos, whatever the precision.  The plain versions round x and proj at
+the same points.  ``PARTS_LAUNCHES`` and ``MAXPOOL_LAUNCHES`` count
+kernel launches by their shape, (N, L, D, w, F, mode, precision) and
+(N, L, D, w, F, precision), float64 launches under ("exact", "float64")
+(``launch_tags``).
 
 Before a launch the wrapper prepares the kernels' operands with the plain
 torch functions below: ``row_order`` (the rows ordered by valid-window
 count, so that a tile stops at its own rows' largest count),
-``pad_operands`` (channels padded to a multiple of 4, 8 for bf16, and
-proj transposed to the K-major projT the tiles read) and
-``kernel_planes`` (x and projT as the planes of the precision's body:
-TF32 high parts and remainders, or bf16 values; in operands.py, shared
-with K1 and K2).  ``window_slots`` counts the (row, window) slots the
-kernels project against the valid windows.
+``pad_operands`` (channels padded to 16 bytes: a multiple of 4, 8 for
+bf16, 2 for float64, and proj transposed to the K-major projT the tiles
+read) and ``kernel_planes`` (x and projT as the planes of the body: TF32
+high parts and remainders, bf16 values, or the values themselves; in
+operands.py, shared with K1 and K2).  ``window_slots`` counts the (row,
+window) slots the kernels project against the valid windows.
 """
 from collections import Counter
 from typing import Optional, Tuple
@@ -53,9 +58,9 @@ import torch.nn.functional as F
 from .. import sincos as _sincos
 from ..contract import bf16_mm
 from . import build
-from .feature_map import (check_cuda_operands, check_device, kernel_mode,
-                          kernel_precision, kernel_precision_flag,
-                          kernel_sincos_flag)
+from .feature_map import (BODY_FLAGS, check_device, cuda_operands,
+                          kernel_body, kernel_mode, kernel_precision,
+                          kernel_sincos_flag, launch_tags)
 from .operands import data_ptr, depth_multiple, kernel_planes
 
 PARTS_LAUNCHES = Counter()
@@ -90,7 +95,7 @@ def conv_parts_plain(x, seq_lengths, proj, sigma, width, row_scale=None,
     """Plain PyTorch version of K3: window slabs, their projection at the
     precision, the masked sincos of ops/sincos.py, and a sum over
     windows."""
-    precision = kernel_precision(precision, x.device)
+    precision = kernel_precision(precision, x.device, x.dtype)
     arg = window_projection(x, proj, width, precision) * sigma
     mask = window_mask(seq_lengths.to(x.device), width, arg.shape[1])
     c, s = _sincos.sincos(arg, mask.to(x.dtype)[:, :, None], mode)
@@ -105,7 +110,7 @@ def conv_maxpool_plain(x, seq_lengths, proj, width, precision=None):
     """Plain PyTorch version of K4: masked windows are -inf against a
     zero start (the implicit ReLU)."""
     g = window_projection(x, proj, width,
-                          kernel_precision(precision, x.device))
+                          kernel_precision(precision, x.device, x.dtype))
     mask = window_mask(seq_lengths.to(x.device), width, g.shape[1])
     g = torch.where(mask[:, :, None], g, float("-inf"))
     return torch.clamp_min(g.amax(dim=1), 0.0)
@@ -167,24 +172,27 @@ def _check_shapes(name, x, seq_lengths, proj, width):
         raise ValueError("Sequence axis shorter than conv_width.")
 
 
-def _kernel_operands(name, x, seq_lengths, proj, width, precision, *more):
-    """Checks for the CUDA route; returns (x planes, order, nk, projT
-    planes) as the kernel of ``precision`` reads them (``row_order``,
-    ``pad_operands``, ``kernel_planes``, whose outputs are fresh, 16-byte
-    aligned tensors; the second plane is None for bf16)."""
+def _kernel_operands(name, kernel, x, seq_lengths, proj, width, precision,
+                     *more):
+    """Checks for the CUDA route of ``kernel`` ("K3" or "K4"); returns
+    (dtype, body, x planes, order, nk, projT planes, *more contiguous) as
+    the body of the operands' dtype and ``precision`` reads them
+    (``kernel_body``, ``row_order``, ``pad_operands``, ``kernel_planes``,
+    whose outputs are fresh, 16-byte aligned tensors; the second plane is
+    None but for 3xTF32)."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {x.device}.")
-    check_cuda_operands(name, x, proj, *more)
-    if seq_lengths.device != x.device or seq_lengths.dtype != torch.int32 \
-            or not seq_lengths.is_contiguous():
-        raise TypeError(f"{name}: the CUDA kernel takes contiguous int32 "
-                        f"lengths on {x.device}.")
+    dtype, (x, proj, *more) = cuda_operands(name, x, proj, *more)
+    body = kernel_body(kernel, dtype, precision)
+    if seq_lengths.device != x.device or seq_lengths.dtype != torch.int32:
+        raise TypeError(f"{name}: the CUDA kernel takes int32 lengths on "
+                        f"{x.device}.")
     if -(-proj.shape[1] // TILE_FREQS) > 65535:
         raise ValueError(f"{name}: too many frequencies for the grid.")
     order, nk = row_order(seq_lengths, width, x.shape[1] - width + 1)
-    xp, projT = pad_operands(x, proj, width, depth_multiple(precision))
-    return (kernel_planes(xp, precision) + (order, nk)
-            + kernel_planes(projT, precision))
+    xp, projT = pad_operands(x, proj, width, depth_multiple(body))
+    return ((dtype, body) + kernel_planes(xp, body) + (order, nk)
+            + kernel_planes(projT, body) + tuple(more))
 
 
 def conv_parts(x, seq_lengths, proj, sigma, width, row_scale=None,
@@ -196,7 +204,7 @@ def conv_parts(x, seq_lengths, proj, sigma, width, row_scale=None,
     check_device("conv_parts", x, seq_lengths, proj, *extra)
     return _conv_parts_op(x, seq_lengths, proj, float(sigma), int(width),
                           row_scale, kernel_mode(mode),
-                          kernel_precision(precision, x.device))
+                          kernel_precision(precision, x.device, x.dtype))
 
 
 @torch.library.custom_op("xgpr_tpu_torch::conv_parts", mutates_args=(),
@@ -248,12 +256,13 @@ def _conv_parts_kernel(x, seq_lengths, proj, sigma, width, row_scale, mode,
                        precision):
     """The K3 launcher: operand checks and preparation, one launch."""
     extra = () if row_scale is None else (row_scale,)
-    xh, xl, order, nk, hi, lo = _kernel_operands(
-        "conv_parts", x, seq_lengths, proj, width, precision, *extra)
+    dtype, body, xh, xl, order, nk, hi, lo, *extra = _kernel_operands(
+        "conv_parts", "K3", x, seq_lengths, proj, width, precision, *extra)
+    row_scale = extra[0] if extra else None
     n, l, dp = xh.shape
     f = proj.shape[1]
-    c = torch.empty((n, f), dtype=torch.float32, device=x.device)
-    s = torch.empty((n, f), dtype=torch.float32, device=x.device)
+    c = torch.empty((n, f), dtype=dtype, device=x.device)
+    s = torch.empty((n, f), dtype=dtype, device=x.device)
     if n == 0 or f == 0:
         return c, s
     lib = build.library()
@@ -263,10 +272,10 @@ def _conv_parts_kernel(x, seq_lengths, proj, sigma, width, row_scale, mode,
             xh.data_ptr(), data_ptr(xl), order.data_ptr(), nk.data_ptr(),
             hi.data_ptr(), data_ptr(lo), data_ptr(row_scale),
             c.data_ptr(), s.data_ptr(), n, l, dp, width, f, float(sigma),
-            kernel_sincos_flag(mode), kernel_precision_flag(precision),
-            stream)
+            kernel_sincos_flag(mode), BODY_FLAGS[body], stream)
     build.check(rc, "conv parts kernel")
-    PARTS_LAUNCHES[tuple(x.shape) + (width, f, mode, precision)] += 1
+    PARTS_LAUNCHES[tuple(x.shape) + (width, f)
+                   + launch_tags(dtype, mode, precision)] += 1
     return c, s
 
 
@@ -275,7 +284,7 @@ def conv_maxpool(x, seq_lengths, proj, width, precision=None):
     _check_shapes("conv_maxpool", x, seq_lengths, proj, width)
     check_device("conv_maxpool", x, seq_lengths, proj)
     return _conv_maxpool_op(x, seq_lengths, proj, int(width),
-                            kernel_precision(precision, x.device))
+                            kernel_precision(precision, x.device, x.dtype))
 
 
 @torch.library.custom_op("xgpr_tpu_torch::conv_maxpool", mutates_args=(),
@@ -303,11 +312,11 @@ def _(info, in_dims, x, seq_lengths, proj, width, precision):
 @_conv_maxpool_op.register_kernel("cuda")
 def _conv_maxpool_kernel(x, seq_lengths, proj, width, precision):
     """The K4 launcher: operand checks and preparation, one launch."""
-    xh, xl, order, nk, hi, lo = _kernel_operands(
-        "conv_maxpool", x, seq_lengths, proj, width, precision)
+    dtype, body, xh, xl, order, nk, hi, lo = _kernel_operands(
+        "conv_maxpool", "K4", x, seq_lengths, proj, width, precision)
     n, l, dp = xh.shape
     f = proj.shape[1]
-    out = torch.empty((n, f), dtype=torch.float32, device=x.device)
+    out = torch.empty((n, f), dtype=dtype, device=x.device)
     if n == 0 or f == 0:
         return out
     lib = build.library()
@@ -316,7 +325,8 @@ def _conv_maxpool_kernel(x, seq_lengths, proj, width, precision):
         rc = lib.xgpr_conv_maxpool(
             xh.data_ptr(), data_ptr(xl), order.data_ptr(), nk.data_ptr(),
             hi.data_ptr(), data_ptr(lo), out.data_ptr(), n, l, dp, width, f,
-            kernel_precision_flag(precision), stream)
+            BODY_FLAGS[body], stream)
     build.check(rc, "conv maxpool kernel")
-    MAXPOOL_LAUNCHES[tuple(x.shape) + (width, f, precision)] += 1
+    MAXPOOL_LAUNCHES[tuple(x.shape) + (width, f)
+                     + launch_tags(dtype, None, precision)[1:]] += 1
     return out

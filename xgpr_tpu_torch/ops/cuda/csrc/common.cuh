@@ -1,13 +1,23 @@
 // Shared device code: the guarded (cos, sin) evaluators of the epilogues of
 // every kernel (feature_map.cu, ztzv.cu, conv.cu), one per sincos mode, and
 // the dispatch of the dense kernels' epilogues to a mode's polynomial
-// alone.  The tensor-core GEMM body they share is in tf32_gemm.cuh.
+// alone; float64's builtin evaluator; the swizzle of the shared tiles.
+// The GEMM bodies they share are in tf32_gemm.cuh (tensor cores) and
+// fma_gemm.cuh (CUDA cores).
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace xgpr {
+
+// Byte offset of 16-byte chunk c of row r in a tile of 128-byte rows in
+// the 128-byte swizzle, the layout wgmma's descriptors read
+// (tf32_gemm.cuh) and the CUDA-core body reads the same way
+// (fma_gemm.cuh).
+__device__ __forceinline__ int sw128(int r, int c) {
+  return r * 128 + ((c ^ (r % 8)) << 4);
+}
 
 // Cody-Waite reduction by whole periods is exact while |x| < 2^13
 // (xgpr_tpu/ops/sincos.py:_POLY_ARG_LIMIT); past it the builtin is used.
@@ -132,6 +142,17 @@ __device__ __forceinline__ void sincos_scaled(float x, float w, float* c,
   if constexpr (MODE != MODE_EXACT) sincos_mode_poly<MODE>(x, w, c, s);
 }
 
+// (cos x * w, sin x * w) in float64: the builtin sincos whatever the mode,
+// as float64 takes it in both packages (ops/sincos.py: kernel_sincos).
+template <int MODE>
+__device__ __forceinline__ void sincos_scaled(double x, double w, double* c,
+                                              double* s) {
+  double sv, cv;
+  sincos(x, &sv, &cv);
+  *c = cv * w;
+  *s = sv * w;
+}
+
 // Runs an epilogue body over a warp's 64 accumulator values with the
 // sincos evaluator they need: the mode's polynomial alone when no argument
 // acc[i] * sigma of the warp is past POLY_ARG_LIMIT, else sincos_scaled.
@@ -161,6 +182,15 @@ __device__ __forceinline__ void with_sincos(const float acc[64], float sigma,
       });
     }
   }
+}
+
+// The float64 bodies' epilogues: the builtin everywhere.
+template <int MODE, class Body>
+__device__ __forceinline__ void with_sincos(const double acc[64], double,
+                                            Body&& body) {
+  body([](double x, double w, double* c, double* s) {
+    sincos_scaled<MODE>(x, w, c, s);
+  });
 }
 
 }  // namespace xgpr

@@ -1,7 +1,8 @@
 // Conv window-loop kernels for Hopper: K3 (masked cos/sin window sums) and
-// K4 (ReLU + global max over windows), one implicit-GEMM body on the
-// tensor cores, templated on the operand format (the feature precision:
-// 3xTF32 or one bf16 pass; tf32_gemm.cuh) and on the epilogue.
+// K4 (ReLU + global max over windows), one implicit-GEMM body templated on
+// the operand format (tf32_gemm.cuh: on the tensor cores 3xTF32 or one
+// bf16 pass, float64 DMMA, or fp32 FMAs on the CUDA cores) and on the
+// epilogue.
 //
 // Replace the TPU kernels xgpr_tpu/ops/pallas/conv_pallas.py:
 //   K3 _conv_parts_kernel   (pallas_call in _conv_parts_impl)
@@ -48,7 +49,14 @@
 //   register-A form (x split in registers, no extra bytes) leaves too few
 //   registers for products in flight; it measured slower (PERF.md).
 //   Each format's instantiations are a translation unit of their own
-//   (conv.cu, conv_bf16.cu), built in parallel.
+//   (conv.cu, conv_bf16.cu, conv_fma.cu, conv_f64.cu), built in parallel.
+// - The synchronous bodies (fma_gemm.cuh) read the same stages, one plane
+//   each: FMT_FMA32 is the "highest" feature precision ("reference"),
+//   fp32-exact products as xgpr_tpu's HIGHEST, on the CUDA cores; FMT_F64
+//   takes float64 operands on DMMA, its epilogue the builtin sincos in
+//   every mode and its sums in float64.  At the motif slice both bounds
+//   are 2.58 ms (fp32 on the CUDA cores and FP64 on the tensor cores, each
+//   67 TFLOP/s).
 // - Rows ordered by window count.  The wrapper passes a stable order of
 //   the rows by nk; a tile is 64 consecutive rows of that order, so its
 //   rows have near-equal nk, and it loops over groups of WG = 2 windows
@@ -80,8 +88,9 @@ constexpr int WR = 64;      // sequences per tile
 constexpr int WG = GM / WR;  // windows per group: GM GEMM rows per tile
 
 struct ConvArgs {
-  const void* x_hi;     // (n, l, dp), 16-byte rows: TF32 high parts or bf16
-  const void* x_lo;     // the same, TF32 remainders (unused by bf16)
+  const void* x_hi;     // (n, l, dp), 16-byte rows: TF32 high parts, bf16
+                        // or the values (the CUDA-core formats)
+  const void* x_lo;     // the same, TF32 remainders (unused by the others)
   const int* order;     // (n,) rows in tile order
   const int* nk;        // (n,) valid windows of each row, in [0, nw]
   const void* proj_hi;  // (f, width * dp), K-major: the same planes
@@ -90,62 +99,61 @@ struct ConvArgs {
 };
 
 // K3: running cos/sin sums of this thread's sequence x 32 frequencies, in
-// one sincos mode (common.cuh).
-template <int MODE>
+// one sincos mode (common.cuh; float64 takes the builtin in every mode).
+template <class T, int MODE>
 struct PartsEpilogue {
   struct Args {
-    const float* row_scale;
-    float* c_out;
-    float* s_out;
-    float sigma;
+    const T* row_scale;
+    T* c_out;
+    T* s_out;
+    T sigma;
   };
   Args a;
-  float cs[16][2], sn[16][2];
+  T cs[16][2], sn[16][2];
 
   __device__ __forceinline__ explicit PartsEpilogue(const Args& args)
       : a(args) {
 #pragma unroll
     for (int j = 0; j < 16; ++j)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) cs[j][e] = sn[j][e] = 0.0f;
+      for (int e = 0; e < 2; ++e) cs[j][e] = sn[j][e] = T(0);
   }
-  __device__ __forceinline__ void fold(int j, int e, float g) {
-    float c, s;
-    sincos_scaled<MODE>(g * a.sigma, 1.0f, &c, &s);
+  __device__ __forceinline__ void fold(int j, int e, T g) {
+    T c, s;
+    sincos_scaled<MODE>(g * a.sigma, T(1), &c, &s);
     cs[j][e] += c;
     sn[j][e] += s;
   }
-  __device__ __forceinline__ float row_factor(int row) const {
-    return a.row_scale ? a.row_scale[row] : 1.0f;
+  __device__ __forceinline__ T row_factor(int row) const {
+    return a.row_scale ? a.row_scale[row] : T(1);
   }
-  __device__ __forceinline__ void store(size_t at, float w, int j,
-                                        int e) const {
+  __device__ __forceinline__ void store(size_t at, T w, int j, int e) const {
     a.c_out[at] = cs[j][e] * w;
     a.s_out[at] = sn[j][e] * w;
   }
 };
 
 // K4: running max against a zero start.
+template <class T>
 struct MaxpoolEpilogue {
   struct Args {
-    float* out;
+    T* out;
   };
   Args a;
-  float mx[16][2];
+  T mx[16][2];
 
   __device__ __forceinline__ explicit MaxpoolEpilogue(const Args& args)
       : a(args) {
 #pragma unroll
     for (int j = 0; j < 16; ++j)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) mx[j][e] = 0.0f;
+      for (int e = 0; e < 2; ++e) mx[j][e] = T(0);
   }
-  __device__ __forceinline__ void fold(int j, int e, float g) {
-    mx[j][e] = fmaxf(mx[j][e], g);
+  __device__ __forceinline__ void fold(int j, int e, T g) {
+    mx[j][e] = max_t(mx[j][e], g);
   }
-  __device__ __forceinline__ float row_factor(int) const { return 1.0f; }
-  __device__ __forceinline__ void store(size_t at, float, int j,
-                                        int e) const {
+  __device__ __forceinline__ T row_factor(int) const { return T(1); }
+  __device__ __forceinline__ void store(size_t at, T, int j, int e) const {
     a.out[at] = mx[j][e];
   }
 };
@@ -161,6 +169,7 @@ template <int FMT, class Epi>
 __global__ void __launch_bounds__(GT, 1)
     conv_window_kernel(ConvArgs p, typename Epi::Args ea) {
   using B = Body<FMT>;
+  using T = typename B::T;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   __shared__ int s_row[WR], s_nk[WR], s_nkmax;
   unsigned char* smem = ring_base(smem_raw);
@@ -246,9 +255,9 @@ __global__ void __launch_bounds__(GT, 1)
 
   const int nk_s = s_nk[seq];
   Epi epi(ea);
-  float acc[64];
+  T acc[64];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < 64; ++i) acc[i] = T(0);
 
   // A finished window group folds its valid windows into the epilogue.
   gemm_pipeline<FMT>(smem, nsteps, spg, acc, load_stage, [&](int gi) {
@@ -265,7 +274,7 @@ __global__ void __launch_bounds__(GT, 1)
 
   if (row0 + seq < p.n) {
     const int orig = s_row[seq];
-    const float w = epi.row_factor(orig);
+    const T w = epi.row_factor(orig);
 #pragma unroll
     for (int j = 0; j < 16; ++j)
 #pragma unroll
@@ -286,41 +295,54 @@ int launch(const ConvArgs& p, const typename Epi::Args& ea, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// K3 in format FMT and sincos mode `mode` (an unknown mode is refused),
-// and K4 in format FMT.  Each format's instantiations live in their own
-// translation unit (conv.cu, conv_bf16.cu), so that the build compiles
-// them in parallel.
-template <int FMT>
-int launch_parts(const ConvArgs& p, const float* row_scale, float* c_out,
-                 float* s_out, float sigma, int mode, void* stream) {
-  switch (mode) {
-    case MODE_HI:
-      return launch<FMT, PartsEpilogue<MODE_HI>>(
-          p, {row_scale, c_out, s_out, sigma}, stream);
-    case MODE_EXACT:
-      return launch<FMT, PartsEpilogue<MODE_EXACT>>(
-          p, {row_scale, c_out, s_out, sigma}, stream);
-    case MODE_FAST:
-      return launch<FMT, PartsEpilogue<MODE_FAST>>(
-          p, {row_scale, c_out, s_out, sigma}, stream);
-    case MODE_POLY:
-      return launch<FMT, PartsEpilogue<MODE_POLY>>(
-          p, {row_scale, c_out, s_out, sigma}, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
+// K3 in format FMT and sincos mode `mode` (an unknown mode is refused; the
+// float64 format has the builtin's one instantiation), and K4 in format
+// FMT.  Each format's instantiations live in their own translation unit
+// (conv.cu, conv_bf16.cu, conv_fma.cu, conv_f64.cu), so that the build
+// compiles them in parallel.
+template <int FMT, class T = typename Body<FMT>::T>
+int launch_parts(const ConvArgs& p, const T* row_scale, T* c_out, T* s_out,
+                 T sigma, int mode, void* stream) {
+  if (mode < MODE_HI || mode > MODE_POLY) return (int)cudaErrorInvalidValue;
+  if constexpr (FMT == FMT_F64) {
+    return launch<FMT, PartsEpilogue<T, MODE_EXACT>>(
+        p, {row_scale, c_out, s_out, sigma}, stream);
+  } else {
+    switch (mode) {
+      case MODE_HI:
+        return launch<FMT, PartsEpilogue<T, MODE_HI>>(
+            p, {row_scale, c_out, s_out, sigma}, stream);
+      case MODE_EXACT:
+        return launch<FMT, PartsEpilogue<T, MODE_EXACT>>(
+            p, {row_scale, c_out, s_out, sigma}, stream);
+      case MODE_FAST:
+        return launch<FMT, PartsEpilogue<T, MODE_FAST>>(
+            p, {row_scale, c_out, s_out, sigma}, stream);
+      default:
+        return launch<FMT, PartsEpilogue<T, MODE_POLY>>(
+            p, {row_scale, c_out, s_out, sigma}, stream);
+    }
   }
 }
 
-template <int FMT>
-int launch_maxpool(const ConvArgs& p, float* out, void* stream) {
-  return launch<FMT, MaxpoolEpilogue>(p, {out}, stream);
+template <int FMT, class T = typename Body<FMT>::T>
+int launch_maxpool(const ConvArgs& p, T* out, void* stream) {
+  return launch<FMT, MaxpoolEpilogue<T>>(p, {out}, stream);
 }
 
-// The bf16 format's launches (conv_bf16.cu).
+// The other formats' launches (conv_bf16.cu, conv_fma.cu, conv_f64.cu).
 int launch_parts_bf16(const ConvArgs& p, const float* row_scale,
                       float* c_out, float* s_out, float sigma, int mode,
                       void* stream);
 int launch_maxpool_bf16(const ConvArgs& p, float* out, void* stream);
+int launch_parts_fma32(const ConvArgs& p, const float* row_scale,
+                       float* c_out, float* s_out, float sigma, int mode,
+                       void* stream);
+int launch_maxpool_fma32(const ConvArgs& p, float* out, void* stream);
+int launch_parts_f64(const ConvArgs& p, const double* row_scale,
+                     double* c_out, double* s_out, double sigma, int mode,
+                     void* stream);
+int launch_maxpool_f64(const ConvArgs& p, double* out, void* stream);
 
 }  // namespace conv
 }  // namespace xgpr

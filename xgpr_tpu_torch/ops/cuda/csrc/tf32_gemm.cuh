@@ -1,17 +1,22 @@
-// The tensor-core GEMM body shared by every kernel of the library: K3 and
-// K4 (conv.cu), K2 (feature_map.cu) and K1 (ztzv.cu), in two operand
-// formats (Format below) for the feature precisions of xgpr_tpu
-// (ops/pallas/ztzv_pallas.py:_make_dot):
+// The GEMM body shared by every kernel of the library: K3 and K4
+// (conv.cu), K2 (feature_map.cu) and K1 (ztzv.cu), in four operand
+// formats (Format below), which the wrappers choose from the operands'
+// dtype and xgpr_tpu's feature precision (ops/pallas/ztzv_pallas.py:
+// _make_dot; ops/cuda/feature_map.py: kernel_body):
 //
-// - FMT_TF32X3, "high" and "highest" (and K2 in every preset):
+// - FMT_TF32X3, "high" (and "highest" for K1, K2 in every preset):
 //   wgmma.m64n128k8 in 3xTF32.  The wrapper splits each operand into a
 //   TF32 high part and the remainder (hi + lo == a exactly), and each
 //   warpgroup accumulates lo*hi + hi*lo + hi*hi in fp32 (the lo*lo term,
-//   ~2^-22 relative, is dropped).  "highest" runs this body too: keeping
-//   lo*lo measured no closer to a float64 witness (PERF.md);
+//   ~2^-22 relative, is dropped; keeping it measured no closer to a
+//   float64 witness, PERF.md);
 // - FMT_BF16, "default": wgmma.m64n128k16 on bf16 operands, one product
 //   per depth step, fp32 accumulation: the TPU's DEFAULT dot, which rounds
-//   both operands to bf16.
+//   both operands to bf16;
+// - FMT_FMA32, "highest" for K3 and K4: fp32 FMAs on the CUDA cores, and
+//   FMT_F64, float64 operands: float64 mma.sync (DMMA) on the tensor
+//   cores (fma_gemm.cuh).  Their stages hold one plane of each operand in
+//   the same layout, and their products are done when issued.
 //
 // Both operands are read from shared memory, K-major, each row of a stage
 // one 128-byte line in the 128-byte swizzle: 32 fp32 or 64 bf16 values of
@@ -54,6 +59,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "fma_gemm.cuh"
+
 namespace xgpr {
 
 constexpr int GM = 128;  // GEMM rows per tile: 2 warpgroups x 64
@@ -66,17 +75,20 @@ constexpr int A_BYTES = GM * 128;        // one plane of A
 constexpr int STAGE_BYTES = 2 * (A_BYTES + B_BYTES);     // TF32: 64 KB
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;  // + alignment slack
 
-// The operand formats, by the host's precision flag
-// (ops/cuda/feature_map.py:kernel_precision_flag); flag PREC_HIGHEST
-// ("highest") runs FMT_TF32X3.
-enum Format : int { FMT_TF32X3 = 0, FMT_BF16 = 2 };
-constexpr int PREC_HIGHEST = 1;
+// The operand formats, by the host's body flag
+// (ops/cuda/feature_map.py: kernel_body, BODY_FLAGS).
+enum Format : int { FMT_TF32X3 = 0, FMT_FMA32 = 1, FMT_BF16 = 2,
+                    FMT_F64 = 3 };
 
 template <int FMT>
 struct Body {
   static constexpr bool BF16 = FMT == FMT_BF16;
-  static constexpr int PLANES = BF16 ? 1 : 2;  // bf16 / TF32 hi and lo
-  static constexpr int ELEM = BF16 ? 2 : 4;    // bytes per value
+  // Products complete when issued (fma_gemm.cuh), no wgmma in flight.
+  static constexpr bool SYNC = FMT == FMT_FMA32 || FMT == FMT_F64;
+  // The accumulators' type (and the CUDA-core bodies' operands').
+  using T = std::conditional_t<FMT == FMT_F64, double, float>;
+  static constexpr int PLANES = FMT == FMT_TF32X3 ? 2 : 1;  // TF32 hi, lo
+  static constexpr int ELEM = BF16 ? 2 : (int)sizeof(T);    // bytes a value
   static constexpr int VEC = 16 / ELEM;        // values per 16-byte copy
   static constexpr int KS = 128 / ELEM;        // depth per step
   static constexpr int STAGE = PLANES * (A_BYTES + B_BYTES);
@@ -86,8 +98,8 @@ struct Body {
 // v as the product of format FMT reads it: rounded to bf16 (to nearest
 // even) for FMT_BF16, whole otherwise.  The K1 epilogues round their
 // CUDA-core products' operands with it, as the TPU's DEFAULT dot does.
-template <int FMT>
-__device__ __forceinline__ float as_operand(float v) {
+template <int FMT, class T>
+__device__ __forceinline__ T as_operand(T v) {
   if constexpr (FMT == FMT_BF16) {
     return __bfloat162float(__float2bfloat16_rn(v));
   } else {
@@ -110,12 +122,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int PENDING>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
-}
-
-// Byte offset of 16-byte chunk c of row r in a tile of 128-byte rows in
-// the 128-byte swizzle, the layout wgmma's descriptors below read.
-__device__ __forceinline__ int sw128(int r, int c) {
-  return r * 128 + ((c ^ (r % 8)) << 4);
 }
 
 // Descriptor of a K-major tile of 128-byte rows in the 128-byte swizzle
@@ -186,37 +192,45 @@ __device__ __forceinline__ unsigned char* ring_base(unsigned char* raw) {
 // The products of a step in format FMT: this warpgroup's 64 rows of the A
 // tile against the B tile, each given by its first plane (a TF32 lo plane
 // 16 KB after its hi plane).  Each 32-byte depth slice of the 128-byte
-// rows is one wgmma; overwrite: the group's first step.
+// rows is one wgmma; overwrite: the group's first step.  The synchronous
+// formats compute the thread's fragment at once (fma_products,
+// dmma_products).
 template <int FMT>
-__device__ __forceinline__ void issue_products(const unsigned char* a,
-                                               const unsigned char* b,
-                                               float acc[64],
-                                               bool overwrite) {
-  const int a_rows = (threadIdx.x / 128) * 64 * 128;
-  const uint64_t ah = sw128_desc(a + a_rows), bh = sw128_desc(b);
-  fence_acc(acc);
-  wgmma_fence();
-  if constexpr (FMT == FMT_BF16) {
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_bf16(acc, ah + 2 * kk, bh + 2 * kk, kk > 0 || !overwrite);
+__device__ __forceinline__ void issue_products(
+    const unsigned char* a, const unsigned char* b,
+    typename Body<FMT>::T acc[64], bool overwrite) {
+  if constexpr (FMT == FMT_F64) {
+    dmma_products(a, b, acc, overwrite);
+  } else if constexpr (FMT == FMT_FMA32) {
+    fma_products(a, b, acc, overwrite);
   } else {
-    const uint64_t al = sw128_desc(a + A_BYTES + a_rows);
-    const uint64_t bl = sw128_desc(b + B_BYTES);
+    const int a_rows = (threadIdx.x / 128) * 64 * 128;
+    const uint64_t ah = sw128_desc(a + a_rows), bh = sw128_desc(b);
+    fence_acc(acc);
+    wgmma_fence();
+    if constexpr (FMT == FMT_BF16) {
 #pragma unroll
-    for (int kk = 0; kk < GK / 8; ++kk) {
-      wgmma_tf32(acc, al + 2 * kk, bh + 2 * kk, kk > 0 || !overwrite);
-      wgmma_tf32(acc, ah + 2 * kk, bl + 2 * kk, 1);
-      wgmma_tf32(acc, ah + 2 * kk, bh + 2 * kk, 1);
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_bf16(acc, ah + 2 * kk, bh + 2 * kk, kk > 0 || !overwrite);
+    } else {
+      const uint64_t al = sw128_desc(a + A_BYTES + a_rows);
+      const uint64_t bl = sw128_desc(b + B_BYTES);
+#pragma unroll
+      for (int kk = 0; kk < GK / 8; ++kk) {
+        wgmma_tf32(acc, al + 2 * kk, bh + 2 * kk, kk > 0 || !overwrite);
+        wgmma_tf32(acc, ah + 2 * kk, bl + 2 * kk, 1);
+        wgmma_tf32(acc, ah + 2 * kk, bh + 2 * kk, 1);
+      }
     }
+    wgmma_commit();
   }
-  wgmma_commit();
 }
 
 // The same on a stage of the ring: B's planes, then A's.
 template <int FMT>
 __device__ __forceinline__ void issue_stage(const unsigned char* st,
-                                            float acc[64], bool overwrite) {
+                                            typename Body<FMT>::T acc[64],
+                                            bool overwrite) {
   issue_products<FMT>(st + Body<FMT>::PLANES * B_BYTES, st, acc, overwrite);
 }
 
@@ -224,8 +238,9 @@ __device__ __forceinline__ void issue_stage(const unsigned char* st,
 // file.  load(step) issues the step's copies into its stage,
 // issue(step, overwrite) its products, done(group) the epilogue.  All
 // threads of the block call it.
-template <class Load, class Issue, class Done>
-__device__ __forceinline__ void gemm_loop(int nsteps, int spg, float acc[64],
+template <int FMT, class Load, class Issue, class Done>
+__device__ __forceinline__ void gemm_loop(int nsteps, int spg,
+                                          typename Body<FMT>::T acc[64],
                                           Load&& load, Issue&& issue,
                                           Done&& done) {
 #pragma unroll
@@ -245,8 +260,10 @@ __device__ __forceinline__ void gemm_loop(int nsteps, int spg, float acc[64],
     __syncthreads();
     if (step + 2 < nsteps) load(step + 2);
     cp_async_commit();
-    wgmma_wait_all();
-    fence_acc(acc);
+    if constexpr (!Body<FMT>::SYNC) {
+      wgmma_wait_all();
+      fence_acc(acc);
+    }
     if ((step + 1) % spg == 0) done(step / spg);  // the group is complete
     if (step + 1 < nsteps) issue(step + 1, (step + 1) % spg == 0);
   }
@@ -257,12 +274,12 @@ __device__ __forceinline__ void gemm_loop(int nsteps, int spg, float acc[64],
 template <int FMT, class Load, class Done>
 __device__ __forceinline__ void gemm_pipeline(unsigned char* smem,
                                               int nsteps, int spg,
-                                              float acc[64], Load&& load,
-                                              Done&& done) {
+                                              typename Body<FMT>::T acc[64],
+                                              Load&& load, Done&& done) {
   auto stage = [&](int step) {
     return smem + (step % STAGES) * Body<FMT>::STAGE;
   };
-  gemm_loop(
+  gemm_loop<FMT>(
       nsteps, spg, acc, [&](int step) { load(step, stage(step)); },
       [&](int step, bool first) { issue_stage<FMT>(stage(step), acc, first); },
       done);
@@ -275,8 +292,9 @@ __device__ __forceinline__ void gemm_pipeline(unsigned char* smem,
 // each; the stages flow from one tile to the next, so a tile's first
 // copies are in flight during the previous tile's epilogue.
 struct DenseOperands {
-  const void* x_hi;  // (n, dp), 16-byte rows: TF32 high parts, or bf16
-  const void* x_lo;  // the same, TF32 remainders (unused by bf16)
+  const void* x_hi;  // (n, dp), 16-byte rows: TF32 high parts, bf16 or
+                     // the values (the CUDA-core formats)
+  const void* x_lo;  // the same, TF32 remainders (unused by the others)
   const void* b_hi;  // (f, dp), K-major (proj transposed): the same
   const void* b_lo;
   int n, dp, f;
@@ -343,11 +361,9 @@ __device__ __forceinline__ void load_rows(const void* hi, const void* lo,
 constexpr int RES_K = 3;
 
 template <bool RESIDENT, int FMT = FMT_TF32X3, class Extra, class Done>
-__device__ __forceinline__ void dense_pipeline(unsigned char* smem,
-                                               const DenseOperands& p,
-                                               const DenseWalk& w, int kc,
-                                               float acc[64], Extra&& extra,
-                                               Done&& done) {
+__device__ __forceinline__ void dense_pipeline(
+    unsigned char* smem, const DenseOperands& p, const DenseWalk& w, int kc,
+    typename Body<FMT>::T acc[64], Extra&& extra, Done&& done) {
   static_assert(A_BYTES == B_BYTES, "a ring stage holds an A or a B tile");
   constexpr int HALF = Body<FMT>::PLANES * A_BYTES;  // one operand's planes
   const bool resident = RESIDENT && kc <= RES_K;
@@ -388,7 +404,7 @@ __device__ __forceinline__ void dense_pipeline(unsigned char* smem,
         load_rows<FMT>(p.b_hi, p.b_lo, p.f, p.dp, w.col0(0), kk, dst);
     }
   }
-  gemm_loop(nsteps, kc, acc, load, issue, done);
+  gemm_loop<FMT>(nsteps, kc, acc, load, issue, done);
 }
 
 // Lets a kernel of format FMT's body take its ring's dynamic shared memory

@@ -1,19 +1,23 @@
-"""Host-side preparation of the tensor-core kernels' operands.
+"""Host-side preparation of the kernels' operands.
 
-Every kernel of csrc/ computes its projection on the tensor cores
-(csrc/tf32_gemm.cuh) in the body of its feature precision and reads both
-operands K-major, in 16-byte copies, as that body's planes:
+Every kernel of csrc/ computes its projection in one of four bodies
+(csrc/tf32_gemm.cuh: Format; feature_map.py ``kernel_body`` picks it from
+the operands' dtype and the feature precision) and reads both operands
+K-major, in 16-byte copies, as that body's planes:
 
-- "high" and "highest": 3xTF32, the operand split into TF32 high parts
-  and remainders (``split_tf32``: hi + lo == a exactly);
-- "default": one bfloat16 plane (``to_bf16``, rounded to nearest even),
-  the TPU's DEFAULT dot; K2 has no such body.
+- "tf32x3" (3xTF32 on the tensor cores): the operand split into TF32
+  high parts and remainders (``split_tf32``: hi + lo == a exactly);
+- "bf16" (one bf16 pass, the TPU's DEFAULT dot): one bfloat16 plane
+  (``to_bf16``, rounded to nearest even);
+- "fma32" (fp32 FMAs on the CUDA cores) and "f64" (float64 DMMA on the
+  tensor cores): the values themselves, one plane.
 
 These plain torch functions prepare them:
 
-- ``kernel_planes``: an operand's planes at a precision;
+- ``kernel_planes``: an operand's planes in a body;
 - ``pad_depth``: the contraction axis padded by zeros to a multiple of
-  ``depth_multiple(precision)`` (16-byte rows: 4 fp32 or 8 bf16 values);
+  ``depth_multiple(body)`` (16-byte rows: 4 fp32, 8 bf16 or 2 float64
+  values);
 - ``projT_planes``: a dense projection (D, F) as the planes of its padded
   transpose (F, dp), cached with the projection tensor and keyed on the
   body: the RBF kernels and Conv1dTwoLayer's second layer pass the
@@ -47,17 +51,20 @@ def to_bf16(a):
     return a.to(torch.bfloat16).contiguous()
 
 
-def depth_multiple(precision):
+def depth_multiple(body):
     """The depth padding of a body: 16 bytes of its values."""
-    return 8 if precision == "default" else 4
+    return {"bf16": 8, "f64": 2}.get(body, 4)
 
 
-def kernel_planes(a, precision):
-    """The planes of operand ``a`` (already padded) that the body of
-    ``precision`` reads: (hi, lo) of a TF32 split, or (bf16 values, None)."""
-    if precision == "default":
+def kernel_planes(a, body):
+    """The planes of operand ``a`` (already padded) that ``body`` reads:
+    (hi, lo) of a TF32 split, (bf16 values, None), or for the fp32 FMA
+    and float64 bodies (a, None)."""
+    if body == "bf16":
         return to_bf16(a), None
-    return split_tf32(a)
+    if body == "tf32x3":
+        return split_tf32(a)
+    return a.contiguous(), None
 
 
 def pad_depth(a, multiple=4):
@@ -70,33 +77,26 @@ def pad_depth(a, multiple=4):
     return a.contiguous()
 
 
-# id(proj) -> (weak reference to proj, proj._version, {bf16: planes})
+# id(proj) -> (weak reference to proj, proj._version, {body: planes})
 _PROJ_SPLITS = {}
 
 
-def projT_planes(proj, precision="high"):
-    """kernel_planes(pad_depth(proj.T), precision) for proj (D, F): the
-    (F, dp) K-major operand of the dense kernels.  Kept, for each body
-    asked for (bf16 or TF32), while proj lives and is not modified in
-    place (its version counter), and built anew otherwise."""
+def projT_planes(proj, body="tf32x3"):
+    """kernel_planes(pad_depth(proj.T), body) for proj (D, F): the (F, dp)
+    K-major operand of the dense kernels.  Kept, for each body asked for,
+    while proj lives and is not modified in place (its version counter),
+    and built anew otherwise."""
     key = id(proj)
     hit = _PROJ_SPLITS.get(key)
     if hit is None or hit[0]() is not proj or hit[1] != proj._version:
         ref = weakref.ref(proj,
                           lambda _, key=key: _PROJ_SPLITS.pop(key, None))
         hit = _PROJ_SPLITS[key] = (ref, proj._version, {})
-    bf16 = precision == "default"
-    planes = hit[2].get(bf16)
+    planes = hit[2].get(body)
     if planes is None:
-        planes = hit[2][bf16] = kernel_planes(
-            pad_depth(proj.t(), depth_multiple(precision)), precision)
+        planes = hit[2][body] = kernel_planes(
+            pad_depth(proj.t(), depth_multiple(body)), body)
     return planes
-
-
-def projT_split(proj):
-    """projT_planes at "high": the 3xTF32 split of proj's padded
-    transpose."""
-    return projT_planes(proj, "high")
 
 
 def data_ptr(t):

@@ -2,19 +2,22 @@
 
 Replaces xgpr_tpu/ops/pallas/ztzv_pallas.py (``ztzv_parts_pallas``, whose
 ``pallas_call`` is in ``_ztzv_parts_impl``) with the CUDA C++ kernels in
-csrc/ztzv.cu; see that file for the design and what bounds it on the card.
-Before a launch the wrapper pads x's columns to a multiple of 4 (8 for
-bf16) and makes x the planes of the body's precision (operands.py: TF32
-high parts and remainders, or bf16 values; a few elementwise passes over
-the chunk, 2.75 MB at 8192 x 84); proj's transpose is prepared once per
-precision and cached with proj (``projT_planes``).
+csrc/ztzv.cuh; see that file for the design and what bounds it on the
+card.  Before a launch the wrapper makes the operands contiguous, pads
+x's columns to 16 bytes (4 fp32, 8 bf16 or 2 float64 values) and makes x
+the planes of the body (operands.py: TF32 high parts and remainders, bf16
+values, or the float64 values; a few elementwise passes over the chunk,
+2.75 MB at 8192 x 84); proj's transpose is prepared once per body and
+cached with proj (``projT_planes``).
 Same semantics: x raw (not sigma-scaled), sigma multiplies the product,
 scale = rbf_norm_constant(F, intercept), mask * scale folded into both
 parts, and with an intercept cos column 0 equals the mask.
 
-The feature precision (``precision``, the configured
-``feature_matmul_precision`` by default) picks the body: "high" and
-"highest" 3xTF32, "default" one bf16 pass with every product's operands
+The operands' dtype and the feature precision (``precision``, the
+configured ``feature_matmul_precision`` by default) pick the body
+(feature_map.py ``kernel_body``): float64 operands the float64 DMMA
+body with the builtin sincos, whatever the precision; for float32 "high"
+and "highest" 3xTF32, "default" one bf16 pass with every product's operands
 rounded to bf16 as the TPU's DEFAULT dot rounds them in ``_ztzv_kernel``:
 x and proj, then c and s (after scale * mask and the intercept column),
 v_c / v_s and the summed zv, each product summed in fp32.
@@ -23,8 +26,9 @@ v_c / v_s and the summed zv, each product summed in fp32.
 CUDA tensors; anything else raises.  A CUDA call runs the kernels of the
 sincos mode and precision it asks for, never another.  ``LAUNCHES``
 counts kernel launches (one per call, covering its three CUDA launches) by
-their shape, mode and precision (R, D, F, K, mode, precision): K is 1 in
-a fit's CG and 26 in SLQ's.  Two calls on the same inputs give the same
+their shape, mode and precision (R, D, F, K, mode, precision; float64
+launches count as ("exact", "float64"), ``launch_tags``): K is 1 in a
+fit's CG and 26 in SLQ's.  Two calls on the same inputs give the same
 bits.
 """
 from collections import Counter
@@ -35,15 +39,13 @@ from .. import sincos as _sincos
 from ..contract import bf16_mm, parts_contract_bf16
 from ..sorf import rbf_norm_constant
 from . import build
-from .feature_map import (TILE, check_cuda_operands, kernel_mode,
-                          kernel_precision, kernel_precision_flag,
-                          kernel_sincos_flag)
+from .feature_map import (BODY_FLAGS, TILE, cuda_operands, kernel_body,
+                          kernel_mode, kernel_precision, kernel_sincos_flag,
+                          launch_tags)
 from .operands import (data_ptr, depth_multiple, kernel_planes, pad_depth,
                        projT_planes, sm_count, tile_split)
 
 LAUNCHES = Counter()
-
-ZV_RHS = 8  # right-hand sides per block of the zv pass when K > 1
 
 
 def ztzv_parts_plain(x, m, proj, sigma, v_c, v_s, fit_intercept, mode=None,
@@ -51,7 +53,7 @@ def ztzv_parts_plain(x, m, proj, sigma, v_c, v_s, fit_intercept, mode=None,
     """Plain PyTorch version: materialises the (R, F) parts and contracts
     them with torch.matmul, under "default" on operands rounded to bf16
     at the kernel's points (ops/contract.py: ``bf16_mm``)."""
-    precision = kernel_precision(precision, x.device)
+    precision = kernel_precision(precision, x.device, x.dtype)
     scale = torch.tensor(rbf_norm_constant(proj.shape[1], fit_intercept),
                          dtype=x.dtype, device=x.device)
     sig = torch.as_tensor(sigma, dtype=x.dtype, device=x.device)
@@ -86,29 +88,32 @@ def ztzv_parts(x, m, proj, sigma, v_c, v_s, fit_intercept, mode=None,
                                 mode, precision)
     if x.device.type != "cuda":
         raise ValueError(f"ztzv_parts: no kernel for {x.device}.")
-    check_cuda_operands("ztzv_parts", x, m, proj, v_c, v_s)
+    dtype, (x, m, proj, v_c, v_s) = cuda_operands("ztzv_parts", x, m, proj,
+                                                  v_c, v_s)
     mode = kernel_mode(mode)
-    precision = kernel_precision(precision, x.device)
-    opts = dict(dtype=torch.float32, device=x.device)
+    precision = kernel_precision(precision, x.device, dtype)
+    body = kernel_body("K1", dtype, precision)
+    opts = dict(dtype=dtype, device=x.device)
     if n == 0 or f == 0:
         return torch.zeros((f, k), **opts), torch.zeros((f, k), **opts)
-    zv_blocks = 1 if k == 1 else -(-k // ZV_RHS)
     if k > 65535:
         raise ValueError("ztzv_parts: too many right-hand sides for the "
                          "launch grid.")
-    xh, xl = kernel_planes(pad_depth(x, depth_multiple(precision)),
-                           precision)
-    ph, pl = projT_planes(proj, precision)
+    lib = build.library()
+    zv_blocks, out_blocks = (
+        -(-k // lib.xgpr_ztzv_rhs_per_block(BODY_FLAGS[body], k, which))
+        for which in (0, 1))
+    xh, xl = kernel_planes(pad_depth(x, depth_multiple(body)), body)
+    ph, pl = projT_planes(proj, body)
     row_tiles, f_tiles = -(-n // TILE), -(-f // TILE)
     sms = sm_count(x.device.index)
     zsplit = tile_split(f_tiles, row_tiles * zv_blocks, sms, 16)
-    osplit = tile_split(row_tiles, f_tiles * k, sms, 32)
+    osplit = tile_split(row_tiles, f_tiles * out_blocks, sms, 32)
     zv_part = torch.empty((zsplit, n, k), **opts)
     oc_part = torch.empty((osplit, f, k), **opts)
     os_part = torch.empty((osplit, f, k), **opts)
     oc = torch.empty((f, k), **opts)
     os_ = torch.empty((f, k), **opts)
-    lib = build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.xgpr_ztzv(
@@ -118,7 +123,7 @@ def ztzv_parts(x, m, proj, sigma, v_c, v_s, fit_intercept, mode=None,
             oc.data_ptr(), os_.data_ptr(), n, xh.shape[1], f, k, zsplit,
             osplit, rbf_norm_constant(f, fit_intercept),
             int(bool(fit_intercept)), kernel_sincos_flag(mode),
-            kernel_precision_flag(precision), stream)
+            BODY_FLAGS[body], stream)
     build.check(rc, "ztzv kernel")
-    LAUNCHES[(n, d, f, k, mode, precision)] += 1
+    LAUNCHES[(n, d, f, k) + launch_tags(dtype, mode, precision)] += 1
     return oc, os_

@@ -25,7 +25,9 @@ def _hadamard_np(n: int) -> np.ndarray:
     return h
 
 
-def hadamard_matrix(n: int, dtype=torch.float32, device="cpu"):
+def hadamard_matrix(n: int, dtype=torch.float32, device="cuda"):
+    """The unnormalised +-1 Hadamard matrix of size n (a power of two) on
+    ``device`` ("cuda" by default, as every entry point of the port)."""
     return torch.as_tensor(_hadamard_np(n), dtype=dtype, device=device)
 
 
@@ -58,6 +60,13 @@ def fwht(x: torch.Tensor) -> torch.Tensor:
         x = torch.tensordot(x, h, dims=([nb + i], [0]))
         x = torch.movedim(x, -1, nb + i)
     return x.reshape(batch_shape + (n,))
+
+
+def fwht_normalized(x: torch.Tensor) -> torch.Tensor:
+    """Orthonormal Walsh-Hadamard transform (H / sqrt(n)) along the last
+    axis."""
+    n = x.shape[-1]
+    return fwht(x) * (1.0 / np.sqrt(n))
 
 
 def next_pow2(n: int) -> int:

@@ -123,7 +123,7 @@ def feature_projection(x, proj):
     """x @ proj at the configured feature precision (port of xgpr_tpu's
     ``_feature_projection``): under "default" both operands are rounded to
     bfloat16 and the products sum in float32."""
-    if config.feature_matmul_precision(x.device) == "default":
+    if config.feature_matmul_precision(x.device, x.dtype) == "default":
         return bf16_mm(x, proj)
     return torch.matmul(x, proj)
 
