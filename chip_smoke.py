@@ -22,15 +22,16 @@ built beforehand.  Phases (any failure raises and the exit code is not 0):
    at the K4 path's second layer (D 1024, F 2048, padded 1024) and at a
    ragged one, and the fused CG matvec (K1) at slice A's shape for K = 1
    and 26 and at a ragged one with masked rows; two K1 calls on the same
-   inputs must be bitwise equal.  Prints each max error and, at every
-   shape the main path launches, each kernel's time beside the plain
-   version's.  Then the same in the sincos modes "fast" and "poly", each
+   inputs must be bitwise equal at each timed K.  Prints each max error
+   and, at every shape the main path launches, each kernel's time beside
+   the plain version's.  Then the same in the sincos modes "fast" and "poly", each
    kernel against the plain version of the same mode, with a guard case
    (arguments past POLY_ARG_LIMIT, which take the builtin); then K1 in its
    one-pass bf16 body ("default" feature precision, in "fast": what the
-   "max" preset launches) and K1 at "highest" (its 3xTF32 body) with K2,
-   in "exact" (the "reference" preset), each against the plain version of
-   the same mode and precision.
+   "max" preset launches) and K1 and K2 at "highest" (K1's 3xTF32 body,
+   K2's fp32 FMAs on the CUDA cores), in "exact" (the "reference"
+   preset), each against the plain version of the same mode and
+   precision.
 3. Slice A at a real size: 262,144 x 84 training rows, 8192 RFFs, RBF,
    fit(mode="cg") with the autoselected Nystrom preconditioner, then
    predict(get_var=True) on 16,384 rows.  Checks CG convergence, finite
@@ -71,7 +72,8 @@ built beforehand.  Phases (any failure raises and the exit code is not 0):
       exact_nmll, then approximate_nmll with default settings (the
       amortized srht_2 preconditioner, 25 probes: K1 at K = 26), within
       1% of exact; prints the SLQ CG iterations, the rank, each call's
-      time and K1's launches by K.
+      time, K1's launches by K and their share of the SLQ call at phase
+      2's times (``k1_share``).
    b. RBF at 2048 RFFs, at a point away from the pinned one:
       exact_nmll_gradient within 0.5% of a float64 witness on the card,
       the witness within 0.5% of a central difference of its own NMLL;
@@ -109,12 +111,13 @@ built beforehand.  Phases (any failure raises and the exit code is not 0):
    feature materialisation, "fast" sincos): slice A (phase 3's fit and
    predict), the Conv1dRBF slice (phase 6's) and the K4 path (phase 7's),
    each to MAX_TOL with its own gates, and one RBF approximate_nmll
-   against its exact_nmll (K1 at K 26).  Under "reference" ("highest",
-   which runs the 3xTF32 body, and "exact" sincos): slice A refit and
-   predicted.  Gates: held-out Spearman
+   against its exact_nmll (K1 at K 26, with its share of the call).
+   Under "reference" ("highest": K1's 3xTF32 body, K2's fp32 FMAs; and
+   "exact" sincos): slice A refit and predicted.  Gates: held-out Spearman
    within 0.02 of the "balanced" run's, the exact NMLL within 1e-3 of
-   "balanced"'s, SLQ within 1% of exact, every K1/K3/K4 launch at the
-   preset's precision and every K1-K3 launch in its sincos mode.  Prints
+   "balanced"'s, SLQ within 1% of exact, every K1-K4 launch at the
+   preset's precision (K2 at "high" under "max": its 3xTF32 body) and
+   every K1-K3 launch in its sincos mode.  Prints
    each fit's CG recurrence residual beside its true residual (float64,
    from the design matrix), its time and iterations beside "balanced"'s,
    and the Conv1dRBF chunk contraction's time with bf16 operands (a
@@ -196,8 +199,8 @@ built beforehand.  Phases (any failure raises and the exit code is not 0):
       its plain-version twin; FastConv1d (K4) in float64 on 4096 rows.
 
 The launch counters count by shape and, for K1-K3, sincos mode, and
-precision: the feature precision of float32 launches (K2's always
-"high", its one body), "float64" for float64 ones, which also count
+precision: the feature precision that ran for float32 launches (K2's
+"high" under "default" too), "float64" for float64 ones, which also count
 their sincos as "exact" (the builtin, in every mode).  The line before
 the last is one JSON object describing the kernels: one row per path
 (slice A, Conv1dRBF, both under "fast" and "poly", streamed Conv1dRBF,
@@ -372,13 +375,15 @@ BODY = {"tf32x3": "3xTF32", "bf16": "bf16", "fma32": "fp32 FMA",
 
 # The speed presets (phase 12, ``phase_presets``).  Under "max" the fits
 # run K1, K3 and K4 in their one-pass bf16 body with bf16 feature
-# materialisation and "fast" sincos; under "reference" K1 at "highest"
-# (the 3xTF32 body) with the builtin sincos.  Gates (xgpr_tpu's own for
-# "max", tests/numerics_tests/test_fast_features.py): held-out Spearman
-# within PRESET_RHO of the "balanced" run's, exact NMLL within PRESET_NMLL_RTOL
-# of it, predictions within PREDICT_RTOL x max|pred| of the same preset's
-# plain path, SLQ within NMLL_RTOL of exact, every launch of K1, K3 and K4
-# at the preset's precision.  CG runs to MAX_TOL under "max".
+# materialisation and "fast" sincos; under "reference" K1 and K2 at
+# "highest" (K1's 3xTF32 body, K2's fp32 FMAs) with the builtin sincos.
+# Gates (xgpr_tpu's own for "max",
+# tests/numerics_tests/test_fast_features.py): held-out Spearman within
+# PRESET_RHO of the "balanced" run's, exact NMLL within PRESET_NMLL_RTOL of
+# it, predictions within PREDICT_RTOL x max|pred| of the same preset's
+# plain path, SLQ within NMLL_RTOL of exact, every launch of K1-K4 at the
+# preset's precision (K2 at "high" under "max").  CG runs to MAX_TOL under
+# "max".
 PRESET_RHO, PRESET_NMLL_RTOL = 0.02, 1e-3
 MAX_TOL = 1e-6
 
@@ -605,11 +610,13 @@ def guard_dense(torch, rng, t, n, d, f):
 
 def phase_kernels(torch, card, mode="hi", precision="high", k2=True,
                   double=False):
-    """K1 in sincos ``mode`` and feature ``precision``, and K2 (unless not
-    ``k2``; it has no precision variant) in ``mode``, against their plain
-    versions in the same mode and precision on the card, timed at every
-    shape the main path launches them at; the ragged cases and a guard
-    case (arguments past POLY_ARG_LIMIT) are checked, not timed.  With
+    """K1 and K2 (unless not ``k2``) in sincos ``mode`` and feature
+    ``precision`` (K2 runs 3xTF32 at "high" and "default", fp32 FMAs at
+    "highest"), against their plain versions in the same mode and
+    precision on the card, timed at every shape the main path launches
+    them at; the ragged cases and a guard case (arguments past
+    POLY_ARG_LIMIT) are checked, not timed.  Two K1 calls on the same
+    inputs must give the same bits at every timed K.  With
     ``double`` the same in float64 (the float64 bodies, whatever mode and
     precision: keyed "exact", "float64") at phase G's shapes, to
     F64_RTOL."""
@@ -661,11 +668,14 @@ def phase_kernels(torch, card, mode="hi", precision="high", k2=True,
                       intercept, f"ragged intercept={intercept}"))
     cases.append((*guard_dense(torch, rng, t, 300, 16, 256), 16, True,
                   "ragged guard"))
-    k2_tags = feature_map.launch_tags(dtype, mode, "high")
-    k2_tag = f"{k2_tags[0]}, float64" if double else mode
+    k2_body = feature_map.kernel_body("K2", dtype, precision)
+    k2_tags = feature_map.launch_tags(
+        dtype, mode, "highest" if k2_body == "fma32" else "high")
+    k2_tag = ", ".join(k2_tags)
     for x, pr, padded, intercept, label in cases if k2 else ():
         n = x.shape[0]
-        got = feature_map.rbf_feature_map(x, pr, intercept, padded, mode)
+        got = feature_map.rbf_feature_map(x, pr, intercept, padded, mode,
+                                          precision)
         want = feature_map.rbf_feature_map_plain(x, pr, intercept, padded,
                                                  mode)
         torch.cuda.synchronize()
@@ -679,13 +689,13 @@ def phase_kernels(torch, card, mode="hi", precision="high", k2=True,
         if label.startswith("ragged"):
             continue
         ms = time_ms(torch, lambda: feature_map.rbf_feature_map(
-            x, pr, intercept, padded, mode))
+            x, pr, intercept, padded, mode, precision))
         plain_ms = time_ms(torch, lambda: feature_map.rbf_feature_map_plain(
             x, pr, intercept, padded, mode))
         mm_ms = time_ms(torch, lambda: torch.matmul(x, pr))
         d, f = pr.shape
         kb = bound(esize * (n * d + d * f + n * 2 * f), 2 * n * d * f,
-                   feature_map.kernel_body("K2", dtype, "high"))
+                   k2_body)
         print(f"K2 ({k2_tag}) time at {label} shape: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, {bound_text(kb)}; projection "
               f"matmul alone (partial yardstick) {mm_ms:.4f} ms [{card}]",
@@ -735,14 +745,13 @@ def phase_kernels(torch, card, mode="hi", precision="high", k2=True,
             k1_err = max(k1_err, err)
         if label.startswith("ragged"):
             continue
-        if k == 1:
-            again = ztzv.ztzv_parts(x, m, pr, sig, vc, vs, False, mode,
-                                    precision)
-            torch.cuda.synchronize()
-            same = torch.equal(again[0], oc) and torch.equal(again[1], os_)
-            print(f"K1 ({tag}) determinism at {label}: two calls "
-                  f"bitwise equal: {same}", flush=True)
-            check(same, "two K1 calls on the same inputs differ")
+        again = ztzv.ztzv_parts(x, m, pr, sig, vc, vs, False, mode,
+                                precision)
+        torch.cuda.synchronize()
+        same = torch.equal(again[0], oc) and torch.equal(again[1], os_)
+        print(f"K1 ({tag}) determinism at {label}: two calls "
+              f"bitwise equal: {same}", flush=True)
+        check(same, f"two K1 calls on the same inputs differ at {label}")
         d, f = pr.shape
         ms = time_ms(torch, lambda: ztzv.ztzv_parts(
             x, m, pr, sig, vc, vs, True, mode, precision))
@@ -1352,12 +1361,33 @@ def k1_by_k(counts):
     return out
 
 
-def phase_rbf_nmll(torch, card, dset, dev="cuda", num_rffs=NUM_RFFS):
+def k1_share(timed, counts, k, call_s):
+    """What K1's launches at K ``k`` in ``counts`` take of a call of
+    ``call_s`` seconds, at the times phase 2 measured at their shapes
+    (``timed``)."""
+    n, secs = 0, 0.0
+    for shape, c in counts["K1"].items():
+        if shape[3] != k:
+            continue
+        res = (timed or {}).get(("K1", shape[1:]))
+        if res is None:
+            return f"K1 at K {k}: {c} launches at {shape[1:]}, not timed"
+        n, secs = n + c, secs + c * res["ms"] / 1e3
+    if n == 0:
+        return f"K1 at K {k}: no launches"
+    return (f"K1 at K {k}: {n} launches x {secs / n * 1e3:.4f} ms = "
+            f"{secs:.3f}s, {100 * secs / call_s:.1f}% of the call's "
+            f"{call_s:.3f}s")
+
+
+def phase_rbf_nmll(torch, card, dset, dev="cuda", num_rffs=NUM_RFFS,
+                   timed=None):
     """exact_nmll and approximate_nmll (default settings) on slice A's
-    data at the pinned hyperparameters; then the approximate NMLL's two
-    parts timed apart: the amortized preconditioner (the cached rank) and
-    the SLQ solve.  Returns the split's launches apart: it calls the
-    model's internals, not an entry point."""
+    data at the pinned hyperparameters, with K1's share of the SLQ call
+    (``k1_share``); then the approximate NMLL's two parts timed apart: the
+    amortized preconditioner (the cached rank) and the SLQ solve.  Returns
+    the split's launches apart: it calls the model's internals, not an
+    entry point."""
     from xgpr_tpu_torch import GPRegression, constants
     from xgpr_tpu_torch.scoring.slq import slq_nmll_from_engine
     model = GPRegression(num_rffs=num_rffs, kernel_choice="RBF", device=dev,
@@ -1368,6 +1398,7 @@ def phase_rbf_nmll(torch, card, dset, dev="cuda", num_rffs=NUM_RFFS):
     approx, approx_s, counts = nmll_call(torch, dev, model.approximate_nmll,
                                          HPARAMS, dset)
     by_k = k1_by_k(counts)
+    probes = constants.DEFAULT_NMLL_PARAMS["nsamples"]
     rank = model._nmll_rank_cache[1]
     gap = rel_gap(approx, exact)
     print(f"RBF NMLL at {num_rffs} RFFs: exact {exact:.6f} in {exact_s:.3f}s "
@@ -1375,7 +1406,9 @@ def phase_rbf_nmll(torch, card, dset, dev="cuda", num_rffs=NUM_RFFS):
           f"{approx:.6f} in {approx_s:.3f}s (launches {counts_text(counts)}),"
           f" relative gap {gap:.3e} (gate {NMLL_RTOL}); "
           f"preconditioner rank {rank} (srht_2); K1 launches by K during "
-          f"approximate_nmll {dict(by_k)} [{card}]", flush=True)
+          f"approximate_nmll {dict(by_k)}; "
+          f"{k1_share(timed, counts, probes + 1, approx_s)} [{card}]",
+          flush=True)
     check(gap < NMLL_RTOL, "RBF approximate NMLL is not within 1% of exact")
 
     before = read_counts()
@@ -1580,8 +1613,8 @@ def key_mode(name, key):
 
 def key_precision(name, key):
     """The precision entry of a launch key, its last: the feature
-    precision for float32 launches (K2 has no precision variant and counts
-    as "high"), "float64" for float64 launches."""
+    precision that ran for float32 launches (K2's "high" under "default"
+    too), "float64" for float64 launches."""
     return key[-1]
 
 
@@ -1767,14 +1800,16 @@ def contraction_times(torch, card, model, dset, reps=10):
 
 
 def preset_launches(counts, mode, precision, what):
-    """Every K1/K3/K4 launch at ``precision`` and every K1/K2/K3 launch in
-    sincos ``mode``."""
+    """Every K1/K3/K4 launch at ``precision`` (K2 at "highest" under
+    "highest", else at "high", its 3xTF32 body) and every K1/K2/K3 launch
+    in sincos ``mode``."""
     for name, counter in counts.items():
+        want = precision if name != "K2" or precision == "highest" \
+            else "high"
         for key in counter:
-            if name != "K2":
-                check(key_precision(name, key) == precision,
-                      f"{name} ran at {key_precision(name, key)} during "
-                      f"{what}, not {precision}")
+            check(key_precision(name, key) == want,
+                  f"{name} ran at {key_precision(name, key)} during "
+                  f"{what}, not {want}")
             if name != "K4":
                 check(key_mode(name, key) == mode,
                       f"{name} ran in sincos {key_mode(name, key)} during "
@@ -1782,7 +1817,7 @@ def preset_launches(counts, mode, precision, what):
 
 
 def phase_presets(torch, card, tab, corpus, balanced, dev="cuda",
-                  num_rffs=NUM_RFFS):
+                  num_rffs=NUM_RFFS, timed=None):
     """The speed presets on the main paths (``set_speed_preset``).  Under
     "max": slice A fit by CG and predict with variance, the Conv1dRBF
     sequence slice fit and predict, the K4 path, and one RBF
@@ -1791,8 +1826,9 @@ def phase_presets(torch, card, tab, corpus, balanced, dev="cuda",
     "balanced" runs' records of the same paths.  Gates as PRESET_RHO's
     comment says; prints each fit's recurrence residual beside its true
     residual in float64, and each preset's fit time and CG iterations
-    beside "balanced"'s.  Restores "balanced".  Returns the paths'
-    launches."""
+    beside "balanced"'s, and K1's share of the "max" SLQ call
+    (``k1_share``, from ``timed``).  Restores "balanced".  Returns the
+    paths' launches."""
     from xgpr_tpu_torch import GPRegression, config
     from xgpr_tpu_torch.constants import DEFAULT_NMLL_PARAMS
     dset = tab[0]
@@ -1840,7 +1876,8 @@ def phase_presets(torch, card, tab, corpus, balanced, dev="cuda",
               f"in {exact_s:.3f}s (balanced {exact_bal:.6f}, relative "
               f"{drift:.3e}, gate {PRESET_NMLL_RTOL}), approximate "
               f"{approx:.6f} in {approx_s:.3f}s, relative gap {gap:.3e} "
-              f"(gate {NMLL_RTOL}); K1 launches at K=26 {k26} [{card}]",
+              f"(gate {NMLL_RTOL}); "
+              f"{k1_share(timed, nmll_counts, 26, approx_s)} [{card}]",
               flush=True)
         check(gap < NMLL_RTOL, 'RBF approximate NMLL under "max" is not '
                                "within 1% of exact")
@@ -2071,13 +2108,14 @@ def time_gradient_maps(torch, card, tab, corpus, dev="cuda", chunk=CHUNK,
               f"alone (its kernel) {fms:.4f} ms [{card}]", flush=True)
 
 
-def phase_tuning(torch, card, tab, corpus, dev="cuda"):
+def phase_tuning(torch, card, tab, corpus, dev="cuda", timed=None):
     """Slice B: the NMLLs, the gradient and the two tuners; fails unless
-    K1 ran at K = 26 and K2 and K3 ran.  Returns the phase's launches."""
+    K1 ran at K = 26 and K2 and K3 ran.  ``timed``: phase 2's kernel times,
+    for K1's share of the SLQ call.  Returns the phase's launches."""
     t0 = time.perf_counter()
     time_gradient_maps(torch, card, tab, corpus, dev)
     reset_counts()      # the timing launches above are not the path's
-    rbf = phase_rbf_nmll(torch, card, tab[0], dev)
+    rbf = phase_rbf_nmll(torch, card, tab[0], dev, timed=timed)
     phase_rbf_gradient(torch, card, tab[0], dev)
     phase_conv_tune(torch, card, corpus, dev)
     counts = {k: c - rbf["split"][k] for k, c in read_counts().items()}
@@ -3439,7 +3477,7 @@ KERNELS = {
 # precision entry (the 3xTF32 body's file holds the C entry points).
 SOURCES = {
     "K1": {"default": "ztzv_bf16.cu", "float64": "ztzv_f64.cu"},
-    "K2": {"float64": "feature_map_f64.cu"},
+    "K2": {"highest": "feature_map_fma.cu", "float64": "feature_map_f64.cu"},
     "K3": {"default": "conv_bf16.cu", "highest": "conv_fma.cu",
            "float64": "conv_f64.cu"},
     "K4": {"default": "conv_bf16.cu", "highest": "conv_fma.cu",
@@ -3556,7 +3594,7 @@ def main(argv):
     for mode in SINCOS_MODES:
         timed.update(phase_kernels(torch, card, mode))
     # The precisions where the presets launch them: K1 "default" in "fast"
-    # ("max"), K1 "highest" and K2 in "exact" ("reference").
+    # ("max"), K1 and K2 at "highest" in "exact" ("reference").
     timed.update(phase_kernels(torch, card, "fast", "default", k2=False))
     timed.update(phase_kernels(torch, card, "exact", "highest"))
     t0 = time.perf_counter()
@@ -3601,8 +3639,9 @@ def main(argv):
     paths.append(("K4 path", k4_counts))
     paths += phase_presets(torch, card, tab, corpus,
                            {"slice A": slice_rec, "Conv1dRBF": conv_rec,
-                            "K4 path": k4_rec})
-    paths.append(("tuning", phase_tuning(torch, card, tab, corpus)))
+                            "K4 path": k4_rec}, timed=timed)
+    paths.append(("tuning", phase_tuning(torch, card, tab, corpus,
+                                         timed=timed)))
     paths.append(("streamed Conv1dRBF fit + predict",
                   phase_streamed(torch, card, corpus, (n_iter, preds))))
     paths.append(("referee", phase_referee(torch, card, corpus)))

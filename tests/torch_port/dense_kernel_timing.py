@@ -5,9 +5,13 @@ shapes, and print one line:
 
 K2 at slice A's chunk (8192 x 84 rows, RBF's 4096-frequency projection,
 padded 128) and at Conv1dTwoLayer's second layer (8192 x 1024 nonnegative
-rows, its 2048-frequency projection, padded 1024); K1 at slice A's chunk
-for K = 1 and 26.  Two timings of 20 calls each (CUDA events, after a
-warm-up) and the max error against the plain versions.  Run it from the
+rows, its 2048-frequency projection, padded 1024), and at slice A's chunk
+at "highest" in "exact" (the "reference" preset; where the version's
+rbf_feature_map takes a precision); K1 at slice A's chunk for K = 1, 5
+and 26 at "high", for K = 1 and 26 at "default" in "fast" (the "max"
+preset) and for K = 26 at "highest" in "exact".  Two timings of 20 calls
+each (CUDA events, after a warm-up) and the max error against the plain
+versions.  Run it from the
 root of a checkout or of a copy of one (it imports the package and
 chip_smoke.py from the working directory); to compare versions of the
 kernels on one card, run it from each copy in turn in one command
@@ -18,6 +22,7 @@ kernels on one card, run it from each copy in turn in one command
 With --profile it also prints, for each case, the device time of each
 CUDA kernel the wrapper launches (torch.profiler over 10 calls).
 """
+import inspect
 import sys
 from pathlib import Path
 
@@ -48,6 +53,27 @@ def profile_table(fn, label):
                   f"{e.count // 10} launches/call {e.key[:80]}", flush=True)
 
 
+def k1_case(name, x, m, proj, sigma, v, mode, precision):
+    return (name,
+            lambda: ztzv.ztzv_parts(x, m, proj, sigma, *v, True, mode,
+                                    precision),
+            lambda: ztzv.ztzv_parts_plain(x, m, proj, sigma, *v, True, mode,
+                                          precision))
+
+
+def k2_highest(x, proj, padded):
+    """K2 at "highest" in "exact", where rbf_feature_map takes a
+    precision."""
+    if "precision" not in inspect.signature(
+            feature_map.rbf_feature_map).parameters:
+        return ()
+    return [("K2 highest",
+             lambda: (feature_map.rbf_feature_map(x, proj, True, padded,
+                                                  "exact", "highest"),),
+             lambda: (feature_map.rbf_feature_map_plain(x, proj, True,
+                                                        padded, "exact"),))]
+
+
 def main(label, profile=False):
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -69,8 +95,8 @@ def main(label, profile=False):
     x2 = t(rng.random((cs.CHUNK, p2.shape[0])) * 0.1)
     xr = t(rng.standard_normal((cs.CHUNK, p1.shape[0])))
     m = t((rng.random(cs.CHUNK) > 0.25).astype(np.float32))
-    v1 = [t(rng.standard_normal((p1.shape[1], 1))) for _ in range(2)]
-    v26 = [t(rng.standard_normal((p1.shape[1], 26))) for _ in range(2)]
+    v1, v5, v26 = ([t(rng.standard_normal((p1.shape[1], k)))
+                    for _ in range(2)] for k in (1, 5, 26))
     sigma = float(np.exp(cs.HPARAMS[1]))
     pad1, pad2 = rbf.padded_dims, two._feature_padded
     out = []
@@ -82,10 +108,14 @@ def main(label, profile=False):
              lambda: (feature_map.rbf_feature_map(x2, p2, True, pad2),),
              lambda: (feature_map.rbf_feature_map_plain(x2, p2, True,
                                                         pad2),)),
-            ("K1", lambda: ztzv.ztzv_parts(xr, m, p1, sigma, *v1, True),
-             lambda: ztzv.ztzv_parts_plain(xr, m, p1, sigma, *v1, True)),
-            ("K1 K26", lambda: ztzv.ztzv_parts(xr, m, p1, sigma, *v26, True),
-             lambda: ztzv.ztzv_parts_plain(xr, m, p1, sigma, *v26, True))):
+            *k2_highest(x1, p1, pad1),
+            *(k1_case(name, xr, m, p1, sigma, v, mode, precision)
+              for name, v, mode, precision in (
+                  ("K1", v1, None, None), ("K1 K5", v5, None, None),
+                  ("K1 K26", v26, None, None),
+                  ("K1 bf16", v1, "fast", "default"),
+                  ("K1 bf16 K26", v26, "fast", "default"),
+                  ("K1 highest K26", v26, "exact", "highest")))):
         got, want = fn(), plain()
         torch.cuda.synchronize()
         err = max(float((a - b).abs().max()) for a, b in zip(got, want))

@@ -1,8 +1,8 @@
 """The kernels' error against a float64 witness on the card, by precision.
 
 For K1 (slice A's chunk: 8192 x 84 rows, RBF's 4096-frequency projection,
-K 1 and 26), K2 (the same rows, sigma-scaled, and projection: its body is
-3xTF32 at every precision), K3 (8192 motif rows, L 16, D 64, w 9, F 4096)
+K 1 and 26), K2 (the same rows, sigma-scaled, and projection), K3 (8192
+motif rows, L 16, D 64, w 9, F 4096)
 and K4 (the same rows, Conv1dTwoLayer's first layer, F 1024), in the
 "exact" sincos mode of the "reference" preset, prints one line per case:
 
@@ -12,7 +12,8 @@ with each error the max absolute difference from the witness (the plain
 version of the same precision in float64 on the card) over max|witness|,
 for the kernel and for the plain version in float32.  A body is
 fp32-grade where ``ratio`` stays within 2: "high" runs 3xTF32 everywhere,
-"highest" 3xTF32 for K1 and fp32 FMAs on the CUDA cores for K3 and K4.
+"highest" 3xTF32 for K1 and fp32 FMAs on the CUDA cores for K2, K3 and
+K4, "default" one bf16 pass for K1, K3 and K4 and 3xTF32 for K2.
 With ``--tf32-inputs`` x and the projections are first rounded to TF32,
 so that the 3xTF32 body's split is exact and its products' only error
 is their accumulation on the tensor cores.  Run it from the root of a
@@ -61,7 +62,7 @@ def cases(precision, tf32_inputs=False):
     sig1 = float(np.exp(cs.HPARAMS[1]))
     x2 = inp(x1 * sig1)
     out = [("K2", lambda: (feature_map.rbf_feature_map(
-                x2, p1, True, rbf.padded_dims, "exact"),),
+                x2, p1, True, rbf.padded_dims, "exact", precision),),
             lambda dt: (feature_map.rbf_feature_map_plain(
                 x2.to(dt), p1.to(dt), True, rbf.padded_dims, "exact"),))]
     for k in (1, 26):

@@ -78,10 +78,56 @@ def test_feature_map_kernel(cuda, mode, n, d, f, padded):
     assert float((got - want).abs().max()) < 1e-5
 
 
-# (n, d, f, k): K in {1, 8, 26, 64}, R and F off the 128 tile.
+@pytest.mark.parametrize("mode", ["exact", "hi"])
+@pytest.mark.parametrize("n,d,f,padded", FEATURE_CASES)
+def test_feature_map_kernel_highest(cuda, mode, n, d, f, padded):
+    """K2 at "highest" (the "reference" preset) runs its fp32 CUDA-core
+    body against the plain fp32 version, to 1e-5 absolute."""
+    rng = np.random.default_rng(n + f + 1)
+    x = _t(rng.standard_normal((n, d)) * 0.5, cuda)
+    proj = _t(rng.standard_normal((d, f)) * 0.5, cuda)
+    before = feature_map.LAUNCHES[(n, d, f, mode, "highest")]
+    got = feature_map.rbf_feature_map(x, proj, True, padded, mode,
+                                      "highest")
+    want = feature_map.rbf_feature_map_plain(x, proj, True, padded, mode)
+    torch.cuda.synchronize()
+    assert feature_map.LAUNCHES[(n, d, f, mode, "highest")] == before + 1
+    assert float((got - want).abs().max()) < 1e-5
+
+
+# Right-hand sides a block of K1's passes carries, (3xTF32, bf16,
+# float64) by K: the one-rhs passes at K 1 in float32, the tensor-core
+# passes' 8 up to K 8, then 16 (3xTF32) or 32 (bf16); the float64 passes
+# 8 up to K 8, else 16 (the counts test_torch_ztzv.py's CPU tests of
+# launch_plan take).
+RHS_PER_BLOCK = {1: (1, 1, 8), 2: (8, 8, 8), 8: (8, 8, 8),
+                 9: (16, 32, 16), 26: (16, 32, 16), 64: (16, 32, 16),
+                 70_000: (16, 32, 16)}
+
+
+@pytest.mark.parametrize("k", sorted(RHS_PER_BLOCK))
+def test_rhs_per_block_is_the_librarys(cuda, k):
+    """The library's count of right-hand sides a block, the same in both
+    passes, which the wrapper's launch_plan takes."""
+    from xgpr_tpu_torch.ops.cuda import build
+    lib = build.library()
+    for body, want in zip(("tf32x3", "bf16", "f64"), RHS_PER_BLOCK[k]):
+        for which in (0, 1):
+            assert lib.xgpr_ztzv_rhs_per_block(
+                feature_map.BODY_FLAGS[body], k, which) == want
+
+
+# (n, d, f, k): K in {1, 8, 26, 64}, R and F off the 128 tile; K on both
+# sides of the right-hand sides a block of the tensor-core passes carries
+# (8; 16 in 3xTF32, 32 in bf16) and K 100; K 70,000 on a tiny chunk,
+# past the 65,535 blocks a launch grid may have along z in the one-rhs
+# layout the passes had before.
 ZTZV_CASES = [(2000, 84, 500, 3), (96, 10, 384, 8), (10, 50, 32, 1),
               (300, 84, 256, 26), (1000, 84, 4100, 1), (777, 84, 300, 64),
-              (2500, 84, 1000, 1), (130, 1024, 200, 8)]
+              (2500, 84, 1000, 1), (130, 1024, 200, 8), (300, 84, 256, 9),
+              (300, 84, 256, 15), (300, 84, 256, 17), (300, 84, 256, 31),
+              (300, 84, 256, 33), (600, 84, 300, 100),
+              (40, 8, 16, 70_000)]
 
 
 def _ztzv_inputs(dev, n, d, f, k):
@@ -110,7 +156,8 @@ def test_ztzv_kernel(cuda, mode, intercept, n, d, f, k):
     assert float((os_ - rs).abs().max()) < tol
 
 
-@pytest.mark.parametrize("n,d,f,k", [(8192, 84, 4096, 1), (3000, 84, 1000, 26)])
+@pytest.mark.parametrize("n,d,f,k", [(8192, 84, 4096, 1), (3000, 84, 1000, 26),
+                                     (8192, 84, 4096, 26)])
 def test_ztzv_kernel_is_deterministic(cuda, n, d, f, k):
     """No atomics: two calls on the same inputs give the same bits."""
     x, m, proj, vc, vs = _ztzv_inputs(cuda, n, d, f, k)
@@ -283,10 +330,13 @@ def test_conv_kernels_precision(cuda, precision, n, l, d, width, f, kind):
 
 @pytest.mark.parametrize("precision", PRECISIONS)
 def test_precision_bodies_are_deterministic(cuda, precision):
-    """Two calls on the same inputs give the same bits in every body."""
+    """Two calls on the same inputs give the same bits in every body, K1
+    at K 1 and 26."""
     x, m, proj, vc, vs = _ztzv_inputs(cuda, 8192, 84, 4096, 1)
+    v26 = _ztzv_inputs(cuda, 8192, 84, 4096, 26)[3:]
     xs, lengths, projc = _conv_inputs(cuda, 1000, 16, 64, 9, 4096, "spread")
     runs = [ztzv.ztzv_parts(x, m, proj, 0.7, vc, vs, True, None, precision)
+            + ztzv.ztzv_parts(x, m, proj, 0.7, *v26, True, None, precision)
             + conv.conv_parts(xs, lengths, projc, 0.7, 9, None, None,
                               precision)
             + (conv.conv_maxpool(xs, lengths, projc, 9, precision),)
@@ -316,25 +366,32 @@ def test_balanced_runs_the_3xtf32_body(cuda):
 
 def test_highest_runs_the_3xtf32_body(cuda):
     """"highest" launches under its own precision key: K1 runs the 3xTF32
-    body (the bits of "high"), K3 and K4 the fp32 CUDA-core body, whose
-    values are the plain fp32 versions' and not the 3xTF32 body's
-    bits."""
+    body (the bits of "high", at K 1 and 26), K2, K3 and K4 the fp32
+    CUDA-core body, whose values are the plain fp32 versions' and not the
+    3xTF32 body's bits."""
     x, m, proj, vc, vs = _ztzv_inputs(cuda, 300, 84, 256, 1)
+    v26 = _ztzv_inputs(cuda, 300, 84, 256, 26)[3:]
     xs, lengths, projc = _conv_inputs(cuda, 300, 16, 64, 9, 256, "spread")
+    xf = x * 0.5
     out = {p: ztzv.ztzv_parts(x, m, proj, 0.7, vc, vs, True, "hi", p)
+           + ztzv.ztzv_parts(x, m, proj, 0.7, *v26, True, "hi", p)
+           + (feature_map.rbf_feature_map(xf, proj, True, 128, "hi", p),)
            + conv.conv_parts(xs, lengths, projc, 0.7, 9, None, "hi", p)
            + (conv.conv_maxpool(xs, lengths, projc, 9, p),)
            for p in ("highest", "high")}
-    plain = conv.conv_parts_plain(xs, lengths, projc, 0.7, 9, None, "hi",
-                                  "highest") + \
+    plain = (feature_map.rbf_feature_map_plain(xf, proj, True, 128, "hi"),) \
+        + conv.conv_parts_plain(xs, lengths, projc, 0.7, 9, None, "hi",
+                                "highest") + \
         (conv.conv_maxpool_plain(xs, lengths, projc, 9, "highest"),)
     torch.cuda.synchronize()
     assert (300, 84, 256, 1, "hi", "highest") in ztzv.LAUNCHES
+    assert (300, 84, 256, 26, "hi", "highest") in ztzv.LAUNCHES
+    assert (300, 84, 256, "hi", "highest") in feature_map.LAUNCHES
     assert (300, 16, 64, 9, 256, "hi", "highest") in conv.PARTS_LAUNCHES
     assert (300, 16, 64, 9, 256, "highest") in conv.MAXPOOL_LAUNCHES
-    for a, b in zip(out["highest"][:2], out["high"][:2]):
+    for a, b in zip(out["highest"][:4], out["high"][:4]):
         assert torch.equal(a, b)
-    for a, b, want in zip(out["highest"][2:], out["high"][2:], plain):
+    for a, b, want in zip(out["highest"][4:], out["high"][4:], plain):
         assert float((a - want).abs().max()) < \
             1e-4 * max(1.0, float(want.abs().max()))
         assert not torch.equal(a, b)

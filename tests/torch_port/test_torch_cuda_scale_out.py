@@ -190,7 +190,8 @@ def test_custom_ops_on_card(cuda):
     lengths = t(rng.integers(5, 13, 300), torch.int32)
     p3 = t(rng.standard_normal((40, 256)) * 0.3)
     for op, args in (
-            (feature_map._rbf_feature_map_op, (x, proj, True, 16, "hi")),
+            (feature_map._rbf_feature_map_op, (x, proj, True, 16, "hi",
+                                               "high")),
             (conv._conv_parts_op, (xs, lengths, p3, 0.7, 5, None, "hi",
                                    "high")),
             (conv._conv_maxpool_op, (xs, lengths, p3, 5, "high"))):

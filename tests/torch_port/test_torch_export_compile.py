@@ -121,7 +121,8 @@ def _op_cases():
     p3 = torch.as_tensor(rng.standard_normal((9, 8)))
     scale = torch.linspace(0.5, 2.0, 6, dtype=torch.float64)
     return [
-        (feature_map._rbf_feature_map_op, (x, proj, True, 4, "hi")),
+        (feature_map._rbf_feature_map_op, (x, proj, True, 4, "hi",
+                                           "highest")),
         (conv._conv_parts_op, (xs, lengths, p3, 0.7, 3, scale, "hi",
                                "highest")),
         (conv._conv_parts_op, (xs, lengths, p3, 0.7, 3, None, "hi",
@@ -140,3 +141,40 @@ def test_vmap_over_projections_is_refused():
     with pytest.raises(NotImplementedError):
         torch.func.vmap(lambda p: feature_map.rbf_feature_map(
             x, p, True, 4))(proj.expand(2, *proj.shape))
+
+
+@pytest.mark.parametrize("preset,precision", [
+    ("balanced", "high"), ("reference", "highest"), ("max", "default")])
+def test_rbf_export_at_each_precision_compiles_and_vmaps(preset, precision):
+    """Slice A's RBF export, in float32 under each preset: its feature fn
+    hands K2 the preset's feature precision as a plain string, and the fn
+    still compiles (fullgraph) and vmaps to its own numbers."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+    from xgpr_tpu_torch import config
+    (trx, tr_y), (tex, _) = tabular_data(n_train=400, n_test=40,
+                                         n_features=12)
+    config.set_speed_preset(preset)
+    try:
+        with config.working_dtype(torch.float32):
+            data = xgpr_tpu_torch.build_regression_dataset(trx, tr_y,
+                                                           chunk_size=200)
+            model = xgpr_tpu_torch.GPRegression(
+                num_rffs=128, kernel_choice="RBF", device="cpu",
+                verbose=False)
+            model.set_hyperparams(HPARAMS, data)
+            model.fit(data, mode="exact")
+            fn, state = model.export_predict_fn()
+            x = torch.as_tensor(tex, dtype=torch.float32)
+            want = fn(state, x)
+            op = torch.ops.xgpr_tpu_torch.rbf_feature_map.default
+            graph = make_fx(lambda xb: fn(state, xb))(x).graph
+            assert [n.args[-1] for n in graph.nodes if n.target is op] == \
+                [precision]
+            torch._dynamo.reset()
+            compiled = torch.compile(fn, fullgraph=True, backend="aot_eager")
+            _close(compiled(state, x), want)
+            got = torch.func.vmap(lambda xb: fn(state, xb))(
+                x.reshape(BATCH, -1, x.shape[1]))
+            _close(got.reshape(want.shape), want)
+    finally:
+        config.set_speed_preset("balanced")

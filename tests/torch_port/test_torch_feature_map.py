@@ -107,3 +107,51 @@ def test_kernel_feature_fn_fp64(name, settings):
                                atol=1e-13)
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-12,
                                atol=1e-13)
+
+
+def _op_precisions(fn, *args):
+    """The precision argument of each rbf_feature_map operator call in
+    fn's traced graph."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+    graph = make_fx(fn)(*args).graph
+    op = torch.ops.xgpr_tpu_torch.rbf_feature_map.default
+    return [n.args[-1] for n in graph.nodes if n.target is op]
+
+
+@pytest.mark.parametrize("precision", ["high", "highest", "default"])
+def test_the_precision_reaches_the_operator(precision):
+    """A named precision reaches the operator as a plain string, and the
+    CPU runs the plain version whatever it is."""
+    x, proj = (torch.from_numpy(a) for a in _inputs(20, 10, 32, 3))
+    assert _op_precisions(
+        lambda a, b: feature_map.rbf_feature_map(a, b, True, 16, "hi",
+                                                 precision), x, proj) == \
+        [precision]
+    got = feature_map.rbf_feature_map(x, proj, True, 16, "hi", precision)
+    want = feature_map.rbf_feature_map_plain(x, proj, True, 16, "hi")
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("preset,precision", [
+    ("balanced", "high"), ("reference", "highest"), ("max", "default")])
+def test_the_configured_precision_reaches_the_operator(preset, precision):
+    """With none named, float32 operands take the preset's precision and
+    float64 ones "highest"; the RBF feature fn passes the configured one."""
+    from xgpr_tpu_torch import config
+    x, proj = (torch.from_numpy(a) for a in _inputs(20, 10, 32, 4))
+    kern = T_KERNELS["RBF"]((20, 10), 64, 123, device="cpu")
+    config.set_speed_preset(preset)
+    try:
+        with config.working_dtype(torch.float32):
+            assert _op_precisions(
+                lambda a, b: feature_map.rbf_feature_map(a, b, True, 16), x,
+                proj) == [precision]
+            assert _op_precisions(
+                lambda a, b: feature_map.rbf_feature_map(a, b, True, 16),
+                x.double(), proj.double()) == ["highest"]
+            fn, params = kern.pure_feature_fn(), kern.feature_params()
+            params = {k: v.float() if torch.is_tensor(v) and
+                      v.is_floating_point() else v for k, v in params.items()}
+            assert _op_precisions(lambda a: fn(params, a), x) == [precision]
+    finally:
+        config.set_speed_preset("balanced")

@@ -3,9 +3,10 @@
 ``launch_tags``; ops/cuda/operands.py), plain torch on the CPU.
 
 - Every (kernel, dtype, precision): float64 operands run the float64
-  CUDA-core body whatever the precision; float32 ones 3xTF32 ("high"),
-  bf16 ("default"), and at "highest" fp32 FMAs for K3/K4 but 3xTF32 for
-  K1; K2's float32 body is 3xTF32 at every precision.
+  body whatever the precision; float32 ones 3xTF32 ("high"), bf16
+  ("default"), and at "highest" fp32 FMAs for K2, K3 and K4 but 3xTF32
+  for K1; K2's float32 body is 3xTF32 under "default" too (xgpr_tpu's
+  Pallas feature map pins HIGHEST), fp32 FMAs under "highest".
 - Mixed or other dtypes raise; a float64 launch counts as ("exact",
   "float64").
 - Each body's planes and depth padding; the transposed projection is
@@ -23,7 +24,7 @@ EXPECTED = {
     # (kernel, precision): float32 body
     ("K1", "high"): "tf32x3", ("K1", "highest"): "tf32x3",
     ("K1", "default"): "bf16",
-    ("K2", "high"): "tf32x3", ("K2", "highest"): "tf32x3",
+    ("K2", "high"): "tf32x3", ("K2", "highest"): "fma32",
     ("K2", "default"): "tf32x3",
     ("K3", "high"): "tf32x3", ("K3", "highest"): "fma32",
     ("K3", "default"): "bf16",

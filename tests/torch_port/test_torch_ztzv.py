@@ -5,7 +5,10 @@ In float32 it must match the Pallas kernel it replaces
 on the CPU) on the shapes of tests/ops_tests/test_ztzv_pallas.py plus
 K = 26 (the SLQ probe count), intercept on and off, masked rows, to
 3e-5 * max(1, |ref|): both sides sum R x F fp32 products in different
-orders.
+orders.  The wrapper's block arithmetic (``launch_plan``: blocks of
+right-hand sides, the splits of the walks, the launches past the grid's
+65,535 blocks) at slice A's chunk for K in {1, 8, 26, 33, 64, 70,000} in
+both float32 bodies.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -63,3 +66,49 @@ def test_cpu_tensors_take_the_plain_version():
     with pytest.raises(ValueError):
         ztzv.ztzv_parts(*(t.to("meta") for t in (x, m, proj)), 0.5,
                         vc.to("meta"), vs.to("meta"), True)
+
+
+# Right-hand sides a block carries (csrc/ztzv.cu: xgpr_ztzv_rhs_per_block,
+# held to these counts on the card by test_torch_cuda_kernels.py's
+# test_rhs_per_block_is_the_librarys): K 1 takes
+# the one-rhs passes; the tensor-core passes carry 8 up to K 8, then 16
+# (3xTF32) or 32 (bf16); the float64 passes 8 up to K 8, else 16.
+def rhs_per_block(body, k):
+    if body == "f64":
+        return 8 if k <= 8 else 16
+    if k == 1:
+        return 1
+    return 8 if k <= 8 else 32 if body == "bf16" else 16
+
+
+# launch_plan at slice A's chunk (8192 rows, F 4096) on the H100's 132
+# SMs: (blocks of right-hand sides, zsplit, osplit, launches of each
+# pass).
+PLANS = {
+    ("tf32x3", 1): (1, 2, 4, 1), ("bf16", 1): (1, 2, 4, 1),
+    ("tf32x3", 8): (1, 2, 4, 1), ("bf16", 8): (1, 2, 4, 1),
+    ("tf32x3", 26): (2, 1, 2, 1), ("bf16", 26): (1, 2, 4, 1),
+    ("tf32x3", 33): (3, 2, 4, 1), ("bf16", 33): (2, 1, 2, 1),
+    ("tf32x3", 64): (4, 1, 1, 1), ("bf16", 64): (2, 1, 2, 1),
+    ("tf32x3", 70_000): (4375, 4, 8, 1),
+    ("bf16", 70_000): (2188, 8, 16, 1),
+}
+
+
+@pytest.mark.parametrize("body,k", sorted(PLANS))
+def test_launch_plan(body, k):
+    rhs = rhs_per_block(body, k)
+    plan = ztzv.launch_plan(rhs, 8192, 4096, k, 132)
+    assert tuple(plan) == PLANS[(body, k)]
+    assert (plan.blocks - 1) * rhs < k <= plan.blocks * rhs
+
+
+@pytest.mark.parametrize("body", ["tf32x3", "bf16", "f64"])
+def test_launch_plan_chunks_past_the_grid(body):
+    """Past MAX_GRID_Z blocks of right-hand sides each pass launches again:
+    K is not bounded by the launch grid."""
+    k = ztzv.MAX_GRID_Z * rhs_per_block(body, 100)
+    assert ztzv.launch_plan(rhs_per_block(body, k), 40, 16, k,
+                            132).launches == 1
+    assert ztzv.launch_plan(rhs_per_block(body, k + 1), 40, 16, k + 1,
+                            132).launches == 2

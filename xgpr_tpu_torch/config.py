@@ -132,13 +132,14 @@ def matmul_precision() -> str:
     return _MATMUL_PRECISION
 
 
-# Precision of the feature-path matmuls: the projections of K1, K3 and K4
-# and the CG matvec's contractions (``fmm``).  On the card "high" is the
-# kernels' 3xTF32 body, "highest" K3's and K4's fp32 CUDA-core body
+# Precision of the feature-path matmuls: the projections of K1-K4 and the
+# CG matvec's contractions (``fmm``).  On the card "high" is the kernels'
+# 3xTF32 body, "highest" K2's, K3's and K4's fp32 CUDA-core body
 # (fp32-exact, as the TPU's HIGHEST; K1 keeps 3xTF32, which measured
-# fp32-grade, PERF.md) and "default" their one-pass bf16 body.  K2 stays
-# at 3xTF32 in every setting, as xgpr_tpu's Pallas feature map pins
-# HIGHEST.  float64 operands run the float64 bodies whatever it says.
+# fp32-grade, PERF.md) and "default" K1's, K3's and K4's one-pass bf16
+# body; K2 keeps 3xTF32 under "default", as xgpr_tpu's Pallas feature map
+# pins HIGHEST.  float64 operands run the float64 bodies whatever it
+# says.
 _FEATURE_PRECISION = "high"
 
 
@@ -192,7 +193,7 @@ def set_fast_features(enabled: bool):
 
 
 def feature_matmul_precision(device="cuda", dtype=None) -> str:
-    """The precision K1, K3 and K4 (and their plain versions) run at, for
+    """The precision K1-K4 (and their plain versions) run at, for
     operands of ``dtype`` on ``device``."""
     if _FAST_FEATURES and not _is_float64(device, dtype):
         return "default"
@@ -202,7 +203,7 @@ def feature_matmul_precision(device="cuda", dtype=None) -> str:
 # Speed presets: one call that sets the throughput knobs to an operating
 # point of xgpr_tpu (docs/speed_modes.md).
 _SPEED_PRESETS = {
-    # The TPU's fp32-exact matmuls (on the card K3's and K4's fp32
+    # The TPU's fp32-exact matmuls (on the card K2's, K3's and K4's fp32
     # CUDA-core body, K1's 3xTF32) and builtin sin/cos.
     "reference": dict(feature_precision="highest", sincos="exact",
                       fast_features=False),

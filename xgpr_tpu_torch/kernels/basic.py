@@ -16,10 +16,12 @@ CPU tensor.  The kernels guard the polynomial sincos per element, so
 xgpr_tpu's Pallas gate, host range check and lax.cond fallback are not
 needed.  K1 runs the configured feature precision
 (config.feature_matmul_precision, resolved by its wrapper at call time:
-its 3xTF32 or bf16 body); K2 keeps full precision in every
-preset.  Larger D * F take the structured FWHT path in plain torch.  The
-gradient fn (features and d features / d sigma, for the exact NMLL
-gradient) is plain torch on both paths.
+its 3xTF32 or bf16 body), and K2 too, passed by the feature fn: its
+3xTF32 body, or fp32 FMAs under "highest" (xgpr_tpu's Pallas feature map
+pins HIGHEST, so "default" keeps 3xTF32).  Larger D * F take the
+structured FWHT path in plain torch.  The gradient fn (features and
+d features / d sigma, for the exact NMLL gradient) is plain torch on both
+paths.
 
 Linear has identity features, with a column of ones in front when it
 fits an intercept (its feature count is D + 1 or D, whatever num_rffs
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 
 from .kernel_baseclass import KernelBaseclass
+from ..config import feature_matmul_precision
 from ..ops.cuda.feature_map import rbf_feature_map as fused_feature_map
 from ..ops.cuda.ztzv import ztzv_parts
 from ..ops.hadamard import next_pow2
@@ -103,8 +106,9 @@ class SORFKernelBaseclass(KernelBaseclass):
         padded = self.padded_dims
         if self.use_dense_projection:
             def fn(params, x, seq_len=None):
-                feats = fused_feature_map(x * params["sigma"],
-                                          params["proj"], intercept, padded)
+                feats = fused_feature_map(
+                    x * params["sigma"], params["proj"], intercept, padded,
+                    precision=feature_matmul_precision(x.device, x.dtype))
                 if intercept:
                     feats[:, 0] = 1.0
                 return feats

@@ -149,9 +149,10 @@ class Conv1dTwoLayer(KernelBaseclass):
                                          params["chi1"], width,
                                          proj=params.get("proj1"))
             if use_dense:
-                feats = fused_feature_map(prof * params["sigma"],
-                                          params["proj2"], intercept,
-                                          padded2)
+                feats = fused_feature_map(
+                    prof * params["sigma"], params["proj2"], intercept,
+                    padded2, precision=config.feature_matmul_precision(
+                        prof.device, prof.dtype))
             else:
                 feats = rbf_feature_map(prof * params["sigma"],
                                         params["radem2"], params["chi2"],

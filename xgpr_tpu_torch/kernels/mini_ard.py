@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from .kernel_baseclass import KernelBaseclass
+from ..config import feature_matmul_precision
 from ..ops.ard import mini_ard_grad, precompute_sorf_weights
 from ..ops.cuda.feature_map import rbf_feature_map as fused_feature_map
 from ..ops.hadamard import next_pow2
@@ -123,8 +124,10 @@ class MiniARD(KernelBaseclass):
         padded = self.padded_dims
         if self.use_dense_projection:
             def fn(params, x, seq_len=None):
-                feats = fused_feature_map(x * params["ard_weights"],
-                                          params["proj"], intercept, padded)
+                feats = fused_feature_map(
+                    x * params["ard_weights"], params["proj"], intercept,
+                    padded,
+                    precision=feature_matmul_precision(x.device, x.dtype))
                 if intercept:
                     feats[:, 0] = 1.0
                 return feats

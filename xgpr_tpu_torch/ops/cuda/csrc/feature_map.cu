@@ -1,5 +1,5 @@
-// K2 in the 3xTF32 format (float32 operands, every preset) and K2's C
-// entry point for both formats; the kernel and its design are in
+// K2 in the 3xTF32 format (float32 operands, "high" and "default") and
+// K2's C entry point for every format; the kernel and its design are in
 // feature_map.cuh.
 #include "feature_map.cuh"
 
@@ -9,9 +9,10 @@ using namespace xgpr::features;
 // K2's C entry point.  x_hi/x_lo (n, dp) and proj_hi/proj_lo (f, dp) are
 // the planes of x and of proj transposed in the format `body` names
 // (tf32_gemm.cuh: Format): FMT_TF32X3, TF32 splits of float32 values with
-// dp % 4 == 0, out float32; FMT_F64, float64 values with dp % 2 == 0 and
-// the lo pointers unused, out float64.  out is (n, 2f); rsplit blocks
-// share each frequency tile's row tiles; mode is a SincosMode
+// dp % 4 == 0, out float32; FMT_FMA32, the float32 values with dp % 4 == 0
+// and the lo pointers unused, out float32; FMT_F64, float64 values with
+// dp % 2 == 0 and the lo pointers unused, out float64.  out is (n, 2f);
+// rsplit blocks share each frequency tile's row tiles; mode is a SincosMode
 // (common.cuh), which the float64 body reads as the builtin.  Any other
 // mode or body is refused.
 extern "C" int xgpr_feature_map(const void* x_hi, const void* x_lo,
@@ -25,8 +26,9 @@ extern "C" int xgpr_feature_map(const void* x_hi, const void* x_lo,
   if (body == FMT_F64)
     return launch_f64(p, {static_cast<double*>(out), padded, scale}, rsplit,
                       st);
-  if (body != FMT_TF32X3) return (int)cudaErrorInvalidValue;
   const FeatureArgs<float> a{static_cast<float*>(out), padded, (float)scale};
+  if (body == FMT_FMA32) return launch_fma32(p, a, mode, rsplit, st);
+  if (body != FMT_TF32X3) return (int)cudaErrorInvalidValue;
   switch (mode) {
     case MODE_HI: return launch<FMT_TF32X3, MODE_HI>(p, a, rsplit, st);
     case MODE_EXACT: return launch<FMT_TF32X3, MODE_EXACT>(p, a, rsplit, st);

@@ -1,5 +1,6 @@
 // Dense RBF feature map for Hopper (K2), on the tensor cores at fp32 grade
-// (3xTF32) for float32 operands and in float64 DMMA for float64 ones.
+// (3xTF32) for float32 operands, in fp32 FMAs on the CUDA cores at the
+// "highest" feature precision, and in float64 DMMA for float64 ones.
 //
 // Replaces the TPU kernel xgpr_tpu/ops/pallas/sorf_pallas.py:_feature_kernel
 // (pallas_call in _rbf_feature_map_impl).  For sigma-scaled rows x (N, D)
@@ -47,14 +48,24 @@
 //   0.231-0.240 ms for the fragment stores (PERF.md).
 //   No (N, F) intermediate reaches device memory, and each feature is
 //   written once.
+// - At the "highest" feature precision (the "reference" preset) float32
+//   operands run the same kernel on the fp32 FMA body of fma_gemm.cuh,
+//   fp32-exact as xgpr_tpu's Pallas feature map, which pins HIGHEST
+//   (sorf_pallas.py:48-50): the 3xTF32 body's tensor-core sums measured
+//   2.05x the error of a plain fp32 product against a float64 witness
+//   (PERF.md).  Its 32 KB stages do not hold a 64 KB tile, so every
+//   feature is stored from the fragment.  What bounds it: the projection
+//   as fp32 FMAs, 5.6 GFLOP at RBF's chunk, 0.084 ms at the CUDA cores' 67
+//   TFLOP/s, against the 0.081 ms write.
 // - float64 operands run the same kernel on the float64 DMMA body
 //   (fma_gemm.cuh, 16 values of depth a stage) with the builtin sincos,
 //   every feature stored from the fragment (a float64 tile is 128 KB, more
 //   than a stage holds).  What bounds it there: at RBF's chunk the 537 MB
 //   of float64 features, 0.16 ms at 3.35 TB/s, against 0.08 ms for the
 //   5.6 GFLOP of projection at the tensor cores' 67 TFLOP/s of FP64.
-// The tensor-core instantiations are in feature_map.cu (with the C entry
-// point), the float64 one in feature_map_f64.cu, built in parallel.
+// The 3xTF32 instantiations are in feature_map.cu (with the C entry
+// point), the fp32 FMA ones in feature_map_fma.cu, the float64 one in
+// feature_map_f64.cu, built in parallel.
 #pragma once
 
 #include "common.cuh"
@@ -216,6 +227,10 @@ int launch(const DenseOperands& p, const FeatureArgs<typename Body<FMT>::T>& a,
       <<<grid, GT, Body<FMT>::SMEM, stream>>>(p, a);
   return (int)cudaGetLastError();
 }
+
+// The fp32 FMA body's launch in sincos mode `mode` (feature_map_fma.cu).
+int launch_fma32(const DenseOperands& p, const FeatureArgs<float>& a,
+                 int mode, int rsplit, cudaStream_t stream);
 
 // The float64 body's launch (feature_map_f64.cu): the builtin sincos in
 // every mode.

@@ -20,60 +20,79 @@
 // launches that recompute the features and each own their outputs (no
 // atomics: two calls on the same inputs give the same bits):
 //
-//   (a) ztzv_zv_kernel:  per row tile and slice of the frequency tiles,
-//       project, sincos and contract with v_c/v_s tile by tile into per-row
-//       partial sums in registers; the 4 lanes of a row reduce with
-//       shuffles -> zv_part (SZ, R, K).
-//   (b) ztzv_out_kernel: per frequency tile and slice of the row tiles,
-//       recompute the same features and contract with zv (the SZ partials
-//       are summed in a fixed order as they are staged) into per-column
-//       registers, reduced over lanes (shuffles) and warps (shared memory)
-//       -> oc_part, os_part (SO, F, K).
+//   (a) zv pass: per row tile, slice of the frequency tiles and block of
+//       right-hand sides, project, sincos and contract with v_c / v_s tile
+//       by tile -> zv_part (SZ, R, K).
+//   (b) out pass: per frequency tile, slice of the row tiles and block of
+//       right-hand sides, recompute the same features and contract with zv
+//       (the SZ partials summed in a fixed order as they are staged) ->
+//       oc_part, os_part (SO, F, K).
 //   (c) sum_splits_kernel: fixed-order sum over the SO partials -> oc, os.
 //
-// What bounds it on the H100: at RBF's chunk (8192 x 84 rows, F 4096,
-// K 1) device memory sees only x, the vectors and the partials (3 MB),
-// and the two projections are 11.3 GFLOP, 0.068 ms as three TF32 products
-// each at 495 TFLOP/s (0.17 ms as fp32 FMAs on CUDA cores; 0.011 ms as
-// one bf16 product at 989 TFLOP/s), plus 2 x 33.5M sincos pairs on the
-// CUDA cores.  Recomputing the features
-// instead of writing Z trades 268 MB of traffic per chunk for the second
-// projection.
+// What bounds it on the H100: at RBF's chunk (8192 x 84 rows, F 4096)
+// device memory sees only x, the vectors and the partials (3 MB at K 1),
+// and the work is the two projections, 11.3 GFLOP, and the contractions,
+// 8 R F K flops: at K 1 0.068 ms as three TF32 products at 495 TFLOP/s
+// (0.011 ms as one bf16 product at 989 TFLOP/s), at K 26 0.11 ms (0.019
+// ms), plus 2 x 33.5M sincos pairs on the CUDA cores.  Recomputing the
+// features instead of writing Z trades 268 MB of traffic per chunk for the
+// second projection.
 //
 // Design: both passes are the wgmma body of tf32_gemm.cuh with the dense
-// row policy, 128-row x 128-frequency tiles whose stages flow from
-// one tile to the next of a block's walk (the role the window-group loop
-// plays in conv.cu).  Up to three depth steps (D 96 in TF32, 192 in bf16;
-// RBF's 84) the tile the walk does not move stays in shared memory and
-// the ring carries only the other operand (dense_pipeline): half the
-// copies a step.  The epilogues work
-// on the accumulator fragment; the small per-tile operands (v_c/v_s of a
-// frequency tile, zv and the mask of a row tile) are staged in shared
-// memory with the tile's first copies, in a ring of three slots.  Pass
-// (a) carries KC right-hand sides per block (grid z walks K in chunks of
-// 8 when K > 1); pass (b) keeps 64 column sums a thread, so it takes one
-// right-hand side per block (grid z = K).
-// The wrapper picks the slice counts that fill the SMs in the fewest waves.
-// Under "default" the bf16 body rounds every product's operands as the
-// TPU's DEFAULT dot does in _ztzv_kernel: x and proj go to the tensor
-// cores as bf16, and the epilogues round c and s (after scale * mask and
-// the intercept column), v_c / v_s as they are staged and the summed zv
-// to bf16 before their CUDA-core products (as_operand), whose sums stay
-// fp32.  Each kernel is instantiated once per sincos mode (common.cuh)
-// and format; each format's instantiations are a translation unit of
-// their own (ztzv.cu, ztzv_bf16.cu, ztzv_f64.cu), built in parallel,
-// and the host picks the instantiation at launch.
+// row policy, 128 x 128 tiles whose stages flow from one tile to the next
+// of a block's walk (the role the window-group loop plays in conv.cu).  Up
+// to three depth steps (D 96 in TF32, 192 in bf16; RBF's 84) the tile the
+// walk does not move stays in shared memory and the ring carries only the
+// other operand (dense_pipeline): half the copies a step.  Pass (b)
+// projects with the operands swapped (proj^T x^T: frequencies as the
+// tile's rows, rows of x as its columns), so that in both passes the
+// contraction runs over the fragment's columns.
+//
+// The contractions run on the tensor cores straight from the accumulator
+// fragment (mma.sync, the A operand in registers): the fragment holds tile
+// row g + 8h by column 8j + 2t + e, which is the A layout of
+// m16n8k16.bf16 for columns 16u .. 16u + 15 and, with depth t taking
+// column 8j + 2t and depth t + 4 column 8j + 2t + 1, of m16n8k8.tf32 for
+// columns 8j .. 8j + 7.  The B operand (v_c / v_s of a frequency tile in
+// pass (a), zv of a row tile in pass (b)) is staged in shared memory, fp32,
+// one row per right-hand side in the swizzle of staged_at.  A block carries
+// 8 NT right-hand sides (NT n8 tiles, mma_nt): every right-hand side of
+// the block shares one projection and one sincos of each tile, where a
+// CUDA-core contraction carried one right-hand side a block in pass (b)
+// and recomputed the features K times (3.73 ms at K 26 in 3xTF32).  NT is
+// 1 up to K 8, then 4 for bf16 and 2 for 3xTF32: the TF32 ring takes
+// 193 KB of the 227 KB a block may have, and two slots of v_c / v_s for 16
+// right-hand sides take the 32 KB left (32 would need 64 KB).  At K 1
+// one-rhs passes that contract on the CUDA cores (ztzv_zv_kernel,
+// ztzv_out_kernel) run instead.
+//
+// Precision: "default" (bf16) rounds c, s (after scale * mask and the
+// intercept column), v_c / v_s and the summed zv to bf16 as the TPU's
+// DEFAULT dot rounds its operands in _ztzv_kernel; the products are exact
+// and the mma sums them in fp32.  3xTF32 splits c, s and the staged values
+// into TF32 high parts and remainders (hi + lo == a) and sums
+// lo*hi + hi*lo + hi*hi; the tensor cores align and truncate their sums,
+// so each hi*hi product is made afresh (8 terms) and added to the running
+// sum with an fp32 add, and only the small terms chain in the mma's
+// accumulator: the error stays at fp32 grade (precision_error.py).
+//
 // The float64 format runs every product, sum and sincos (the builtin, in
 // every mode) in float64, with 16 values of depth a stage and the same
 // walks, but its own passes (ztzv_zv_f64_kernel, ztzv_out_f64_kernel):
-// both contractions run as DMMAs on the fragment, and a block carries up
-// to 16 right-hand sides in both passes: SLQ's K 26 takes two blocks a
-// pass, where one right-hand side a block recomputed the features 26
-// times.  What bounds it
-// there: the two projections of RBF's chunk, 11.3 GFLOP, 0.17 ms at the
-// tensor cores' 67 TFLOP/s of FP64, and at K 26 the contractions' 14 GFLOP
-// more.
+// both contractions run as DMMAs on the fragment, 16 right-hand sides a
+// block.  What bounds it there: the two projections of RBF's chunk, 11.3
+// GFLOP, 0.17 ms at the tensor cores' 67 TFLOP/s of FP64, and at K 26 the
+// contractions' 14 GFLOP more.
+//
+// Each kernel is instantiated once per sincos mode (common.cuh) and
+// format; each format's instantiations are a translation unit of their own
+// (ztzv.cu, ztzv_bf16.cu, ztzv_f64.cu), built in parallel, and the host
+// picks the instantiation at launch.  The wrapper picks the slice counts
+// that fill the SMs in the fewest waves (ops/cuda/ztzv.py: launch_plan).
 #pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
 
 #include "common.cuh"
 #include "tf32_gemm.cuh"
@@ -88,11 +107,25 @@ struct ZtzvArgs {
   const T* vs;  // (f, k)
   T sigma, scale;
   int k, intercept;
+  int zbase;  // the launch's first block of right-hand sides (grid z)
 };
 
-// Right-hand sides a block of pass (a) carries when K > 1 (the tensor-core
-// float32 formats; the float64 passes carry 8 F64_NT).
-constexpr int ZV_KC = 8;
+// The most blocks a launch may have along grid z: a call with more blocks
+// of right-hand sides launches each pass in chunks of them (zbase).
+constexpr int MAX_GRID_Z = 65535;
+
+// ---------------------------------------------------------------------------
+// The one-rhs passes at K 1 (a fit's CG matvec), contracting on the CUDA
+// cores.  In 3xTF32 the tensor-core passes' splits and fresh products cost
+// more than the two FMAs a feature takes here (0.323 against 0.256 ms at
+// RBF's chunk, PERF.md).  In bf16 they were faster (0.173 against 0.185
+// ms), but their other summation order cost slice A's fit under "max" a
+// CG iteration (18 against 17), so bf16 keeps these passes at K 1 too.
+// Under "default" the epilogues round c, s, v_c / v_s and zv to bf16
+// (as_operand) before their fp32 FMAs.  These are the passes K1 had
+// before the tensor-core ones, unchanged; the zv pass is instantiated at
+// KC = 1 right-hand side a block, the out pass takes right-hand side
+// blockIdx.z of a grid one deep.
 
 // Partial zv over the frequency tiles of this block's walk.
 template <int FMT, int MODE, int KC>
@@ -281,6 +314,407 @@ __global__ void __launch_bounds__(GT, 1)
   }
 }
 
+// Passes (a) and (b) of a call at K 1.
+template <int FMT, int MODE>
+cudaError_t launch_one(const DenseOperands& p, const ZtzvArgs<float>& a,
+                       float* zv_part, float* oc_part, float* os_part,
+                       int zsplit, int osplit, cudaStream_t st) {
+  cudaError_t err = allow_ring_smem<FMT>(ztzv_zv_kernel<FMT, MODE, 1>);
+  if (err != cudaSuccess) return err;
+  err = allow_ring_smem<FMT>(ztzv_out_kernel<FMT, MODE>);
+  if (err != cudaSuccess) return err;
+  ztzv_zv_kernel<FMT, MODE, 1>
+      <<<dim3((p.n + GM - 1) / GM, zsplit), GT, Body<FMT>::SMEM, st>>>(
+          p, a, zv_part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ztzv_out_kernel<FMT, MODE>
+      <<<dim3((p.f + GN - 1) / GN, osplit), GT, Body<FMT>::SMEM, st>>>(
+          p, a, zv_part, zsplit, oc_part, os_part);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The float32 passes on the tensor cores (FMT_TF32X3, FMT_BF16).
+
+// n8 tiles of right-hand sides a block carries at K: 8 NT right-hand sides.
+__host__ __device__ constexpr int mma_nt(int fmt, int k) {
+  return k <= 8 ? 1 : fmt == FMT_BF16 ? 4 : 2;
+}
+// Slabs of 8 fragment columns one mma takes as its depth: m16n8k8 (TF32)
+// one, m16n8k16 (bf16) two.
+template <int FMT>
+constexpr int MMA_JS = FMT == FMT_BF16 ? 2 : 1;
+
+// Word of element (q, c) of a tile's staged operand (8 NT rows q, one per
+// right-hand side, by 128 columns c: frequencies in pass (a), rows of x in
+// pass (b)).  The swizzle puts the float2 B loads of a half-warp (q = 8 nt
+// + g, g < 4; c = 8j + 2t) and the stores of staged_pair on distinct
+// banks.
+__device__ __forceinline__ int staged_at(int q, int c) {
+  return q * GN + (c ^ (8 * (q % 4)));
+}
+
+// The (c, q) a thread stages at its it-th turn: a warp takes 8 consecutive
+// columns by 4 consecutive right-hand sides, so its global reads are
+// 16-byte runs of 8 rows of the (., K) operand and its shared stores fall
+// on 32 distinct banks.  it < 4 NT covers the tile.
+__device__ __forceinline__ void staged_pair(int it, int& c, int& q) {
+  const int e = threadIdx.x + GT * it, lane = e % 32, wi = e / 32;
+  c = 8 * (wi % 16) + lane % 8;
+  q = 4 * (wi / 16) + lane / 8;
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// v rounded to TF32 (to nearest, ties away: the host's split_tf32).
+__device__ __forceinline__ uint32_t tf32_of(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// (lo, hi) rounded to bf16 (to nearest even) in one register, lo in the
+// low half: the order of an mma operand pair.
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// d (16 x 8, fp32) += a (16 x 8, TF32) b (8 x 8, TF32).
+__device__ __forceinline__ void mma_tf32(float d[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d = a b, the same shapes, summed afresh.
+__device__ __forceinline__ void mma_tf32_fresh(float d[4], const uint32_t a[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.0f));
+}
+
+// d (16 x 8, fp32) += a (16 x 16, bf16) b (16 x 8, bf16).
+__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The A operand of one mma depth step, from a thread's values v[jj][h][e]
+// of fragment slab MMA_JS u + jj (row g + 8h, column 8j + 2t + e): bf16
+// pairs in hi, or a TF32 split (hi + lo == v) with depth t at e = 0 and
+// depth t + 4 at e = 1.
+struct MmaA {
+  uint32_t hi[4], lo[4];
+};
+
+template <int FMT>
+__device__ __forceinline__ MmaA mma_a(const float v[][2][2]) {
+  MmaA a;
+  if constexpr (FMT == FMT_BF16) {
+    a.hi[0] = bf16x2(v[0][0][0], v[0][0][1]);
+    a.hi[1] = bf16x2(v[0][1][0], v[0][1][1]);
+    a.hi[2] = bf16x2(v[1][0][0], v[1][0][1]);
+    a.hi[3] = bf16x2(v[1][1][0], v[1][1][1]);
+  } else {
+    const float x[4] = {v[0][0][0], v[0][1][0], v[0][0][1], v[0][1][1]};
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      a.hi[r] = tf32_of(x[r]);
+      a.lo[r] = __float_as_uint(x[r] - __uint_as_float(a.hi[r]));
+    }
+  }
+  return a;
+}
+
+// The B operand of depth step u for right-hand side q (its n8 tile's
+// column g) from a staged tile: columns 16u + 2t, + 1 and 16u + 8 + 2t, + 1
+// as bf16 pairs, or columns 8u + 2t (depth t) and 8u + 2t + 1 (depth t + 4)
+// split into TF32.
+struct MmaB {
+  uint32_t hi[2], lo[2];
+};
+
+template <int FMT>
+__device__ __forceinline__ MmaB mma_b(const float* tile, int q, int u,
+                                      int t4) {
+  MmaB b;
+  if constexpr (FMT == FMT_BF16) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float2 v = *reinterpret_cast<const float2*>(
+          tile + staged_at(q, 16 * u + 8 * r + 2 * t4));
+      b.hi[r] = bf16x2(v.x, v.y);
+    }
+  } else {
+    const float2 v =
+        *reinterpret_cast<const float2*>(tile + staged_at(q, 8 * u + 2 * t4));
+    b.hi[0] = tf32_of(v.x);
+    b.hi[1] = tf32_of(v.y);
+    b.lo[0] = __float_as_uint(v.x - __uint_as_float(b.hi[0]));
+    b.lo[1] = __float_as_uint(v.y - __uint_as_float(b.hi[1]));
+  }
+  return b;
+}
+
+// A running sum of products (16 x 8, fp32, the mma's C layout: c[r] is row
+// g + 8 (r / 2), column 2t + r % 2).  bf16 chains the mma's fp32
+// accumulation in `main`; 3xTF32 adds each hi*hi product, summed afresh, to
+// `main` with an fp32 add and chains lo*hi + hi*lo in `corr`.
+struct MmaSum {
+  float main[4], corr[4];
+};
+
+__device__ __forceinline__ void mma_zero(MmaSum& d) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) d.main[r] = d.corr[r] = 0.0f;
+}
+
+template <int FMT>
+__device__ __forceinline__ void mma_add(MmaSum& d, const MmaA& a,
+                                        const MmaB& b) {
+  if constexpr (FMT == FMT_BF16) {
+    mma_bf16(d.main, a.hi, b.hi[0], b.hi[1]);
+  } else {
+    float p[4];
+    mma_tf32_fresh(p, a.hi, b.hi[0], b.hi[1]);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) d.main[r] += p[r];
+    mma_tf32(d.corr, a.lo, b.hi[0], b.hi[1]);
+    mma_tf32(d.corr, a.hi, b.lo[0], b.lo[1]);
+  }
+}
+
+template <int FMT>
+__device__ __forceinline__ float mma_value(const MmaSum& d, int r) {
+  return FMT == FMT_BF16 ? d.main[r] : d.main[r] + d.corr[r];
+}
+
+// Shared memory of the tensor-core passes: the ring, then the staged
+// operands.  Pass (a): v_c and v_s of a frequency tile (8 NT x 128 each)
+// in 2 slots, filled by cp.async in the previous tile's epilogue; pass
+// (b): zv (8 NT x 128) and the mask of a row tile in 3 slots, filled with
+// the tile's first copies.  TF32 at NT 2: 197,632 + 32,768 and + 26,112
+// bytes of the 232,448 a block may have.
+template <int NT>
+constexpr int ZV_SLOT = 2 * 8 * NT * GN;  // floats
+template <int NT>
+constexpr int OUT_SLOT = (8 * NT + 1) * GN;
+template <int FMT, int NT>
+constexpr int ZV_MMA_SMEM =
+    Body<FMT>::SMEM + 2 * ZV_SLOT<NT> * (int)sizeof(float);
+template <int FMT, int NT>
+constexpr int OUT_MMA_SMEM =
+    Body<FMT>::SMEM + 3 * OUT_SLOT<NT> * (int)sizeof(float);
+
+// Pass (a): partial zv over the frequency tiles of this block's walk, for
+// right-hand sides 8 NT (blockIdx.z + zbase) ...
+template <int FMT, int MODE, int NT>
+__global__ void __launch_bounds__(GT, 1)
+    ztzv_zv_mma_kernel(DenseOperands p, ZtzvArgs<float> a,
+                       float* __restrict__ zv_part) {
+  constexpr int KO = 8 * NT, JS = MMA_JS<FMT>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = ring_base(smem_raw);
+  float* const slots = reinterpret_cast<float*>(smem_raw + Body<FMT>::SMEM);
+  const DenseWalk w = dense_walk(true, p.n, p.f);
+  const int kc = max(1, (p.dp + Body<FMT>::KS - 1) / Body<FMT>::KS);
+  const int tid = threadIdx.x, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  const int rbase = (tid / 32) * 16 + g;
+  const int k0 = (blockIdx.z + a.zbase) * KO, kcnt = min(KO, a.k - k0);
+
+  float mrow[2], wrow[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = w.row0(0) + rbase + 8 * h;
+    mrow[h] = r < p.n ? a.m[r] : 0.0f;
+    wrow[h] = mrow[h] * a.scale;
+  }
+  MmaSum z[NT];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) mma_zero(z[nt]);
+
+  // Frequency tile i's v_c / v_s into slot i % 2, as one cp.async group:
+  // tile i + 1's copies run during tile i's epilogue, and the pipeline's
+  // next barrier (after a wait for every group) orders them before tile
+  // i + 1's reads, and tile i - 1's reads of the slot before them.
+  auto stage_v = [&](int i) {
+    const int f0 = w.col0(i);
+    float* vc = slots + (i % 2) * ZV_SLOT<NT>;
+    float* vs = vc + KO * GN;
+#pragma unroll
+    for (int it = 0; it < KO / 2; ++it) {
+      int c, q;
+      staged_pair(it, c, q);
+      const bool ok = f0 + c < p.f && q < kcnt;
+      const size_t at = ok ? (size_t)(f0 + c) * a.k + k0 + q : 0;
+      cp_async4(vc + staged_at(q, c), a.vc + at, ok);
+      cp_async4(vs + staged_at(q, c), a.vs + at, ok);
+    }
+    cp_async_commit();
+  };
+  if (w.count > 0) stage_v(0);
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+
+  dense_pipeline<true, FMT>(smem, p, w, kc, acc, [](int) {}, [&](int i) {
+    if (i + 1 < w.count) stage_v(i + 1);
+    const float* vc = slots + (i % 2) * ZV_SLOT<NT>;
+    const float* vs = vc + KO * GN;
+    const bool icol = a.intercept && w.col0(i) == 0 && t4 == 0;
+    with_sincos<MODE>(acc, a.sigma, [&](auto sincos) {
+#pragma unroll
+      for (int u = 0; u < 16 / JS; ++u) {
+        float c[JS][2][2], s[JS][2][2];
+#pragma unroll
+        for (int jj = 0; jj < JS; ++jj)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              sincos(acc[4 * (JS * u + jj) + 2 * h + e] * a.sigma, wrow[h],
+                     &c[jj][h][e], &s[jj][h][e]);
+        if (u == 0 && icol) {  // column 0 of the intercept
+          c[0][0][0] = mrow[0];
+          c[0][1][0] = mrow[1];
+        }
+        const MmaA ac = mma_a<FMT>(c), as = mma_a<FMT>(s);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          mma_add<FMT>(z[nt], ac, mma_b<FMT>(vc, 8 * nt + g, u, t4));
+          mma_add<FMT>(z[nt], as, mma_b<FMT>(vs, 8 * nt + g, u, t4));
+        }
+      }
+    });
+  });
+
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = w.row0(0) + rbase + 8 * (r / 2);
+    if (row >= p.n) continue;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int q = 8 * nt + 2 * t4 + r % 2;
+      if (q < kcnt)
+        zv_part[((size_t)blockIdx.y * p.n + row) * a.k + k0 + q] =
+            mma_value<FMT>(z[nt], r);
+    }
+  }
+}
+
+// Pass (b) on the swapped operands t (t.n = F frequencies as rows, t.f = R
+// rows of x as columns): partial oc/os of one frequency tile over the row
+// tiles of this block's walk, right-hand sides 8 NT (blockIdx.z + zbase)
+// ...
+template <int FMT, int MODE, int NT>
+__global__ void __launch_bounds__(GT, 1)
+    ztzv_out_mma_kernel(DenseOperands t, ZtzvArgs<float> a,
+                        const float* __restrict__ zv_part, int zsplit,
+                        float* __restrict__ oc_part,
+                        float* __restrict__ os_part) {
+  constexpr int KO = 8 * NT, JS = MMA_JS<FMT>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = ring_base(smem_raw);
+  float* const slots = reinterpret_cast<float*>(smem_raw + Body<FMT>::SMEM);
+  const DenseWalk w = dense_walk(true, t.n, t.f);
+  const int kc = max(1, (t.dp + Body<FMT>::KS - 1) / Body<FMT>::KS);
+  const int tid = threadIdx.x, lane = tid % 32, g = lane / 4, t4 = lane % 4;
+  const int fbase = w.row0(0) + (tid / 32) * 16 + g;
+  const int k0 = (blockIdx.z + a.zbase) * KO, kcnt = min(KO, a.k - k0);
+
+  MmaSum o[2][NT];  // oc, os
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    mma_zero(o[0][nt]);
+    mma_zero(o[1][nt]);
+  }
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+
+  dense_pipeline<true, FMT>(
+      smem, t, w, kc, acc,
+      [&](int step) {
+        if (step % kc == 0) {  // stage the tile's zv and mask
+          const int i = step / kc, r0 = w.col0(i);
+          float* zt = slots + (i % 3) * OUT_SLOT<NT>;
+#pragma unroll
+          for (int it = 0; it < KO / 2; ++it) {
+            int c, q;
+            staged_pair(it, c, q);
+            float v = 0.0f;
+            if (r0 + c < t.f && q < kcnt)
+              for (int s = 0; s < zsplit; ++s)
+                v += zv_part[((size_t)s * t.f + r0 + c) * a.k + k0 + q];
+            zt[staged_at(q, c)] = v;
+          }
+          if (tid < GN)
+            zt[KO * GN + tid] = r0 + tid < t.f ? a.m[r0 + tid] : 0.0f;
+        }
+      },
+      [&](int i) {
+        const float* zt = slots + (i % 3) * OUT_SLOT<NT>;
+        const float* mt = zt + KO * GN;
+        with_sincos<MODE>(acc, a.sigma, [&](auto sincos) {
+#pragma unroll
+          for (int u = 0; u < 16 / JS; ++u) {
+            float c[JS][2][2], s[JS][2][2];
+#pragma unroll
+            for (int jj = 0; jj < JS; ++jj)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int j = JS * u + jj;
+                const float mr = mt[8 * j + 2 * t4 + e], wr = mr * a.scale;
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  sincos(acc[4 * j + 2 * h + e] * a.sigma, wr, &c[jj][h][e],
+                         &s[jj][h][e]);
+                  if (a.intercept && fbase + 8 * h == 0) c[jj][h][e] = mr;
+                }
+              }
+            const MmaA ac = mma_a<FMT>(c), as = mma_a<FMT>(s);
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {
+              const MmaB b = mma_b<FMT>(zt, 8 * nt + g, u, t4);
+              mma_add<FMT>(o[0][nt], ac, b);
+              mma_add<FMT>(o[1][nt], as, b);
+            }
+          }
+        });
+      });
+
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int col = fbase + 8 * (r / 2);
+    if (col >= t.n) continue;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int q = 8 * nt + 2 * t4 + r % 2;
+      if (q >= kcnt) continue;
+      const size_t at = ((size_t)blockIdx.y * t.n + col) * a.k + k0 + q;
+      oc_part[at] = mma_value<FMT>(o[0][nt], r);
+      os_part[at] = mma_value<FMT>(o[1][nt], r);
+    }
+  }
+}
+
 // Internal linkage: each format's translation unit keeps its own copy.
 template <class T>
 static __global__ void sum_splits_kernel(const T* __restrict__ oc_part,
@@ -299,17 +733,48 @@ static __global__ void sum_splits_kernel(const T* __restrict__ oc_part,
   os[i] = b;
 }
 
-template <int FMT, int MODE, int KC>
-cudaError_t launch_zv(const DenseOperands& p,
-                      const ZtzvArgs<typename Body<FMT>::T>& a,
-                      typename Body<FMT>::T* zv_part, int zsplit,
-                      cudaStream_t stream) {
-  cudaError_t err = allow_ring_smem<FMT>(ztzv_zv_kernel<FMT, MODE, KC>);
+// Launches `kernel` over `kblocks` blocks of right-hand sides along grid z
+// in chunks of at most MAX_GRID_Z, each with its zbase; launch(args,
+// nz) issues one.
+template <class T, class Launch>
+cudaError_t over_rhs_blocks(const ZtzvArgs<T>& a, int kblocks,
+                            Launch&& launch) {
+  for (int z0 = 0; z0 < kblocks; z0 += MAX_GRID_Z) {
+    ZtzvArgs<T> c = a;
+    c.zbase = z0;
+    launch(c, kblocks - z0 < MAX_GRID_Z ? kblocks - z0 : MAX_GRID_Z);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// Passes (a) and (b) of a call on the tensor cores, NT n8 tiles a block.
+template <int FMT, int MODE, int NT>
+cudaError_t launch_mma(const DenseOperands& p, const ZtzvArgs<float>& a,
+                       float* zv_part, float* oc_part, float* os_part,
+                       int zsplit, int osplit, cudaStream_t st) {
+  constexpr int ZS = ZV_MMA_SMEM<FMT, NT>, OS = OUT_MMA_SMEM<FMT, NT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      ztzv_zv_mma_kernel<FMT, MODE, NT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, ZS);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.n + GM - 1) / GM, zsplit, (a.k + KC - 1) / KC);
-  ztzv_zv_kernel<FMT, MODE, KC>
-      <<<grid, GT, Body<FMT>::SMEM, stream>>>(p, a, zv_part);
-  return cudaGetLastError();
+  err = cudaFuncSetAttribute(ztzv_out_mma_kernel<FMT, MODE, NT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, OS);
+  if (err != cudaSuccess) return err;
+  const int kblocks = (a.k + 8 * NT - 1) / (8 * NT);
+  err = over_rhs_blocks(a, kblocks, [&](const ZtzvArgs<float>& c, int nz) {
+    ztzv_zv_mma_kernel<FMT, MODE, NT>
+        <<<dim3((p.n + GM - 1) / GM, zsplit, nz), GT, ZS, st>>>(p, c,
+                                                                zv_part);
+  });
+  if (err != cudaSuccess) return err;
+  const DenseOperands t{p.b_hi, p.b_lo, p.x_hi, p.x_lo, p.f, p.dp, p.n};
+  return over_rhs_blocks(a, kblocks, [&](const ZtzvArgs<float>& c, int nz) {
+    ztzv_out_mma_kernel<FMT, MODE, NT>
+        <<<dim3((p.f + GM - 1) / GM, osplit, nz), GT, OS, st>>>(
+            t, c, zv_part, zsplit, oc_part, os_part);
+  });
 }
 
 // The float64 format's passes (a) and (b).  Both contract on the tensor
@@ -339,7 +804,7 @@ constexpr int F64_OUT_SMEM =
     Body<FMT_F64>::SMEM + 3 * GN * (F64_PITCH<NT> + 1) * (int)sizeof(double);
 
 // Pass (a) in float64: partial zv over the frequency tiles of this block's
-// walk for right-hand sides 8 NT blockIdx.z ...
+// walk for right-hand sides 8 NT (blockIdx.z + zbase) ...
 template <int NT>
 __global__ void __launch_bounds__(GT, 1)
     ztzv_zv_f64_kernel(DenseOperands p, ZtzvArgs<double> a,
@@ -353,7 +818,7 @@ __global__ void __launch_bounds__(GT, 1)
   const int kc = max(1, (p.dp + Body<FMT>::KS - 1) / Body<FMT>::KS);
   const int tid = threadIdx.x, lane = tid % 32, g = lane / 4, t4 = lane % 4;
   const int rbase = (tid / 32) * 16 + g;
-  const int k0 = blockIdx.z * KO, kcnt = min(KO, a.k - k0);
+  const int k0 = (blockIdx.z + a.zbase) * KO, kcnt = min(KO, a.k - k0);
 
   double mrow[2], wrow[2];
 #pragma unroll
@@ -437,7 +902,7 @@ __global__ void __launch_bounds__(GT, 1)
 // Pass (b) in float64 on the swapped operands t (t.n = F frequencies as
 // rows, t.f = R rows of x as columns): partial oc/os of one frequency tile
 // over the row tiles of this block's walk, right-hand sides 8 NT
-// blockIdx.z ...
+// (blockIdx.z + zbase) ...
 template <int NT>
 __global__ void __launch_bounds__(GT, 1)
     ztzv_out_f64_kernel(DenseOperands t, ZtzvArgs<double> a,
@@ -453,7 +918,7 @@ __global__ void __launch_bounds__(GT, 1)
   const int kc = max(1, (t.dp + Body<FMT>::KS - 1) / Body<FMT>::KS);
   const int tid = threadIdx.x, lane = tid % 32, g = lane / 4, t4 = lane % 4;
   const int fbase = w.row0(0) + (tid / 32) * 16 + g;
-  const int k0 = blockIdx.z * KO, kcnt = min(KO, a.k - k0);
+  const int k0 = (blockIdx.z + a.zbase) * KO, kcnt = min(KO, a.k - k0);
 
   // oc (o[0]) and os (o[1]) of frequency fbase + 8h, right-hand side
   // 8nt + 2t4 + e.
@@ -546,21 +1011,23 @@ cudaError_t launch_all_f64(const DenseOperands& p, const ZtzvArgs<double>& a,
       ztzv_zv_f64_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       F64_ZV_SMEM<NT>);
   if (err != cudaSuccess) return err;
-  const int kblocks = (a.k + KO - 1) / KO;
-  const dim3 grid_a((p.n + GM - 1) / GM, zsplit, kblocks);
-  ztzv_zv_f64_kernel<NT>
-      <<<grid_a, GT, F64_ZV_SMEM<NT>, st>>>(p, a, zv_part);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(ztzv_out_f64_kernel<NT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              F64_OUT_SMEM<NT>);
   if (err != cudaSuccess) return err;
+  const int kblocks = (a.k + KO - 1) / KO;
+  err = over_rhs_blocks(a, kblocks, [&](const ZtzvArgs<double>& c, int nz) {
+    ztzv_zv_f64_kernel<NT>
+        <<<dim3((p.n + GM - 1) / GM, zsplit, nz), GT, F64_ZV_SMEM<NT>, st>>>(
+            p, c, zv_part);
+  });
+  if (err != cudaSuccess) return err;
   const DenseOperands t{p.b_hi, p.b_lo, p.x_hi, p.x_lo, p.f, p.dp, p.n};
-  const dim3 grid_b((p.f + GM - 1) / GM, osplit, kblocks);
-  ztzv_out_f64_kernel<NT><<<grid_b, GT, F64_OUT_SMEM<NT>, st>>>(
-      t, a, zv_part, zsplit, oc_part, os_part);
-  err = cudaGetLastError();
+  err = over_rhs_blocks(a, kblocks, [&](const ZtzvArgs<double>& c, int nz) {
+    ztzv_out_f64_kernel<NT>
+        <<<dim3((p.f + GM - 1) / GM, osplit, nz), GT, F64_OUT_SMEM<NT>,
+           st>>>(t, c, zv_part, zsplit, oc_part, os_part);
+  });
   if (err != cudaSuccess) return err;
   const size_t len = (size_t)p.f * a.k;
   sum_splits_kernel<double><<<(unsigned)((len + 255) / 256), 256, 0, st>>>(
@@ -568,24 +1035,33 @@ cudaError_t launch_all_f64(const DenseOperands& p, const ZtzvArgs<double>& a,
   return cudaGetLastError();
 }
 
-// The three launches of one call in one format and sincos mode.
-template <int FMT, int MODE, class T = typename Body<FMT>::T>
-cudaError_t launch_all(const DenseOperands& p, const ZtzvArgs<T>& a,
-                       T* zv_part, T* oc_part, T* os_part, T* oc, T* os,
-                       int zsplit, int osplit, cudaStream_t st) {
-  cudaError_t err =
-      a.k == 1 ? launch_zv<FMT, MODE, 1>(p, a, zv_part, zsplit, st)
-               : launch_zv<FMT, MODE, ZV_KC>(p, a, zv_part, zsplit, st);
-  if (err != cudaSuccess) return err;
-  err = allow_ring_smem<FMT>(ztzv_out_kernel<FMT, MODE>);
-  if (err != cudaSuccess) return err;
-  const dim3 grid_b((p.f + GN - 1) / GN, osplit, a.k);
-  ztzv_out_kernel<FMT, MODE><<<grid_b, GT, Body<FMT>::SMEM, st>>>(
-      p, a, zv_part, zsplit, oc_part, os_part);
-  err = cudaGetLastError();
+// Passes (a) and (b) of one call in a float32 format and sincos mode: K 1
+// on the one-rhs passes, else the tensor-core passes.
+template <int FMT, int MODE>
+cudaError_t launch_passes(const DenseOperands& p, const ZtzvArgs<float>& a,
+                          float* zv_part, float* oc_part, float* os_part,
+                          int zsplit, int osplit, cudaStream_t st) {
+  if (a.k == 1)
+    return launch_one<FMT, MODE>(p, a, zv_part, oc_part, os_part, zsplit,
+                                 osplit, st);
+  if (mma_nt(FMT, a.k) == 1)
+    return launch_mma<FMT, MODE, 1>(p, a, zv_part, oc_part, os_part, zsplit,
+                                    osplit, st);
+  return launch_mma<FMT, MODE, mma_nt(FMT, 9)>(p, a, zv_part, oc_part,
+                                                os_part, zsplit, osplit, st);
+}
+
+// The three launches of one call in a float32 format and sincos mode.
+template <int FMT, int MODE>
+cudaError_t launch_all(const DenseOperands& p, const ZtzvArgs<float>& a,
+                       float* zv_part, float* oc_part, float* os_part,
+                       float* oc, float* os, int zsplit, int osplit,
+                       cudaStream_t st) {
+  cudaError_t err = launch_passes<FMT, MODE>(p, a, zv_part, oc_part,
+                                             os_part, zsplit, osplit, st);
   if (err != cudaSuccess) return err;
   const size_t len = (size_t)p.f * a.k;
-  sum_splits_kernel<T><<<(unsigned)((len + 255) / 256), 256, 0, st>>>(
+  sum_splits_kernel<float><<<(unsigned)((len + 255) / 256), 256, 0, st>>>(
       oc_part, os_part, oc, os, osplit, len);
   return cudaGetLastError();
 }
@@ -628,4 +1104,3 @@ int launch_f64(const DenseOperands& p, const ZtzvArgs<double>& a,
 
 }  // namespace ztzv
 }  // namespace xgpr
-

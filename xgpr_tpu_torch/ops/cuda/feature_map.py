@@ -13,12 +13,15 @@ columns to 16 bytes and, for float32, splits x into TF32 high parts and
 remainders (operands.py: three elementwise passes over x, 2.75 MB at
 RBF's 8192 x 84 chunk); proj's transpose is prepared once per body and
 cached with proj (``projT_planes``).  float32 operands run the 3xTF32
-body, float64 operands the float64 DMMA body with the builtin
-sincos (``kernel_body``).
+body, or at the "highest" feature precision the fp32 FMA body on the CUDA
+cores (fp32-exact, as xgpr_tpu's Pallas feature map, which pins HIGHEST);
+float64 operands the float64 DMMA body with the builtin sincos
+(``kernel_body``).
 
 ``rbf_feature_map`` runs the plain version for a CPU tensor and the
 kernel for a CUDA tensor; anything else raises.  A CUDA tensor gets the
-kernel of the sincos mode it asks for (the configured one by default):
+kernel of the sincos mode and feature precision it asks for (the
+configured ones by default, resolved before the operator):
 "hi", "exact", "fast" and "poly" are each a kernel instantiation.
 
 The two are the CPU and CUDA implementations of one custom operator,
@@ -28,12 +31,14 @@ operator's fake implementation gives its output's shape) and
 ``torch.func.vmap`` maps it (its batching rule folds a leading batch
 axis of x into rows: the map is row-wise).  The whole launcher, the
 operand checks and preparation included, runs inside the operator.
-``LAUNCHES`` counts kernel launches by their shape, mode and precision
-(N, D, F, mode, precision; ``launch_tags``).  K2 has no precision
-variant: xgpr_tpu's Pallas feature map pins HIGHEST, so its float32
-launches run the 3xTF32 body under every preset and count as "high".
+``LAUNCHES`` counts kernel launches by their shape, mode and the
+precision that ran (N, D, F, mode, precision; ``launch_tags``):
+xgpr_tpu's Pallas feature map pins HIGHEST, so K2's float32 launches run
+fp32 FMAs under "highest" (the "reference" preset) and the 3xTF32 body,
+fp32-grade, under "high" and "default" alike, and count as "highest"
+and "high".
 The switches every kernel shares live here: the sincos mode
-(``kernel_mode``), the feature precision of K1, K3 and K4
+(``kernel_mode``), the feature precision of K1-K4
 (``kernel_precision``), the operands' dtype (``operand_dtype``) and the
 body these choose (``kernel_body``).
 """
@@ -54,9 +59,13 @@ LAUNCHES = Counter()
 TILE = 128  # rows and frequencies per tile (csrc/tf32_gemm.cuh: GM, GN)
 
 
-def rbf_feature_map_plain(x, proj, fit_intercept, padded, mode=None):
+def rbf_feature_map_plain(x, proj, fit_intercept, padded, mode=None,
+                          precision=None):
     """Plain PyTorch version of the kernel: the same arithmetic in the same
-    order, with torch.matmul for the projection."""
+    order, with torch.matmul for the projection, fp32-exact on the card
+    (TF32 off) at every ``precision``, as xgpr_tpu's Pallas feature map
+    pins HIGHEST; ``precision`` is checked and otherwise not read."""
+    kernel_precision(precision, x.device, x.dtype)
     scale = torch.tensor(rbf_norm_constant(proj.shape[1], fit_intercept),
                          dtype=x.dtype, device=x.device)
     c, s = _sincos.sincos(torch.matmul(x, proj), scale, mode)
@@ -112,9 +121,10 @@ def kernel_body(kernel, dtype, precision) -> str:
     ``dtype`` at feature ``precision``: float64 operands run "f64"
     whatever the precision, as xgpr_tpu's float64 runs ignore the knobs;
     float32 ones "bf16" under "default" (K1, K3, K4), "fma32" under
-    "highest" for K3 and K4 (fp32-exact, as the TPU's HIGHEST; K1 keeps
-    3xTF32, fp32-grade there, PERF.md) and "tf32x3" otherwise; K2's
-    float32 body is "tf32x3" at every precision.  Anything else raises."""
+    "highest" for K2, K3 and K4 (fp32-exact, as the TPU's HIGHEST; K1
+    keeps 3xTF32, fp32-grade there, PERF.md) and "tf32x3" otherwise (K2
+    under "default" too: xgpr_tpu's Pallas feature map pins HIGHEST).
+    Anything else raises."""
     if kernel not in ("K1", "K2", "K3", "K4"):
         raise ValueError(f"unknown kernel {kernel!r}")
     kernel_precision(precision)
@@ -123,12 +133,10 @@ def kernel_body(kernel, dtype, precision) -> str:
     if dtype != torch.float32:
         raise TypeError(f"{kernel}: the CUDA kernels take float32 or "
                         f"float64, got {dtype}.")
-    if kernel == "K2":
-        return "tf32x3"
-    if precision == "default":
-        return "bf16"
-    if precision == "highest" and kernel in ("K3", "K4"):
+    if precision == "highest" and kernel != "K1":
         return "fma32"
+    if precision == "default" and kernel != "K2":
+        return "bf16"
     return "tf32x3"
 
 
@@ -176,47 +184,52 @@ def check_device(name, *tensors):
             raise ValueError(f"{name}: no kernel for {t.device}.")
 
 
-def rbf_feature_map(x, proj, fit_intercept, padded, mode=None):
-    """(N, 2F) block-layout RBF features of sigma-scaled rows x (N, D)."""
+def rbf_feature_map(x, proj, fit_intercept, padded, mode=None,
+                    precision=None):
+    """(N, 2F) block-layout RBF features of sigma-scaled rows x (N, D), at
+    the feature ``precision`` (``kernel_precision``; the plain version is
+    the same at every precision)."""
     if x.dim() != 2 or proj.dim() != 2 or x.shape[1] != proj.shape[0]:
         raise ValueError(f"rbf_feature_map: shapes {tuple(x.shape)} and "
                          f"{tuple(proj.shape)} do not contract.")
     check_device("rbf_feature_map", x, proj)
     return _rbf_feature_map_op(x, proj, bool(fit_intercept), int(padded),
-                               kernel_mode(mode))
+                               kernel_mode(mode),
+                               kernel_precision(precision, x.device, x.dtype))
 
 
 @torch.library.custom_op("xgpr_tpu_torch::rbf_feature_map", mutates_args=(),
                          device_types="cpu")
 def _rbf_feature_map_op(x: torch.Tensor, proj: torch.Tensor,
                         fit_intercept: bool, padded: int,
-                        mode: str) -> torch.Tensor:
-    return rbf_feature_map_plain(x, proj, fit_intercept, padded, mode)
+                        mode: str, precision: str) -> torch.Tensor:
+    return rbf_feature_map_plain(x, proj, fit_intercept, padded, mode,
+                                 precision)
 
 
 @_rbf_feature_map_op.register_fake
-def _(x, proj, fit_intercept, padded, mode):
+def _(x, proj, fit_intercept, padded, mode, precision):
     return x.new_empty((x.shape[0], 2 * proj.shape[1]))
 
 
 @torch.library.register_vmap("xgpr_tpu_torch::rbf_feature_map")
-def _(info, in_dims, x, proj, fit_intercept, padded, mode):
+def _(info, in_dims, x, proj, fit_intercept, padded, mode, precision):
     if in_dims[1] is not None:
         raise NotImplementedError("rbf_feature_map maps over rows of x "
                                   "only, not over projections")
     xb = x.movedim(in_dims[0], 0)
     out = _rbf_feature_map_op(xb.reshape(-1, xb.shape[-1]).contiguous(),
-                              proj, fit_intercept, padded, mode)
+                              proj, fit_intercept, padded, mode, precision)
     return out.reshape(xb.shape[0], xb.shape[1], -1), 0
 
 
 @_rbf_feature_map_op.register_kernel("cuda")
-def _rbf_feature_map_kernel(x, proj, fit_intercept, padded, mode):
+def _rbf_feature_map_kernel(x, proj, fit_intercept, padded, mode, precision):
     """The K2 launcher: operand checks, x's planes, one launch."""
     if x.device.type != "cuda":
         raise ValueError(f"rbf_feature_map: no kernel for {x.device}.")
     dtype, (x, proj) = cuda_operands("rbf_feature_map", x, proj)
-    body = kernel_body("K2", dtype, "high")
+    body = kernel_body("K2", dtype, precision)
     n = x.shape[0]
     f = proj.shape[1]
     out = torch.empty((n, 2 * f), dtype=dtype, device=x.device)
@@ -237,5 +250,6 @@ def _rbf_feature_map_kernel(x, proj, fit_intercept, padded, mode):
                                   kernel_sincos_flag(mode), BODY_FLAGS[body],
                                   rsplit, stream)
     build.check(rc, "feature map kernel")
-    LAUNCHES[(n, x.shape[1], f) + launch_tags(dtype, mode, "high")] += 1
+    ran = "highest" if body == "fma32" else "high"
+    LAUNCHES[(n, x.shape[1], f) + launch_tags(dtype, mode, ran)] += 1
     return out

@@ -29,9 +29,12 @@ counts kernel launches (one per call, covering its three CUDA launches) by
 their shape, mode and precision (R, D, F, K, mode, precision; float64
 launches count as ("exact", "float64"), ``launch_tags``): K is 1 in a
 fit's CG and 26 in SLQ's.  Two calls on the same inputs give the same
-bits.
+bits.  ``launch_plan`` is the wrapper's block arithmetic (right-hand sides
+a block, the splits of the walks, the launches of each pass), plain
+Python that the CPU tests hold; any K is taken (past MAX_GRID_Z blocks of
+right-hand sides a pass goes in several launches).
 """
-from collections import Counter
+from collections import Counter, namedtuple
 
 import torch
 
@@ -46,6 +49,32 @@ from .operands import (data_ptr, depth_multiple, kernel_planes, pad_depth,
                        projT_planes, sm_count, tile_split)
 
 LAUNCHES = Counter()
+
+# The most blocks a launch may have along grid z (csrc/ztzv.cuh:
+# MAX_GRID_Z): the blocks of right-hand sides past it go in further
+# launches of the same passes.
+MAX_GRID_Z = 65535
+
+
+LaunchPlan = namedtuple("LaunchPlan", "blocks zsplit osplit launches")
+
+
+def launch_plan(rhs, n, f, k, sms):
+    """How one call on R = n rows, F = f frequencies and K = k right-hand
+    sides is launched on ``sms`` SMs when a block carries ``rhs`` of them
+    (the library's xgpr_ztzv_rhs_per_block for the call's body and K, the
+    same in both passes): ``blocks`` blocks of right-hand sides along grid
+    z in each pass; pass (a) splits each row tile's frequency tiles over
+    ``zsplit`` blocks and pass (b) each frequency tile's row tiles over
+    ``osplit``, the counts that fill the SMs in the fewest waves
+    (``tile_split``); ``launches`` launches of each pass carry the blocks,
+    at most MAX_GRID_Z each."""
+    blocks = -(-k // rhs)
+    row_tiles, f_tiles = -(-n // TILE), -(-f // TILE)
+    return LaunchPlan(blocks,
+                      tile_split(f_tiles, row_tiles * blocks, sms, 16),
+                      tile_split(row_tiles, f_tiles * blocks, sms, 32),
+                      -(-blocks // MAX_GRID_Z))
 
 
 def ztzv_parts_plain(x, m, proj, sigma, v_c, v_s, fit_intercept, mode=None,
@@ -96,22 +125,14 @@ def ztzv_parts(x, m, proj, sigma, v_c, v_s, fit_intercept, mode=None,
     opts = dict(dtype=dtype, device=x.device)
     if n == 0 or f == 0:
         return torch.zeros((f, k), **opts), torch.zeros((f, k), **opts)
-    if k > 65535:
-        raise ValueError("ztzv_parts: too many right-hand sides for the "
-                         "launch grid.")
     lib = build.library()
-    zv_blocks, out_blocks = (
-        -(-k // lib.xgpr_ztzv_rhs_per_block(BODY_FLAGS[body], k, which))
-        for which in (0, 1))
+    plan = launch_plan(lib.xgpr_ztzv_rhs_per_block(BODY_FLAGS[body], k, 0),
+                       n, f, k, sm_count(x.device.index))
     xh, xl = kernel_planes(pad_depth(x, depth_multiple(body)), body)
     ph, pl = projT_planes(proj, body)
-    row_tiles, f_tiles = -(-n // TILE), -(-f // TILE)
-    sms = sm_count(x.device.index)
-    zsplit = tile_split(f_tiles, row_tiles * zv_blocks, sms, 16)
-    osplit = tile_split(row_tiles, f_tiles * out_blocks, sms, 32)
-    zv_part = torch.empty((zsplit, n, k), **opts)
-    oc_part = torch.empty((osplit, f, k), **opts)
-    os_part = torch.empty((osplit, f, k), **opts)
+    zv_part = torch.empty((plan.zsplit, n, k), **opts)
+    oc_part = torch.empty((plan.osplit, f, k), **opts)
+    os_part = torch.empty((plan.osplit, f, k), **opts)
     oc = torch.empty((f, k), **opts)
     os_ = torch.empty((f, k), **opts)
     with torch.cuda.device(x.device):
@@ -120,8 +141,8 @@ def ztzv_parts(x, m, proj, sigma, v_c, v_s, fit_intercept, mode=None,
             xh.data_ptr(), data_ptr(xl), m.data_ptr(), ph.data_ptr(),
             data_ptr(pl), float(sigma), v_c.data_ptr(), v_s.data_ptr(),
             zv_part.data_ptr(), oc_part.data_ptr(), os_part.data_ptr(),
-            oc.data_ptr(), os_.data_ptr(), n, xh.shape[1], f, k, zsplit,
-            osplit, rbf_norm_constant(f, fit_intercept),
+            oc.data_ptr(), os_.data_ptr(), n, xh.shape[1], f, k, plan.zsplit,
+            plan.osplit, rbf_norm_constant(f, fit_intercept),
             int(bool(fit_intercept)), kernel_sincos_flag(mode),
             BODY_FLAGS[body], stream)
     build.check(rc, "ztzv kernel")
