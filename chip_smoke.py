@@ -915,9 +915,12 @@ def phase_conv_kernels(torch, card, corpus, dev="cuda", chunk=CHUNK,
 
     x_slice, l_slice = t(x_np[:chunk]), t(l_np[:chunk], torch.int32)
     nk_sum = int(np.clip(l_np[:chunk] - MOTIF_W + 1, 0, None).sum())
+    # D=128: the bf16 body's projT tile (128 x 9 x 128) does not stay in
+    # shared memory, so it streams (conv.ws_plan).
     others = [("ragged", *ragged(1000, 9, 16, 5, 200), 5, None),
               ("w=1", *ragged(300, 12, 21, 1, 256), 1, None),
-              ("D=21", *ragged(700, 14, 21, 6, 300), 6, None)]
+              ("D=21", *ragged(700, 14, 21, 6, 300), 6, None),
+              ("D=128", *ragged(300, 16, 128, 9, 256), 9, None)]
     # The guard: row 0 has one nonzero, 5e4, and proj is rounded to TF32,
     # so each of its window projections is one exact product (times
     # sigma 1) in the kernel and the plain version alike, many past

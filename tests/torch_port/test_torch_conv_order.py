@@ -135,3 +135,149 @@ def test_wrappers_take_the_plain_route_on_the_cpu():
     want_c, want_s = conv.conv_parts_plain(x, lens, proj, 0.5, 3)
     assert torch.equal(c, want_c) and torch.equal(s, want_s)
     assert torch.equal(m, conv.conv_maxpool_plain(x, lens, proj, 3))
+
+
+# The bf16 body's pipeline (csrc/conv_ws.cuh): its launch plan, the
+# tile-ordered x it copies by TMA, and projT's bf16 plane from the cache.
+
+WS_SHAPES = [(8192, 64, 9, 4096), (8192, 64, 9, 1024), (8192, 64, 9, 128),
+             (300, 64, 9, 256), (257, 8, 5, 200), (70, 16, 1, 96),
+             (1000, 64, 9, 300), (200, 128, 9, 200), (1, 8, 4, 1),
+             (65, 24, 9, 130), (5000, 1024, 3, 4096)]
+
+
+@pytest.mark.parametrize("n,dp,width,f", WS_SHAPES)
+@pytest.mark.parametrize("sms", [132, 7])
+def test_ws_plan_covers_every_tile_pair_once(n, dp, width, f, sms):
+    plan = conv.ws_plan(n, dp, width, f, sms)
+    assert plan.row_tiles == -(-n // conv.WS_ROWS)
+    assert plan.freq_tiles == -(-f // conv.TILE_FREQS)
+    assert 1 <= plan.split <= max(1, plan.row_tiles)
+    walks = conv.ws_tiles(plan)
+    assert len(walks) == plan.split * plan.freq_tiles   # the grid
+    pairs = [pair for walk in walks for pair in walk]
+    assert len(pairs) == len(set(pairs)) == \
+        plan.row_tiles * plan.freq_tiles
+    assert set(pairs) == {(rt, ft) for rt in range(plan.row_tiles)
+                          for ft in range(plan.freq_tiles)}
+    # A block stays on one frequency tile; its row tiles are strided.
+    for walk in walks:
+        assert len({ft for _, ft in walk}) <= 1
+        rts = [rt for rt, _ in walk]
+        assert all(b - a == plan.split for a, b in zip(rts, rts[1:]))
+
+
+@pytest.mark.parametrize("dp", [8, 24, 64, 72, 128, 136, 256, 1024])
+@pytest.mark.parametrize("width", [1, 2, 3, 4, 5, 8, 9, 10, 17])
+def test_ws_plan_keeps_projT_resident_only_when_it_fits(dp, width):
+    plan = conv.ws_plan(4096, dp, width, 1024, 132)
+    kc = -(-dp // conv.WS_CHANNELS)
+    tile = width * kc * conv.WS_P_BOX
+    ring = (width + 1) * kc * conv.WS_X_BOX   # a window pair's positions
+    fits = tile + ring + conv.WS_RESERVED <= 232_448
+    assert plan.resident == fits
+    assert 2 <= plan.stages <= conv.WS_MAX_STAGES
+    if plan.resident:
+        assert plan.stages >= (width + 1) * kc
+        assert plan.smem == tile + plan.stages * conv.WS_X_BOX + 1024
+    else:
+        assert conv.WS_STREAM_STAGE == conv.WS_P_BOX + 2 * conv.WS_X_BOX
+        assert plan.smem == plan.stages * conv.WS_STREAM_STAGE + 1024
+    # The launch's dynamic memory, its barriers and slack fit a block.
+    assert plan.smem - 1024 + conv.WS_RESERVED <= 232_448
+
+
+def _rebuild_from_layout(xt, order, nk_t, top, projT, width, sigma,
+                         row_scale):
+    """K3's (c, s) and K4's out as the bf16 kernel forms them from its
+    operands, in float64: row tile i is rows 64i .. 64i + 63 of xt (zeros
+    past N and past L, as TMA fills them), window j of the pairs covering
+    top[i] is the sum over taps t of position box j + t against projT's
+    tap t, folded in window order where j < nk_t, and written to row
+    order[r]."""
+    xt, pt = xt.double(), projT.double()
+    n, l, dp = xt.shape
+    f = pt.shape[0]
+    pt = pt.reshape(f, width, dp)
+    rows = conv.WS_ROWS
+    c = torch.zeros((n, f), dtype=torch.float64)
+    s = torch.zeros((n, f), dtype=torch.float64)
+    m = torch.zeros((n, f), dtype=torch.float64)
+    for i, t_top in enumerate(top.tolist()):
+        pairs = (t_top + 1) // 2
+        tile = torch.zeros((rows, l + 1, dp), dtype=torch.float64)
+        got = xt[i * rows:(i + 1) * rows]
+        tile[:len(got), :l] = got
+        nk = torch.zeros(rows, dtype=torch.int64)
+        nk[:len(got)] = nk_t[i * rows:(i + 1) * rows].long()
+        tc = torch.zeros((rows, f), dtype=torch.float64)
+        ts, tm = torch.zeros_like(tc), torch.zeros_like(tc)
+        for j in range(2 * pairs):
+            g = sum(tile[:, j + t, :] @ pt[:, t, :].T for t in range(width))
+            valid = (j < nk)[:, None]
+            tc += torch.where(valid, torch.cos(g * sigma), 0.0)
+            ts += torch.where(valid, torch.sin(g * sigma), 0.0)
+            tm = torch.where(valid, torch.maximum(tm, g), tm)
+        dst = order[i * rows:(i + 1) * rows].long()
+        k = len(got)
+        c[dst], s[dst], m[dst] = tc[:k], ts[:k], tm[:k]
+    return c * row_scale[:, None], s * row_scale[:, None], m
+
+
+@pytest.mark.parametrize("n,l,d,width,f,kind", [
+    (150, 16, 64, 9, 40, "spread"), (130, 12, 7, 5, 20, "spread"),
+    (100, 12, 9, 9, 24, "equal"), (70, 6, 10, 1, 16, "spread"),
+    (64, 10, 3, 4, 8, "equal")])
+def test_tile_layout_rebuilds_the_plain_outputs(n, l, d, width, f, kind):
+    rng = np.random.default_rng(n + d)
+    # bf16-representable operands, so the layout's bf16 copies are exact.
+    x = torch.as_tensor(rng.standard_normal((n, l, d)) * 0.5) \
+        .to(torch.bfloat16).double()
+    proj = torch.as_tensor(rng.standard_normal((width * d, f)) * 0.3) \
+        .to(torch.bfloat16).double()
+    lens = _lengths(n, l, width, d, kind)
+    xt, order, nk_t, top = conv.tile_layout(x, lens, width)
+    dp = -(-d // 8) * 8
+    assert xt.dtype == torch.bfloat16 and tuple(xt.shape) == (n, l, dp)
+    assert order.dtype == nk_t.dtype == top.dtype == torch.int32
+    o, nk = conv.row_order(lens, width, l - width + 1)
+    assert torch.equal(order, o) and torch.equal(nk_t, nk[o.long()])
+    assert torch.equal(xt[:, :, :d].double(), x[o.long()])
+    assert float(xt[:, :, d:].abs().sum()) == 0.0
+    assert len(top) == -(-n // conv.WS_ROWS)
+    projT = operands.projT_planes(proj, "bf16", width)[0]
+    scale = torch.linspace(0.5, 1.5, n, dtype=torch.float64)
+    c, s, m = _rebuild_from_layout(xt, order, nk_t, top, projT, width, 0.7,
+                                   scale)
+    want_c, want_s = conv.conv_parts_plain(x, lens, proj, 0.7, width, scale,
+                                           "exact")
+    want_m = conv.conv_maxpool_plain(x, lens, proj, width)
+    for got, want in ((c, want_c), (s, want_s), (m, want_m)):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12,
+                                   atol=1e-12)
+    if kind == "equal":
+        assert len(set(top.tolist())) == 1
+
+
+@pytest.mark.parametrize("d,width,f", [(64, 9, 96), (7, 5, 50), (21, 1, 33),
+                                       (128, 9, 20)])
+def test_conv_projT_bf16_plane_is_cached_and_exact(d, width, f):
+    rng = np.random.default_rng(d + width)
+    proj = torch.as_tensor(rng.standard_normal((width * d, f)) * 0.3,
+                           dtype=torch.float32)
+    x = torch.zeros((2, width + 1, d), dtype=torch.float32)
+    plane, none = operands.projT_planes(proj, "bf16", width)
+    assert none is None
+    want = operands.kernel_planes(conv.pad_operands(x, proj, width, 8)[1],
+                                  "bf16")[0]
+    assert plane.dtype == torch.bfloat16 and plane.is_contiguous()
+    assert torch.equal(plane, want)
+    assert operands.projT_planes(proj, "bf16", width)[0] is plane  # a hit
+    # The dense transpose of the same tensor is another entry.
+    dense = operands.projT_planes(proj, "bf16")[0]
+    assert dense.shape == (f, -(-width * d // 8) * 8)
+    proj.mul_(0.5)                                   # a new version
+    again = operands.projT_planes(proj, "bf16", width)[0]
+    assert again is not plane
+    assert torch.equal(again, operands.kernel_planes(
+        conv.pad_operands(x, proj, width, 8)[1], "bf16")[0])

@@ -451,6 +451,107 @@ def test_unknown_precisions_are_refused(cuda):
 
 
 # ----------------------------------------------------------------------
+# K3 and K4's bf16 body (csrc/conv_ws.cuh): projT's tile resident in
+# shared memory at D 64, streamed at D 128 (w 9: the tile and a window
+# pair's positions do not fit a block), with the row operands laid out on
+# the card (tile_layout).
+WS_CASES = [(300, 16, 64, 9, 256, "spread"), (200, 16, 128, 9, 200, "spread"),
+            (150, 12, 7, 5, 130, "equal")]
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("n,l,d,width,f,kind", WS_CASES)
+def test_conv_bf16_pipeline(cuda, mode, n, l, d, width, f, kind):
+    """Each sincos mode of K3 and K4 on the bf16 body, resident and
+    streamed: within the tolerance of the plain bf16 versions, two calls
+    bitwise equal, one launch each counted under its key."""
+    x, lengths, proj = _conv_inputs(cuda, n, l, d, width, f, kind)
+    plan = conv.ws_plan(n, -(-d // 8) * 8, width, f, 132)
+    assert plan.resident == (d != 128)
+    scale = torch.linspace(0.5, 1.5, n, device=cuda)
+    k3, k4 = (n, l, d, width, f, mode, "default"), \
+        (n, l, d, width, f, "default")
+    before = conv.PARTS_LAUNCHES[k3], conv.MAXPOOL_LAUNCHES[k4]
+    runs = [conv.conv_parts(x, lengths, proj, 0.7, width, scale, mode,
+                            "default")
+            + (conv.conv_maxpool(x, lengths, proj, width, "default"),)
+            for _ in range(2)]
+    want = conv.conv_parts_plain(x, lengths, proj, 0.7, width, scale, mode,
+                                 "default") + \
+        (conv.conv_maxpool_plain(x, lengths, proj, width, "default"),)
+    torch.cuda.synchronize()
+    assert (conv.PARTS_LAUNCHES[k3], conv.MAXPOOL_LAUNCHES[k4]) == \
+        (before[0] + 2, before[1] + 2)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    for g, w in zip(runs[0], want):
+        tol = 1e-4 * max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) < tol
+    if kind == "spread":
+        assert float(runs[0][0][0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_conv_bf16_pipeline_returns_input_row_order(cuda, d):
+    """Permuting the input rows permutes the bf16 body's outputs, bit for
+    bit: a row's sums read its own windows alone, whatever tile it lands
+    in."""
+    x, lengths, proj = _conv_inputs(cuda, 1000, 16, d, 9, 300, "spread")
+    perm = torch.as_tensor(np.random.default_rng(5).permutation(1000),
+                           device=cuda)
+    xq, lq = x[perm].contiguous(), lengths[perm].contiguous()
+    got = conv.conv_parts(x, lengths, proj, 0.7, 9, None, "fast",
+                          "default") + \
+        (conv.conv_maxpool(x, lengths, proj, 9, "default"),)
+    permuted = conv.conv_parts(xq, lq, proj, 0.7, 9, None, "fast",
+                               "default") + \
+        (conv.conv_maxpool(xq, lq, proj, 9, "default"),)
+    torch.cuda.synchronize()
+    for a, b in zip(got, permuted):
+        assert torch.equal(a[perm], b)
+
+
+@pytest.mark.parametrize("n,l,d,width", [(8192, 16, 64, 9), (1000, 20, 7, 5),
+                                         (70, 6, 10, 1), (1, 9, 3, 9)])
+def test_tile_layout_on_the_card_groups_rows_as_the_plain_version(
+        cuda, n, l, d, width):
+    """The card's row layout: a permutation of the rows grouped by window
+    count as the plain version groups them (the same counts and tile
+    maxima), x's rows in that order in bf16 with the channels padded."""
+    x, lengths, _ = _conv_inputs(cuda, n, l, d, width, 8, "spread")
+    xt, order, nk_t, top = conv.tile_layout(x, lengths, width)
+    _, p_order, p_nk, p_top = conv.tile_layout(x.cpu(), lengths.cpu(), width)
+    torch.cuda.synchronize()
+    o = order.long().cpu()
+    assert torch.equal(torch.sort(o).values, torch.arange(n))
+    assert torch.equal(nk_t.cpu(), p_nk) and torch.equal(top.cpu(), p_top)
+    want = torch.zeros((n, l, xt.shape[2]), dtype=torch.bfloat16)
+    want[:, :, :d] = x.cpu().to(torch.bfloat16)[o]
+    assert torch.equal(xt.cpu(), want)
+
+
+def test_bf16_conv_launches_reach_only_the_pipeline(cuda):
+    """The implicit-GEMM entry points refuse the bf16 body's flag, and the
+    pipeline's entry points refuse a plan it cannot run
+    (cudaErrorInvalidValue), before any launch."""
+    from xgpr_tpu_torch.ops.cuda import build
+    from xgpr_tpu_torch.ops.cuda.feature_map import BODY_FLAGS
+    lib = build.library()
+    invalid, bf16 = 1, BODY_FLAGS["bf16"]
+    assert lib.xgpr_conv_parts(*([None] * 9), 10, 6, 8, 3, 16, 1.0, 0, bf16,
+                               None) == invalid
+    assert lib.xgpr_conv_maxpool(*([None] * 7), 10, 6, 8, 3, 16, bf16,
+                                 None) == invalid
+    # (resident, stages, split): too few stages for a resident window
+    # pair, a ring of one stage, no block per frequency tile.
+    for plan in ((1, 3, 1), (0, 1, 1), (0, 4, 0)):
+        assert lib.xgpr_conv_parts_ws(*([None] * 8), 10, 6, 8, 3, 16, 1.0,
+                                      0, *plan, None) == invalid
+        assert lib.xgpr_conv_maxpool_ws(*([None] * 6), 10, 6, 8, 3, 16,
+                                        *plan, None) == invalid
+
+
+# ----------------------------------------------------------------------
 # The float64 bodies (float64 operands, whatever the precision).
 F64_RTOL = 1e-11
 

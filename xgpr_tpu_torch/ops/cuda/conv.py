@@ -46,10 +46,20 @@ count, so that a tile stops at its own rows' largest count),
 bf16, 2 for float64, and proj transposed to the K-major projT the tiles
 read) and ``kernel_planes`` (x and projT as the planes of the body: TF32
 high parts and remainders, bf16 values, or the values themselves; in
-operands.py, shared with K1 and K2).  ``window_slots`` counts the (row,
-window) slots the kernels project against the valid windows.
+operands.py, shared with K1 and K2).  The bf16 body ("default", the
+"max" preset) is its own kernel (csrc/conv_ws.cuh), which copies x by
+TMA in boxes of 64 tile rows: ``tile_layout`` writes x's bf16 copy in
+tile order beside each row's window count and each tile's largest,
+projT's bf16 planes come from the cache kept with proj
+(``operands.projT_planes``), and ``ws_plan`` chooses whether projT's
+tile stays in shared memory, the ring's depth and how many blocks share
+a frequency tile (``ws_tiles`` lists their walks).  ``window_slots``
+counts the (row, window) slots the kernels project against the valid
+windows.  ``parts_launcher`` and ``maxpool_launcher`` prepare a launch
+and return it apart, so that a script can time the launch alone.
 """
-from collections import Counter
+from collections import Counter, namedtuple
+from functools import lru_cache
 from typing import Optional, Tuple
 
 import torch
@@ -61,7 +71,9 @@ from . import build
 from .feature_map import (BODY_FLAGS, check_device, cuda_operands,
                           kernel_body, kernel_mode, kernel_precision,
                           kernel_sincos_flag, launch_tags)
-from .operands import data_ptr, depth_multiple, kernel_planes
+from .operands import (data_ptr, depth_multiple, kernel_planes, pad_depth,
+                       pad_windows, projT_planes, sm_count, tile_split,
+                       to_bf16)
 
 PARTS_LAUNCHES = Counter()
 MAXPOOL_LAUNCHES = Counter()
@@ -137,28 +149,98 @@ def pad_operands(x, proj, width, multiple=4):
     """(x, projT) as the kernels read them: x (N, L, dp) with the channels
     padded by zeros to dp, the next multiple of ``multiple`` (16-byte rows:
     4 for the TF32 bodies, 8 for bf16), and projT (F, w*dp) the K-major
-    transpose of proj (w*D, F) with the matching zero columns.  The
-    padding adds zero terms only."""
-    d = x.shape[2]
-    f = proj.shape[1]
-    dp = -(-d // multiple) * multiple
-    proj = proj.reshape(width, d, f)
-    if dp != d:
-        x = F.pad(x, (0, dp - d))
-        proj = F.pad(proj, (0, 0, 0, dp - d))
-    return x.contiguous(), proj.reshape(width * dp, f).t().contiguous()
+    transpose of proj (w*D, F) with the matching zero columns
+    (``operands.pad_windows``).  The padding adds zero terms only."""
+    return pad_depth(x, multiple), pad_windows(proj, width, multiple)
 
 
 def window_slots(seq_lengths, width, num_windows):
     """(slots, valid): the (row, window) GEMM rows the kernels project,
     TILE_ROWS x WINDOW_GROUP for each window group of each tile up to the
-    tile's largest nk, against the valid windows sum(nk)."""
+    tile's largest nk, against the valid windows sum(nk).  The bf16 body's
+    row tiles and window pairs are the same sizes."""
     order, nk = row_order(seq_lengths, width, num_windows)
     tiles = F.pad(nk[order.long()], (0, -len(nk) % TILE_ROWS))
     top = tiles.reshape(-1, TILE_ROWS).amax(dim=1).to(torch.int64)
     groups = (top + WINDOW_GROUP - 1) // WINDOW_GROUP
     return (int(groups.sum()) * TILE_ROWS * WINDOW_GROUP,
             int(nk.to(torch.int64).sum()))
+
+
+# The bf16 body's pipeline (csrc/conv_ws.cuh): rows of a row tile (the
+# wgmma M), channels of a box (one 128-byte line), the bytes of a
+# position box of x, of a projT box and of a streamed stage (a projT box
+# and a window pair's two position boxes), the ring's stage cap, and a
+# block's shared memory with what the kernel keeps of it for the
+# alignment slack and the barriers.
+WS_ROWS = 64
+WS_CHANNELS = 64
+WS_X_BOX = WS_ROWS * 128
+WS_P_BOX = TILE_FREQS * 128
+WS_STREAM_STAGE = WS_P_BOX + 2 * WS_X_BOX
+WS_MAX_STAGES = 32
+WS_SMEM = 232_448
+WS_RESERVED = 2048
+
+WsPlan = namedtuple("WsPlan", "resident stages split row_tiles freq_tiles "
+                              "smem")
+
+
+@lru_cache(maxsize=256)
+def ws_plan(n, dp, width, f, sms):
+    """The bf16 body's launch plan for N rows of dp channels, width w and
+    F frequencies on a card of ``sms`` SMs.  The kernel takes windows in
+    pairs, so a pair reads w + 1 positions.  projT's tile (128 frequencies
+    x w*dp bf16) is resident when it fits in a block's shared memory
+    beside a ring of (w + 1) * kc position boxes (kc channel lines a tap;
+    the ring's stages hold one box each, as many as fit); otherwise every
+    stage holds a projT box beside the pair's two position boxes.
+    ``split`` blocks share each frequency tile (``tile_split``: the fewest
+    tile-times at one block per SM); block (b, ft) walks row tiles b,
+    b + split, ... (``ws_tiles``).  ``smem`` is the dynamic shared memory
+    the launch asks for."""
+    kc = -(-dp // WS_CHANNELS)
+    steps = width * kc
+    room = WS_SMEM - WS_RESERVED
+    stages = (room - steps * WS_P_BOX) // WS_X_BOX
+    resident = stages >= (width + 1) * kc
+    if not resident:
+        stages = room // WS_STREAM_STAGE
+    stages = min(stages, WS_MAX_STAGES)
+    row_tiles = -(-n // WS_ROWS)
+    freq_tiles = -(-f // TILE_FREQS)
+    split = tile_split(row_tiles, freq_tiles, sms, row_tiles)
+    smem = (steps * WS_P_BOX + stages * WS_X_BOX if resident
+            else stages * WS_STREAM_STAGE) + 1024
+    return WsPlan(resident, stages, split, row_tiles, freq_tiles, smem)
+
+
+def ws_tiles(plan):
+    """The (row tile, frequency tile) pairs of each block of ``plan``,
+    block (b, ft) in grid order, as the kernel walks them."""
+    return [[(rt, ft) for rt in range(b, plan.row_tiles, plan.split)]
+            for ft in range(plan.freq_tiles) for b in range(plan.split)]
+
+
+def tile_layout(x, seq_lengths, width, multiple=8):
+    """The bf16 body's row operands (xt, order, nk_t, top): the rows
+    grouped by valid-window count nk, ascending (``row_order``'s order);
+    xt (N, L, dp) bf16, x's rows in that order with the channels padded
+    to a multiple of ``multiple``, so that a row tile is 64 consecutive
+    rows (a TMA box per position); nk_t the rows' counts in that order;
+    top (ceil(N / 64),) int32 each tile's largest count.  For CUDA
+    tensors (x float32, int32 lengths) the kernels of csrc/conv_ws.cuh
+    make them, in four launches; rows of one count may land there in any
+    order, which changes no output (a row's sums read its own windows
+    alone)."""
+    if x.device.type == "cuda":
+        return _tile_layout_cuda(x, seq_lengths, width, multiple)
+    order, nk = row_order(seq_lengths, width, x.shape[1] - width + 1)
+    idx = order.long()
+    xt = to_bf16(pad_depth(x, multiple)).index_select(0, idx)
+    nk_t = nk.index_select(0, idx)
+    top = F.pad(nk_t, (0, -len(nk_t) % WS_ROWS)).reshape(-1, WS_ROWS)
+    return xt, order, nk_t, top.amax(dim=1).to(torch.int32).contiguous()
 
 
 def _check_shapes(name, x, seq_lengths, proj, width):
@@ -172,14 +254,34 @@ def _check_shapes(name, x, seq_lengths, proj, width):
         raise ValueError("Sequence axis shorter than conv_width.")
 
 
-def _kernel_operands(name, kernel, x, seq_lengths, proj, width, precision,
-                     *more):
+def _tile_layout_cuda(x, seq_lengths, width, multiple):
+    n, l, d = x.shape
+    dp = -(-d // multiple) * multiple
+    dev = x.device
+    xt = torch.empty((n, l, dp), dtype=torch.bfloat16, device=dev)
+    # One allocation: order, nk_t, top and the kernels' scratch.
+    tiles = -(-n // WS_ROWS)
+    ints = torch.empty(2 * n + tiles + 2 * (l - width + 2),
+                       dtype=torch.int32, device=dev)
+    order, nk_t, top, scratch = ints.split(
+        [n, n, tiles, 2 * (l - width + 2)])
+    if n:
+        lengths = seq_lengths.contiguous()
+        x = x.contiguous()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            build.check(build.library().xgpr_conv_tile_layout(
+                x.data_ptr(), lengths.data_ptr(), n, l, d, dp, width,
+                xt.data_ptr(), order.data_ptr(), nk_t.data_ptr(),
+                top.data_ptr(), scratch.data_ptr(), stream),
+                "conv tile layout")
+    return xt, order, nk_t, top
+
+
+def _checked(name, kernel, x, seq_lengths, proj, precision, *more):
     """Checks for the CUDA route of ``kernel`` ("K3" or "K4"); returns
-    (dtype, body, x planes, order, nk, projT planes, *more contiguous) as
-    the body of the operands' dtype and ``precision`` reads them
-    (``kernel_body``, ``row_order``, ``pad_operands``, ``kernel_planes``,
-    whose outputs are fresh, 16-byte aligned tensors; the second plane is
-    None but for 3xTF32)."""
+    (dtype, body, x, proj, *more), contiguous, and the body of the
+    operands' dtype and ``precision`` (``kernel_body``)."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {x.device}.")
     dtype, (x, proj, *more) = cuda_operands(name, x, proj, *more)
@@ -189,10 +291,38 @@ def _kernel_operands(name, kernel, x, seq_lengths, proj, width, precision,
                         f"{x.device}.")
     if -(-proj.shape[1] // TILE_FREQS) > 65535:
         raise ValueError(f"{name}: too many frequencies for the grid.")
+    return (dtype, body, x, proj) + tuple(more)
+
+
+def _gemm_args(x, seq_lengths, proj, width, body):
+    """The implicit-GEMM bodies' operands, as the C entry points
+    xgpr_conv_parts / xgpr_conv_maxpool take them: (x planes, order, nk,
+    projT planes) (``row_order``, ``pad_operands``, ``kernel_planes``,
+    whose outputs are fresh, 16-byte aligned tensors; the second plane is
+    None but for 3xTF32), and the tensors to keep alive."""
     order, nk = row_order(seq_lengths, width, x.shape[1] - width + 1)
     xp, projT = pad_operands(x, proj, width, depth_multiple(body))
-    return ((dtype, body) + kernel_planes(xp, body) + (order, nk)
-            + kernel_planes(projT, body) + tuple(more))
+    (xh, xl), (hi, lo) = kernel_planes(xp, body), kernel_planes(projT, body)
+    return ((xh.data_ptr(), data_ptr(xl), order.data_ptr(), nk.data_ptr(),
+             hi.data_ptr(), data_ptr(lo)), xh.shape[2],
+            (xh, xl, order, nk, hi, lo))
+
+
+def _ws_args(x, seq_lengths, proj, width):
+    """The bf16 body's operands, as xgpr_conv_parts_ws /
+    xgpr_conv_maxpool_ws take them: (xt, order, nk_t, top, projT)
+    (``tile_layout``, projT's bf16 plane from the cache kept with proj),
+    the padded channel count, the plan's (resident, stages, split), and
+    the tensors to keep alive."""
+    xt, order, nk, top = tile_layout(x, seq_lengths, width,
+                                     depth_multiple("bf16"))
+    projT = projT_planes(proj, "bf16", width)[0]
+    n, _, dp = xt.shape
+    plan = ws_plan(n, dp, width, proj.shape[1], sm_count(x.device.index))
+    return ((xt.data_ptr(), order.data_ptr(), nk.data_ptr(), top.data_ptr(),
+             projT.data_ptr()), dp,
+            (int(plan.resident), plan.stages, plan.split),
+            (xt, order, nk, top, projT))
 
 
 def conv_parts(x, seq_lengths, proj, sigma, width, row_scale=None,
@@ -251,32 +381,62 @@ def _(info, in_dims, x, seq_lengths, proj, sigma, width, row_scale, mode,
         (0, 0)
 
 
-@_conv_parts_op.register_kernel("cuda")
-def _conv_parts_kernel(x, seq_lengths, proj, sigma, width, row_scale, mode,
-                       precision):
-    """The K3 launcher: operand checks and preparation, one launch."""
+def _launch(x, fn, args, keep, what):
+    """The launch of a prepared kernel call: fn(*args, stream) on x's
+    device and current stream; raises on a CUDA error.  ``keep`` holds
+    the tensors whose addresses args carries."""
+    def launch():
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            build.check(fn(*args, stream), what)
+    launch.keep = keep
+    return launch
+
+
+def parts_launcher(x, seq_lengths, proj, sigma, width, row_scale, mode,
+                   precision):
+    """((c, s), launch) for K3 on CUDA tensors at a resolved sincos mode
+    and precision: the outputs, allocated, and the launch that fills them,
+    its operands prepared; launch() is the kernel's launch alone.  The
+    bf16 body runs conv_ws.cuh (xgpr_conv_parts_ws), the others the
+    implicit GEMM (xgpr_conv_parts)."""
     extra = () if row_scale is None else (row_scale,)
-    dtype, body, xh, xl, order, nk, hi, lo, *extra = _kernel_operands(
-        "conv_parts", "K3", x, seq_lengths, proj, width, precision, *extra)
+    dtype, body, x, proj, *extra = _checked(
+        "conv_parts", "K3", x, seq_lengths, proj, precision, *extra)
     row_scale = extra[0] if extra else None
-    n, l, dp = xh.shape
+    n, l, _ = x.shape
     f = proj.shape[1]
     c = torch.empty((n, f), dtype=dtype, device=x.device)
     s = torch.empty((n, f), dtype=dtype, device=x.device)
     if n == 0 or f == 0:
-        return c, s
+        return (c, s), lambda: None
     lib = build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.xgpr_conv_parts(
-            xh.data_ptr(), data_ptr(xl), order.data_ptr(), nk.data_ptr(),
-            hi.data_ptr(), data_ptr(lo), data_ptr(row_scale),
-            c.data_ptr(), s.data_ptr(), n, l, dp, width, f, float(sigma),
-            kernel_sincos_flag(mode), BODY_FLAGS[body], stream)
-    build.check(rc, "conv parts kernel")
-    PARTS_LAUNCHES[tuple(x.shape) + (width, f)
-                   + launch_tags(dtype, mode, precision)] += 1
-    return c, s
+    tail = (data_ptr(row_scale), c.data_ptr(), s.data_ptr())
+    if body == "bf16":
+        ptrs, dp, plan, keep = _ws_args(x, seq_lengths, proj, width)
+        fn = lib.xgpr_conv_parts_ws
+        args = ptrs + tail + (n, l, dp, width, f, float(sigma),
+                              kernel_sincos_flag(mode)) + plan
+    else:
+        ptrs, dp, keep = _gemm_args(x, seq_lengths, proj, width, body)
+        fn = lib.xgpr_conv_parts
+        args = ptrs + tail + (n, l, dp, width, f, float(sigma),
+                              kernel_sincos_flag(mode), BODY_FLAGS[body])
+    return (c, s), _launch(x, fn, args, keep + (row_scale,),
+                           "conv parts kernel")
+
+
+@_conv_parts_op.register_kernel("cuda")
+def _conv_parts_kernel(x, seq_lengths, proj, sigma, width, row_scale, mode,
+                       precision):
+    """The K3 launcher: operand checks and preparation, one launch."""
+    out, launch = parts_launcher(x, seq_lengths, proj, sigma, width,
+                                 row_scale, mode, precision)
+    if out[0].numel():
+        launch()
+        PARTS_LAUNCHES[tuple(x.shape) + (width, proj.shape[1])
+                       + launch_tags(out[0].dtype, mode, precision)] += 1
+    return out
 
 
 def conv_maxpool(x, seq_lengths, proj, width, precision=None):
@@ -309,24 +469,34 @@ def _(info, in_dims, x, seq_lengths, proj, width, precision):
     return out.reshape(b, -1, out.shape[-1]), 0
 
 
-@_conv_maxpool_op.register_kernel("cuda")
-def _conv_maxpool_kernel(x, seq_lengths, proj, width, precision):
-    """The K4 launcher: operand checks and preparation, one launch."""
-    dtype, body, xh, xl, order, nk, hi, lo = _kernel_operands(
-        "conv_maxpool", "K4", x, seq_lengths, proj, width, precision)
-    n, l, dp = xh.shape
+def maxpool_launcher(x, seq_lengths, proj, width, precision):
+    """(out, launch) for K4 on CUDA tensors at a resolved precision, as
+    ``parts_launcher``."""
+    dtype, body, x, proj = _checked("conv_maxpool", "K4", x, seq_lengths,
+                                    proj, precision)
+    n, l, _ = x.shape
     f = proj.shape[1]
     out = torch.empty((n, f), dtype=dtype, device=x.device)
     if n == 0 or f == 0:
-        return out
+        return out, lambda: None
     lib = build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.xgpr_conv_maxpool(
-            xh.data_ptr(), data_ptr(xl), order.data_ptr(), nk.data_ptr(),
-            hi.data_ptr(), data_ptr(lo), out.data_ptr(), n, l, dp, width, f,
-            BODY_FLAGS[body], stream)
-    build.check(rc, "conv maxpool kernel")
-    MAXPOOL_LAUNCHES[tuple(x.shape) + (width, f)
-                     + launch_tags(dtype, None, precision)[1:]] += 1
+    if body == "bf16":
+        ptrs, dp, plan, keep = _ws_args(x, seq_lengths, proj, width)
+        fn = lib.xgpr_conv_maxpool_ws
+        args = ptrs + (out.data_ptr(), n, l, dp, width, f) + plan
+    else:
+        ptrs, dp, keep = _gemm_args(x, seq_lengths, proj, width, body)
+        fn = lib.xgpr_conv_maxpool
+        args = ptrs + (out.data_ptr(), n, l, dp, width, f, BODY_FLAGS[body])
+    return out, _launch(x, fn, args, keep, "conv maxpool kernel")
+
+
+@_conv_maxpool_op.register_kernel("cuda")
+def _conv_maxpool_kernel(x, seq_lengths, proj, width, precision):
+    """The K4 launcher: operand checks and preparation, one launch."""
+    out, launch = maxpool_launcher(x, seq_lengths, proj, width, precision)
+    if out.numel():
+        launch()
+        MAXPOOL_LAUNCHES[tuple(x.shape) + (width, proj.shape[1])
+                         + launch_tags(out.dtype, None, precision)[1:]] += 1
     return out

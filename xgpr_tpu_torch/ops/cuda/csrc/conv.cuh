@@ -1,8 +1,9 @@
 // Conv window-loop kernels for Hopper: K3 (masked cos/sin window sums) and
 // K4 (ReLU + global max over windows), one implicit-GEMM body templated on
-// the operand format (tf32_gemm.cuh: on the tensor cores 3xTF32 or one
-// bf16 pass, float64 DMMA, or fp32 FMAs on the CUDA cores) and on the
-// epilogue.
+// the operand format (tf32_gemm.cuh: 3xTF32 on the tensor cores, float64
+// DMMA, or fp32 FMAs on the CUDA cores) and on the epilogue.  The bf16
+// body ("default") is its own warp-specialised kernel, conv_ws.cuh, with
+// these epilogues.
 //
 // Replace the TPU kernels xgpr_tpu/ops/pallas/conv_pallas.py:
 //   K3 _conv_parts_kernel   (pallas_call in _conv_parts_impl)
@@ -27,7 +28,7 @@
 // 3.35 TB/s): bound by operations.  On CUDA cores (67 TFLOP/s) that is
 // 2.6 ms; on the tensor cores, three TF32 products per multiply-add at
 // 495 TFLOP/s, 1.05 ms; under "default", one bf16 product at 989 TFLOP/s,
-// 0.18 ms (the bytes then weigh: 0.09 ms at 3.35 TB/s).
+// 0.18 ms (the bytes then weigh: 0.09 ms at 3.35 TB/s; conv_ws.cuh).
 //
 // Design (the wrapper in ../conv.py prepares the operands):
 // - Implicit GEMM with no im2col array.  GEMM rows are (sequence, window)
@@ -41,7 +42,7 @@
 //   memory.
 // - The body of tf32_gemm.cuh (shared with K1 and K2): the wrapper makes
 //   x and projT the planes of the format (TF32 high parts and remainders
-//   for 3xTF32, a bf16 copy for "default"), both operands are
+//   for 3xTF32, the values for the others), both operands are
 //   read from shared memory, and step s's products run while the block
 //   waits for step s + 1's copies and issues step s + 2's.  This file
 //   gives it the row policy (which box of x a GEMM row reads) and the
@@ -49,7 +50,8 @@
 //   register-A form (x split in registers, no extra bytes) leaves too few
 //   registers for products in flight; it measured slower (PERF.md).
 //   Each format's instantiations are a translation unit of their own
-//   (conv.cu, conv_bf16.cu, conv_fma.cu, conv_f64.cu), built in parallel.
+//   (conv.cu, conv_fma.cu, conv_f64.cu; conv_bf16.cu the bf16 pipeline),
+//   built in parallel.
 // - The synchronous bodies (fma_gemm.cuh) read the same stages, one plane
 //   each: FMT_FMA32 is the "highest" feature precision ("reference"),
 //   fp32-exact products as xgpr_tpu's HIGHEST, on the CUDA cores; FMT_F64
@@ -72,7 +74,7 @@
 //   "fast", "poly"; common.cuh), chosen on the host at launch.
 // - Any shape: rows past N, windows past nw, channel chunks past D and
 //   frequencies past F are zero-filled by the copies and masked at the
-//   store.  The wrapper pads D to a multiple of 4 (8 for bf16: 16-byte
+//   store.  The wrapper pads D to a multiple of 4 (2 for float64: 16-byte
 //   copies).
 #pragma once
 
@@ -98,9 +100,11 @@ struct ConvArgs {
   int n, l, dp, width, f;
 };
 
-// K3: running cos/sin sums of this thread's sequence x 32 frequencies, in
+// K3: running cos/sin sums of a thread's H rows x J frequency pairs, in
 // one sincos mode (common.cuh; float64 takes the builtin in every mode).
-template <class T, int MODE>
+// The implicit GEMM below holds one row x 16 pairs, the bf16 body of
+// conv_ws.cuh two rows x 8.
+template <class T, int MODE, int H = 1, int J = 16>
 struct PartsEpilogue {
   struct Args {
     const T* row_scale;
@@ -109,52 +113,131 @@ struct PartsEpilogue {
     T sigma;
   };
   Args a;
-  T cs[16][2], sn[16][2];
+  T cs[H][J][2], sn[H][J][2];
 
   __device__ __forceinline__ explicit PartsEpilogue(const Args& args)
       : a(args) {
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int h = 0; h < H; ++h)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) cs[j][e] = sn[j][e] = T(0);
+      for (int j = 0; j < J; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) cs[h][j][e] = sn[h][j][e] = T(0);
   }
-  __device__ __forceinline__ void fold(int j, int e, T g) {
+  __device__ __forceinline__ void fold(int h, int j, int e, T g) {
     T c, s;
     sincos_scaled<MODE>(g * a.sigma, T(1), &c, &s);
-    cs[j][e] += c;
-    sn[j][e] += s;
+    cs[h][j][e] += c;
+    sn[h][j][e] += s;
+  }
+  // The bf16 body's fold of one window (conv_ws.cuh): needs_builtin(acc)
+  // is with_sincos's choice for the warp (an argument past
+  // POLY_ARG_LIMIT), fold_row adds row h of acc[4j + 2h + e] (J pairs) to
+  // row h's sums by that evaluator: fold's values, 2J independent
+  // evaluations in straight-line code.  The sums add rounded values
+  // (__fadd_rn): fused into the polynomial's last product they would
+  // round once, and differ.
+  __device__ __forceinline__ bool needs_builtin(const float* acc) const {
+    if constexpr (MODE == MODE_EXACT) {
+      return true;
+    } else {
+      bool builtin = false;
+#pragma unroll
+      for (int i = 0; i < 4 * J; ++i)
+        builtin |= fabsf(acc[i] * a.sigma) > POLY_ARG_LIMIT;
+      return __any_sync(0xffffffffu, builtin);
+    }
+  }
+  __device__ __forceinline__ void fold_row(const float* acc, int h,
+                                           bool builtin) {
+    auto add = [&](auto sincos) {
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float c, s;
+          sincos(acc[4 * j + 2 * h + e] * a.sigma, 1.0f, &c, &s);
+          cs[h][j][e] = __fadd_rn(cs[h][j][e], c);
+          sn[h][j][e] = __fadd_rn(sn[h][j][e], s);
+        }
+    };
+    if (MODE == MODE_EXACT || builtin) {
+      add([](float x, float w, float* c, float* s) {
+        sincos_scaled<MODE>(x, w, c, s);
+      });
+    } else if constexpr (MODE != MODE_EXACT) {
+      add([](float x, float w, float* c, float* s) {
+        sincos_mode_poly<MODE>(x, w, c, s);
+      });
+    }
   }
   __device__ __forceinline__ T row_factor(int row) const {
     return a.row_scale ? a.row_scale[row] : T(1);
   }
-  __device__ __forceinline__ void store(size_t at, T w, int j, int e) const {
-    a.c_out[at] = cs[j][e] * w;
-    a.s_out[at] = sn[j][e] * w;
+  __device__ __forceinline__ void store(size_t at, T w, int h, int j,
+                                        int e) const {
+    a.c_out[at] = cs[h][j][e] * w;
+    a.s_out[at] = sn[h][j][e] * w;
+  }
+  // Both values of pair j of row h, at an even `at` (the same values).
+  __device__ __forceinline__ void store_pair(size_t at, T w, int h,
+                                             int j) const {
+    if constexpr (std::is_same<T, float>::value) {
+      *reinterpret_cast<float2*>(a.c_out + at) =
+          make_float2(cs[h][j][0] * w, cs[h][j][1] * w);
+      *reinterpret_cast<float2*>(a.s_out + at) =
+          make_float2(sn[h][j][0] * w, sn[h][j][1] * w);
+    } else {
+      store(at, w, h, j, 0);
+      store(at + 1, w, h, j, 1);
+    }
   }
 };
 
 // K4: running max against a zero start.
-template <class T>
+template <class T, int H = 1, int J = 16>
 struct MaxpoolEpilogue {
   struct Args {
     T* out;
   };
   Args a;
-  T mx[16][2];
+  T mx[H][J][2];
 
   __device__ __forceinline__ explicit MaxpoolEpilogue(const Args& args)
       : a(args) {
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int h = 0; h < H; ++h)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) mx[j][e] = T(0);
+      for (int j = 0; j < J; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) mx[h][j][e] = T(0);
   }
-  __device__ __forceinline__ void fold(int j, int e, T g) {
-    mx[j][e] = max_t(mx[j][e], g);
+  __device__ __forceinline__ void fold(int h, int j, int e, T g) {
+    mx[h][j][e] = max_t(mx[h][j][e], g);
+  }
+  __device__ __forceinline__ bool needs_builtin(const T*) const {
+    return false;
+  }
+  __device__ __forceinline__ void fold_row(const T* acc, int h, bool) {
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) fold(h, j, e, acc[4 * j + 2 * h + e]);
   }
   __device__ __forceinline__ T row_factor(int) const { return T(1); }
-  __device__ __forceinline__ void store(size_t at, T, int j, int e) const {
-    a.out[at] = mx[j][e];
+  __device__ __forceinline__ void store(size_t at, T, int h, int j,
+                                        int e) const {
+    a.out[at] = mx[h][j][e];
+  }
+  __device__ __forceinline__ void store_pair(size_t at, T w, int h,
+                                             int j) const {
+    if constexpr (std::is_same<T, float>::value) {
+      *reinterpret_cast<float2*>(a.out + at) =
+          make_float2(mx[h][j][0], mx[h][j][1]);
+    } else {
+      store(at, w, h, j, 0);
+      store(at + 1, w, h, j, 1);
+    }
   }
 };
 
@@ -268,7 +351,8 @@ __global__ void __launch_bounds__(GT, 1)
 #pragma unroll
         for (int j = 0; j < 16; ++j)
 #pragma unroll
-          for (int e = 0; e < 2; ++e) epi.fold(j, e, acc[4 * j + 2 * h + e]);
+          for (int e = 0; e < 2; ++e)
+            epi.fold(0, j, e, acc[4 * j + 2 * h + e]);
       }
   });
 
@@ -280,7 +364,7 @@ __global__ void __launch_bounds__(GT, 1)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = f0 + 8 * j + 2 * t4 + e;
-        if (col < p.f) epi.store((size_t)orig * p.f + col, w, j, e);
+        if (col < p.f) epi.store((size_t)orig * p.f + col, w, 0, j, e);
       }
   }
 }
@@ -298,8 +382,8 @@ int launch(const ConvArgs& p, const typename Epi::Args& ea, void* stream) {
 // K3 in format FMT and sincos mode `mode` (an unknown mode is refused; the
 // float64 format has the builtin's one instantiation), and K4 in format
 // FMT.  Each format's instantiations live in their own translation unit
-// (conv.cu, conv_bf16.cu, conv_fma.cu, conv_f64.cu), so that the build
-// compiles them in parallel.
+// (conv.cu, conv_fma.cu, conv_f64.cu), so that the build compiles them in
+// parallel.
 template <int FMT, class T = typename Body<FMT>::T>
 int launch_parts(const ConvArgs& p, const T* row_scale, T* c_out, T* s_out,
                  T sigma, int mode, void* stream) {
@@ -330,11 +414,8 @@ int launch_maxpool(const ConvArgs& p, T* out, void* stream) {
   return launch<FMT, MaxpoolEpilogue<T>>(p, {out}, stream);
 }
 
-// The other formats' launches (conv_bf16.cu, conv_fma.cu, conv_f64.cu).
-int launch_parts_bf16(const ConvArgs& p, const float* row_scale,
-                      float* c_out, float* s_out, float sigma, int mode,
-                      void* stream);
-int launch_maxpool_bf16(const ConvArgs& p, float* out, void* stream);
+// The other formats' launches (conv_fma.cu, conv_f64.cu; the bf16 body
+// is conv_ws.cuh, with its own entry points in conv_bf16.cu).
 int launch_parts_fma32(const ConvArgs& p, const float* row_scale,
                        float* c_out, float* s_out, float sigma, int mode,
                        void* stream);

@@ -12,7 +12,10 @@
 //   float64 witness, PERF.md);
 // - FMT_BF16, "default": wgmma.m64n128k16 on bf16 operands, one product
 //   per depth step, fp32 accumulation: the TPU's DEFAULT dot, which rounds
-//   both operands to bf16;
+//   both operands to bf16.  K1's bf16 passes run on this body; K3 and K4's
+//   bf16 body is the warp-specialised pipeline of conv_ws.cuh (TMA, full
+//   and empty mbarriers, the projection tile resident in shared memory),
+//   which keeps this format's numbers;
 // - FMT_FMA32, "highest" for K3 and K4: fp32 FMAs on the CUDA cores, and
 //   FMT_F64, float64 operands: float64 mma.sync (DMMA) on the tensor
 //   cores (fma_gemm.cuh).  Their stages hold one plane of each operand in

@@ -19,9 +19,11 @@ These plain torch functions prepare them:
   ``depth_multiple(body)`` (16-byte rows: 4 fp32, 8 bf16 or 2 float64
   values);
 - ``projT_planes``: a dense projection (D, F) as the planes of its padded
-  transpose (F, dp), cached with the projection tensor and keyed on the
-  body: the RBF kernels and Conv1dTwoLayer's second layer pass the
-  same tensor on every call;
+  transpose (F, dp), or with ``width`` a conv projection (w*D, F) as
+  those of its transpose (F, w*dp), each tap's channels padded
+  (``pad_windows``); cached with the projection tensor and keyed on the
+  body and width: the kernels' callers pass the same tensor on every
+  call (the conv wrapper takes the cache for its bf16 body);
 - ``tile_split``: how many blocks share a loop over tiles.
 """
 import weakref
@@ -77,25 +79,42 @@ def pad_depth(a, multiple=4):
     return a.contiguous()
 
 
-# id(proj) -> (weak reference to proj, proj._version, {body: planes})
+def pad_windows(proj, width, multiple=4):
+    """projT (F, w*dp), contiguous: the K-major transpose of a conv
+    projection (w*D, F) in window-major row order (t*D + c), each tap's
+    channels padded by zeros to dp, the next multiple of ``multiple``."""
+    f = proj.shape[1]
+    d = proj.shape[0] // width
+    dp = -(-d // multiple) * multiple
+    proj = proj.reshape(width, d, f)
+    if dp != d:
+        proj = F.pad(proj, (0, 0, 0, dp - d))
+    return proj.reshape(width * dp, f).t().contiguous()
+
+
+# id(proj) -> (weak reference to proj, proj._version,
+#              {(body, width): planes})
 _PROJ_SPLITS = {}
 
 
-def projT_planes(proj, body="tf32x3"):
+def projT_planes(proj, body="tf32x3", width=None):
     """kernel_planes(pad_depth(proj.T), body) for proj (D, F): the (F, dp)
-    K-major operand of the dense kernels.  Kept, for each body asked for,
-    while proj lives and is not modified in place (its version counter),
-    and built anew otherwise."""
+    K-major operand of the dense kernels; with ``width``, that of
+    pad_windows(proj, width) for a conv projection (w*D, F).  Kept, for
+    each body and width asked for, while proj lives and is not modified
+    in place (its version counter), and built anew otherwise."""
     key = id(proj)
     hit = _PROJ_SPLITS.get(key)
     if hit is None or hit[0]() is not proj or hit[1] != proj._version:
         ref = weakref.ref(proj,
                           lambda _, key=key: _PROJ_SPLITS.pop(key, None))
         hit = _PROJ_SPLITS[key] = (ref, proj._version, {})
-    planes = hit[2].get(body)
+    planes = hit[2].get((body, width))
     if planes is None:
-        planes = hit[2][body] = kernel_planes(
-            pad_depth(proj.t(), depth_multiple(body)), body)
+        m = depth_multiple(body)
+        a = pad_depth(proj.t(), m) if width is None else \
+            pad_windows(proj, width, m)
+        planes = hit[2][(body, width)] = kernel_planes(a, body)
     return planes
 
 
