@@ -3,19 +3,27 @@
     python tests/torch_port/kernel_bits.py save OUT.pt
     python tests/torch_port/kernel_bits.py compare A.pt B.pt
 
-``save`` runs K1 (slice A's chunk, 8192 x 84 rows, F 4096, K 1 and 26), K2
-(the same rows, padded 128), K3 (8192 rows, L 16, D 64, w 9, F 4096) and
-K4 (F 1024) on fixed random inputs with every knob at its default, and
-writes their outputs; run it from the root of each version (it imports
-the package from the working directory).  ``compare`` prints, for each
-output, whether the two files hold the same bits, and exits with 1 when
-one differs.
+``save`` runs, on fixed random inputs, K1 (slice A's chunk, 8192 x 84
+rows, F 4096, K 1 and 26), K2 (the same rows, padded 128), K3 (8192 rows,
+L 16, D 64, w 9, F 4096) and K4 (F 1024) in every body: with every knob at
+its default (3xTF32), at "default" (bf16 for K1, K3 and K4; K3 in "fast"),
+at "highest" (K1 3xTF32; K2, K3 and K4 fp32 FMAs; K2 and K3 in each sincos
+mode) and in float64 (float64 operands: the DMMA bodies), and writes their
+outputs; run it from the root of each version (it imports the package from
+the working directory).  ``compare`` prints, for each output, whether the
+two files hold the same bits and the largest difference, and exits with 1
+when one differs, except that a float64 output may differ within F64_RTOL
+= 1e-11 of max(1, max|a|) (another order of the DMMA sums), which it
+prints as such.
 """
 import sys
 from pathlib import Path
 
 import numpy as np
 import torch
+
+F64_RTOL = 1e-11
+MODES = ("hi", "exact", "fast", "poly")
 
 
 def outputs():
@@ -31,17 +39,37 @@ def outputs():
     x, proj = t((8192, 84)), t((84, 4096), 0.3)
     m = torch.as_tensor((rng.random(8192) > 0.25).astype(np.float32),
                         device=dev)
-    out = {"K2": feature_map.rbf_feature_map(x * 0.05, proj, True, 128)}
-    for k in (1, 26):
-        vc, vs = t((4096, k)), t((4096, k))
-        out[f"K1 oc K={k}"], out[f"K1 os K={k}"] = ztzv.ztzv_parts(
-            x, m, proj, 0.05, vc, vs, True)
+    v = {k: (t((4096, k)), t((4096, k))) for k in (1, 26)}
     xs = t((8192, 16, 64), 0.5)
     lengths = torch.as_tensor(rng.integers(9, 17, size=8192).astype(np.int32),
                               device=dev)
     p3, p4 = t((576, 4096), 0.1), t((576, 1024), 0.1)
-    out["K3 c"], out["K3 s"] = conv.conv_parts(xs, lengths, p3, 0.7, 9)
-    out["K4"] = conv.conv_maxpool(xs, lengths, p4, 9)
+    scale = torch.as_tensor(rng.random(8192) + 0.5, dtype=torch.float32,
+                            device=dev)
+    out = {}
+
+    def body(tag, cast, precision, k3_modes, dense_modes):
+        xb, pb, mb, xsb, p3b, p4b, sb = (cast(a) for a in (
+            x, proj, m, xs, p3, p4, scale))
+        for mode in dense_modes:
+            out[f"K2 {tag} {mode}"] = feature_map.rbf_feature_map(
+                xb * 0.05, pb, True, 128, mode, precision)
+        for k, (vc, vs) in v.items():
+            out[f"K1 oc K={k} {tag}"], out[f"K1 os K={k} {tag}"] = \
+                ztzv.ztzv_parts(xb, mb, pb, 0.05, cast(vc), cast(vs), True,
+                                None, precision)
+        for mode in k3_modes:
+            out[f"K3 c {tag} {mode}"], out[f"K3 s {tag} {mode}"] = \
+                conv.conv_parts(xsb, lengths, p3b, 0.7, 9, sb, mode,
+                                precision)
+        out[f"K4 {tag}"] = conv.conv_maxpool(xsb, lengths, p4b, 9,
+                                             precision)
+
+    same = lambda a: a  # noqa: E731
+    body("high", same, None, ("hi",), ("hi",))
+    body("default", same, "default", ("fast",), ())
+    body("highest", same, "highest", MODES, ("hi", "exact"))
+    body("float64", lambda a: a.double(), None, ("exact",), ("exact",))
     torch.cuda.synchronize()
     return {k: v.cpu() for k, v in out.items()}
 
@@ -51,13 +79,22 @@ def main(argv):
         torch.save(outputs(), argv[1])
         return 0
     a, b = torch.load(argv[1]), torch.load(argv[2])
-    same = True
+    ok = True
     for key in a:
-        eq = torch.equal(a[key], b[key])
-        same &= eq
-        print(f"BITS {key}: {'same' if eq else 'differ'} (max abs diff "
-              f"{float((a[key] - b[key]).abs().max()):.3e})", flush=True)
-    return 0 if same else 1
+        if key not in b:
+            print(f"BITS {key}: only in {argv[1]}", flush=True)
+            continue
+        diff = float((a[key] - b[key]).abs().max())
+        if torch.equal(a[key], b[key]):
+            verdict = "same"
+        elif a[key].dtype == torch.float64 and \
+                diff <= F64_RTOL * max(1.0, float(a[key].abs().max())):
+            verdict = "differ, within F64_RTOL"
+        else:
+            verdict = "differ"
+            ok = False
+        print(f"BITS {key}: {verdict} (max abs diff {diff:.3e})", flush=True)
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

@@ -672,3 +672,100 @@ def test_mixed_dtypes_raise(cuda):
                         torch.ones(10, device=cuda))
     with pytest.raises(TypeError):
         conv.conv_maxpool(xs, lengths, projc.double(), 3)
+
+
+# ----------------------------------------------------------------------
+# K3 and K4's synchronous kernel (csrc/conv_sync.cuh): fp32 FMAs at
+# "highest" (row tiles of 64 sequences, 128 frequencies a block) and
+# float64 DMMA (64 frequencies a block), at edge shapes: N off the row
+# tile, D odd (and 21, the protein shape of bench.py), rows with no valid
+# window, nw below a window pair (L == w), F off the frequency tile (odd
+# too), with and without a row scale; each call twice, the same bits.
+SYNC_CASES = [(257, 20, 7, 5, 200, "spread"),   # N, D, F off their tiles
+              (130, 14, 21, 6, 131, "spread"),  # D 21, F odd
+              (70, 9, 9, 9, 65, "spread"),      # L == w: one window
+              (65, 10, 3, 9, 7, "equal"),       # nw 2, F below a pair
+              (1000, 16, 64, 9, 4100, "spread")]  # the motif cut, F 4100
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,l,d,width,f,kind", SYNC_CASES)
+def test_conv_sync_kernel_at_edge_shapes(cuda, dtype, n, l, d, width, f,
+                                         kind):
+    x, lengths, proj = _conv_inputs(cuda, n, l, d, width, f, kind)
+    x, proj = x.to(dtype), proj.to(dtype)
+    scale = torch.linspace(0.5, 1.5, n, device=cuda, dtype=dtype)
+    mode = "hi" if dtype == torch.float32 else "exact"
+    tags = ("exact", "float64") if dtype == torch.float64 else \
+        (mode, "highest")
+    for row_scale in (None, scale):
+        before = (conv.PARTS_LAUNCHES[(n, l, d, width, f) + tags],
+                  conv.MAXPOOL_LAUNCHES[(n, l, d, width, f, tags[1])])
+        runs = [conv.conv_parts(x, lengths, proj, 0.7, width, row_scale,
+                                mode, "highest")
+                + (conv.conv_maxpool(x, lengths, proj, width, "highest"),)
+                for _ in range(2)]
+        want = conv.conv_parts_plain(x, lengths, proj, 0.7, width,
+                                     row_scale, mode, "highest") + \
+            (conv.conv_maxpool_plain(x, lengths, proj, width, "highest"),)
+        torch.cuda.synchronize()
+        assert (conv.PARTS_LAUNCHES[(n, l, d, width, f) + tags],
+                conv.MAXPOOL_LAUNCHES[(n, l, d, width, f, tags[1])]) == \
+            (before[0] + 2, before[1] + 2)
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
+        if dtype == torch.float64:
+            _f64_close(runs[0], want)
+        else:
+            for g, w in zip(runs[0], want):
+                tol = 1e-4 * max(1.0, float(w.abs().max()))
+                assert float((g - w).abs().max()) < tol
+        if kind == "spread":
+            assert float(runs[0][0][0].abs().max()) == 0.0
+            assert float(runs[0][2][0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,l,d,width,f,kind", SYNC_CASES[:3])
+def test_conv_sync_kernel_non_contiguous_bits(cuda, dtype, n, l, d, width,
+                                              f, kind):
+    """Non-contiguous x, lengths, proj and row scale give the contiguous
+    operands' bits."""
+    x, lengths, proj = _conv_inputs(cuda, n, l, d, width, f, kind)
+    x, proj = x.to(dtype), proj.to(dtype)
+    scale = torch.linspace(0.5, 1.5, n, device=cuda, dtype=dtype)
+
+    def run(t):
+        return conv.conv_parts(t(x), t(lengths), t(proj), 0.7, width,
+                               t(scale), "exact", "highest") + \
+            (conv.conv_maxpool(t(x), t(lengths), t(proj), width,
+                               "highest"),)
+    want = run(lambda a: a)
+    got = run(_strided)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_conv_sync_entry_points_refuse_other_bodies(cuda):
+    """The synchronous entry points take the fp32 FMA and float64 bodies
+    only, and K3 the four sincos modes; the implicit GEMM's entry points
+    no longer take either body."""
+    from xgpr_tpu_torch.ops.cuda import build
+    lib = build.library()
+    invalid = 1  # cudaErrorInvalidValue
+    for body in (feature_map.BODY_FLAGS["tf32x3"],
+                 feature_map.BODY_FLAGS["bf16"], 7):
+        assert lib.xgpr_conv_parts_sync(*([None] * 7), 10, 6, 4, 3, 16, 16,
+                                        1.0, 0, body, None) == invalid
+        assert lib.xgpr_conv_maxpool_sync(*([None] * 5), 10, 6, 4, 3, 16,
+                                          16, body, None) == invalid
+    assert lib.xgpr_conv_parts_sync(*([None] * 7), 10, 6, 4, 3, 16, 16, 1.0,
+                                    9, feature_map.BODY_FLAGS["fma32"],
+                                    None) == invalid
+    for body in ("fma32", "f64"):
+        flag = feature_map.BODY_FLAGS[body]
+        assert lib.xgpr_conv_parts(*([None] * 9), 10, 6, 4, 3, 16, 1.0, 0,
+                                   flag, None) == invalid
+        assert lib.xgpr_conv_maxpool(*([None] * 7), 10, 6, 4, 3, 16, flag,
+                                     None) == invalid

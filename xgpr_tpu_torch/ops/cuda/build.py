@@ -23,9 +23,10 @@ nvcc processes run side by side: the 3xTF32 body in ``feature_map.cu``,
 ``ztzv_bf16.cu`` and ``conv_bf16.cu`` (K3/K4's warp-specialised bf16
 pipeline of ``conv_ws.cuh``, with its own entry points; it reaches the
 driver's ``cuTensorMapEncodeTiled`` through the runtime, so nothing
-links libcuda), the fp32 CUDA-core body of K3/K4
-in ``conv_fma.cu`` and the float64 (DMMA) bodies in ``feature_map_f64.cu``,
-``ztzv_f64.cu`` and ``conv_f64.cu``.  No --use_fast_math: it would turn
+links libcuda), K3/K4's synchronous kernel (``conv_sync.cuh``) in
+``conv_fma.cu`` (fp32 FMAs, with its entry points) and ``conv_f64.cu``,
+and the float64 (DMMA) bodies of K1 and K2 in ``feature_map_f64.cu`` and
+``ztzv_f64.cu``.  No --use_fast_math: it would turn
 sincosf into the inaccurate __sincosf.
 """
 import ctypes
@@ -51,6 +52,8 @@ _SIGNATURES = {
     + [_D, _I, _I, _I, _P],
     "xgpr_conv_parts": [_P] * 9 + [_I] * 5 + [_D, _I, _I, _P],
     "xgpr_conv_maxpool": [_P] * 7 + [_I] * 6 + [_P],
+    "xgpr_conv_parts_sync": [_P] * 7 + [_I] * 6 + [_D, _I, _I, _P],
+    "xgpr_conv_maxpool_sync": [_P] * 5 + [_I] * 7 + [_P],
     "xgpr_conv_parts_ws": [_P] * 8 + [_I] * 5 + [_D] + [_I] * 4 + [_P],
     "xgpr_conv_maxpool_ws": [_P] * 6 + [_I] * 8 + [_P],
     "xgpr_conv_tile_layout": [_P] * 2 + [_I] * 5 + [_P] * 6,

@@ -46,7 +46,12 @@ count, so that a tile stops at its own rows' largest count),
 bf16, 2 for float64, and proj transposed to the K-major projT the tiles
 read) and ``kernel_planes`` (x and projT as the planes of the body: TF32
 high parts and remainders, bf16 values, or the values themselves; in
-operands.py, shared with K1 and K2).  The bf16 body ("default", the
+operands.py, shared with K1 and K2).  The synchronous bodies ("highest"
+fp32 FMAs and float64) are their own kernel (csrc/conv_sync.cuh):
+``sync_layout`` writes x for the fp32 body in tile order transposed, each
+tile's sequences contiguous, ``sync_proj`` pads proj's frequencies to 16
+bytes, and float64 reads x as ``pad_operands`` pads it beside projT's
+cached plane (``operands.projT_planes``).  The bf16 body ("default", the
 "max" preset) is its own kernel (csrc/conv_ws.cuh), which copies x by
 TMA in boxes of 64 tile rows: ``tile_layout`` writes x's bf16 copy in
 tile order beside each row's window count and each tile's largest,
@@ -129,10 +134,12 @@ def conv_maxpool_plain(x, seq_lengths, proj, width, precision=None):
 
 
 # The kernels' tiling (csrc/conv.cu: WR, WG, WN): rows per tile, windows
-# per group, frequencies per tile.
+# per group, frequencies per tile; the synchronous kernel's frequencies
+# per block by body (csrc/conv_sync.cuh: FmaTile, DmmaTile).
 TILE_ROWS = 64
 WINDOW_GROUP = 2
 TILE_FREQS = 128
+SYNC_FREQS = {"fma32": 128, "f64": 64}
 
 
 def row_order(seq_lengths, width, num_windows):
@@ -243,6 +250,28 @@ def tile_layout(x, seq_lengths, width, multiple=8):
     return xt, order, nk_t, top.amax(dim=1).to(torch.int32).contiguous()
 
 
+def sync_layout(x, order):
+    """The fp32 synchronous body's x: (L, D, NP), x[order[s], p, c] at
+    [p, c, s] for the rows in tile order, NP the row count rounded up to
+    whole tiles of TILE_ROWS (the rows past N repeat row 0; no output
+    reads them), so that a tile's 64 sequences lie together for each
+    (position, channel).  One gather."""
+    n = x.shape[0]
+    idx = F.pad(order.long(), (0, -n % TILE_ROWS))
+    return x.permute(1, 2, 0).index_select(2, idx)
+
+
+def sync_proj(proj):
+    """The fp32 synchronous body's proj: (w*D, fp), the frequencies padded
+    by zeros to fp, the next multiple of 4 (16-byte rows); proj itself
+    when it is so and 16-byte aligned."""
+    f = proj.shape[1]
+    fp = -(-f // 4) * 4
+    if fp != f:
+        return F.pad(proj, (0, fp - f)).contiguous()
+    return proj.contiguous() if proj.data_ptr() % 16 == 0 else proj.clone()
+
+
 def _check_shapes(name, x, seq_lengths, proj, width):
     if x.dim() != 3 or proj.dim() != 2 or \
             proj.shape[0] != width * x.shape[2] or \
@@ -289,7 +318,7 @@ def _checked(name, kernel, x, seq_lengths, proj, precision, *more):
     if seq_lengths.device != x.device or seq_lengths.dtype != torch.int32:
         raise TypeError(f"{name}: the CUDA kernel takes int32 lengths on "
                         f"{x.device}.")
-    if -(-proj.shape[1] // TILE_FREQS) > 65535:
+    if -(-proj.shape[1] // SYNC_FREQS.get(body, TILE_FREQS)) > 65535:
         raise ValueError(f"{name}: too many frequencies for the grid.")
     return (dtype, body, x, proj) + tuple(more)
 
@@ -306,6 +335,24 @@ def _gemm_args(x, seq_lengths, proj, width, body):
     return ((xh.data_ptr(), data_ptr(xl), order.data_ptr(), nk.data_ptr(),
              hi.data_ptr(), data_ptr(lo)), xh.shape[2],
             (xh, xl, order, nk, hi, lo))
+
+
+def _sync_args(x, seq_lengths, proj, width, body):
+    """The synchronous bodies' operands, as xgpr_conv_parts_sync /
+    xgpr_conv_maxpool_sync take them: (x, order, nk, proj) (fp32:
+    ``sync_layout`` and ``sync_proj``; float64: x padded to an even channel
+    count and projT's cached plane), (d, fp) the channels of x as laid out
+    and proj's row stride, and the tensors to keep alive."""
+    order, nk = row_order(seq_lengths, width, x.shape[1] - width + 1)
+    if body == "fma32":
+        xs, pr = sync_layout(x, order), sync_proj(proj)
+        dims = (x.shape[2], pr.shape[1])
+    else:
+        xs = pad_depth(x, depth_multiple(body))
+        pr = projT_planes(proj, body, width)[0]
+        dims = (xs.shape[2], proj.shape[1])
+    return ((xs.data_ptr(), order.data_ptr(), nk.data_ptr(),
+             pr.data_ptr()), dims, (xs, order, nk, pr))
 
 
 def _ws_args(x, seq_lengths, proj, width):
@@ -398,7 +445,8 @@ def parts_launcher(x, seq_lengths, proj, sigma, width, row_scale, mode,
     """((c, s), launch) for K3 on CUDA tensors at a resolved sincos mode
     and precision: the outputs, allocated, and the launch that fills them,
     its operands prepared; launch() is the kernel's launch alone.  The
-    bf16 body runs conv_ws.cuh (xgpr_conv_parts_ws), the others the
+    bf16 body runs conv_ws.cuh (xgpr_conv_parts_ws), "fma32" and "f64" the
+    synchronous kernel conv_sync.cuh (xgpr_conv_parts_sync), "tf32x3" the
     implicit GEMM (xgpr_conv_parts)."""
     extra = () if row_scale is None else (row_scale,)
     dtype, body, x, proj, *extra = _checked(
@@ -417,6 +465,11 @@ def parts_launcher(x, seq_lengths, proj, sigma, width, row_scale, mode,
         fn = lib.xgpr_conv_parts_ws
         args = ptrs + tail + (n, l, dp, width, f, float(sigma),
                               kernel_sincos_flag(mode)) + plan
+    elif body in SYNC_FREQS:
+        ptrs, dims, keep = _sync_args(x, seq_lengths, proj, width, body)
+        fn = lib.xgpr_conv_parts_sync
+        args = ptrs + tail + (n, l) + dims[:1] + (width, f) + dims[1:] + (
+            float(sigma), kernel_sincos_flag(mode), BODY_FLAGS[body])
     else:
         ptrs, dp, keep = _gemm_args(x, seq_lengths, proj, width, body)
         fn = lib.xgpr_conv_parts
@@ -484,6 +537,11 @@ def maxpool_launcher(x, seq_lengths, proj, width, precision):
         ptrs, dp, plan, keep = _ws_args(x, seq_lengths, proj, width)
         fn = lib.xgpr_conv_maxpool_ws
         args = ptrs + (out.data_ptr(), n, l, dp, width, f) + plan
+    elif body in SYNC_FREQS:
+        ptrs, dims, keep = _sync_args(x, seq_lengths, proj, width, body)
+        fn = lib.xgpr_conv_maxpool_sync
+        args = ptrs + (out.data_ptr(), n, l) + dims[:1] + (width, f) + \
+            dims[1:] + (BODY_FLAGS[body],)
     else:
         ptrs, dp, keep = _gemm_args(x, seq_lengths, proj, width, body)
         fn = lib.xgpr_conv_maxpool

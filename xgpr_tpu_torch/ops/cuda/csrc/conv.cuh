@@ -1,9 +1,10 @@
 // Conv window-loop kernels for Hopper: K3 (masked cos/sin window sums) and
-// K4 (ReLU + global max over windows), one implicit-GEMM body templated on
-// the operand format (tf32_gemm.cuh: 3xTF32 on the tensor cores, float64
-// DMMA, or fp32 FMAs on the CUDA cores) and on the epilogue.  The bf16
-// body ("default") is its own warp-specialised kernel, conv_ws.cuh, with
-// these epilogues.
+// K4 (ReLU + global max over windows): the implicit-GEMM kernel of the
+// 3xTF32 body ("high"; tf32_gemm.cuh's ring and products) and the
+// epilogues of every body.  The bf16 body ("default") is its own
+// warp-specialised kernel, conv_ws.cuh, and the synchronous bodies (fp32
+// FMAs at "highest", float64 DMMA) theirs, conv_sync.cuh, with these
+// epilogues.
 //
 // Replace the TPU kernels xgpr_tpu/ops/pallas/conv_pallas.py:
 //   K3 _conv_parts_kernel   (pallas_call in _conv_parts_impl)
@@ -41,24 +42,18 @@
 //   128-byte rows in the 128-byte swizzle, into a 3-stage ring of shared
 //   memory.
 // - The body of tf32_gemm.cuh (shared with K1 and K2): the wrapper makes
-//   x and projT the planes of the format (TF32 high parts and remainders
-//   for 3xTF32, the values for the others), both operands are
-//   read from shared memory, and step s's products run while the block
+//   x and projT the planes of the format (TF32 high parts and
+//   remainders), both operands are read from shared memory, and step s's products run while the block
 //   waits for step s + 1's copies and issues step s + 2's.  This file
 //   gives it the row policy (which box of x a GEMM row reads) and the
 //   epilogues; sigma multiplies the fp32 product in every format.  The
 //   register-A form (x split in registers, no extra bytes) leaves too few
 //   registers for products in flight; it measured slower (PERF.md).
-//   Each format's instantiations are a translation unit of their own
-//   (conv.cu, conv_fma.cu, conv_f64.cu; conv_bf16.cu the bf16 pipeline),
-//   built in parallel.
-// - The synchronous bodies (fma_gemm.cuh) read the same stages, one plane
-//   each: FMT_FMA32 is the "highest" feature precision ("reference"),
-//   fp32-exact products as xgpr_tpu's HIGHEST, on the CUDA cores; FMT_F64
-//   takes float64 operands on DMMA, its epilogue the builtin sincos in
-//   every mode and its sums in float64.  At the motif slice both bounds
-//   are 2.58 ms (fp32 on the CUDA cores and FP64 on the tensor cores, each
-//   67 TFLOP/s).
+//   Each body's instantiations are a translation unit of their own
+//   (conv.cu; conv_bf16.cu, conv_fma.cu and conv_f64.cu the other
+//   kernels), built in parallel.
+// - The epilogues take H rows by J frequency pairs a thread; float64
+//   takes the builtin sincos in every mode and sums in float64.
 // - Rows ordered by window count.  The wrapper passes a stable order of
 //   the rows by nk; a tile is 64 consecutive rows of that order, so its
 //   rows have near-equal nk, and it loops over groups of WG = 2 windows
@@ -74,8 +69,7 @@
 //   "fast", "poly"; common.cuh), chosen on the host at launch.
 // - Any shape: rows past N, windows past nw, channel chunks past D and
 //   frequencies past F are zero-filled by the copies and masked at the
-//   store.  The wrapper pads D to a multiple of 4 (2 for float64: 16-byte
-//   copies).
+//   store.  The wrapper pads D to a multiple of 4 (16-byte copies).
 #pragma once
 
 #include <stdint.h>
@@ -103,7 +97,8 @@ struct ConvArgs {
 // K3: running cos/sin sums of a thread's H rows x J frequency pairs, in
 // one sincos mode (common.cuh; float64 takes the builtin in every mode).
 // The implicit GEMM below holds one row x 16 pairs, the bf16 body of
-// conv_ws.cuh two rows x 8.
+// conv_ws.cuh two rows x 8, conv_sync.cuh's fp32 body 4 x 4 and its
+// float64 body 2 x 4.
 template <class T, int MODE, int H = 1, int J = 16>
 struct PartsEpilogue {
   struct Args {
@@ -379,33 +374,25 @@ int launch(const ConvArgs& p, const typename Epi::Args& ea, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// K3 in format FMT and sincos mode `mode` (an unknown mode is refused; the
-// float64 format has the builtin's one instantiation), and K4 in format
-// FMT.  Each format's instantiations live in their own translation unit
-// (conv.cu, conv_fma.cu, conv_f64.cu), so that the build compiles them in
-// parallel.
+// K3 in format FMT and sincos mode `mode` (an unknown mode is refused),
+// and K4 in format FMT: the 3xTF32 body's instantiations, in conv.cu.
 template <int FMT, class T = typename Body<FMT>::T>
 int launch_parts(const ConvArgs& p, const T* row_scale, T* c_out, T* s_out,
                  T sigma, int mode, void* stream) {
   if (mode < MODE_HI || mode > MODE_POLY) return (int)cudaErrorInvalidValue;
-  if constexpr (FMT == FMT_F64) {
-    return launch<FMT, PartsEpilogue<T, MODE_EXACT>>(
-        p, {row_scale, c_out, s_out, sigma}, stream);
-  } else {
-    switch (mode) {
-      case MODE_HI:
-        return launch<FMT, PartsEpilogue<T, MODE_HI>>(
-            p, {row_scale, c_out, s_out, sigma}, stream);
-      case MODE_EXACT:
-        return launch<FMT, PartsEpilogue<T, MODE_EXACT>>(
-            p, {row_scale, c_out, s_out, sigma}, stream);
-      case MODE_FAST:
-        return launch<FMT, PartsEpilogue<T, MODE_FAST>>(
-            p, {row_scale, c_out, s_out, sigma}, stream);
-      default:
-        return launch<FMT, PartsEpilogue<T, MODE_POLY>>(
-            p, {row_scale, c_out, s_out, sigma}, stream);
-    }
+  switch (mode) {
+    case MODE_HI:
+      return launch<FMT, PartsEpilogue<T, MODE_HI>>(
+          p, {row_scale, c_out, s_out, sigma}, stream);
+    case MODE_EXACT:
+      return launch<FMT, PartsEpilogue<T, MODE_EXACT>>(
+          p, {row_scale, c_out, s_out, sigma}, stream);
+    case MODE_FAST:
+      return launch<FMT, PartsEpilogue<T, MODE_FAST>>(
+          p, {row_scale, c_out, s_out, sigma}, stream);
+    default:
+      return launch<FMT, PartsEpilogue<T, MODE_POLY>>(
+          p, {row_scale, c_out, s_out, sigma}, stream);
   }
 }
 
@@ -413,17 +400,6 @@ template <int FMT, class T = typename Body<FMT>::T>
 int launch_maxpool(const ConvArgs& p, T* out, void* stream) {
   return launch<FMT, MaxpoolEpilogue<T>>(p, {out}, stream);
 }
-
-// The other formats' launches (conv_fma.cu, conv_f64.cu; the bf16 body
-// is conv_ws.cuh, with its own entry points in conv_bf16.cu).
-int launch_parts_fma32(const ConvArgs& p, const float* row_scale,
-                       float* c_out, float* s_out, float sigma, int mode,
-                       void* stream);
-int launch_maxpool_fma32(const ConvArgs& p, float* out, void* stream);
-int launch_parts_f64(const ConvArgs& p, const double* row_scale,
-                     double* c_out, double* s_out, double sigma, int mode,
-                     void* stream);
-int launch_maxpool_f64(const ConvArgs& p, double* out, void* stream);
 
 }  // namespace conv
 }  // namespace xgpr

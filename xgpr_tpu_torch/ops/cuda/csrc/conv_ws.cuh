@@ -66,6 +66,7 @@
 #include <stdint.h>
 
 #include "conv.cuh"
+#include "mbarrier.cuh"
 
 namespace xgpr {
 namespace conv {
@@ -102,35 +103,11 @@ __host__ __device__ inline int smem_bytes(const Args& p) {
          p.stages * (p.resident ? X_BOX : P_BOX + 2 * X_BOX) + 1024;
 }
 
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(saddr(b)),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(saddr(b))
-               : "memory");
-}
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* b, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
                    "r"(saddr(b)),
                "r"(bytes)
                : "memory");
-}
-// Waits until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WS_WAIT_%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WS_WAIT_%=;\n"
-      "}\n" ::"r"(saddr(b)),
-      "r"(parity)
-      : "memory");
 }
 // A 3-D TMA box into shared memory, completing on `bar`.
 __device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
@@ -192,13 +169,6 @@ __device__ __forceinline__ void issue_pair(float (&acc)[2][32], uint64_t d0,
     wgmma_bf16_n64(acc[1], d1 + 2 * kk, db + 2 * kk, kk > 0 || !overwrite);
   }
   wgmma_commit();
-}
-
-// Releases a ring stage: one arrival per consumer warp, after its products
-// that read the stage are complete.
-__device__ __forceinline__ void release(uint64_t* empty) {
-  __syncwarp();
-  if (threadIdx.x % 32 == 0) mbar_arrive(empty);
 }
 
 // A ring position: a stage and the parity of its current fill; step()

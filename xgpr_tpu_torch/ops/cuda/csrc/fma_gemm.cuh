@@ -2,8 +2,8 @@
 // wgmma in flight), beside the wgmma bodies of tf32_gemm.cuh (Format):
 //
 // - FMT_FMA32 (T = float): fp32 FMAs on the CUDA cores (fma_products).
-//   K3 and K4 run it at the "highest" feature precision (the "reference"
-//   preset).  xgpr_tpu's "highest" is an fp32-exact product (HIGHEST: six
+//   K2 runs it at the "highest" feature precision (the "reference"
+//   preset; K3 and K4 run the same arithmetic in conv_sync.cuh).  xgpr_tpu's "highest" is an fp32-exact product (HIGHEST: six
 //   bf16 passes on the TPU); the 3xTF32 body sums in the tensor cores'
 //   fp32 accumulation and measured 6.2x (K3) and 5.1x (K4) the error of a
 //   plain fp32 product against a float64 witness on the H100 (PERF.md),
@@ -14,13 +14,11 @@
 //   feature precision, as xgpr_tpu's float64 runs ignore the precision
 //   knobs.
 //
-// What bounds them: operations.  At K3's motif slice (8192 rows, F 4096)
-// the valid windows need 173 GFLOP: 2.58 ms at the CUDA cores' 67 TFLOP/s
-// in fp32, 2.58 ms at the tensor cores' 67 TFLOP/s of FP64, against
-// 0.09 ms of device-memory traffic.
+// What bounds them: operations at K2 "highest" and in K1's float64
+// projection (PERF.md §6).
 //
 // Layout: the stages of the wgmma bodies, filled by the same copies
-// (tf32_gemm.cuh: gemm_loop, load_rows; conv.cuh's row policy), one plane
+// (tf32_gemm.cuh: gemm_loop, load_rows), one plane
 // per operand: each row K-major in 128-byte lines (32 fp32 or 16 float64
 // values of depth) in the 128-byte swizzle.  Thread (warp W, lane
 // (g, t) = (lane / 4, lane % 4)) owns the accumulator fragment of the

@@ -16,10 +16,12 @@
 //   bf16 body is the warp-specialised pipeline of conv_ws.cuh (TMA, full
 //   and empty mbarriers, the projection tile resident in shared memory),
 //   which keeps this format's numbers;
-// - FMT_FMA32, "highest" for K3 and K4: fp32 FMAs on the CUDA cores, and
+// - FMT_FMA32, "highest" for K2: fp32 FMAs on the CUDA cores, and
 //   FMT_F64, float64 operands: float64 mma.sync (DMMA) on the tensor
-//   cores (fma_gemm.cuh).  Their stages hold one plane of each operand in
-//   the same layout, and their products are done when issued.
+//   cores (fma_gemm.cuh), for K1 and K2.  Their stages hold one plane of
+//   each operand in the same layout, and their products are done when
+//   issued.  K3 and K4 take these formats in a kernel of their own,
+//   conv_sync.cuh, which keeps the fp32 body's numbers.
 //
 // Both operands are read from shared memory, K-major, each row of a stage
 // one 128-byte line in the 128-byte swizzle: 32 fp32 or 64 bf16 values of
