@@ -98,11 +98,11 @@ def test_feature_map_kernel_highest(cuda, mode, n, d, f, padded):
 # Right-hand sides a block of K1's passes carries, (3xTF32, bf16,
 # float64) by K: the one-rhs passes at K 1 in float32, the tensor-core
 # passes' 8 up to K 8, then 16 (3xTF32) or 32 (bf16); the float64 passes
-# 8 up to K 8, else 16 (the counts test_torch_ztzv.py's CPU tests of
+# 8 up to K 8, else 32 (the counts test_torch_ztzv.py's CPU tests of
 # launch_plan take).
 RHS_PER_BLOCK = {1: (1, 1, 8), 2: (8, 8, 8), 8: (8, 8, 8),
-                 9: (16, 32, 16), 26: (16, 32, 16), 64: (16, 32, 16),
-                 70_000: (16, 32, 16)}
+                 9: (16, 32, 32), 26: (16, 32, 32), 64: (16, 32, 32),
+                 70_000: (16, 32, 32)}
 
 
 @pytest.mark.parametrize("k", sorted(RHS_PER_BLOCK))
@@ -595,6 +595,60 @@ def test_ztzv_kernel_float64(cuda, precision, intercept, n, d, f, k):
     torch.cuda.synchronize()
     assert ztzv.LAUNCHES[(n, d, f, k, "exact", "float64")] == before + 1
     _f64_close(got, want)
+
+
+# The float64 passes carry 32 right-hand sides a block from K 9: K on both
+# sides of 32, R and F off the 128 tile (and off the passes' 64-wide
+# tiles), D past the 96 that stays resident (D 200) and at one line of
+# depth (D 16).
+F64_ZTZV_CASES = [(1000, 84, 300, 26), (777, 84, 4100, 32),
+                  (2500, 84, 1000, 33), (300, 200, 513, 64),
+                  (333, 16, 700, 26)]
+
+
+@pytest.mark.parametrize("n,d,f,k", F64_ZTZV_CASES)
+def test_ztzv_kernel_float64_blocks_of_32(cuda, n, d, f, k):
+    x, m, proj, vc, vs = _f64(*_ztzv_inputs(cuda, n, d, f, k))
+    got = ztzv.ztzv_parts(x, m, proj, 0.7, vc, vs, True)
+    want = ztzv.ztzv_parts_plain(x, m, proj, 0.7, vc, vs, True)
+    torch.cuda.synchronize()
+    _f64_close(got, want)
+
+
+@pytest.mark.parametrize("half", [0, 1])
+@pytest.mark.parametrize("k", [1, 26])
+def test_ztzv_kernel_float64_rows_g8(cuda, half, k):
+    """Rows g and g + 8 of every 16-row tile on their own: the mask keeps
+    rows r with r % 16 >= 8 (half 1) or < 8 (half 0), so a wrong row g + 8
+    cannot hide behind the others' sums (a DMMA's C rows g + 8, the
+    accumulators zeroed beside the first products, went wrong once in
+    K3)."""
+    n, d, f = 8192, 84, 4096
+    x, m, proj, vc, vs = _f64(*_ztzv_inputs(cuda, n, d, f, k))
+    rows = torch.arange(n, device=cuda)
+    m = m * ((rows % 16 >= 8) == bool(half)).double()
+    got = ztzv.ztzv_parts(x, m, proj, 0.7, vc, vs, True)
+    want = ztzv.ztzv_parts_plain(x, m, proj, 0.7, vc, vs, True)
+    torch.cuda.synchronize()
+    _f64_close(got, want)
+
+
+# K2's float64 kernel at the K4 path's shape (D 1024, F 2048, padded
+# 1024), and at ragged block layouts: blocks of 96 (a tile spans two) with
+# a ragged last block, and an odd last block at D 1024.
+F64_FEATURE_CASES = [(8192, 1024, 2048, 1024), (333, 84, 1000, 96),
+                     (257, 1024, 333, 40)]
+
+
+@pytest.mark.parametrize("n,d,f,padded", F64_FEATURE_CASES)
+def test_feature_map_kernel_float64_layouts(cuda, n, d, f, padded):
+    rng = np.random.default_rng(n + d)
+    x, proj = _f64(_t(rng.random((n, d)) * 0.1, cuda),
+                   _t(rng.standard_normal((d, f)) * 0.5, cuda))
+    got = feature_map.rbf_feature_map(x, proj, False, padded)
+    want = feature_map.rbf_feature_map_plain(x, proj, False, padded)
+    torch.cuda.synchronize()
+    _f64_close((got,), (want,))
 
 
 @pytest.mark.parametrize("n,d,f,k", [(8192, 84, 4096, 1), (3000, 84, 1000, 26)])

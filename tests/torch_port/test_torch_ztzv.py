@@ -72,10 +72,11 @@ def test_cpu_tensors_take_the_plain_version():
 # held to these counts on the card by test_torch_cuda_kernels.py's
 # test_rhs_per_block_is_the_librarys): K 1 takes
 # the one-rhs passes; the tensor-core passes carry 8 up to K 8, then 16
-# (3xTF32) or 32 (bf16); the float64 passes 8 up to K 8, else 16.
+# (3xTF32) or 32 (bf16); the float64 passes 8 up to K 8, else 32 (so K 26
+# projects once a pass).
 def rhs_per_block(body, k):
     if body == "f64":
-        return 8 if k <= 8 else 16
+        return 8 if k <= 8 else 32
     if k == 1:
         return 1
     return 8 if k <= 8 else 32 if body == "bf16" else 16
@@ -92,6 +93,9 @@ PLANS = {
     ("tf32x3", 64): (4, 1, 1, 1), ("bf16", 64): (2, 1, 2, 1),
     ("tf32x3", 70_000): (4375, 4, 8, 1),
     ("bf16", 70_000): (2188, 8, 16, 1),
+    ("f64", 1): (1, 2, 4, 1), ("f64", 8): (1, 2, 4, 1),
+    ("f64", 26): (1, 2, 4, 1), ("f64", 33): (2, 1, 2, 1),
+    ("f64", 64): (2, 1, 2, 1), ("f64", 70_000): (2188, 8, 16, 1),
 }
 
 

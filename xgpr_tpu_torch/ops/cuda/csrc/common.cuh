@@ -184,13 +184,4 @@ __device__ __forceinline__ void with_sincos(const float acc[64], float sigma,
   }
 }
 
-// The float64 bodies' epilogues: the builtin everywhere.
-template <int MODE, class Body>
-__device__ __forceinline__ void with_sincos(const double acc[64], double,
-                                            Body&& body) {
-  body([](double x, double w, double* c, double* s) {
-    sincos_scaled<MODE>(x, w, c, s);
-  });
-}
-
 }  // namespace xgpr

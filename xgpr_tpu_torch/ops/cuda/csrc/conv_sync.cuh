@@ -57,10 +57,10 @@
 //   in the 128-byte swizzle).  Lane (g, t) reads 16 bytes, two channels,
 //   of its rows a load and feeds them as the k = t and k = t + 4 of a
 //   product, so one 16-byte load serves two depths; 8 loads a thread per
-//   8 products.  A step is two lines (32 channels): one line a step, 8
-//   stages, ran 8% slower.  m16n8k8 reaches 64 TFLOP/s from shared
-//   memory on the card, the m8n8k4 of fma_gemm.cuh 33
-//   (tests/torch_port/dmma_rate.cu).
+//   8 products (the fragment code is dmma.cuh's, shared with K1 and K2's
+//   float64 bodies).  A step is two lines (32 channels): one line a step,
+//   8 stages, ran 8% slower.  m16n8k8 reaches 64 TFLOP/s from shared
+//   memory on the card, m8n8k4 33 (tests/torch_port/dmma_rate.cu).
 // - Any shape: windows past nw, channels past D and frequencies past F are
 //   zero-filled by the copies and masked at the store; sequences past N
 //   are zero-filled (float64) or repeat a row (fp32), and never stored.
@@ -69,6 +69,7 @@
 #include <stdint.h>
 
 #include "conv.cuh"
+#include "dmma.cuh"
 #include "mbarrier.cuh"
 
 namespace xgpr {
@@ -91,13 +92,6 @@ struct Args {
   const void* proj;
   int n, l, d, width, f, fp;
 };
-
-// The copies of a thread arrive on `full` when they land.
-__device__ __forceinline__ void arrive_on_copies(uint64_t* full) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
-                   "r"(saddr(full))
-               : "memory");
-}
 
 // The step a ring fill holds: window group j0 (its first window), tap and
 // channel chunk kk; next() walks them in the products' order (kk, then
@@ -228,28 +222,6 @@ struct FmaTile {
   }
 };
 
-// One DMMA: the 16 x 8 tile c += a (16 x 8) b (8 x 8) in float64; lane
-// (g, t) holds a[g][t], a[g + 8][t], a[g][t + 4], a[g + 8][t + 4],
-// b[t][g], b[t + 4][g] and c[g][2t, 2t + 1], c[g + 8][2t, 2t + 1]
-// (tests/torch_port/dmma_rate.cu checks the layout on the card).
-// Volatile, so that it keeps its place among the ring's barrier
-// operations.
-__device__ __forceinline__ void dmma16x8x8(double c[4], double a0, double a1,
-                                           double a2, double a3, double b0,
-                                           double b1) {
-  double d0, d1, d2, d3;
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
-      : "=d"(d0), "=d"(d1), "=d"(d2), "=d"(d3)
-      : "d"(a0), "d"(a1), "d"(a2), "d"(a3), "d"(b0), "d"(b1), "d"(c[0]),
-        "d"(c[1]), "d"(c[2]), "d"(c[3]));
-  c[0] = d0;
-  c[1] = d1;
-  c[2] = d2;
-  c[3] = d3;
-}
-
 // The float64 body.  Warp q owns sequences 16 (q / 2) + 8m + g (m < 2)
 // and frequencies 32 (q % 2) + 8n + 2t + e (n < 4, e < 2), lane (g, t) =
 // (lane / 4, lane % 4): acc[4 (4m + n) + 2h + e] is window h of sequence
@@ -326,39 +298,16 @@ struct DmmaTile {
     }
   }
 
-  // The stage's products: per line two k8 halves, lane t's chunk 2t +
-  // half of its rows (conflict-free in the swizzle: rows g and g ^ 1 of a
-  // quarter warp take chunks of opposite parity).
+  // The stage's products, line by line (dmma.cuh: dmma_line).
   __device__ __forceinline__ void products(const unsigned char* st,
                                            double acc[ACC]) const {
-    const int t = threadIdx.x % 4;
     // mma.sync.aligned needs the warp converged: the fold's masks and the
     // barrier waits may leave it split.
     __syncwarp();
 #pragma unroll
     for (int line = 0; line < LINES; ++line)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const unsigned char* ln = st + line * LINE;
-        const int c = 2 * t + half;
-        double2 a[2][2], b[4];
-#pragma unroll
-        for (int m = 0; m < 2; ++m)
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            a[m][h] = *reinterpret_cast<const double2*>(
-                ln + sw128(arow + 16 * m + 8 * h, c));
-#pragma unroll
-        for (int n = 0; n < 4; ++n)
-          b[n] = *reinterpret_cast<const double2*>(
-              ln + A_LINE + sw128(brow + 8 * n, c));
-#pragma unroll
-        for (int m = 0; m < 2; ++m)
-#pragma unroll
-          for (int n = 0; n < 4; ++n)
-            dmma16x8x8(&acc[4 * (4 * m + n)], a[m][0].x, a[m][1].x,
-                       a[m][0].y, a[m][1].y, b[n].x, b[n].y);
-      }
+      dmma_line<2, 4>(st + line * LINE, arow, st + line * LINE + A_LINE,
+                      brow, acc);
   }
 
   __device__ __forceinline__ int seq(int m) const { return sb + 8 * m; }

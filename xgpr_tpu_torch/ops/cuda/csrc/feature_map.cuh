@@ -1,6 +1,7 @@
 // Dense RBF feature map for Hopper (K2), on the tensor cores at fp32 grade
 // (3xTF32) for float32 operands, in fp32 FMAs on the CUDA cores at the
-// "highest" feature precision, and in float64 DMMA for float64 ones.
+// "highest" feature precision, and in float64 m16n8k8 DMMA for float64
+// ones.
 //
 // Replaces the TPU kernel xgpr_tpu/ops/pallas/sorf_pallas.py:_feature_kernel
 // (pallas_call in _rbf_feature_map_impl).  For sigma-scaled rows x (N, D)
@@ -57,14 +58,18 @@
 //   feature is stored from the fragment.  What bounds it: the projection
 //   as fp32 FMAs, 5.6 GFLOP at RBF's chunk, 0.084 ms at the CUDA cores' 67
 //   TFLOP/s, against the 0.081 ms write.
-// - float64 operands run the same kernel on the float64 DMMA body
-//   (fma_gemm.cuh, 16 values of depth a stage) with the builtin sincos,
-//   every feature stored from the fragment (a float64 tile is 128 KB, more
-//   than a stage holds).  What bounds it there: at RBF's chunk the 537 MB
-//   of float64 features, 0.16 ms at 3.35 TB/s, against 0.08 ms for the
-//   5.6 GFLOP of projection at the tensor cores' 67 TFLOP/s of FP64.
+// - float64 operands run a kernel of their own, feature_map_f64_kernel in
+//   feature_map_f64.cu: the m16n8k8 DMMA loop of dense_f64.cuh (a
+//   six-stage mbarrier ring, tiles of 128 rows x 128 frequencies) with the
+//   builtin sincos, every feature stored from the accumulators as 16-byte
+//   pairs (a float64 tile is 256 KB of features, more than shared memory
+//   holds beside the ring).  What bounds it there: at RBF's chunk the 537
+//   MB of float64 features, 0.16 ms at 3.35 TB/s, against 0.084 ms for the
+//   5.6 GFLOP of projection at the tensor cores' 67 TFLOP/s of FP64 and
+//   ~0.1 ms of double sincos on the FP64 units; at D 1024 the 34.4 GFLOP
+//   of projection, 0.51 ms.
 // The 3xTF32 instantiations are in feature_map.cu (with the C entry
-// point), the fp32 FMA ones in feature_map_fma.cu, the float64 one in
+// point), the fp32 FMA ones in feature_map_fma.cu, the float64 kernel in
 // feature_map_f64.cu, built in parallel.
 #pragma once
 

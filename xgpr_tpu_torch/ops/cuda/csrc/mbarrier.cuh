@@ -1,5 +1,6 @@
 // The shared-memory mbarrier operations of the pipelined kernels
-// (conv_ws.cuh's TMA ring, conv_sync.cuh's cp.async ring): init, arrive,
+// (conv_ws.cuh's TMA ring, the cp.async rings of conv_sync.cuh and
+// dense_f64.cuh): init, arrive, a thread's arrival when its copies land,
 // a warp's release of a ring stage, and the wait for a phase.
 #pragma once
 
@@ -17,6 +18,14 @@ __device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
 }
 __device__ __forceinline__ void mbar_arrive(uint64_t* b) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(saddr(b))
+               : "memory");
+}
+// The cp.async copies this thread issued so far arrive on `full` when
+// they land (no pending count added: the barrier counts one arrival per
+// thread and fill).
+__device__ __forceinline__ void arrive_on_copies(uint64_t* full) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(saddr(full))
                : "memory");
 }
 // Waits until the phase of parity `parity` of the barrier has completed.

@@ -16,12 +16,15 @@
 //   bf16 body is the warp-specialised pipeline of conv_ws.cuh (TMA, full
 //   and empty mbarriers, the projection tile resident in shared memory),
 //   which keeps this format's numbers;
-// - FMT_FMA32, "highest" for K2: fp32 FMAs on the CUDA cores, and
-//   FMT_F64, float64 operands: float64 mma.sync (DMMA) on the tensor
-//   cores (fma_gemm.cuh), for K1 and K2.  Their stages hold one plane of
-//   each operand in the same layout, and their products are done when
-//   issued.  K3 and K4 take these formats in a kernel of their own,
-//   conv_sync.cuh, which keeps the fp32 body's numbers.
+// - FMT_FMA32, "highest" for K2: fp32 FMAs on the CUDA cores
+//   (fma_gemm.cuh).  Its stages hold one plane of each operand in the
+//   same layout, and its products are done when issued.  K3 and K4 take
+//   this format in a kernel of their own, conv_sync.cuh, which keeps the
+//   fp32 body's numbers.
+//
+// Float64 operands (FMT_F64) do not run on this file's ring: K1 and K2's
+// float64 bodies are the DMMA loop of dense_f64.cuh (m16n8k8 on an
+// mbarrier ring of six stages), K3 and K4's conv_sync.cuh.
 //
 // Both operands are read from shared memory, K-major, each row of a stage
 // one 128-byte line in the 128-byte swizzle: 32 fp32 or 64 bf16 values of
@@ -81,19 +84,21 @@ constexpr int STAGE_BYTES = 2 * (A_BYTES + B_BYTES);     // TF32: 64 KB
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;  // + alignment slack
 
 // The operand formats, by the host's body flag
-// (ops/cuda/feature_map.py: kernel_body, BODY_FLAGS).
+// (ops/cuda/feature_map.py: kernel_body, BODY_FLAGS); FMT_F64 is the flag
+// of float64 operands, whose products run on dense_f64.cuh's DMMA loop
+// (K1, K2) or in conv_sync.cuh (K3, K4), not on this ring.
 enum Format : int { FMT_TF32X3 = 0, FMT_FMA32 = 1, FMT_BF16 = 2,
                     FMT_F64 = 3 };
 
 template <int FMT>
 struct Body {
+  static_assert(FMT != FMT_F64, "float64 runs dense_f64.cuh's loop");
   static constexpr bool BF16 = FMT == FMT_BF16;
   // Products complete when issued (fma_gemm.cuh), no wgmma in flight.
-  static constexpr bool SYNC = FMT == FMT_FMA32 || FMT == FMT_F64;
-  // The accumulators' type (and the CUDA-core bodies' operands').
-  using T = std::conditional_t<FMT == FMT_F64, double, float>;
+  static constexpr bool SYNC = FMT == FMT_FMA32;
+  using T = float;  // the accumulators' type
   static constexpr int PLANES = FMT == FMT_TF32X3 ? 2 : 1;  // TF32 hi, lo
-  static constexpr int ELEM = BF16 ? 2 : (int)sizeof(T);    // bytes a value
+  static constexpr int ELEM = BF16 ? 2 : 4;                 // bytes a value
   static constexpr int VEC = 16 / ELEM;        // values per 16-byte copy
   static constexpr int KS = 128 / ELEM;        // depth per step
   static constexpr int STAGE = PLANES * (A_BYTES + B_BYTES);
@@ -197,16 +202,13 @@ __device__ __forceinline__ unsigned char* ring_base(unsigned char* raw) {
 // The products of a step in format FMT: this warpgroup's 64 rows of the A
 // tile against the B tile, each given by its first plane (a TF32 lo plane
 // 16 KB after its hi plane).  Each 32-byte depth slice of the 128-byte
-// rows is one wgmma; overwrite: the group's first step.  The synchronous
-// formats compute the thread's fragment at once (fma_products,
-// dmma_products).
+// rows is one wgmma; overwrite: the group's first step.  The fp32 FMA
+// format computes the thread's fragment at once (fma_products).
 template <int FMT>
 __device__ __forceinline__ void issue_products(
     const unsigned char* a, const unsigned char* b,
     typename Body<FMT>::T acc[64], bool overwrite) {
-  if constexpr (FMT == FMT_F64) {
-    dmma_products(a, b, acc, overwrite);
-  } else if constexpr (FMT == FMT_FMA32) {
+  if constexpr (FMT == FMT_FMA32) {
     fma_products(a, b, acc, overwrite);
   } else {
     const int a_rows = (threadIdx.x / 128) * 64 * 128;

@@ -59,7 +59,8 @@ extern "C" int xgpr_ztzv(const void* x_hi, const void* x_lo, const void* m,
 // Right-hand sides one block of K1's pass (a) (pass == 0) or pass (b)
 // (pass == 1) carries in format `body` at K right-hand sides (the same in
 // both passes): 1 at K 1 in float32 (the one-rhs passes), else 8 NT
-// (mma_nt), and 8 f64_nt for float64; the wrapper sizes its split of the
+// (mma_nt: 8 up to K 8, then 16 in 3xTF32, 32 in bf16), and 8 f64_nt for
+// float64 (8 up to K 8, then 32); the wrapper sizes its split of the
 // walks by it (ops/cuda/ztzv.py: launch_plan).
 extern "C" int xgpr_ztzv_rhs_per_block(int body, int k, int pass) {
   (void)pass;

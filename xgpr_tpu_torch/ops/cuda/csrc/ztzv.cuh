@@ -1,7 +1,8 @@
 // Fused CG matvec for one chunk on Hopper (K1): Z^T (Z v) without writing Z,
 // its projections on the tensor cores in the body of the feature precision
 // (tf32_gemm.cuh: 3xTF32 for "high" and "highest", one bf16 pass for
-// "default"), or in float64 DMMA for float64 operands (fma_gemm.cuh).
+// "default"), or in float64 m16n8k8 DMMA for float64 operands
+// (dense_f64.cuh).
 //
 // Replaces the TPU kernel xgpr_tpu/ops/pallas/ztzv_pallas.py:_ztzv_kernel
 // (pallas_call in _ztzv_parts_impl).  For raw rows x (R, D), row mask m (R,),
@@ -77,12 +78,14 @@
 // accumulator: the error stays at fp32 grade (precision_error.py).
 //
 // The float64 format runs every product, sum and sincos (the builtin, in
-// every mode) in float64, with 16 values of depth a stage and the same
-// walks, but its own passes (ztzv_zv_f64_kernel, ztzv_out_f64_kernel):
-// both contractions run as DMMAs on the fragment, 16 right-hand sides a
-// block.  What bounds it there: the two projections of RBF's chunk, 11.3
-// GFLOP, 0.17 ms at the tensor cores' 67 TFLOP/s of FP64, and at K 26 the
-// contractions' 14 GFLOP more.
+// every mode) in float64 on its own passes (ztzv_zv_f64_kernel,
+// ztzv_out_f64_kernel, below) over the DMMA loop of dense_f64.cuh:
+// m16n8k8 products on a six-stage mbarrier ring, both contractions as
+// DMMAs on the projection's accumulators, 32 right-hand sides a block
+// from K 9, so K 26 projects once a pass.  What bounds it there: the two
+// projections of RBF's chunk, 11.3 GFLOP, 0.17 ms at the tensor cores' 67
+// TFLOP/s of FP64, the two folds' 67M double sincos on the FP64 units,
+// and at K 26 the contractions' 8.6 GFLOP (at 32 right-hand sides).
 //
 // Each kernel is instantiated once per sincos mode (common.cuh) and
 // format; each format's instantiations are a translation unit of their own
@@ -95,6 +98,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "dense_f64.cuh"
 #include "tf32_gemm.cuh"
 
 namespace xgpr {
@@ -777,115 +781,152 @@ cudaError_t launch_mma(const DenseOperands& p, const ZtzvArgs<float>& a,
   });
 }
 
-// The float64 format's passes (a) and (b).  Both contract on the tensor
-// cores straight from the fragment: a DMMA's A operand is lane (g, t)'s
-// value of row g and depth t, and the fragment holds row g by column
-// 8j + 2t + e, so taking (j, e) as one DMMA's four depths makes the
-// thread's own feature its A value.  Pass (a) computes the projection as
-// the other formats do (rows x frequencies) and contracts over the
-// frequencies with v_c / v_s staged in shared memory; pass (b) computes it
-// transposed (frequencies x rows: K1's operands with their roles swapped)
-// and contracts over the rows with zv staged in shared memory.  A block
-// carries 8 NT right-hand sides (NT DMMA tiles of 8), and its sums stay
-// in the DMMAs' accumulators; no shuffles, no spills.  The staged rows of
-// v_c / v_s and zv have a pitch of 8 NT + 2 values (2 mod 8), so each
-// half-warp's B loads fall on distinct banks.
-template <int NT>
-constexpr int F64_PITCH = 8 * NT + 2;
+// The float64 format's passes (a) and (b), on the DMMA loop of
+// dense_f64.cuh at tiles of 128 x 64 (8 warps of 1 x 8 m16n8k8 tiles: a
+// warp's 16 GEMM rows by the tile's 64 columns), two tiles for each
+// 128-wide tile of the walk, so the walks and the wrapper's block
+// arithmetic are the other formats'.  Pass (a) projects x against the
+// frequencies and contracts over them with v_c / v_s; pass (b) projects
+// the swapped operands (frequencies x rows of x) and contracts over the
+// rows with zv, which a small launch sums over pass (a)'s split first
+// (sum_zv_kernel).  Both contractions run on the tensor cores straight
+// from the projection's accumulators: an m16n8k8 A operand is lane
+// (g, t)'s values of rows g, g + 8 at depths t and t + 4, and the
+// accumulators hold rows g, g + 8 at columns 8n + 2t and 8n + 2t + 1, so
+// with those two columns as depths t and t + 4 each 8-column slab n of the
+// fold is one product's A operand as it stands.  A block carries 8 NT
+// right-hand sides (NT n8 tiles: 1 up to K 8, else 4), so at K 26 each
+// pass projects once; the sums stay in the products' accumulators (pass
+// (a) 4 NT a thread, pass (b) 8 NT).  The staged operand of a tile (v_c
+// and v_s of its 64 frequencies in pass (a); zv and the mask of its 64
+// rows in pass (b)) goes in by 8-byte cp.async into one of two slots with
+// a full and an empty mbarrier each, at the previous tile's first step,
+// transposed (a row of 64 values per right-hand side, slot_at), so a B
+// operand's two values are one 16-byte load and a quarter warp's loads
+// fall on distinct banks.  At D <= 96 the rows of x (pass (a)) or of
+// proj^T (pass (b)) stay resident (dense_f64.cuh), so the ring carries
+// the walk's operand alone.
+using K1Tiling = f64::Tiling<1, 6, true>;
 
-// Shared memory of the float64 passes: the ring, then their staged
-// operands in 3 slots (pass (a): v_c and v_s of a frequency tile; pass
-// (b): zv and the mask of a row tile).
+// Element (q, c) of a staged operand: right-hand side q, column c of the
+// tile; odd rows' 8-value halves swapped.
+__device__ __forceinline__ int slot_at(int q, int c) {
+  return q * K1Tiling::BN + (c ^ (8 * (q & 1)));
+}
+template <int NT>
+constexpr int F64_ZV_SLOT = 2 * 8 * NT * K1Tiling::BN;  // doubles
+template <int NT>
+constexpr int F64_OUT_SLOT = (8 * NT + 1) * K1Tiling::BN;
 template <int NT>
 constexpr int F64_ZV_SMEM =
-    Body<FMT_F64>::SMEM + 2 * 3 * GN * F64_PITCH<NT> * (int)sizeof(double);
+    f64::smem_bytes<K1Tiling>(2 * F64_ZV_SLOT<NT> * (int)sizeof(double));
 template <int NT>
 constexpr int F64_OUT_SMEM =
-    Body<FMT_F64>::SMEM + 3 * GN * (F64_PITCH<NT> + 1) * (int)sizeof(double);
+    f64::smem_bytes<K1Tiling>(2 * F64_OUT_SLOT<NT> * (int)sizeof(double));
 
 // Pass (a) in float64: partial zv over the frequency tiles of this block's
 // walk for right-hand sides 8 NT (blockIdx.z + zbase) ...
 template <int NT>
-__global__ void __launch_bounds__(GT, 1)
+__global__ void __launch_bounds__(f64::THREADS, 1)
     ztzv_zv_f64_kernel(DenseOperands p, ZtzvArgs<double> a,
                        double* __restrict__ zv_part) {
-  constexpr int FMT = FMT_F64, KO = 8 * NT, VP = F64_PITCH<NT>;
+  using Tl = K1Tiling;
+  constexpr int KO = 8 * NT, BN = Tl::BN;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __shared__ __align__(8) f64::RingBarriers bar;
+  __shared__ __align__(8) f64::Barriers<2> slot;  // the two slots'
   unsigned char* smem = ring_base(smem_raw);
-  double* const vcs = reinterpret_cast<double*>(smem_raw + Body<FMT>::SMEM);
-  double* const vss = vcs + 3 * GN * VP;
+  double* const slots = reinterpret_cast<double*>(smem + Tl::RING);
+  bar.init();
+  slot.init();
+  __syncthreads();
   const DenseWalk w = dense_walk(true, p.n, p.f);
-  const int kc = max(1, (p.dp + Body<FMT>::KS - 1) / Body<FMT>::KS);
+  const int kc = (p.dp + f64::LINE - 1) / f64::LINE;
   const int tid = threadIdx.x, lane = tid % 32, g = lane / 4, t4 = lane % 4;
-  const int rbase = (tid / 32) * 16 + g;
+  const int row0 = w.row0(0), rbase = row0 + 16 * (tid / 32) + g;
   const int k0 = (blockIdx.z + a.zbase) * KO, kcnt = min(KO, a.k - k0);
+  const int ntiles = 2 * w.count;
+  auto col0 = [&](int u) { return w.col0(u / 2) + BN * (u % 2); };
 
   double mrow[2], wrow[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int r = w.row0(0) + rbase + 8 * h;
+    const int r = rbase + 8 * h;
     mrow[h] = r < p.n ? a.m[r] : 0.0;
     wrow[h] = mrow[h] * a.scale;
   }
-  double z[2][NT][2];  // zv of row rbase + 8h, right-hand side 8nt + 2t4 + e
+  // zv of rows rbase + 8h, right-hand sides k0 + 8nt + 2t4 + e, at
+  // z[nt][2h + e] (an m16n8 tile's C).
+  double z[NT][4];
 #pragma unroll
-  for (int h = 0; h < 2; ++h)
+  for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) z[h][nt][0] = z[h][nt][1] = 0.0;
-  double acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.0;
+    for (int i = 0; i < 4; ++i) z[nt][i] = 0.0;
 
-  dense_pipeline<true, FMT>(
-      smem, p, w, kc, acc,
-      [&](int step) {
-        if (step % kc == 0) {  // stage the tile's v_c / v_s
-          const int i = step / kc, f0 = w.col0(i);
-          double* vc = vcs + (i % 3) * GN * VP;
-          double* vs = vss + (i % 3) * GN * VP;
-          for (int e = tid; e < GN * KO; e += GT) {
-            const int fl = e / KO, q = e % KO, gf = f0 + fl;
-            const bool ok = gf < p.f && q < kcnt;
-            const size_t at = (size_t)gf * a.k + k0 + q;
-            vc[fl * VP + q] = ok ? a.vc[at] : 0.0;
-            vs[fl * VP + q] = ok ? a.vs[at] : 0.0;
+  // Tile u's v_c and v_s into slot u % 2 (v_c then v_s, row q holding
+  // right-hand side k0 + q at frequencies col0(u) + [0, 64)).
+  auto stage_v = [&](int u) {
+    const int sl = u % 2, f0 = col0(u);
+    if (u >= 2) mbar_wait(&slot.empty[sl], ((u / 2) - 1) & 1);
+    double* vc = slots + sl * F64_ZV_SLOT<NT>;
+#pragma unroll 2
+    for (int e = tid; e < BN * KO; e += f64::THREADS) {
+      const int fl = e / KO, q = e % KO;
+      const bool ok = f0 + fl < p.f && q < kcnt;
+      const size_t at = ok ? (size_t)(f0 + fl) * a.k + k0 + q : 0;
+      f64::cp_async8(vc + slot_at(q, fl), a.vc + at, ok);
+      f64::cp_async8(vc + KO * BN + slot_at(q, fl), a.vs + at, ok);
+    }
+    arrive_on_copies(&slot.full[sl]);
+  };
+  if (ntiles > 0) stage_v(0);
+
+  double acc[Tl::ACC];
+#pragma unroll
+  for (int i = 0; i < Tl::ACC; ++i) acc[i] = 0.0;
+  f64::dense_loop<Tl>(
+      smem, bar, p, ntiles, kc, acc, [&](int) { return row0; }, col0,
+      [&](int u) {
+        if (u + 1 < ntiles) stage_v(u + 1);
+      },
+      [&](int u) {  // frequency tile u is complete: its share of zv
+        const int sl = u % 2;
+        mbar_wait(&slot.full[sl], (u / 2) & 1);
+        const double* vc = slots + sl * F64_ZV_SLOT<NT>;
+        const double* vs = vc + KO * BN;
+        const bool icol = a.intercept && col0(u) == 0 && t4 == 0;
+        __syncwarp();
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          double c[2][2], s[2][2];  // [h][e]: row rbase + 8h, column 8n + 2t4 + e
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              sincos_scaled<MODE_EXACT>(acc[4 * n + 2 * h + e] * a.sigma,
+                                        wrow[h], &c[h][e], &s[h][e]);
+          if (n == 0 && icol) {  // column 0 of the intercept
+            c[0][0] = mrow[0];
+            c[1][0] = mrow[1];
+          }
+          const int fl = 8 * n + 2 * t4;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const int at = slot_at(8 * nt + g, fl);
+            const double2 bc = *reinterpret_cast<const double2*>(vc + at);
+            const double2 bs = *reinterpret_cast<const double2*>(vs + at);
+            dmma16x8x8(z[nt], c[0][0], c[1][0], c[0][1], c[1][1], bc.x,
+                       bc.y);
+            dmma16x8x8(z[nt], s[0][0], s[1][0], s[0][1], s[1][1], bs.x,
+                       bs.y);
           }
         }
-      },
-      [&](int i) {
-        const double* vc = vcs + (i % 3) * GN * VP;
-        const double* vs = vss + (i % 3) * GN * VP;
-        const int f0 = w.col0(i);
-#pragma unroll
-        for (int j = 0; j < 16; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int fl = 8 * j + 2 * t4 + e;
-            const bool icol = a.intercept && f0 + fl == 0;
-            double bc[NT], bs[NT];
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt) {
-              bc[nt] = vc[fl * VP + 8 * nt + g];
-              bs[nt] = vs[fl * VP + 8 * nt + g];
-            }
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              double c, s;
-              sincos_scaled<MODE_EXACT>(acc[4 * j + 2 * h + e] * a.sigma,
-                                        wrow[h], &c, &s);
-              if (icol) c = mrow[h];
-#pragma unroll
-              for (int nt = 0; nt < NT; ++nt) {
-                dmma(z[h][nt][0], z[h][nt][1], c, bc[nt]);
-                dmma(z[h][nt][0], z[h][nt][1], s, bs[nt]);
-              }
-            }
-          }
+        release(&slot.empty[sl]);
       });
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int r = w.row0(0) + rbase + 8 * h;
+    const int r = rbase + 8 * h;
     if (r >= p.n) continue;
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
@@ -894,7 +935,7 @@ __global__ void __launch_bounds__(GT, 1)
         const int q = 8 * nt + 2 * t4 + e;
         if (q < kcnt)
           zv_part[((size_t)blockIdx.y * p.n + r) * a.k + k0 + q] =
-              z[h][nt][e];
+              z[nt][2 * h + e];
       }
   }
 }
@@ -902,82 +943,99 @@ __global__ void __launch_bounds__(GT, 1)
 // Pass (b) in float64 on the swapped operands t (t.n = F frequencies as
 // rows, t.f = R rows of x as columns): partial oc/os of one frequency tile
 // over the row tiles of this block's walk, right-hand sides 8 NT
-// (blockIdx.z + zbase) ...
+// (blockIdx.z + zbase) ...; zv (R, K) is pass (a)'s sum.
 template <int NT>
-__global__ void __launch_bounds__(GT, 1)
+__global__ void __launch_bounds__(f64::THREADS, 1)
     ztzv_out_f64_kernel(DenseOperands t, ZtzvArgs<double> a,
-                        const double* __restrict__ zv_part, int zsplit,
+                        const double* __restrict__ zv,
                         double* __restrict__ oc_part,
                         double* __restrict__ os_part) {
-  constexpr int FMT = FMT_F64, KO = 8 * NT, ZP = F64_PITCH<NT>;
+  using Tl = K1Tiling;
+  constexpr int KO = 8 * NT, BN = Tl::BN;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __shared__ __align__(8) f64::RingBarriers bar;
+  __shared__ __align__(8) f64::Barriers<2> slot;  // the two slots'
   unsigned char* smem = ring_base(smem_raw);
-  double* const zvs = reinterpret_cast<double*>(smem_raw + Body<FMT>::SMEM);
-  double* const ms = zvs + 3 * GN * ZP;
+  double* const slots = reinterpret_cast<double*>(smem + Tl::RING);
+  bar.init();
+  slot.init();
+  __syncthreads();
   const DenseWalk w = dense_walk(true, t.n, t.f);
-  const int kc = max(1, (t.dp + Body<FMT>::KS - 1) / Body<FMT>::KS);
+  const int kc = (t.dp + f64::LINE - 1) / f64::LINE;
   const int tid = threadIdx.x, lane = tid % 32, g = lane / 4, t4 = lane % 4;
-  const int fbase = w.row0(0) + (tid / 32) * 16 + g;
+  const int fq0 = w.row0(0), fbase = fq0 + 16 * (tid / 32) + g;
   const int k0 = (blockIdx.z + a.zbase) * KO, kcnt = min(KO, a.k - k0);
+  const int ntiles = 2 * w.count;
+  auto col0 = [&](int u) { return w.col0(u / 2) + BN * (u % 2); };
 
-  // oc (o[0]) and os (o[1]) of frequency fbase + 8h, right-hand side
-  // 8nt + 2t4 + e.
-  double o[2][2][NT][2];
+  // oc (o[0]) and os (o[1]) of frequencies fbase + 8h, right-hand sides
+  // k0 + 8nt + 2t4 + e, at [nt][2h + e].
+  double o[2][NT][4];
 #pragma unroll
-  for (int u = 0; u < 2; ++u)
+  for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) o[u][h][nt][0] = o[u][h][nt][1] = 0.0;
-  double acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.0;
+    for (int i = 0; i < 4; ++i) o[0][nt][i] = o[1][nt][i] = 0.0;
 
-  dense_pipeline<true, FMT>(
-      smem, t, w, kc, acc,
-      [&](int step) {
-        if (step % kc == 0) {  // stage the tile's zv and mask
-          const int i = step / kc, r0 = w.col0(i);
-          double* zt = zvs + (i % 3) * GN * ZP;
-          for (int e = tid; e < GN * KO; e += GT) {
-            const int rl = e / KO, q = e % KO, r = r0 + rl;
-            double v = 0.0;
-            if (r < t.f && q < kcnt)
-              for (int s = 0; s < zsplit; ++s)
-                v += zv_part[((size_t)s * t.f + r) * a.k + k0 + q];
-            zt[rl * ZP + q] = v;
-          }
-          if (tid < GN) {
-            const int r = r0 + tid;
-            ms[(i % 3) * GN + tid] = r < t.f ? a.m[r] : 0.0;
-          }
-        }
+  // Row tile u's zv and mask into slot u % 2 (row q of zv holding
+  // right-hand side k0 + q at rows col0(u) + [0, 64), then the mask).
+  auto stage_zv = [&](int u) {
+    const int sl = u % 2, r0 = col0(u);
+    if (u >= 2) mbar_wait(&slot.empty[sl], ((u / 2) - 1) & 1);
+    double* zt = slots + sl * F64_OUT_SLOT<NT>;
+#pragma unroll 2
+    for (int e = tid; e < BN * KO; e += f64::THREADS) {
+      const int rl = e / KO, q = e % KO;
+      const bool ok = r0 + rl < t.f && q < kcnt;
+      const size_t at = ok ? (size_t)(r0 + rl) * a.k + k0 + q : 0;
+      f64::cp_async8(zt + slot_at(q, rl), zv + at, ok);
+    }
+    if (tid < BN) {
+      const bool ok = r0 + tid < t.f;
+      f64::cp_async8(zt + KO * BN + tid, a.m + (ok ? r0 + tid : 0), ok);
+    }
+    arrive_on_copies(&slot.full[sl]);
+  };
+  if (ntiles > 0) stage_zv(0);
+
+  double acc[Tl::ACC];
+#pragma unroll
+  for (int i = 0; i < Tl::ACC; ++i) acc[i] = 0.0;
+  f64::dense_loop<Tl>(
+      smem, bar, t, ntiles, kc, acc, [&](int) { return fq0; }, col0,
+      [&](int u) {
+        if (u + 1 < ntiles) stage_zv(u + 1);
       },
-      [&](int i) {
-        const double* zt = zvs + (i % 3) * GN * ZP;
-        const double* mt = ms + (i % 3) * GN;
+      [&](int u) {  // row tile u is complete: its share of oc, os
+        const int sl = u % 2;
+        mbar_wait(&slot.full[sl], (u / 2) & 1);
+        const double* zt = slots + sl * F64_OUT_SLOT<NT>;
+        const double* mt = zt + KO * BN;
+        __syncwarp();
 #pragma unroll
-        for (int j = 0; j < 16; ++j)
+        for (int n = 0; n < 8; ++n) {
+          double c[2][2], s[2][2];  // [h][e]: frequency fbase + 8h, row 8n + 2t4 + e
+          const int rl = 8 * n + 2 * t4;
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const int rl = 8 * j + 2 * t4 + e;
-            const double mr = mt[rl], wr = mr * a.scale;
-            double bz[NT];
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt) bz[nt] = zt[rl * ZP + 8 * nt + g];
+            const double mr = mt[rl + e], wr = mr * a.scale;
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
-              double c, s;
-              sincos_scaled<MODE_EXACT>(acc[4 * j + 2 * h + e] * a.sigma, wr,
-                                        &c, &s);
-              if (a.intercept && fbase + 8 * h == 0) c = mr;
-#pragma unroll
-              for (int nt = 0; nt < NT; ++nt) {
-                dmma(o[0][h][nt][0], o[0][h][nt][1], c, bz[nt]);
-                dmma(o[1][h][nt][0], o[1][h][nt][1], s, bz[nt]);
-              }
+              sincos_scaled<MODE_EXACT>(acc[4 * n + 2 * h + e] * a.sigma, wr,
+                                        &c[h][e], &s[h][e]);
+              if (a.intercept && fbase + 8 * h == 0) c[h][e] = mr;
             }
           }
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const double2 b = *reinterpret_cast<const double2*>(
+                zt + slot_at(8 * nt + g, rl));
+            dmma16x8x8(o[0][nt], c[0][0], c[1][0], c[0][1], c[1][1], b.x,
+                       b.y);
+            dmma16x8x8(o[1][nt], s[0][0], s[1][0], s[0][1], s[1][1], b.x,
+                       b.y);
+          }
+        }
+        release(&slot.empty[sl]);
       });
 
 #pragma unroll
@@ -991,16 +1049,29 @@ __global__ void __launch_bounds__(GT, 1)
         const int q = 8 * nt + 2 * t4 + e;
         if (q >= kcnt) continue;
         const size_t at = ((size_t)blockIdx.y * t.n + col) * a.k + k0 + q;
-        oc_part[at] = o[0][h][nt][e];
-        os_part[at] = o[1][h][nt][e];
+        oc_part[at] = o[0][nt][2 * h + e];
+        os_part[at] = o[1][nt][2 * h + e];
       }
   }
 }
 
-// Right-hand sides a block of the float64 passes carries at K: 8 NT.
-__host__ __device__ constexpr int f64_nt(int k) { return k <= 8 ? 1 : 2; }
+// zv_part[0] = the sum of pass (a)'s nsplit partials, in split order.
+// Internal linkage, as sum_splits_kernel.
+template <class T>
+static __global__ void sum_zv_kernel(T* __restrict__ zv_part, int nsplit,
+                                     size_t len) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= len) return;
+  T v = zv_part[i];
+  for (int s = 1; s < nsplit; ++s) v += zv_part[(size_t)s * len + i];
+  zv_part[i] = v;
+}
 
-// The float64 format's three launches, NT = f64_nt(K).
+// Right-hand sides a block of the float64 passes carries at K: 8 NT.
+__host__ __device__ constexpr int f64_nt(int k) { return k <= 8 ? 1 : 4; }
+
+// The float64 format's launches, NT = f64_nt(K): pass (a), the sum of its
+// split, pass (b), the sum of pass (b)'s split.
 template <int NT>
 cudaError_t launch_all_f64(const DenseOperands& p, const ZtzvArgs<double>& a,
                            double* zv_part, double* oc_part, double* os_part,
@@ -1017,16 +1088,23 @@ cudaError_t launch_all_f64(const DenseOperands& p, const ZtzvArgs<double>& a,
   if (err != cudaSuccess) return err;
   const int kblocks = (a.k + KO - 1) / KO;
   err = over_rhs_blocks(a, kblocks, [&](const ZtzvArgs<double>& c, int nz) {
-    ztzv_zv_f64_kernel<NT>
-        <<<dim3((p.n + GM - 1) / GM, zsplit, nz), GT, F64_ZV_SMEM<NT>, st>>>(
-            p, c, zv_part);
+    ztzv_zv_f64_kernel<NT><<<dim3((p.n + GM - 1) / GM, zsplit, nz),
+                             f64::THREADS, F64_ZV_SMEM<NT>, st>>>(p, c,
+                                                                  zv_part);
   });
   if (err != cudaSuccess) return err;
+  const size_t zlen = (size_t)p.n * a.k;
+  if (zsplit > 1) {
+    sum_zv_kernel<double><<<(unsigned)((zlen + 255) / 256), 256, 0, st>>>(
+        zv_part, zsplit, zlen);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
   const DenseOperands t{p.b_hi, p.b_lo, p.x_hi, p.x_lo, p.f, p.dp, p.n};
   err = over_rhs_blocks(a, kblocks, [&](const ZtzvArgs<double>& c, int nz) {
-    ztzv_out_f64_kernel<NT>
-        <<<dim3((p.f + GM - 1) / GM, osplit, nz), GT, F64_OUT_SMEM<NT>,
-           st>>>(t, c, zv_part, zsplit, oc_part, os_part);
+    ztzv_out_f64_kernel<NT><<<dim3((p.f + GM - 1) / GM, osplit, nz),
+                              f64::THREADS, F64_OUT_SMEM<NT>, st>>>(
+        t, c, zv_part, oc_part, os_part);
   });
   if (err != cudaSuccess) return err;
   const size_t len = (size_t)p.f * a.k;

@@ -1,5 +1,6 @@
 // K1 in the float64 format (float64 operands: the projections and the
-// contractions on DMMA, the builtin sincos); see ztzv.cuh.
+// contractions on m16n8k8 DMMA, the builtin sincos); see ztzv.cuh and
+// dense_f64.cuh.
 #include "ztzv.cuh"
 
 namespace xgpr {
@@ -11,7 +12,7 @@ int launch_f64(const DenseOperands& p, const ZtzvArgs<double>& a,
   if (f64_nt(a.k) == 1)
     return (int)launch_all_f64<1>(p, a, zv_part, oc_part, os_part, oc, os,
                                   zsplit, osplit, st);
-  return (int)launch_all_f64<2>(p, a, zv_part, oc_part, os_part, oc, os,
+  return (int)launch_all_f64<4>(p, a, zv_part, oc_part, os_part, oc, os,
                                 zsplit, osplit, st);
 }
 

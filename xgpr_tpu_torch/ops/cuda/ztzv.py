@@ -63,7 +63,9 @@ def launch_plan(rhs, n, f, k, sms):
     """How one call on R = n rows, F = f frequencies and K = k right-hand
     sides is launched on ``sms`` SMs when a block carries ``rhs`` of them
     (the library's xgpr_ztzv_rhs_per_block for the call's body and K, the
-    same in both passes): ``blocks`` blocks of right-hand sides along grid
+    same in both passes: 1 at K 1 in float32, else 8 up to K 8, then 16 in
+    3xTF32 and 32 in bf16 and float64, so float64 at SLQ's K 26 projects
+    once a pass): ``blocks`` blocks of right-hand sides along grid
     z in each pass; pass (a) splits each row tile's frequency tiles over
     ``zsplit`` blocks and pass (b) each frequency tile's row tiles over
     ``osplit``, the counts that fill the SMs in the fewest waves
