@@ -240,19 +240,20 @@ VARIANTS = {
 def ptxas_report(log):
     """(kernel, registers, spill bytes, static smem) of the conv kernels
     of the synchronous formats in an nvcc -Xptxas -v log."""
-    rows, name = [], None
+    rows, name, spills = [], None, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = m.group(1)
+            name, spills = m.group(1), None
             continue
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name and ("conv" in name):
-            rows.append([name, int(m.group(1)), None])
+        # ptxas prints a function's spills before its registers.
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
-        if m and rows and rows[-1][0] == name:
-            rows[-1][2] = (int(m.group(1)), int(m.group(2)))
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and ("conv" in name):
+            rows.append([name, int(m.group(1)), spills])
     return rows
 
 

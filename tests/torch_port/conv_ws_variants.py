@@ -143,8 +143,8 @@ VARIANTS = {
          "  __shared__ __align__(8) uint64_t proj_full, kick;\n"),
         (WS, "    mbar_init(&proj_full, 1);\n",
          "    mbar_init(&proj_full, 1);\n    mbar_init(&kick, 4);\n"),
-        (WS, "  int top = count > 0 ? p.top[blockIdx.x] : 0;\n",
-         "  int top = count > 0 ? p.top[blockIdx.x] : 0;\n"
+        (WS, "  int top = count > 0 ? p.top[b0] : 0;\n",
+         "  int top = count > 0 ? p.top[b0] : 0;\n"
          "  bool kicked = c == 1;\n  int issued = 0;\n"
          "  if (c == 1) mbar_wait(&kick, 0);\n"),
         (WS, "          issue_pair(acc, d0, d1, db, line == 0);\n",

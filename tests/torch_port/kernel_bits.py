@@ -6,11 +6,11 @@
 ``save`` runs, on fixed random inputs, K1 (slice A's chunk, 8192 x 84
 rows, F 4096, K 1 and 26), K2 (the same rows, padded 128), K3 (8192 rows,
 L 16, D 64, w 9, F 4096) and K4 (F 1024) in every body: with every knob at
-its default (3xTF32), at "default" (bf16 for K1, K3 and K4; K3 in "fast"),
-at "highest" (K1 3xTF32; K2, K3 and K4 fp32 FMAs; K2 and K3 in each sincos
-mode) and in float64 (float64 operands: the DMMA bodies), and writes their
-outputs; run it from the root of each version (it imports the package from
-the working directory).  ``compare`` prints, for each output, whether the
+its default (3xTF32; K3 in each sincos mode), at "default" (bf16 for K1,
+K3 and K4; K3 in "fast"), at "highest" (K1 3xTF32; K2, K3 and K4 fp32
+FMAs; K2 and K3 in each sincos mode) and in float64 (float64 operands:
+the DMMA bodies), and writes their outputs; run it from the root of each
+version (it imports the package from the working directory).  ``compare`` prints, for each output, whether the
 two files hold the same bits and the largest difference, and exits with 1
 when one differs, except that a float64 output may differ within F64_RTOL
 = 1e-11 of max(1, max|a|) (another order of the DMMA sums), which it
@@ -66,7 +66,7 @@ def outputs():
                                              precision)
 
     same = lambda a: a  # noqa: E731
-    body("high", same, None, ("hi",), ("hi",))
+    body("high", same, None, MODES, ("hi",))
     body("default", same, "default", ("fast",), ())
     body("highest", same, "highest", MODES, ("hi", "exact"))
     body("float64", lambda a: a.double(), None, ("exact",), ("exact",))

@@ -444,10 +444,10 @@ def test_unknown_precisions_are_refused(cuda):
     invalid = 1  # cudaErrorInvalidValue
     assert lib.xgpr_ztzv(*([None] * 5), 1.0, *([None] * 7), 10, 8, 16, 1,
                          1, 1, 1.0, 0, 0, 7, None) == invalid
-    assert lib.xgpr_conv_parts(*([None] * 9), 10, 6, 4, 3, 16, 1.0, 0, 7,
-                               None) == invalid
-    assert lib.xgpr_conv_maxpool(*([None] * 7), 10, 6, 4, 3, 16, 7,
-                                 None) == invalid
+    assert lib.xgpr_conv_parts_tf32(*([None] * 9), 10, 6, 4, 3, 16, 1.0, 7,
+                                    1, None) == invalid
+    assert lib.xgpr_conv_parts_ws(*([None] * 8), 10, 6, 8, 3, 16, 1.0, 7,
+                                  1, 8, 1, None) == invalid
 
 
 # ----------------------------------------------------------------------
@@ -531,17 +531,14 @@ def test_tile_layout_on_the_card_groups_rows_as_the_plain_version(
 
 
 def test_bf16_conv_launches_reach_only_the_pipeline(cuda):
-    """The implicit-GEMM entry points refuse the bf16 body's flag, and the
+    """No implicit-GEMM entry point is left to take the bf16 body, and the
     pipeline's entry points refuse a plan it cannot run
     (cudaErrorInvalidValue), before any launch."""
     from xgpr_tpu_torch.ops.cuda import build
-    from xgpr_tpu_torch.ops.cuda.feature_map import BODY_FLAGS
     lib = build.library()
-    invalid, bf16 = 1, BODY_FLAGS["bf16"]
-    assert lib.xgpr_conv_parts(*([None] * 9), 10, 6, 8, 3, 16, 1.0, 0, bf16,
-                               None) == invalid
-    assert lib.xgpr_conv_maxpool(*([None] * 7), 10, 6, 8, 3, 16, bf16,
-                                 None) == invalid
+    invalid = 1
+    for gone in ("xgpr_conv_parts", "xgpr_conv_maxpool"):
+        assert not hasattr(lib, gone)
     # (resident, stages, split): too few stages for a resident window
     # pair, a ring of one stage, no block per frequency tile.
     for plan in ((1, 3, 1), (0, 1, 1), (0, 4, 0)):
@@ -549,6 +546,142 @@ def test_bf16_conv_launches_reach_only_the_pipeline(cuda):
                                       0, *plan, None) == invalid
         assert lib.xgpr_conv_maxpool_ws(*([None] * 6), 10, 6, 8, 3, 16,
                                         *plan, None) == invalid
+
+
+# ----------------------------------------------------------------------
+# K3 and K4's 3xTF32 body (csrc/conv_tf32.cuh: a TMA pipeline whose
+# window pairs share position boxes), with the row operands laid out on
+# the card (tile_layout), at edge shapes: D 128 (four lines a tap), D 3, 7
+# and 21 (one partial line), D 256 (each line copies its own positions),
+# L == w, rows with no valid window, N and F off their tiles, and more row
+# tiles than one block walks; each with and without a row scale, each call
+# twice, the same bits.
+TF32_CASES = [(300, 16, 64, 9, 256, "spread"),   # the motif L, D, w
+              (200, 16, 128, 9, 200, "spread"),  # D 128
+              (257, 20, 7, 5, 131, "spread"),    # N, D, F off their tiles
+              (130, 14, 21, 6, 129, "spread"),   # D 21
+              (70, 9, 3, 9, 65, "spread"),       # L == w: one window, D 3
+              (192, 16, 64, 9, 300, "equal"),    # every row alike
+              (320, 12, 10, 1, 40, "spread"),    # w 1
+              (100, 8, 256, 3, 130, "spread"),   # D 256: no shared boxes
+              (9000, 12, 16, 5, 6000, "spread")]  # blocks walk 2-3 tiles
+
+
+@pytest.mark.parametrize("n,l,d,width,f,kind", TF32_CASES)
+def test_conv_tf32_pipeline(cuda, n, l, d, width, f, kind):
+    """K3 in each sincos mode and K4 on the 3xTF32 body: within the
+    tolerance of the plain versions, two calls bitwise equal, one launch
+    each counted under "high"."""
+    x, lengths, proj = _conv_inputs(cuda, n, l, d, width, f, kind)
+    scale = torch.linspace(0.5, 1.5, n, device=cuda)
+    for row_scale in (None, scale):
+        for mode in MODES:
+            key = (n, l, d, width, f, mode, "high")
+            before = conv.PARTS_LAUNCHES[key]
+            runs = [conv.conv_parts(x, lengths, proj, 0.7, width, row_scale,
+                                    mode, "high") for _ in range(2)]
+            want = conv.conv_parts_plain(x, lengths, proj, 0.7, width,
+                                         row_scale, mode, "high")
+            torch.cuda.synchronize()
+            assert conv.PARTS_LAUNCHES[key] == before + 2
+            for a, b in zip(*runs):
+                assert torch.equal(a, b)
+            for g, w in zip(runs[0], want):
+                tol = 1e-4 * max(1.0, float(w.abs().max()))
+                assert float((g - w).abs().max()) < tol
+            if kind == "spread":
+                assert float(runs[0][0][0].abs().max()) == 0.0
+    key = (n, l, d, width, f, "high")
+    before = conv.MAXPOOL_LAUNCHES[key]
+    runs = [conv.conv_maxpool(x, lengths, proj, width, "high")
+            for _ in range(2)]
+    want = conv.conv_maxpool_plain(x, lengths, proj, width, "high")
+    torch.cuda.synchronize()
+    assert conv.MAXPOOL_LAUNCHES[key] == before + 2
+    assert torch.equal(runs[0], runs[1])
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    assert float((runs[0] - want).abs().max()) < tol
+
+
+@pytest.mark.parametrize("n,l,d,width,f,kind", TF32_CASES[:3])
+def test_conv_tf32_pipeline_non_contiguous_bits(cuda, n, l, d, width, f,
+                                                kind):
+    """Non-contiguous operands give the 3xTF32 body the bits of the
+    contiguous ones."""
+    x, lengths, proj = _conv_inputs(cuda, n, l, d, width, f, kind)
+    scale = torch.linspace(0.5, 1.5, n, device=cuda)
+
+    def run(t):
+        return conv.conv_parts(t(x), t(lengths), t(proj), 0.7, width,
+                               t(scale), "hi", "high") + \
+            (conv.conv_maxpool(t(x), t(lengths), t(proj), width, "high"),)
+    want = run(lambda a: a)
+    got = run(_strided)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n,l,d,width", [(8192, 16, 64, 9), (1000, 20, 7, 5),
+                                         (70, 6, 10, 1), (1, 9, 3, 9)])
+def test_tile_layout_on_the_card_splits_tf32_as_the_plain_version(
+        cuda, n, l, d, width):
+    """The card's row layout for the 3xTF32 body: the rows grouped as the
+    plain version groups them, x's rows in that order as the TF32 planes
+    ``kernel_planes`` makes, in the same pass."""
+    x, lengths, _ = _conv_inputs(cuda, n, l, d, width, 8, "spread")
+    xt, order, nk_t, top = conv.tile_layout(x, lengths, width, "tf32x3")
+    _, p_order, p_nk, p_top = conv.tile_layout(x.cpu(), lengths.cpu(),
+                                               width, "tf32x3")
+    torch.cuda.synchronize()
+    o = order.long().cpu()
+    assert torch.equal(torch.sort(o).values, torch.arange(n))
+    assert torch.equal(nk_t.cpu(), p_nk) and torch.equal(top.cpu(), p_top)
+    hi, lo = split_tf32(conv.pad_depth(x.cpu(), 4))
+    assert tuple(xt.shape) == (2, n, l, hi.shape[2])
+    assert torch.equal(xt[0].cpu(), hi[o]) and torch.equal(xt[1].cpu(), lo[o])
+
+
+def test_tf32_conv_entry_points_refuse_other_plans(cuda):
+    """The 3xTF32 pipeline's entry points refuse an unknown sincos mode and
+    a plan they cannot run (no block per frequency tile, channels not a
+    multiple of 4) with cudaErrorInvalidValue, before any launch."""
+    from xgpr_tpu_torch.ops.cuda import build
+    lib = build.library()
+    invalid = 1
+    assert lib.xgpr_conv_parts_tf32(*([None] * 9), 10, 6, 4, 3, 16, 1.0, 4,
+                                    1, None) == invalid
+    for dp, split in ((4, 0), (6, 1)):
+        assert lib.xgpr_conv_parts_tf32(*([None] * 9), 10, 6, dp, 3, 16, 1.0,
+                                        0, split, None) == invalid
+        assert lib.xgpr_conv_maxpool_tf32(*([None] * 7), 10, 6, dp, 3, 16,
+                                          split, None) == invalid
+
+
+# Past 65,535 frequency tiles, the old grid's limit on its y axis: each
+# body's tile (128 frequencies; 64 for float64) once past it.
+@pytest.mark.parametrize("precision,dtype,tile", [
+    ("high", torch.float32, 128), ("default", torch.float32, 128),
+    ("highest", torch.float32, 128), ("high", torch.float64, 64)])
+def test_conv_kernels_past_65535_frequency_tiles(cuda, precision, dtype,
+                                                 tile):
+    """K3 and K4 at a tiny N, w 2, D 1 and F one past 65,535 of the
+    body's frequency tiles, against the plain version."""
+    f = 65535 * tile + 1
+    x, lengths, proj = _conv_inputs(cuda, 3, 3, 1, 2, f, "spread")
+    x, proj = x.to(dtype), proj.to(dtype)
+    mode = "exact" if dtype == torch.float64 else "hi"
+    got = conv.conv_parts(x, lengths, proj, 0.7, 2, None, mode, precision) \
+        + (conv.conv_maxpool(x, lengths, proj, 2, precision),)
+    want = conv.conv_parts_plain(x, lengths, proj, 0.7, 2, None, mode,
+                                 precision) + \
+        (conv.conv_maxpool_plain(x, lengths, proj, 2, precision),)
+    torch.cuda.synchronize()
+    rtol = F64_RTOL if dtype == torch.float64 else 1e-4
+    for g, w in zip(got, want):
+        assert g.shape == (3, f)
+        assert float((g - w).abs().max()) < \
+            rtol * max(1.0, float(w.abs().max()))
 
 
 # ----------------------------------------------------------------------
@@ -803,8 +936,8 @@ def test_conv_sync_kernel_non_contiguous_bits(cuda, dtype, n, l, d, width,
 
 def test_conv_sync_entry_points_refuse_other_bodies(cuda):
     """The synchronous entry points take the fp32 FMA and float64 bodies
-    only, and K3 the four sincos modes; the implicit GEMM's entry points
-    no longer take either body."""
+    only, and K3 the four sincos modes; no implicit-GEMM entry point is
+    left to take either body."""
     from xgpr_tpu_torch.ops.cuda import build
     lib = build.library()
     invalid = 1  # cudaErrorInvalidValue
@@ -817,9 +950,5 @@ def test_conv_sync_entry_points_refuse_other_bodies(cuda):
     assert lib.xgpr_conv_parts_sync(*([None] * 7), 10, 6, 4, 3, 16, 16, 1.0,
                                     9, feature_map.BODY_FLAGS["fma32"],
                                     None) == invalid
-    for body in ("fma32", "f64"):
-        flag = feature_map.BODY_FLAGS[body]
-        assert lib.xgpr_conv_parts(*([None] * 9), 10, 6, 4, 3, 16, 1.0, 0,
-                                   flag, None) == invalid
-        assert lib.xgpr_conv_maxpool(*([None] * 7), 10, 6, 4, 3, 16, flag,
-                                     None) == invalid
+    for gone in ("xgpr_conv_parts", "xgpr_conv_maxpool"):
+        assert not hasattr(lib, gone)

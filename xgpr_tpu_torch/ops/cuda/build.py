@@ -19,11 +19,12 @@ them on all the host's cores, which halves the build on an 8-core host
 (PERF.md).  The kernels also have one instantiation per body
 (csrc/tf32_gemm.cuh: Format), each body in its own source so that their
 nvcc processes run side by side: the 3xTF32 body in ``feature_map.cu``,
-``ztzv.cu`` and ``conv.cu`` (with the C entry points), the bf16 body in
-``ztzv_bf16.cu`` and ``conv_bf16.cu`` (K3/K4's warp-specialised bf16
-pipeline of ``conv_ws.cuh``, with its own entry points; it reaches the
-driver's ``cuTensorMapEncodeTiled`` through the runtime, so nothing
-links libcuda), K3/K4's synchronous kernel (``conv_sync.cuh``) in
+``ztzv.cu`` and ``conv.cu`` (with the C entry points; K3/K4's TMA
+pipeline of ``conv_tf32.cuh``), the bf16 body in ``ztzv_bf16.cu`` and
+``conv_bf16.cu`` (K3/K4's TMA pipeline of ``conv_ws.cuh``, with its own
+entry points and the row layout of both pipelines, ``conv_layout.cuh``;
+they reach the driver's ``cuTensorMapEncodeTiled`` through the runtime,
+so nothing links libcuda), K3/K4's synchronous kernel (``conv_sync.cuh``) in
 ``conv_fma.cu`` (fp32 FMAs, with its entry points) and ``conv_f64.cu``,
 and the float64 (DMMA) bodies of K1 and K2 in ``feature_map_f64.cu`` and
 ``ztzv_f64.cu``.  No --use_fast_math: it would turn
@@ -50,13 +51,13 @@ _SIGNATURES = {
     "xgpr_feature_map": [_P] * 5 + [_I] * 4 + [_D, _I, _I, _I, _P],
     "xgpr_ztzv": [_P] * 5 + [_D] + [_P] * 7 + [_I] * 6
     + [_D, _I, _I, _I, _P],
-    "xgpr_conv_parts": [_P] * 9 + [_I] * 5 + [_D, _I, _I, _P],
-    "xgpr_conv_maxpool": [_P] * 7 + [_I] * 6 + [_P],
+    "xgpr_conv_parts_tf32": [_P] * 9 + [_I] * 5 + [_D] + [_I] * 2 + [_P],
+    "xgpr_conv_maxpool_tf32": [_P] * 7 + [_I] * 6 + [_P],
     "xgpr_conv_parts_sync": [_P] * 7 + [_I] * 6 + [_D, _I, _I, _P],
     "xgpr_conv_maxpool_sync": [_P] * 5 + [_I] * 7 + [_P],
     "xgpr_conv_parts_ws": [_P] * 8 + [_I] * 5 + [_D] + [_I] * 4 + [_P],
     "xgpr_conv_maxpool_ws": [_P] * 6 + [_I] * 8 + [_P],
-    "xgpr_conv_tile_layout": [_P] * 2 + [_I] * 5 + [_P] * 6,
+    "xgpr_conv_tile_layout": [_P] * 2 + [_I] * 6 + [_P] * 6,
     "xgpr_ztzv_rhs_per_block": [_I] * 3,
 }
 

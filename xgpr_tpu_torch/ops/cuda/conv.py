@@ -2,8 +2,9 @@
 
 Replaces xgpr_tpu/ops/pallas/conv_pallas.py (``conv_parts_pallas`` and
 ``conv_maxpool_pallas``, whose ``pallas_call``s are in ``_conv_parts_impl``
-and ``_conv_maxpool_impl``) with the CUDA C++ kernels in csrc/conv.cuh;
-see that file for the design and what bounds it on the card.  Same calling
+and ``_conv_maxpool_impl``) with the CUDA C++ kernels of csrc/: what they
+compute and what bounds them on the card is written in csrc/conv.cuh,
+each body's design in its own file (below).  Same calling
 convention: x (N, L, D) zero-padded sequences, not scaled by sigma;
 seq_lengths (N,); proj (w*D, F) in window-major row order (t*D + c), chi
 folded in.  Window j of row i counts while j < seq_lengths[i] - w + 1.
@@ -39,29 +40,37 @@ kernel launches by their shape, (N, L, D, w, F, mode, precision) and
 (N, L, D, w, F, precision), float64 launches under ("exact", "float64")
 (``launch_tags``).
 
-Before a launch the wrapper prepares the kernels' operands with the plain
-torch functions below: ``row_order`` (the rows ordered by valid-window
-count, so that a tile stops at its own rows' largest count),
-``pad_operands`` (channels padded to 16 bytes: a multiple of 4, 8 for
-bf16, 2 for float64, and proj transposed to the K-major projT the tiles
-read) and ``kernel_planes`` (x and projT as the planes of the body: TF32
-high parts and remainders, bf16 values, or the values themselves; in
-operands.py, shared with K1 and K2).  The synchronous bodies ("highest"
-fp32 FMAs and float64) are their own kernel (csrc/conv_sync.cuh):
-``sync_layout`` writes x for the fp32 body in tile order transposed, each
-tile's sequences contiguous, ``sync_proj`` pads proj's frequencies to 16
-bytes, and float64 reads x as ``pad_operands`` pads it beside projT's
-cached plane (``operands.projT_planes``).  The bf16 body ("default", the
-"max" preset) is its own kernel (csrc/conv_ws.cuh), which copies x by
-TMA in boxes of 64 tile rows: ``tile_layout`` writes x's bf16 copy in
-tile order beside each row's window count and each tile's largest,
-projT's bf16 planes come from the cache kept with proj
-(``operands.projT_planes``), and ``ws_plan`` chooses whether projT's
-tile stays in shared memory, the ring's depth and how many blocks share
-a frequency tile (``ws_tiles`` lists their walks).  ``window_slots``
-counts the (row, window) slots the kernels project against the valid
-windows.  ``parts_launcher`` and ``maxpool_launcher`` prepare a launch
-and return it apart, so that a script can time the launch alone.
+Before a launch the wrapper prepares each body's operands.  Every body
+reads the rows ordered by valid-window count (``row_order``), so that a
+tile of 64 rows stops at its own rows' largest count, and x and projT
+with the channels padded to 16 bytes (a multiple of 4, 8 for bf16, 2 for
+float64; ``pad_operands``: proj transposed to the K-major projT) as the
+body's planes (``kernel_planes`` in operands.py, shared with K1 and K2:
+TF32 high parts and remainders, bf16 values, or the values themselves).
+projT's planes come from the cache kept with proj
+(``operands.projT_planes``), so a chunk loop prepares them once.
+
+- The TMA pipelines, 3xTF32 ("high", the "balanced" default;
+  csrc/conv_tf32.cuh) and bf16 ("default", the "max" preset;
+  csrc/conv_ws.cuh), copy x by TMA in boxes of 64 tile rows a position:
+  ``tile_layout`` writes x's planes in tile order beside each row's
+  window count and each tile's largest, on the card in one pass with the
+  rounding (csrc/conv_layout.cuh).  ``tf32_plan`` spreads the 3xTF32
+  body's row tiles over the blocks of each frequency tile; ``ws_plan``
+  chooses whether the bf16 body's projT tile stays in shared memory, the
+  ring's depth and how many blocks share a frequency tile; ``ws_tiles``
+  lists the walks of both pipelines' blocks.
+- The synchronous bodies ("highest" fp32 FMAs and float64) are one kernel
+  (csrc/conv_sync.cuh): ``sync_layout`` writes x for the fp32 body in
+  tile order transposed, each tile's sequences contiguous, ``sync_proj``
+  pads proj's frequencies to 16 bytes, and float64 reads x as
+  ``pad_operands`` pads it beside projT's cached plane.
+
+Any number of frequency tiles is taken: every body's grid is 1-D.
+``window_slots`` counts the (row, window) slots the kernels project
+against the valid windows.  ``parts_launcher`` and ``maxpool_launcher``
+prepare a launch and return it apart, so that a script can time the
+launch alone.
 """
 from collections import Counter, namedtuple
 from functools import lru_cache
@@ -77,8 +86,7 @@ from .feature_map import (BODY_FLAGS, check_device, cuda_operands,
                           kernel_body, kernel_mode, kernel_precision,
                           kernel_sincos_flag, launch_tags)
 from .operands import (data_ptr, depth_multiple, kernel_planes, pad_depth,
-                       pad_windows, projT_planes, sm_count, tile_split,
-                       to_bf16)
+                       pad_windows, projT_planes, sm_count, tile_split)
 
 PARTS_LAUNCHES = Counter()
 MAXPOOL_LAUNCHES = Counter()
@@ -133,9 +141,9 @@ def conv_maxpool_plain(x, seq_lengths, proj, width, precision=None):
     return torch.clamp_min(g.amax(dim=1), 0.0)
 
 
-# The kernels' tiling (csrc/conv.cu: WR, WG, WN): rows per tile, windows
-# per group, frequencies per tile; the synchronous kernel's frequencies
-# per block by body (csrc/conv_sync.cuh: FmaTile, DmmaTile).
+# The kernels' tiling: rows per tile, windows per group, frequencies per
+# tile of the TMA pipelines; the synchronous kernel's frequencies per
+# block by body (csrc/conv_sync.cuh: FmaTile, DmmaTile).
 TILE_ROWS = 64
 WINDOW_GROUP = 2
 TILE_FREQS = 128
@@ -223,28 +231,49 @@ def ws_plan(n, dp, width, f, sms):
 
 
 def ws_tiles(plan):
-    """The (row tile, frequency tile) pairs of each block of ``plan``,
-    block (b, ft) in grid order, as the kernel walks them."""
+    """The (row tile, frequency tile) pairs of each block of ``plan`` (a
+    ``ws_plan`` or a ``tf32_plan``), block ft * split + b in grid order, as
+    the TMA pipelines walk them."""
     return [[(rt, ft) for rt in range(b, plan.row_tiles, plan.split)]
             for ft in range(plan.freq_tiles) for b in range(plan.split)]
 
 
-def tile_layout(x, seq_lengths, width, multiple=8):
-    """The bf16 body's row operands (xt, order, nk_t, top): the rows
+Tf32Plan = namedtuple("Tf32Plan", "split row_tiles freq_tiles")
+
+
+@lru_cache(maxsize=256)
+def tf32_plan(n, f, sms):
+    """The 3xTF32 body's launch plan for N rows and F frequencies on a
+    card of ``sms`` SMs: ``split`` blocks share each frequency tile
+    (``tile_split``: the fewest tile-times at one block per SM), and
+    block (b, ft) walks row tiles b, b + split, ... (``ws_tiles``).  A row
+    tile is TILE_ROWS rows (csrc/conv_tf32.cuh)."""
+    row_tiles = -(-n // TILE_ROWS)
+    freq_tiles = -(-f // TILE_FREQS)
+    split = tile_split(row_tiles, freq_tiles, sms, row_tiles)
+    return Tf32Plan(split, row_tiles, freq_tiles)
+
+
+def tile_layout(x, seq_lengths, width, body="bf16"):
+    """The TMA pipelines' row operands (xt, order, nk_t, top): the rows
     grouped by valid-window count nk, ascending (``row_order``'s order);
-    xt (N, L, dp) bf16, x's rows in that order with the channels padded
-    to a multiple of ``multiple``, so that a row tile is 64 consecutive
-    rows (a TMA box per position); nk_t the rows' counts in that order;
-    top (ceil(N / 64),) int32 each tile's largest count.  For CUDA
-    tensors (x float32, int32 lengths) the kernels of csrc/conv_ws.cuh
-    make them, in four launches; rows of one count may land there in any
-    order, which changes no output (a row's sums read its own windows
-    alone)."""
+    xt x's rows in that order with the channels padded to
+    ``depth_multiple(body)``, as the body's planes, so that a row tile is
+    64 consecutive rows (a TMA box per position): for "bf16" (N, L, dp)
+    bf16, for "tf32x3" (2, N, L, dp) float32, the TF32 high parts then the
+    remainders (``kernel_planes``); nk_t the rows' counts in that order;
+    top (ceil(N / 64),) int32 each tile's largest count.  For CUDA tensors
+    (x float32, int32 lengths) the kernels of csrc/conv_layout.cuh make
+    them, in four launches, the planes in the pass that gathers the rows;
+    rows of one count may land there in any order, which changes no output
+    (a row's sums read its own windows alone)."""
     if x.device.type == "cuda":
-        return _tile_layout_cuda(x, seq_lengths, width, multiple)
+        return _tile_layout_cuda(x, seq_lengths, width, body)
     order, nk = row_order(seq_lengths, width, x.shape[1] - width + 1)
     idx = order.long()
-    xt = to_bf16(pad_depth(x, multiple)).index_select(0, idx)
+    hi, lo = kernel_planes(pad_depth(x, depth_multiple(body)), body)
+    xt = hi.index_select(0, idx) if lo is None else \
+        torch.stack((hi, lo)).index_select(1, idx)
     nk_t = nk.index_select(0, idx)
     top = F.pad(nk_t, (0, -len(nk_t) % WS_ROWS)).reshape(-1, WS_ROWS)
     return xt, order, nk_t, top.amax(dim=1).to(torch.int32).contiguous()
@@ -283,11 +312,13 @@ def _check_shapes(name, x, seq_lengths, proj, width):
         raise ValueError("Sequence axis shorter than conv_width.")
 
 
-def _tile_layout_cuda(x, seq_lengths, width, multiple):
+def _tile_layout_cuda(x, seq_lengths, width, body):
     n, l, d = x.shape
-    dp = -(-d // multiple) * multiple
+    dp = -(-d // depth_multiple(body)) * depth_multiple(body)
     dev = x.device
-    xt = torch.empty((n, l, dp), dtype=torch.bfloat16, device=dev)
+    xt = torch.empty((n, l, dp), dtype=torch.bfloat16, device=dev) \
+        if body == "bf16" else \
+        torch.empty((2, n, l, dp), dtype=torch.float32, device=dev)
     # One allocation: order, nk_t, top and the kernels' scratch.
     tiles = -(-n // WS_ROWS)
     ints = torch.empty(2 * n + tiles + 2 * (l - width + 2),
@@ -301,8 +332,8 @@ def _tile_layout_cuda(x, seq_lengths, width, multiple):
             stream = torch.cuda.current_stream(dev).cuda_stream
             build.check(build.library().xgpr_conv_tile_layout(
                 x.data_ptr(), lengths.data_ptr(), n, l, d, dp, width,
-                xt.data_ptr(), order.data_ptr(), nk_t.data_ptr(),
-                top.data_ptr(), scratch.data_ptr(), stream),
+                BODY_FLAGS[body], xt.data_ptr(), order.data_ptr(),
+                nk_t.data_ptr(), top.data_ptr(), scratch.data_ptr(), stream),
                 "conv tile layout")
     return xt, order, nk_t, top
 
@@ -318,23 +349,7 @@ def _checked(name, kernel, x, seq_lengths, proj, precision, *more):
     if seq_lengths.device != x.device or seq_lengths.dtype != torch.int32:
         raise TypeError(f"{name}: the CUDA kernel takes int32 lengths on "
                         f"{x.device}.")
-    if -(-proj.shape[1] // SYNC_FREQS.get(body, TILE_FREQS)) > 65535:
-        raise ValueError(f"{name}: too many frequencies for the grid.")
     return (dtype, body, x, proj) + tuple(more)
-
-
-def _gemm_args(x, seq_lengths, proj, width, body):
-    """The implicit-GEMM bodies' operands, as the C entry points
-    xgpr_conv_parts / xgpr_conv_maxpool take them: (x planes, order, nk,
-    projT planes) (``row_order``, ``pad_operands``, ``kernel_planes``,
-    whose outputs are fresh, 16-byte aligned tensors; the second plane is
-    None but for 3xTF32), and the tensors to keep alive."""
-    order, nk = row_order(seq_lengths, width, x.shape[1] - width + 1)
-    xp, projT = pad_operands(x, proj, width, depth_multiple(body))
-    (xh, xl), (hi, lo) = kernel_planes(xp, body), kernel_planes(projT, body)
-    return ((xh.data_ptr(), data_ptr(xl), order.data_ptr(), nk.data_ptr(),
-             hi.data_ptr(), data_ptr(lo)), xh.shape[2],
-            (xh, xl, order, nk, hi, lo))
 
 
 def _sync_args(x, seq_lengths, proj, width, body):
@@ -361,8 +376,7 @@ def _ws_args(x, seq_lengths, proj, width):
     (``tile_layout``, projT's bf16 plane from the cache kept with proj),
     the padded channel count, the plan's (resident, stages, split), and
     the tensors to keep alive."""
-    xt, order, nk, top = tile_layout(x, seq_lengths, width,
-                                     depth_multiple("bf16"))
+    xt, order, nk, top = tile_layout(x, seq_lengths, width, "bf16")
     projT = projT_planes(proj, "bf16", width)[0]
     n, _, dp = xt.shape
     plan = ws_plan(n, dp, width, proj.shape[1], sm_count(x.device.index))
@@ -370,6 +384,21 @@ def _ws_args(x, seq_lengths, proj, width):
              projT.data_ptr()), dp,
             (int(plan.resident), plan.stages, plan.split),
             (xt, order, nk, top, projT))
+
+
+def _tf32_args(x, seq_lengths, proj, width):
+    """The 3xTF32 body's operands, as xgpr_conv_parts_tf32 /
+    xgpr_conv_maxpool_tf32 take them: (xt, order, nk_t, top, projT's hi
+    and lo planes) (``tile_layout`` on the card, the planes from the cache
+    kept with proj), the padded channel count, the plan's (split,), and
+    the tensors to keep alive."""
+    xt, order, nk, top = tile_layout(x, seq_lengths, width, "tf32x3")
+    hi, lo = projT_planes(proj, "tf32x3", width)
+    _, n, _, dp = xt.shape
+    plan = tf32_plan(n, proj.shape[1], sm_count(x.device.index))
+    return ((xt.data_ptr(), order.data_ptr(), nk.data_ptr(), top.data_ptr(),
+             hi.data_ptr(), lo.data_ptr()), dp, (plan.split,),
+            (xt, order, nk, top, hi, lo))
 
 
 def conv_parts(x, seq_lengths, proj, sigma, width, row_scale=None,
@@ -447,7 +476,7 @@ def parts_launcher(x, seq_lengths, proj, sigma, width, row_scale, mode,
     its operands prepared; launch() is the kernel's launch alone.  The
     bf16 body runs conv_ws.cuh (xgpr_conv_parts_ws), "fma32" and "f64" the
     synchronous kernel conv_sync.cuh (xgpr_conv_parts_sync), "tf32x3" the
-    implicit GEMM (xgpr_conv_parts)."""
+    TMA pipeline conv_tf32.cuh (xgpr_conv_parts_tf32)."""
     extra = () if row_scale is None else (row_scale,)
     dtype, body, x, proj, *extra = _checked(
         "conv_parts", "K3", x, seq_lengths, proj, precision, *extra)
@@ -471,10 +500,10 @@ def parts_launcher(x, seq_lengths, proj, sigma, width, row_scale, mode,
         args = ptrs + tail + (n, l) + dims[:1] + (width, f) + dims[1:] + (
             float(sigma), kernel_sincos_flag(mode), BODY_FLAGS[body])
     else:
-        ptrs, dp, keep = _gemm_args(x, seq_lengths, proj, width, body)
-        fn = lib.xgpr_conv_parts
+        ptrs, dp, plan, keep = _tf32_args(x, seq_lengths, proj, width)
+        fn = lib.xgpr_conv_parts_tf32
         args = ptrs + tail + (n, l, dp, width, f, float(sigma),
-                              kernel_sincos_flag(mode), BODY_FLAGS[body])
+                              kernel_sincos_flag(mode)) + plan
     return (c, s), _launch(x, fn, args, keep + (row_scale,),
                            "conv parts kernel")
 
@@ -543,9 +572,9 @@ def maxpool_launcher(x, seq_lengths, proj, width, precision):
         args = ptrs + (out.data_ptr(), n, l) + dims[:1] + (width, f) + \
             dims[1:] + (BODY_FLAGS[body],)
     else:
-        ptrs, dp, keep = _gemm_args(x, seq_lengths, proj, width, body)
-        fn = lib.xgpr_conv_maxpool
-        args = ptrs + (out.data_ptr(), n, l, dp, width, f, BODY_FLAGS[body])
+        ptrs, dp, plan, keep = _tf32_args(x, seq_lengths, proj, width)
+        fn = lib.xgpr_conv_maxpool_tf32
+        args = ptrs + (out.data_ptr(), n, l, dp, width, f) + plan
     return out, _launch(x, fn, args, keep, "conv maxpool kernel")
 
 

@@ -1,21 +1,27 @@
 // K3 and K4 in the bf16 format ("default": one bf16 pass, the TPU's
 // DEFAULT dot), on the warp-specialised pipeline of conv_ws.cuh, and
-// their C entry points (the other formats' are in conv.cu): the row
-// operands' layout, then each kernel.
+// their C entry points (the other formats' are in conv.cu and
+// conv_fma.cu): the row operands' layout of both TMA pipelines (this body's
+// and the 3xTF32 body's, conv_tf32.cuh), then each kernel.
+#include "conv_layout.cuh"
 #include "conv_ws.cuh"
 
 using namespace xgpr;
 using namespace xgpr::conv;
 
-// The row operands from x (n, l, d) float32 and the lengths (n,) int32:
-// xt (n, l, dp) bf16, order and nk_t (n,) int32, top (ceil(n / 64),)
-// int32; scratch holds 2 * (l - width + 2) ints.
+// The row operands of the TMA pipelines (conv_layout.cuh) from x (n, l, d)
+// float32 and the lengths (n,) int32, for the body `body` (FMT_BF16: xt
+// (n, l, dp) bf16; FMT_TF32X3: xt (2, n, l, dp) float32, the TF32 high
+// parts then the remainders): order and nk_t (n,) int32, top (ceil(n /
+// 64),) int32; scratch holds 2 * (l - width + 2) ints.
 extern "C" int xgpr_conv_tile_layout(const void* x, const int* lengths,
                                      int n, int l, int d, int dp, int width,
-                                     void* xt, int* order, int* nk_t,
-                                     int* top, int* scratch, void* stream) {
-  return ws::tile_layout(static_cast<const float*>(x), lengths, n, l, d, dp,
-                         width, xt, order, nk_t, top, scratch, stream);
+                                     int body, void* xt, int* order,
+                                     int* nk_t, int* top, int* scratch,
+                                     void* stream) {
+  return layout::tile_layout(static_cast<const float*>(x), lengths, n, l, d,
+                             dp, width, body, xt, order, nk_t, top, scratch,
+                             stream);
 }
 
 // xt: (n, l, dp) bf16, the rows in tile order (row r is input row

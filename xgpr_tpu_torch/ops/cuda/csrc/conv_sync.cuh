@@ -133,14 +133,14 @@ struct FmaTile {
   int a_dst, b_dst;
   bool b_ok;
 
-  __device__ __forceinline__ void setup(const Args& p, const int*, int,
+  __device__ __forceinline__ void setup(const Args& p, const int*, int row0,
                                         int f0) {
     const int q = threadIdx.x / 32, lane = threadIdx.x % 32;
     sb = 16 * (q / 2) + 4 * (lane / 8);
     fb = 64 * (q % 2) + 4 * (lane % 8);
     ch = q;
     win = lane / 16;
-    a_src = ((size_t)win * p.d + ch) * rows(p) + SEQ * blockIdx.x +
+    a_src = ((size_t)win * p.d + ch) * rows(p) + row0 +
             4 * (lane % 16);
     a_dst = (ch * PAIR * SEQ + win * SEQ + 4 * (lane % 16)) * 4;
     b_src = (size_t)ch * p.fp + f0 + 4 * lane;
@@ -330,8 +330,9 @@ struct DmmaTile {
   }
 };
 
-// The block: tile blockIdx.x of the row order (64 sequences), frequency
-// tile blockIdx.y; window groups up to the tile's largest count, each
+// The block: row tile blockIdx.x % tiles of the row order (64
+// sequences), frequency tile blockIdx.x / tiles (a 1-D grid: any number
+// of frequency tiles); window groups up to the tile's largest count, each
 // width * ceil(d / KS) steps; see the top of the file.
 template <class Tile, class Epi>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -344,7 +345,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   unsigned char* smem = ring_base(smem_raw);
 
   const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * SEQ, f0 = blockIdx.y * Tile::BN;
+  const int tiles = (p.n + SEQ - 1) / SEQ;
+  const int row0 = (int)(blockIdx.x % tiles) * SEQ;
+  const int f0 = (int)(blockIdx.x / tiles) * Tile::BN;
   if (tid == 0) {
     s_nkmax = 0;
 #pragma unroll
@@ -441,7 +444,10 @@ int launch(const Args& p, const typename Epi::Args& ea, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.n + SEQ - 1) / SEQ, (p.f + Tile::BN - 1) / Tile::BN);
+  const long long blocks = (long long)((p.n + SEQ - 1) / SEQ) *
+                           ((p.f + Tile::BN - 1) / Tile::BN);
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks);
   kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(p, ea);
   return (int)cudaGetLastError();
 }

@@ -1,26 +1,28 @@
 // K3 and K4's bf16 body ("default", the "max" preset), redesigned for
 // Hopper: a warp-specialised pipeline with the projection tile resident in
-// shared memory.  The other bodies (3xTF32, fp32 FMAs, float64) keep the
-// implicit GEMM of conv.cuh; what the kernels compute, and the TPU kernels
-// they replace (xgpr_tpu/ops/pallas/conv_pallas.py: _conv_parts_kernel,
-// _conv_maxpool_kernel), is written there.
+// shared memory.  The 3xTF32 body is the pipeline of conv_tf32.cuh, the
+// fp32 FMA and float64 bodies the kernel of conv_sync.cuh; what the
+// kernels compute, and the TPU kernels they replace
+// (xgpr_tpu/ops/pallas/conv_pallas.py: _conv_parts_kernel,
+// _conv_maxpool_kernel), is written in conv.cuh.
 //
 // What bounds it.  At the motif chunk (8192 rows, L 16, D 64, w 9, F
 // 4096) the valid windows need 173 GFLOP, 0.175 ms on the bf16 tensor
-// cores, against 0.09 ms for the bytes (268 MB of outputs).  conv.cuh's
-// ring took 1.11 ms there (the launch alone; PERF.md §6): one block per SM
-// behind a block barrier each 64-deep step, projT re-read from L2 on every
-// step (~1.5 GB a call of 4.7 MB that are distinct), each x line read by 9
-// taps, and no product in flight while a window group's sincos fold ran
-// (0.62 ms of the 1.11 with the fold compiled out).
+// cores, against 0.09 ms for the bytes (268 MB of outputs).  The implicit
+// GEMM it replaced (tf32_gemm.cuh's shared ring) took 1.11 ms there (the
+// launch alone; PERF.md §6): one block per SM behind a block barrier each
+// 64-deep step, projT re-read from L2 on every step (~1.5 GB a call of
+// 4.7 MB that are distinct), each x line read by 9 taps, and no product in
+// flight while a window group's sincos fold ran (0.62 ms of the 1.11 with
+// the fold compiled out).
 //
 // Design:
 // - Persistent blocks: block (b, ft) walks row tiles b, b + split, ... of
 //   frequency tile ft (split from the host's plan, ops/cuda/conv.py
-//   ws_plan), so ~4 blocks share a frequency tile at F 4096 and each loads
-//   its projT tile once.  A row tile is 64 rows of the wrapper's tile
-//   order (rows by window count), so its windows stop at its own largest
-//   count (`top`).
+//   ws_plan; block (b, ft) is blockIdx.x = ft * split + b), so ~4 blocks
+//   share a frequency tile at F 4096 and each loads its projT tile once.
+//   A row tile is 64 rows of the wrapper's tile order (rows by window
+//   count), so its windows stop at its own largest count (`top`).
 // - Resident projT: the block keeps its tile, 128 frequencies x w * dp
 //   bf16 (144 KB at the motif shape), in shared memory, as w * kc TMA boxes
 //   of 128 rows x 64 channels in the 128-byte swizzle.  x streams through
@@ -56,17 +58,19 @@
 //   issue left the tensor cores to one warpgroup at a time (1.2x).
 // - A row tile's rows and the next tile's window count load under the
 //   products; the outputs leave as float2 stores.
-// - The same numbers as conv.cuh's bf16 body: each accumulator takes its
-//   window's products tap-major, then channel lines, 4 x k16 a line, the
-//   first overwriting, and the fold adds windows in order per (row,
-//   frequency), with the same sincos arithmetic.
+// - The same numbers as the implicit GEMM's bf16 body: each accumulator
+//   takes its window's products tap-major, then channel lines, 4 x k16 a
+//   line, the first overwriting, and the fold adds windows in order per
+//   (row, frequency), with the same sincos arithmetic.
+// - The row operands (x in tile order, the counts) are made on the card
+//   by conv_layout.cuh's kernels, shared with the 3xTF32 pipeline.
 #pragma once
 
 #include <cuda.h>
 #include <stdint.h>
 
 #include "conv.cuh"
-#include "mbarrier.cuh"
+#include "tma.cuh"
 
 namespace xgpr {
 namespace conv {
@@ -101,34 +105,6 @@ __host__ __device__ inline int smem_bytes(const Args& p) {
   const int steps = p.width * chunks(p.dp);
   return (p.resident ? steps * P_BOX : 0) +
          p.stages * (p.resident ? X_BOX : P_BOX + 2 * X_BOX) + 1024;
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(saddr(b)),
-               "r"(bytes)
-               : "memory");
-}
-// A 3-D TMA box into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
-                                        uint64_t* bar, int c0, int c1,
-                                        int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(saddr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(saddr(bar))
-      : "memory");
-}
-
-template <int PENDING>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING)
-               : "memory");
-}
-__device__ __forceinline__ void fence_acc32(float* d) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (64 x 64, fp32) += a (64 x 16) @ b (16 x 64), bf16 operands in shared
@@ -171,22 +147,6 @@ __device__ __forceinline__ void issue_pair(float (&acc)[2][32], uint64_t d0,
   wgmma_commit();
 }
 
-// A ring position: a stage and the parity of its current fill; step()
-// moves to the next fill.
-struct Slot {
-  int stage;
-  uint32_t parity;
-  __device__ __forceinline__ Slot(uint32_t fill, int stages)
-      : stage(fill % stages), parity((fill / stages) & 1) {}
-  __device__ __forceinline__ void step(int n, int stages) {
-    stage += n;
-    while (stage >= stages) {
-      stage -= stages;
-      parity ^= 1;
-    }
-  }
-};
-
 // The block: warpgroup 0 produces (thread 0 issues every TMA copy; the
 // rest exit), warpgroups 1 and 2 consume, each the frequencies
 // f0 + 64c .. f0 + 64c + 63 of every row tile, two windows at a time
@@ -221,11 +181,12 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int steps = w * kc;  // depth lines of a window
   constexpr int STREAM_STAGE = P_BOX + 2 * X_BOX;
   unsigned char* ring = smem + (p.resident ? steps * P_BOX : 0);
-  const int f0 = blockIdx.y * GN;
+  // Block b of frequency tile ft is blockIdx.x = ft * split + b (a 1-D
+  // grid: any number of frequency tiles).
+  const int b0 = (int)(blockIdx.x % p.split);
+  const int f0 = (int)(blockIdx.x / p.split) * GN;
   const int tiles = (p.n + ROWS - 1) / ROWS;
-  const int count = (int)blockIdx.x < tiles
-                        ? (tiles - 1 - (int)blockIdx.x) / p.split + 1
-                        : 0;
+  const int count = b0 < tiles ? (tiles - 1 - b0) / p.split + 1 : 0;
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < S; ++i) {
@@ -256,7 +217,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                   t, f0);
     }
     for (int i = 0; i < count; ++i) {
-      const int rt = blockIdx.x + i * p.split, row0 = rt * ROWS;
+      const int rt = b0 + i * p.split, row0 = rt * ROWS;
       const int pairs = (p.top[rt] + 1) / 2;
       if (p.resident) {
         const int np = pairs > 0 ? 2 * pairs + w - 1 : 0;
@@ -302,12 +263,12 @@ __global__ void __launch_bounds__(THREADS, 1)
   for (int k = 0; k < 32; ++k) acc[0][k] = acc[1][k] = 0.0f;
   if (p.resident && count > 0) mbar_wait(&proj_full, 0);
 
-  int top = count > 0 ? p.top[blockIdx.x] : 0;
+  int top = count > 0 ? p.top[b0] : 0;
   for (int i = 0; i < count; ++i) {
-    const int row0 = (blockIdx.x + i * p.split) * ROWS;
+    const int row0 = (b0 + i * p.split) * ROWS;
     // The next tile's count and this tile's rows load under the products.
     const int next_top =
-        i + 1 < count ? p.top[blockIdx.x + (i + 1) * p.split] : 0;
+        i + 1 < count ? p.top[b0 + (i + 1) * p.split] : 0;
     Epi epi(ea);
     int nk_h[2], orig_h[2];
     float scale_h[2];
@@ -394,137 +355,14 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// The pipeline's row operands, made on the card (ops/cuda/conv.py:
-// tile_layout; its CPU branch is the plain version): nk_i = clamp(L_i - w
-// + 1, 0, nw), the rows grouped by nk ascending, x's rows in that order in
-// bf16 with dp channels, and each 64-row tile's largest nk.  Within one
-// count the rows land in the order their atomics run: a row's outputs
-// depend on its own windows alone, so any such order gives the same
-// bits.  Four launches: count, scan, place, gather.
-__device__ __forceinline__ int window_count(int length, int width, int nw) {
-  return min(max(length - width + 1, 0), nw);
-}
-
-__global__ void layout_count_kernel(const int* lengths, int n, int width,
-                                    int nw, int* hist) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) atomicAdd(&hist[window_count(lengths[i], width, nw)], 1);
-}
-
-// hist (nw + 1 counts) becomes their exclusive prefix sums.
-__global__ void layout_scan_kernel(int* hist, int bins) {
-  int acc = 0;
-  for (int b = 0; b < bins; ++b) {
-    const int v = hist[b];
-    hist[b] = acc;
-    acc += v;
-  }
-}
-
-__global__ void layout_place_kernel(const int* lengths, int n, int width,
-                                    int nw, const int* start, int* cursor,
-                                    int* order, int* nk_t) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int k = window_count(lengths[i], width, nw);
-  const int pos = start[k] + atomicAdd(&cursor[k], 1);
-  order[pos] = i;
-  nk_t[pos] = k;
-}
-
-// One block per row tile: its rows of x (n, l, d) float32 into xt (n, l,
-// dp) bf16 (rounded to nearest even, zeros past d), two channels a
-// thread, and the tile's largest nk.
-__global__ void layout_rows_kernel(const float* x, const int* order,
-                                   const int* nk_t, int n, int l, int d,
-                                   int dp, __nv_bfloat162* xt, int* top) {
-  __shared__ int s_top;
-  const int row0 = blockIdx.x * ROWS;
-  if (threadIdx.x == 0) s_top = 0;
-  __syncthreads();
-  if (threadIdx.x < ROWS && row0 + (int)threadIdx.x < n)
-    atomicMax(&s_top, nk_t[row0 + threadIdx.x]);
-  const int half = dp / 2, per = l * half;
-  for (int r = row0; r < min(row0 + ROWS, n); ++r) {
-    const float* src = x + (size_t)order[r] * l * d;
-    __nv_bfloat162* dst = xt + (size_t)r * per;
-    for (int e = threadIdx.x; e < per; e += blockDim.x) {
-      const int pos = e / half, ch = 2 * (e - pos * half);
-      const float v0 = ch < d ? src[pos * d + ch] : 0.0f;
-      const float v1 = ch + 1 < d ? src[pos * d + ch + 1] : 0.0f;
-      dst[e] = __floats2bfloat162_rn(v0, v1);
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) top[blockIdx.x] = s_top;
-}
-
-// scratch: 2 * (l - width + 2) ints of the card.
-inline int tile_layout(const float* x, const int* lengths, int n, int l,
-                       int d, int dp, int width, void* xt, int* order,
-                       int* nk_t, int* top, int* scratch, void* stream) {
-  if (n <= 0 || dp % 8 != 0 || dp < d || l < width)
-    return (int)cudaErrorInvalidValue;
-  const int nw = l - width + 1;
-  const cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err =
-      cudaMemsetAsync(scratch, 0, 2 * (nw + 1) * sizeof(int), s);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (n + 255) / 256;
-  layout_count_kernel<<<blocks, 256, 0, s>>>(lengths, n, width, nw, scratch);
-  layout_scan_kernel<<<1, 1, 0, s>>>(scratch, nw + 1);
-  layout_place_kernel<<<blocks, 256, 0, s>>>(
-      lengths, n, width, nw, scratch, scratch + nw + 1, order, nk_t);
-  layout_rows_kernel<<<(n + ROWS - 1) / ROWS, 256, 0, s>>>(
-      x, order, nk_t, n, l, d, dp, static_cast<__nv_bfloat162*>(xt), top);
-  return (int)cudaGetLastError();
-}
-
-// cuTensorMapEncodeTiled, reached through the runtime (the library links
-// no libcuda).
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // The tensor map of a bf16 array (d2, d1, d0), contiguous, in boxes of
 // 64 values of d0 x 1 x `rows` of d2, in the 128-byte swizzle; reads
 // past the array are zero-filled.
 inline bool box_map(CUtensorMap* map, const void* base, int d0, int d1,
                     int d2, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1,
-                              (cuuint64_t)d2};
-  const cuuint64_t strides[2] = {(cuuint64_t)d0 * 2,
-                                 (cuuint64_t)d0 * d1 * 2};
-  const cuuint32_t box[3] = {CH, 1, (cuuint32_t)rows};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const int dims[3] = {d0, d1, d2}, box[3] = {CH, 1, rows};
+  return swizzled_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, 3,
+                      dims, box);
 }
 
 // xt: (n, l, dp) bf16 rows in tile order; projT: (f, width, dp) bf16.
@@ -547,7 +385,9 @@ int launch(const Args& p, const void* xt, const void* projT,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(p.split, (p.f + GN - 1) / GN);
+  const long long blocks = (long long)p.split * ((p.f + GN - 1) / GN);
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks);
   kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(xmap, pmap, p, ea);
   return (int)cudaGetLastError();
 }

@@ -1,15 +1,18 @@
-// The GEMM body shared by every kernel of the library: K3 and K4
-// (conv.cu), K2 (feature_map.cu) and K1 (ztzv.cu), in four operand
-// formats (Format below), which the wrappers choose from the operands'
-// dtype and xgpr_tpu's feature precision (ops/pallas/ztzv_pallas.py:
-// _make_dot; ops/cuda/feature_map.py: kernel_body):
+// The GEMM body of the dense kernels, K2 (feature_map.cu) and K1
+// (ztzv.cu), and the operand formats and wgmma helpers every kernel of
+// the library shares.  Four operand formats (Format below), which the
+// wrappers choose from the operands' dtype and xgpr_tpu's feature
+// precision (ops/pallas/ztzv_pallas.py: _make_dot;
+// ops/cuda/feature_map.py: kernel_body):
 //
 // - FMT_TF32X3, "high" (and "highest" for K1, K2 in every preset):
 //   wgmma.m64n128k8 in 3xTF32.  The wrapper splits each operand into a
 //   TF32 high part and the remainder (hi + lo == a exactly), and each
 //   warpgroup accumulates lo*hi + hi*lo + hi*hi in fp32 (the lo*lo term,
 //   ~2^-22 relative, is dropped; keeping it measured no closer to a
-//   float64 witness, PERF.md);
+//   float64 witness, PERF.md).  K3 and K4's 3xTF32 body is the TMA
+//   pipeline of conv_tf32.cuh (m64n64k8, projT's boxes multicast to a
+//   cluster), which keeps this format's products and their order;
 // - FMT_BF16, "default": wgmma.m64n128k16 on bf16 operands, one product
 //   per depth step, fp32 accumulation: the TPU's DEFAULT dot, which rounds
 //   both operands to bf16.  K1's bf16 passes run on this body; K3 and K4's
@@ -36,9 +39,9 @@
 // against the TF32 bodies' 64 KB, for twice the depth.
 //
 // The caller's policies decide what a step loads and what a finished group
-// of steps does (gemm_loop is the schedule; gemm_pipeline gives it a ring
-// of stages for the conv kernels' row policy; dense_pipeline the dense row
-// policy of K1 and K2, with one operand resident when the depth is short):
+// of steps does (gemm_loop is the schedule; dense_pipeline gives it the
+// dense row policy of K1 and K2 and its ring, with one operand resident
+// when the depth is short):
 // - the copies of a step go into its stage: B's planes (GN rows, K-major)
 //   then A's (GM rows, K-major), hi before lo.  Out-of-range rows and depth
 //   are zero-filled (cp_async16 with valid == false).
@@ -276,22 +279,6 @@ __device__ __forceinline__ void gemm_loop(int nsteps, int spg,
   }
 }
 
-// gemm_loop on a ring of Body<FMT>::STAGE-byte stages (B's planes, A's
-// planes); load(step, stage) fills one.
-template <int FMT, class Load, class Done>
-__device__ __forceinline__ void gemm_pipeline(unsigned char* smem,
-                                              int nsteps, int spg,
-                                              typename Body<FMT>::T acc[64],
-                                              Load&& load, Done&& done) {
-  auto stage = [&](int step) {
-    return smem + (step % STAGES) * Body<FMT>::STAGE;
-  };
-  gemm_loop<FMT>(
-      nsteps, spg, acc, [&](int step) { load(step, stage(step)); },
-      [&](int step, bool first) { issue_stage<FMT>(stage(step), acc, first); },
-      done);
-}
-
 // The dense row policy of K1 and K2: GEMM row r of a tile is row row0 + r
 // of x.  A block walks a list of tiles along one axis (the column tiles of
 // row tile blockIdx.x, or the row tiles of column tile blockIdx.x), tile i
@@ -361,8 +348,9 @@ __device__ __forceinline__ void load_rows(const void* hi, const void* lo,
 // depth chunks, in shared memory, and the ring carries only the other
 // one, half the bytes a step; the layout is then the fixed tile's chunks
 // (its planes: 32 KB TF32, 16 KB bf16), then STAGES ring stages of the
-// same size.  Otherwise the ring has gemm_pipeline's stages, so done(tile)
-// may use the stage of the tile's last step as scratch.  extra(step) runs
+// same size.  Otherwise the ring's stages hold both operands' planes
+// (Body<FMT>::STAGE), so done(tile) may use the stage of the tile's last
+// step as scratch.  extra(step) runs
 // beside each step's copies (the kernels stage small per-tile operands
 // there).
 constexpr int RES_K = 3;
