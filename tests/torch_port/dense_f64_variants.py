@@ -438,7 +438,7 @@ def cases():
         vs = t(rng.standard_normal((proj.shape[1], k)))
         n, f = x.shape[0], proj.shape[1]
         plan = ztzv.launch_plan(lib.xgpr_ztzv_rhs_per_block(3, k, 0), n, f,
-                                k, sms)
+                                k, sms, "f64")
         xh = pad_depth(x, 2)
         ph = projT_planes(proj, "f64")[0]
         bufs = [torch.empty(s, dtype=f64, device=dev) for s in

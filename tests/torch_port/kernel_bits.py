@@ -6,7 +6,7 @@
 ``save`` runs, on fixed random inputs, K1 (slice A's chunk, 8192 x 84
 rows, F 4096, K 1 and 26), K2 (the same rows, padded 128), K3 (8192 rows,
 L 16, D 64, w 9, F 4096) and K4 (F 1024) in every body: with every knob at
-its default (3xTF32; K3 in each sincos mode), at "default" (bf16 for K1,
+its default (3xTF32; K1, K2 and K3 in each sincos mode), at "default" (bf16 for K1,
 K3 and K4; K3 in "fast"), at "highest" (K1 3xTF32; K2, K3 and K4 fp32
 FMAs; K2 and K3 in each sincos mode) and in float64 (float64 operands:
 the DMMA bodies), and writes their outputs; run it from the root of each
@@ -48,16 +48,18 @@ def outputs():
                             device=dev)
     out = {}
 
-    def body(tag, cast, precision, k3_modes, dense_modes):
+    def body(tag, cast, precision, k3_modes, dense_modes, k1_modes=(None,)):
         xb, pb, mb, xsb, p3b, p4b, sb = (cast(a) for a in (
             x, proj, m, xs, p3, p4, scale))
         for mode in dense_modes:
             out[f"K2 {tag} {mode}"] = feature_map.rbf_feature_map(
                 xb * 0.05, pb, True, 128, mode, precision)
         for k, (vc, vs) in v.items():
-            out[f"K1 oc K={k} {tag}"], out[f"K1 os K={k} {tag}"] = \
-                ztzv.ztzv_parts(xb, mb, pb, 0.05, cast(vc), cast(vs), True,
-                                None, precision)
+            for mode in k1_modes:
+                key = f"K={k} {tag}" + ("" if mode is None else f" {mode}")
+                out[f"K1 oc {key}"], out[f"K1 os {key}"] = ztzv.ztzv_parts(
+                    xb, mb, pb, 0.05, cast(vc), cast(vs), True, mode,
+                    precision)
         for mode in k3_modes:
             out[f"K3 c {tag} {mode}"], out[f"K3 s {tag} {mode}"] = \
                 conv.conv_parts(xsb, lengths, p3b, 0.7, 9, sb, mode,
@@ -66,7 +68,7 @@ def outputs():
                                              precision)
 
     same = lambda a: a  # noqa: E731
-    body("high", same, None, MODES, ("hi",))
+    body("high", same, None, MODES, MODES, (None,) + MODES[1:])
     body("default", same, "default", ("fast",), ())
     body("highest", same, "highest", MODES, ("hi", "exact"))
     body("float64", lambda a: a.double(), None, ("exact",), ("exact",))

@@ -168,6 +168,55 @@ def test_ztzv_kernel_is_deterministic(cuda, n, d, f, k):
         assert torch.equal(a, b)
 
 
+# The edges of K1 and K2's 3xTF32 pipeline (csrc/dense_tf32.cuh): K2's
+# stores by TMA boxes (a ragged last block, staged at its own width) and
+# from the fragment (blocks narrower than a tile or not a multiple of 128
+# wide, an odd F, whose output has no tensor map), rows past the last
+# 64-row half, D past the resident three lines (D 200, 1024; the fixed
+# tile then streams through its own ring); K1 at K 1 (one-rhs folds), 8,
+# 9, 16, 17, 26 and 64 (one or two n8 tiles, one or more blocks of right-
+# hand sides), ragged rows and F off the tile, with and without the
+# intercept column, deep D, and splits whose last pair has one slice.
+DENSE_TF32_K2 = [(257, 84, 384, 256), (300, 84, 512, 64),
+                 (130, 84, 640, 320), (65, 84, 201, 256),
+                 (200, 200, 256, 128), (100, 1024, 384, 128)]
+
+
+@pytest.mark.parametrize("n,d,f,padded", DENSE_TF32_K2)
+def test_dense_tf32_feature_map_edges(cuda, n, d, f, padded):
+    rng = np.random.default_rng(3 * n + f)
+    x = _t(rng.standard_normal((n, d)) * 0.3, cuda)
+    proj = _t(rng.standard_normal((d, f)) * 0.3, cuda)
+    got = feature_map.rbf_feature_map(x, proj, True, padded, "hi", "high")
+    again = feature_map.rbf_feature_map(x, proj, True, padded, "hi", "high")
+    want = feature_map.rbf_feature_map_plain(x, proj, True, padded, "hi")
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) < 1e-5
+    assert torch.equal(got, again)
+
+
+DENSE_TF32_K1 = [(257, 84, 300, k) for k in (1, 8, 9, 16, 17, 26, 64)] + [
+    (200, 200, 260, 1), (200, 200, 260, 17), (130, 1024, 200, 1),
+    (130, 1024, 200, 26), (70, 84, 129, 5)]
+
+
+@pytest.mark.parametrize("intercept", [False, True])
+@pytest.mark.parametrize("n,d,f,k", DENSE_TF32_K1)
+def test_dense_tf32_ztzv_edges(cuda, intercept, n, d, f, k):
+    x, m, proj, vc, vs = _ztzv_inputs(cuda, n, d, f, k)
+    got = ztzv.ztzv_parts(x, m, proj, 0.7, vc, vs, intercept, "hi", "high")
+    again = ztzv.ztzv_parts(x, m, proj, 0.7, vc, vs, intercept, "hi",
+                            "high")
+    want = ztzv.ztzv_parts_plain(x, m, proj, 0.7, vc, vs, intercept, "hi",
+                                 "high")
+    torch.cuda.synchronize()
+    tol = 1e-4 * max(1.0, float(want[0].abs().max()),
+                     float(want[1].abs().max()))
+    for a, b, c in zip(got, want, again):
+        assert float((a - b).abs().max()) < tol
+        assert torch.equal(a, c)
+
+
 # (n, l, d, w, f, lengths): "spread" draws lengths over [w - 1, L] in
 # shuffled row order, with row 0 below w (no valid window); "equal" gives
 # every row the same length.

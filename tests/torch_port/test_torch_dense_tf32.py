@@ -1,0 +1,440 @@
+"""K1 and K2's 3xTF32 body (csrc/dense_tf32.cuh): its host-side plan and
+its walk's index arithmetic, on the CPU.
+
+The plan (``ztzv.launch_plan`` in "tf32x3", K2's ``tile_split``) and the
+blocks' walks (``operands.dense_walks``, the kernels' own arithmetic) must
+give every (fixed tile, walked tile) of K2 and of each K1 pass to exactly
+one consumer of one block, for several cards.  Then the pipeline is
+replayed in numpy block by block: each consumer's thread 0 filling its
+own ring (a stage again once the consumer has freed it; with a fixed A
+tile consumer 0's filling the one ring both read) and consumer 0's
+filling the streamed fixed ring, the mbarriers' phases, each consumer's
+reads at the fill indices and parities the kernel computes, its release
+of a line once the next is issued, and consumer 1 waiting for consumer
+0's first tile; the replay fails on a box read from the wrong fill, a
+stage refilled before it is freed, or a consumer that stops (a
+deadlock).  The replayed projections (lo*hi +
+hi*lo + hi*hi of the boxes, with TMA's zero fill) must equal x @ proj
+less the dropped lo*lo term at float64 roundoff.  Last, K1's partial sums
+in the kernel's partition and order (per slice over its tiles, slices in
+order) and K2's stores to the block [cos | sin] layout (the staged boxes
+and the fragment stores) are replayed in float32 and held against
+``xgpr_tpu``'s Pallas kernels in interpret mode (``_ztzv_parts_impl`` at
+3e-5 * max(1, |ref|), ``_rbf_feature_map_impl`` at 1e-5).  What only the
+card can show is in test_torch_cuda_kernels.py.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from xgpr_tpu.ops.pallas.sorf_pallas import (pad_operands,
+                                             rbf_feature_map_pallas)
+from xgpr_tpu.ops.pallas.ztzv_pallas import ztzv_parts_pallas
+from xgpr_tpu_torch.ops.cuda import feature_map, operands, ztzv
+from xgpr_tpu_torch.ops.sorf import rbf_norm_constant
+
+# csrc/dense_tf32.cuh: channels a line, the deepest resident fixed tile,
+# the fixed ring's stages, each consumer's walk stages by kernel.
+CH, RES_K, F_STAGES = 32, 3, 3
+WS = {"k2": 2, "out1": 3, "zv1": 3, "zvm": 3, "outm": 3}
+
+
+def _rhs(k):
+    return 1 if k == 1 else 8 if k <= 8 else 16
+
+
+def _passes(n, f, k, sms):
+    """(kernel, fixed_b, fixed rows, walked rows, split, kblocks) of K1's
+    two passes under launch_plan."""
+    plan = ztzv.launch_plan(_rhs(k), n, f, k, sms, "tf32x3")
+    zv = ("zv1" if k == 1 else "zvm", False, n, f, plan.zsplit, plan.blocks)
+    if k == 1:
+        return plan, [zv, ("out1", True, f, n, plan.osplit, 1)]
+    return plan, [zv, ("outm", False, f, n, plan.osplit, plan.blocks)]
+
+
+PLAN_SHAPES = [(8192, 4096, 1), (8192, 4096, 26), (8192, 16384, 5),
+               (300, 256, 1), (257, 200, 3), (130, 40, 17), (64, 3, 9),
+               (1, 1, 1), (1000, 500, 64), (40, 16, 2)]
+
+
+@pytest.mark.parametrize("n,f,k", PLAN_SHAPES)
+@pytest.mark.parametrize("sms", [132, 66, 7, 1])
+def test_k1_walks_cover_every_tile_pair_once(n, f, k, sms):
+    plan, passes = _passes(n, f, k, sms)
+    assert plan.launches == 1
+    for kind, fixed_b, fixed_rows, walk_rows, split, kb in passes:
+        walks = operands.dense_walks(fixed_b, fixed_rows, walk_rows, split,
+                                     kb)
+        seen = []
+        for w in walks:
+            for c in (0, 1):
+                for i in range(w.counts[c]):
+                    row = w.first[c] + i * w.stride
+                    # a consumer's tiles are its slice's, in order
+                    assert (row // 128) % split == w.slices[c]
+                    # fixed B: c's 64-row half of the walked tile; fixed
+                    # A: c's 64 fixed rows against the whole tile
+                    seen.append((w.fixed0, row, w.kz) if fixed_b else
+                                (w.fixed0 + 64 * c, row, w.kz))
+        halves = 2 * -(-(walk_rows if fixed_b else fixed_rows) // 128)
+        if fixed_b:
+            want = {(128 * a, 64 * b, 0) for a in range(-(-fixed_rows // 128))
+                    for b in range(halves)}
+        else:
+            want = {(64 * a, 128 * b, z) for a in range(halves)
+                    for b in range(-(-walk_rows // 128)) for z in range(kb)}
+        assert len(seen) == len(set(seen)) == len(want)
+        assert set(seen) == want
+        # every slice of the split has a block that writes its partial
+        written = {(w.fixed0, s, w.kz) for w in walks for s in w.slices}
+        assert len(written) == len({w.fixed0 for w in walks}) * split * kb
+
+
+@pytest.mark.parametrize("n,f", [(8192, 4096), (8192, 2048), (300, 200),
+                                 (1, 1), (129, 4100)])
+@pytest.mark.parametrize("sms", [132, 7])
+def test_k2_walks_cover_every_tile_once(n, f, sms):
+    tiles = -(-n // 128), -(-f // 128)
+    split = operands.tile_split(tiles[0], tiles[1], sms, 64)
+    walks = operands.dense_walks(True, f, n, split)
+    assert len(walks) == split * tiles[1]
+    seen = [(w.fixed0, w.first[c] + i * w.stride) for w in walks
+            for c in (0, 1) for i in range(w.counts[c])]
+    assert len(seen) == len(set(seen)) == 2 * tiles[0] * tiles[1]
+
+
+class Barrier:
+    """An mbarrier: arrivals a phase, phases completed."""
+
+    def __init__(self, count):
+        self.count, self.arrived, self.done = count, 0, 0
+
+    def arrive(self, n=1):
+        self.arrived += n
+        assert self.arrived <= self.count
+        if self.arrived == self.count:
+            self.arrived, self.done = 0, self.done + 1
+
+
+def consumer_program(w, c, kc, ws, shared):
+    """Consumer c's operations in the kernel's order (Pipe::prologue,
+    consume, done): the fills of the ring it reads ("fillw", j), by its
+    own thread 0 or, on the ring both consumers read (``shared``, a fixed
+    A tile), by consumer 0's; consumer 0's fills of the streamed fixed
+    ring ("fillf", j); the waits for and reads of each ("w", j, box) /
+    ("f", j); the releases ("rw", j) / ("rf", j); consumer 1's wait for
+    consumer 0's first tile ("go_wait") and consumer 0's signal ("go")."""
+    assert w.counts[0] == w.counts[1]       # both consumers walk alike
+    resident = kc <= RES_K
+    steps = w.counts[c] * kc
+    fills = c == 0 or not shared
+    prog = [("fillw", j) for j in range(min(ws, steps))] if fills else []
+    if c == 0 and not resident:
+        prog += [("fillf", j) for j in range(min(F_STAGES, steps))]
+    if resident and not shared and c == 1 and steps > 0:
+        prog.append(("go_wait",))
+
+    def done(j):
+        ops = [("rw", j)] + ([] if resident else [("rf", j)])
+        if fills and j + ws < steps:
+            ops.append(("fillw", j + ws))
+        if c == 0 and not resident and j + F_STAGES < steps:
+            ops.append(("fillf", j + F_STAGES))
+        return ops
+    j = 0
+    for i in range(w.counts[c]):
+        for kk in range(kc):
+            prog.append(("w", j, (i, kk)))
+            if not resident:
+                prog.append(("f", j))
+            if kk > 0:
+                prog += done(j - 1)
+            j += 1
+        prog += done(j - 1)
+        if c == 0 and i == 0 and not shared:
+            prog.append(("go",))
+    return prog
+
+
+def replay(w, kc, ws, shared):
+    """Runs one block's two consumers with the kernel's stage and parity
+    arithmetic; returns, for each consumer, the tiles whose boxes it
+    read.  Fails on a box read from the wrong fill, a stage refilled
+    before it is freed, or a stall."""
+    rings = 1 if shared else 2
+    wfull = [[Barrier(1) for _ in range(ws)] for _ in range(rings)]
+    wempty = [[Barrier(8 if shared else 4) for _ in range(ws)]
+              for _ in range(rings)]
+    ffull = [Barrier(1) for _ in range(F_STAGES)]
+    fempty = [Barrier(8) for _ in range(F_STAGES)]
+    held_w = [[None] * ws for _ in range(rings)]   # the fill a stage holds
+    held_f = [None] * F_STAGES
+    go = Barrier(1)
+    progs = [consumer_program(w, c, kc, ws, shared) for c in (0, 1)]
+    pc = [0, 0]
+    reads = [set(), set()]
+    while True:
+        moved = False
+        for c in (0, 1):
+            if pc[c] >= len(progs[c]):
+                continue
+            op = progs[c][pc[c]]
+            kind, r = op[0], 0 if shared else c
+            if kind == "fillw":
+                j = op[1]
+                st = j % ws
+                if wempty[r][st].done < j // ws:   # not yet freed
+                    continue
+                assert wempty[r][st].done == j // ws
+                held_w[r][st] = j
+                wfull[r][st].arrive()
+            elif kind == "fillf":
+                q = op[1]
+                st = q % F_STAGES
+                if fempty[st].done < q // F_STAGES:
+                    continue
+                assert fempty[st].done == q // F_STAGES
+                held_f[st] = q
+                ffull[st].arrive()
+            elif kind in ("w", "f"):
+                j = op[1]
+                full, held, n = ((wfull[r], held_w[r], ws) if kind == "w"
+                                 else (ffull, held_f, F_STAGES))
+                st = j % n
+                if full[st].done <= j // n:       # not yet filled
+                    continue
+                assert full[st].done == j // n + 1
+                assert held[st] == j              # not refilled before read
+                if kind == "w":
+                    assert j == op[2][0] * kc + op[2][1]  # the box it expects
+                    reads[c].add(op[2][0])
+            elif kind == "rw":
+                wempty[r][op[1] % ws].arrive(4)
+            elif kind == "rf":
+                fempty[op[1] % F_STAGES].arrive(4)
+            elif kind == "go":
+                go.arrive()
+            elif kind == "go_wait":
+                if go.done == 0:
+                    continue
+            pc[c] += 1
+            moved = True
+        if not moved:
+            break
+    assert pc == [len(p) for p in progs], "a consumer stalled"
+    return [sorted(r) for r in reads]
+
+
+RING_CASES = [  # (kind, fixed rows, walked rows, split, kblocks, dp)
+    ("k2", 4096, 8192, 4, 1, 84), ("k2", 2048, 8192, 8, 1, 1024),
+    ("k2", 200, 257, 1, 1, 12), ("out1", 4096, 8192, 4, 1, 84),
+    ("out1", 300, 1000, 3, 1, 200), ("zv1", 8192, 4096, 2, 1, 84),
+    ("zv1", 1000, 500, 3, 1, 1024), ("zvm", 8192, 4096, 2, 2, 84),
+    ("zvm", 300, 300, 5, 2, 200), ("outm", 4096, 8192, 2, 2, 84),
+    ("outm", 130, 900, 4, 1, 96), ("outm", 64, 128, 1, 1, 132),
+]
+
+
+@pytest.mark.parametrize("kind,fixed_rows,walk_rows,split,kb,dp",
+                         RING_CASES)
+def test_ring_replay_has_no_early_reuse_and_no_deadlock(
+        kind, fixed_rows, walk_rows, split, kb, dp):
+    fixed_b = kind in ("k2", "out1")
+    kc = -(-dp // CH)
+    walks = operands.dense_walks(fixed_b, fixed_rows, walk_rows, split, kb)
+    for w in walks[:40]:
+        reads = replay(w, kc, WS[kind], not fixed_b)
+        for c in (0, 1):
+            assert reads[c] == list(range(w.counts[c]))
+
+
+def _box(a, r0, rows, kk):
+    """Rows r0 .. r0 + rows - 1 of a (rows, dp) operand, channels 32 kk ..
+    32 kk + 31, zeros past its end (the TMA box's fill)."""
+    out = np.zeros((rows, CH))
+    part = a[r0:r0 + rows, CH * kk:CH * kk + CH]
+    out[:part.shape[0], :part.shape[1]] = part
+    return out
+
+
+@pytest.mark.parametrize("fixed_b,n,f,d,split", [
+    (True, 300, 200, 84, 2), (False, 300, 200, 84, 3),
+    (True, 130, 260, 140, 1), (False, 200, 130, 140, 2)])
+def test_replayed_projections_are_the_split_products(fixed_b, n, f, d,
+                                                     split):
+    rng = np.random.default_rng(n + f + d)
+    x = torch.as_tensor(rng.standard_normal((n, d)), dtype=torch.float32)
+    proj = torch.as_tensor(rng.standard_normal((d, f)) * 0.3,
+                           dtype=torch.float32)
+    xh, xl = (a.double().numpy() for a in operands.kernel_planes(
+        operands.pad_depth(x, 4), "tf32x3"))
+    ph, pl = (a.double().numpy() for a in operands.projT_planes(proj,
+                                                                "tf32x3"))
+    kc = -(-xh.shape[1] // CH)
+    want = (xh + xl) @ (ph + pl).T - xl @ pl.T         # less lo*lo
+    fixed, walk = ((ph, pl), (xh, xl)) if fixed_b else ((xh, xl), (ph, pl))
+    for w in operands.dense_walks(fixed_b, (f if fixed_b else n),
+                                  (n if fixed_b else f), split):
+        for c in (0, 1):
+            for i in range(w.counts[c]):
+                row = w.first[c] + i * w.stride
+                # fixed A: consumer c's 64 rows of the 128-row box
+                fr0 = w.fixed0 if fixed_b else w.fixed0 + 64 * c
+                acc = 0.0
+                for kk in range(kc):
+                    fb = [_box(p, fr0, 128 if fixed_b else 64, kk)
+                          for p in fixed]
+                    wb = [_box(p, row, 64 if fixed_b else 128, kk)
+                          for p in walk]
+                    ah, al = wb if fixed_b else fb
+                    bh, bl = fb if fixed_b else wb
+                    acc = acc + al @ bh.T + ah @ bl.T + ah @ bh.T
+                r0, c0 = (row, w.fixed0) if fixed_b else (fr0, row)
+                ref = want[r0:r0 + 64, c0:c0 + 128]
+                if ref.size == 0:       # a half tile past the last row
+                    continue
+                got = acc[:ref.shape[0], :ref.shape[1]]
+                assert np.abs(got - ref).max() <= 1e-12 * max(
+                    1.0, np.abs(ref).max())
+
+
+def _sincos32(arg, w):
+    arg = arg.astype(np.float32)
+    return (np.cos(arg) * w).astype(np.float32), \
+        (np.sin(arg) * w).astype(np.float32)
+
+
+def k1_replay(x, m, proj, sigma, vc, vs, intercept, sms):
+    """oc, os in K1's 3xTF32 partition and order, float32: pass (a)'s
+    partial zv per slice over its tiles in walk order, summed in slice
+    order; pass (b)'s per slice likewise; the slices summed in order."""
+    n, f = x.shape[0], proj.shape[1]
+    k = vc.shape[1]
+    rhs = _rhs(k)
+    plan = ztzv.launch_plan(rhs, n, f, k, sms, "tf32x3")
+    arg = ((x.astype(np.float64) @ proj.astype(np.float64)).astype(
+        np.float32) * np.float32(sigma)).astype(np.float32)
+    scale = np.float32(rbf_norm_constant(f, intercept))
+    c, s = _sincos32(arg, (m * scale)[:, None])
+    if intercept:
+        c[:, 0] = m
+    zv_part = np.zeros((plan.zsplit, n, k), dtype=np.float32)
+    for w in operands.dense_walks(False, n, f, plan.zsplit, plan.blocks):
+        q = slice(rhs * w.kz, rhs * w.kz + rhs)    # the block's rhs
+        for cc in (0, 1):
+            r = slice(w.fixed0 + 64 * cc, w.fixed0 + 64 * cc + 64)
+            for i in range(w.counts[cc]):
+                t = slice(w.first[cc] + i * w.stride,
+                          w.first[cc] + i * w.stride + 128)
+                zv_part[w.slices[cc], r, q] += c[r, t] @ vc[t, q] + \
+                    s[r, t] @ vs[t, q]
+    zv = np.zeros((n, k), dtype=np.float32)
+    for p in zv_part:
+        zv += p
+    oc_part = np.zeros((plan.osplit, f, k), dtype=np.float32)
+    os_part = np.zeros_like(oc_part)
+    fixed_b = k == 1
+    for w in operands.dense_walks(fixed_b, f, n, plan.osplit,
+                                  1 if fixed_b else plan.blocks):
+        q = slice(rhs * w.kz, rhs * w.kz + rhs)
+        for cc in (0, 1):
+            for i in range(w.counts[cc]):
+                row = w.first[cc] + i * w.stride
+                rows = slice(row, row + (64 if fixed_b else 128))
+                fr = slice(w.fixed0, w.fixed0 + 128) if fixed_b else \
+                    slice(w.fixed0 + 64 * cc, w.fixed0 + 64 * cc + 64)
+                oc_part[w.slices[cc], fr, q] += c[rows, fr].T @ zv[rows, q]
+                os_part[w.slices[cc], fr, q] += s[rows, fr].T @ zv[rows, q]
+    oc, os_ = np.zeros((f, k), np.float32), np.zeros((f, k), np.float32)
+    for a, b in zip(oc_part, os_part):
+        oc += a
+        os_ += b
+    return oc, os_
+
+
+@pytest.mark.parametrize("intercept", [False, True])
+@pytest.mark.parametrize("n,d,f,k", [(300, 84, 256, 1), (257, 84, 300, 26),
+                                     (200, 140, 130, 9), (128, 10, 512, 3)])
+def test_k1_replayed_order_matches_pallas(intercept, n, d, f, k):
+    rng = np.random.default_rng(n * 5 + f + k)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    m = (rng.random(n) > 0.25).astype(np.float32)
+    proj = (rng.standard_normal((d, f)) * 0.3).astype(np.float32)
+    vc = rng.standard_normal((f, k)).astype(np.float32)
+    vs = rng.standard_normal((f, k)).astype(np.float32)
+    sigma = np.float32(0.7)
+    oc_ref, os_ref = (np.asarray(a) for a in ztzv_parts_pallas(
+        jnp.asarray(x), jnp.asarray(m), jnp.asarray(proj), sigma,
+        jnp.asarray(vc), jnp.asarray(vs), intercept, f, interpret=True))
+    oc, os_ = k1_replay(x, m, proj, sigma, vc, vs, intercept, 7)
+    tol = 3e-5 * max(1.0, np.abs(oc_ref).max(), np.abs(os_ref).max())
+    assert np.abs(oc - oc_ref).max() < tol
+    assert np.abs(os_ - os_ref).max() < tol
+
+
+def k2_replay(x, proj, intercept, padded, sms):
+    """K2's outputs as its blocks store them: staged tiles as four boxes
+    of 64 rows x 32 values a half (cos at the tile's block column, sin
+    the block's width on), other tiles pair by pair from the fragment."""
+    n, f = x.shape[0], proj.shape[1]
+    arg = (x.astype(np.float64) @ proj.astype(np.float64)).astype(np.float32)
+    cos, sin = _sincos32(arg, np.float32(rbf_norm_constant(f, intercept)))
+    out = np.full((n, 2 * f), np.nan, dtype=np.float32)
+    split = operands.tile_split(-(-n // 128), -(-f // 128), sms, 64)
+    for w in operands.dense_walks(True, f, n, split):
+        f0 = w.fixed0
+        blk = f0 // padded if padded % 128 == 0 else -1
+        width = min(padded, f - blk * padded) if blk >= 0 else 0
+        staged = blk >= 0 and f0 + 128 <= f and width % 4 == 0 and \
+            f % 2 == 0
+        for cc in (0, 1):
+            for i in range(w.counts[cc]):
+                r0 = w.first[cc] + i * w.stride
+                rows = slice(r0, min(r0 + 64, n))   # TMA clips past N
+                if r0 >= n:
+                    continue
+                if staged:
+                    for hf in (0, 1):
+                        for box in (0, 1):
+                            col = f0 + blk * padded + 64 * hf + 32 * box
+                            src = slice(f0 + 64 * hf + 32 * box,
+                                        f0 + 64 * hf + 32 * box + 32)
+                            out[rows, col:col + 32] = cos[rows, src]
+                            out[rows, col + width:col + width + 32] = \
+                                sin[rows, src]
+                    continue
+                for fc in range(f0, min(f0 + 128, f)):
+                    b = blk if blk >= 0 else fc // padded
+                    wd = min(padded, f - b * padded)
+                    out[rows, fc + b * padded] = cos[rows, fc]
+                    out[rows, fc + b * padded + wd] = sin[rows, fc]
+    return out
+
+
+@pytest.mark.parametrize("intercept", [False, True])
+@pytest.mark.parametrize("n,d,padded,f", [
+    (300, 84, 128, 512),   # staged tiles, 4 layout blocks
+    (257, 84, 256, 384),   # a ragged last block, staged at its width
+    (130, 40, 64, 256),    # blocks narrower than a tile: fragment stores
+    (200, 140, 512, 500),  # one narrow block, a partial last tile
+])
+def test_k2_replayed_layout_matches_pallas(intercept, n, d, padded, f):
+    """Against the Pallas kernel in interpret mode where its gate takes
+    the block split; a ragged last block (which it refuses) against the
+    plain version, itself held against it (test_torch_feature_map.py)."""
+    rng = np.random.default_rng(n + d + f)
+    x = (rng.standard_normal((n, d)) * 0.3).astype(np.float32)
+    proj = (rng.standard_normal((d, f)) * 0.3).astype(np.float32)
+    if f > padded and f % padded:
+        want = feature_map.rbf_feature_map_plain(
+            torch.from_numpy(x), torch.from_numpy(proj), intercept,
+            padded).numpy()
+    else:
+        xp, pp = pad_operands(jnp.asarray(x), jnp.asarray(proj))
+        want = np.asarray(rbf_feature_map_pallas(xp, pp, intercept, padded,
+                                                 interpret=True))
+    got = k2_replay(x, proj, intercept, padded, 7)
+    assert not np.isnan(got).any()
+    assert np.abs(got - want).max() < 1e-5

@@ -13,7 +13,8 @@ ROOT = Path(__file__).resolve().parents[2]
 FORBIDDEN = ("jax", "jaxlib", "xgpr_tpu")
 FILES = sorted((ROOT / "xgpr_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "million_point_torch.py",
-     ROOT / "tests" / "torch_port" / "conv_tf32_variants.py"]
+     ROOT / "tests" / "torch_port" / "conv_tf32_variants.py",
+     ROOT / "tests" / "torch_port" / "dense_tf32_variants.py"]
 
 
 def _imported_modules(path):

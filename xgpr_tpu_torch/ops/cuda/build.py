@@ -19,8 +19,9 @@ them on all the host's cores, which halves the build on an 8-core host
 (PERF.md).  The kernels also have one instantiation per body
 (csrc/tf32_gemm.cuh: Format), each body in its own source so that their
 nvcc processes run side by side: the 3xTF32 body in ``feature_map.cu``,
-``ztzv.cu`` and ``conv.cu`` (with the C entry points; K3/K4's TMA
-pipeline of ``conv_tf32.cuh``), the bf16 body in ``ztzv_bf16.cu`` and
+``ztzv.cu`` and ``conv.cu`` (with the C entry points; K1/K2's TMA
+pipeline of ``dense_tf32.cuh``, K3/K4's of ``conv_tf32.cuh``), the bf16
+body in ``ztzv_bf16.cu`` and
 ``conv_bf16.cu`` (K3/K4's TMA pipeline of ``conv_ws.cuh``, with its own
 entry points and the row layout of both pipelines, ``conv_layout.cuh``;
 they reach the driver's ``cuTensorMapEncodeTiled`` through the runtime,

@@ -1,7 +1,7 @@
-// K2 in the 3xTF32 format (float32 operands, "high" and "default") and
-// K2's C entry point for every format; the kernel and its design are in
-// feature_map.cuh.
-#include "feature_map.cuh"
+// K2 in the 3xTF32 format (float32 operands, "high" and "default": the
+// warp-specialised TMA pipeline of dense_tf32.cuh) and K2's C entry point
+// for every format; what the kernel computes is in feature_map.cuh.
+#include "dense_tf32.cuh"
 
 using namespace xgpr;
 using namespace xgpr::features;
@@ -12,7 +12,8 @@ using namespace xgpr::features;
 // dp % 4 == 0, out float32; FMT_FMA32, the float32 values with dp % 4 == 0
 // and the lo pointers unused, out float32; FMT_F64, float64 values with
 // dp % 2 == 0 and the lo pointers unused, out float64.  out is (n, 2f);
-// rsplit blocks share each frequency tile's row tiles; mode is a SincosMode
+// rsplit blocks share each frequency tile's 128-row tiles (in 3xTF32 a
+// block's two consumers take their halves); mode is a SincosMode
 // (common.cuh), which the float64 body reads as the builtin.  Any other
 // mode or body is refused.
 extern "C" int xgpr_feature_map(const void* x_hi, const void* x_lo,
@@ -30,9 +31,9 @@ extern "C" int xgpr_feature_map(const void* x_hi, const void* x_lo,
   if (body == FMT_FMA32) return launch_fma32(p, a, mode, rsplit, st);
   if (body != FMT_TF32X3) return (int)cudaErrorInvalidValue;
   switch (mode) {
-    case MODE_HI: return launch<FMT_TF32X3, MODE_HI>(p, a, rsplit, st);
-    case MODE_EXACT: return launch<FMT_TF32X3, MODE_EXACT>(p, a, rsplit, st);
-    case MODE_FAST: return launch<FMT_TF32X3, MODE_FAST>(p, a, rsplit, st);
-    default: return launch<FMT_TF32X3, MODE_POLY>(p, a, rsplit, st);
+    case MODE_HI: return dtf32::launch_k2<MODE_HI>(p, a, rsplit, st);
+    case MODE_EXACT: return dtf32::launch_k2<MODE_EXACT>(p, a, rsplit, st);
+    case MODE_FAST: return dtf32::launch_k2<MODE_FAST>(p, a, rsplit, st);
+    default: return dtf32::launch_k2<MODE_POLY>(p, a, rsplit, st);
   }
 }

@@ -23,41 +23,37 @@
 // tensor cores) against 168 MB of traffic (0.05 ms): bound by operations.
 //
 // Design (the wrapper in ../feature_map.py prepares the operands):
-// - The projection is the 3xTF32 wgmma body of tf32_gemm.cuh with the
-//   dense row policy: tiles of 128 rows x 128 frequencies, depth in
-//   32-channel stages (3 at D 84, 32 at D 1024).  The wrapper pads D to a
-//   multiple of 4 and splits x and projT into TF32 high parts and
-//   remainders (projT's split is cached with proj).
-// - A block takes one frequency tile and walks a slice of the row tiles,
-//   so the copies of a tile's first stages run during the previous tile's
-//   epilogue; the wrapper picks the slice count that fills the SMs in the
-//   fewest waves.  The blocks in flight then share a few row tiles of x and
-//   all of projT, which stay in L2, and write whole rows of the output
-//   between them (at D 1024 this measured 0.398 ms against 0.423 ms for
-//   blocks that walk the frequency tiles of one row tile; PERF.md).
+// - float32 operands at "high" and "default" run the 3xTF32 body, the
+//   warp-specialised TMA pipeline of dense_tf32.cuh (its
+//   feature_map_kernel): a block takes one 128-frequency tile of proj^T,
+//   resident up to D 96, and its two consumer warpgroups take the halves
+//   of the row tiles of its walk,
+//   so that one evaluates sincos and stores while the other's products
+//   run; a tile in one block of the layout (blocks a multiple of 128 wide,
+//   F even) leaves through shared memory as TMA bulk stores of 64 x 32
+//   boxes, the others from the fragment.  The wrapper splits x and projT
+//   into TF32 high parts and remainders (projT's split is cached with
+//   proj) and picks the slice count that fills the SMs in the fewest
+//   waves.
 // - The epilogue evaluates sincos on the accumulator fragment
 //   (with_sincos: a straight-line polynomial body unless an argument needs
 //   the builtin), in one of the four modes of xgpr_tpu's sincos switch ("hi",
-//   "exact", "fast", "poly"): the kernel is instantiated once per mode and
+//   "exact", "fast", "poly"): each kernel is instantiated once per mode and
 //   the host picks the instantiation at launch, so no mode branch sits in the
-//   64-value loop.  Where a tile lies in one block of the layout (blocks a
-//   multiple of 128 wide, F even), its cos and then its sin values go through
-//   shared memory, in the stage the tile's last step read, and out as
-//   512-byte rows; elsewhere each thread stores its pairs of adjacent
-//   frequencies from the fragment as 8-byte stores (scalars where a pair is
-//   split or unaligned).  At RBF's chunk the rows measured 0.203 ms against
-//   0.231-0.240 ms for the fragment stores (PERF.md).
-//   No (N, F) intermediate reaches device memory, and each feature is
-//   written once.
+//   64-value loop.  No (N, F) intermediate reaches device memory, and each
+//   feature is written once.
 // - At the "highest" feature precision (the "reference" preset) float32
-//   operands run the same kernel on the fp32 FMA body of fma_gemm.cuh,
+//   operands run feature_map_kernel below, the last body of K2 on
+//   tf32_gemm.cuh's shared cp.async ring: fp32 FMAs of fma_gemm.cuh,
 //   fp32-exact as xgpr_tpu's Pallas feature map, which pins HIGHEST
 //   (sorf_pallas.py:48-50): the 3xTF32 body's tensor-core sums measured
 //   2.05x the error of a plain fp32 product against a float64 witness
-//   (PERF.md).  Its 32 KB stages do not hold a 64 KB tile, so every
-//   feature is stored from the fragment.  What bounds it: the projection
-//   as fp32 FMAs, 5.6 GFLOP at RBF's chunk, 0.084 ms at the CUDA cores' 67
-//   TFLOP/s, against the 0.081 ms write.
+//   (PERF.md).  A block takes one frequency tile and walks a slice of the
+//   row tiles; each thread stores its pairs of adjacent frequencies from
+//   the fragment as 8-byte stores (scalars where a pair is split or
+//   unaligned).  What bounds it: the projection as fp32 FMAs, 5.6 GFLOP at
+//   RBF's chunk, 0.084 ms at the CUDA cores' 67 TFLOP/s, against the
+//   0.081 ms write.
 // - float64 operands run a kernel of their own, feature_map_f64_kernel in
 //   feature_map_f64.cu: the m16n8k8 DMMA loop of dense_f64.cuh (a
 //   six-stage mbarrier ring, tiles of 128 rows x 128 frequencies) with the
@@ -118,78 +114,15 @@ __global__ void __launch_bounds__(GT, 1)
   const size_t ld = 2 * (size_t)p.f;
   // With blocks a multiple of the tile wide, the tile is in one block.
   const int tile_blk = a.padded % GN == 0 ? w.col0(0) / a.padded : -1;
-  const int tile_width =
-      tile_blk >= 0 ? min(a.padded, p.f - tile_blk * a.padded) : 0;
-  // Whole tiles of such blocks go out through shared memory in 512-byte
-  // rows (the 3xTF32 body, whose 64 KB stages hold a tile); the others
-  // from the fragments.
-  const bool staged = FMT == FMT_TF32X3 && tile_blk >= 0 &&
-                      w.col0(0) + GN <= p.f && tile_width % 4 == 0 &&
-                      p.f % 2 == 0;
 
   T acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = T(0);
 
-  // Nothing resident: the epilogue takes a 64 KB stage as scratch.
   dense_pipeline<false, FMT>(
       smem, p, w, kc, acc, [](int) {},
       [&](int i) {  // row tile i is complete: its features go out
         const int row0 = w.row0(i);
-        if constexpr (FMT == FMT_TF32X3) if (staged) {
-          // The stage the tile's last step read is free until the next
-          // barrier of the pipeline: cos then sin of the tile go through
-          // it, element (r, c) at word r * GN + (c ^ 4 (r % 8)).
-          float* buf = reinterpret_cast<float*>(
-              smem + (((i + 1) * kc - 1) % STAGES) * STAGE_BYTES);
-          float sn[64];
-          __syncthreads();  // both warpgroups' products are done
-          with_sincos<MODE>(acc, 1.0f, [&](auto sincos) {
-#pragma unroll
-            for (int h = 0; h < 2; ++h)
-#pragma unroll
-              for (int j = 0; j < 16; ++j) {
-                const int r = rbase + 8 * h;
-                const int c = (8 * j + 2 * t4) ^ (4 * (r % 8));
-                float c0, c1;
-                sincos(acc[4 * j + 2 * h], a.scale, &c0,
-                       &sn[4 * j + 2 * h]);
-                sincos(acc[4 * j + 2 * h + 1], a.scale, &c1,
-                       &sn[4 * j + 2 * h + 1]);
-                *reinterpret_cast<float2*>(buf + r * GN + c) =
-                    make_float2(c0, c1);
-              }
-          });
-          // Warp u writes rows 16u .. 16u + 15, one 512-byte row a store.
-          const int lane4 = 4 * lane, warp = threadIdx.x / 32;
-          float* out = a.out + (size_t)w.col0(i) +
-                       (size_t)tile_blk * a.padded + lane4;
-          auto rows_out = [&](int off) {
-            __syncthreads();
-#pragma unroll 4
-            for (int rr = 0; rr < GM / (GT / 32); ++rr) {
-              const int r = warp * (GM / (GT / 32)) + rr;
-              if (row0 + r >= p.n) break;
-              const float4 v = *reinterpret_cast<const float4*>(
-                  buf + r * GN + (lane4 ^ (4 * (r % 8))));
-              *reinterpret_cast<float4*>(out + (size_t)(row0 + r) * ld +
-                                         off) = v;
-            }
-            __syncthreads();
-          };
-          rows_out(0);
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-#pragma unroll
-            for (int j = 0; j < 16; ++j) {
-              const int r = rbase + 8 * h;
-              const int c = (8 * j + 2 * t4) ^ (4 * (r % 8));
-              *reinterpret_cast<float2*>(buf + r * GN + c) =
-                  make_float2(sn[4 * j + 2 * h], sn[4 * j + 2 * h + 1]);
-            }
-          rows_out(tile_width);
-          return;
-        }
         const int fb = w.col0(i) + 2 * t4;
         with_sincos<MODE>(acc, T(1), [&](auto sincos) {
 #pragma unroll

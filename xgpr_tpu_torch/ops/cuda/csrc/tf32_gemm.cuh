@@ -1,50 +1,51 @@
-// The GEMM body of the dense kernels, K2 (feature_map.cu) and K1
-// (ztzv.cu), and the operand formats and wgmma helpers every kernel of
-// the library shares.  Four operand formats (Format below), which the
-// wrappers choose from the operands' dtype and xgpr_tpu's feature
-// precision (ops/pallas/ztzv_pallas.py: _make_dot;
-// ops/cuda/feature_map.py: kernel_body):
+// The shared cp.async ring of the dense kernels' bodies that were not
+// redesigned for Hopper: K1's bf16 body (ztzv.cuh in ztzv_bf16.cu) and K2's
+// fp32 FMA body (feature_map.cuh in feature_map_fma.cu), and the operand
+// formats and wgmma helpers every kernel of the library shares.  Four
+// operand formats (Format below), which the wrappers choose from the
+// operands' dtype and xgpr_tpu's feature precision
+// (ops/pallas/ztzv_pallas.py: _make_dot; ops/cuda/feature_map.py:
+// kernel_body):
 //
-// - FMT_TF32X3, "high" (and "highest" for K1, K2 in every preset):
-//   wgmma.m64n128k8 in 3xTF32.  The wrapper splits each operand into a
-//   TF32 high part and the remainder (hi + lo == a exactly), and each
-//   warpgroup accumulates lo*hi + hi*lo + hi*hi in fp32 (the lo*lo term,
-//   ~2^-22 relative, is dropped; keeping it measured no closer to a
-//   float64 witness, PERF.md).  K3 and K4's 3xTF32 body is the TMA
-//   pipeline of conv_tf32.cuh (m64n64k8, projT's boxes multicast to a
-//   cluster), which keeps this format's products and their order;
+// - FMT_TF32X3, "high" (and "highest" for K1): wgmma in 3xTF32.  The
+//   wrapper splits each operand into a TF32 high part and the remainder
+//   (hi + lo == a exactly), and each warpgroup accumulates lo*hi + hi*lo +
+//   hi*hi in fp32 (the lo*lo term, ~2^-22 relative, is dropped; keeping it
+//   measured no closer to a float64 witness, PERF.md).  K1 and K2 run it
+//   on the warp-specialised TMA pipeline of dense_tf32.cuh (m64n128k8,
+//   wgmma_tf32 below), K3 and K4 on conv_tf32.cuh's (m64n64k8); neither
+//   uses this ring;
 // - FMT_BF16, "default": wgmma.m64n128k16 on bf16 operands, one product
 //   per depth step, fp32 accumulation: the TPU's DEFAULT dot, which rounds
-//   both operands to bf16.  K1's bf16 passes run on this body; K3 and K4's
+//   both operands to bf16.  K1's bf16 passes run on this ring; K3 and K4's
 //   bf16 body is the warp-specialised pipeline of conv_ws.cuh (TMA, full
 //   and empty mbarriers, the projection tile resident in shared memory),
 //   which keeps this format's numbers;
 // - FMT_FMA32, "highest" for K2: fp32 FMAs on the CUDA cores
-//   (fma_gemm.cuh).  Its stages hold one plane of each operand in the
-//   same layout, and its products are done when issued.  K3 and K4 take
-//   this format in a kernel of their own, conv_sync.cuh, which keeps the
-//   fp32 body's numbers.
+//   (fma_gemm.cuh) on this ring.  Its stages hold one plane of each operand
+//   in the same layout, and its products are done when issued.  K3 and K4
+//   take this format in a kernel of their own, conv_sync.cuh, which keeps
+//   the fp32 body's numbers.
 //
-// Float64 operands (FMT_F64) do not run on this file's ring: K1 and K2's
-// float64 bodies are the DMMA loop of dense_f64.cuh (m16n8k8 on an
-// mbarrier ring of six stages), K3 and K4's conv_sync.cuh.
+// Float64 operands (FMT_F64) do not run on this ring: K1 and K2's float64
+// bodies are the DMMA loop of dense_f64.cuh (m16n8k8 on an mbarrier ring
+// of six stages), K3 and K4's conv_sync.cuh.
 //
 // Both operands are read from shared memory, K-major, each row of a stage
-// one 128-byte line in the 128-byte swizzle: 32 fp32 or 64 bf16 values of
+// one 128-byte line in the 128-byte swizzle: 64 bf16 or 32 fp32 values of
 // depth.  A block of two warpgroups computes acc = A @ B^T for a tile of
 // GM = 128 GEMM rows by GN = 128 columns (frequencies), in depth steps of
 // one such line (Body<FMT>::KS values).  Warpgroup w owns the tile's GEMM
-// rows 64w .. 64w + 63.  A stage holds each operand's planes (TF32: hi
-// and lo, 16 KB each; bf16: the values, 16 KB), so a bf16 stage is 32 KB
-// against the TF32 bodies' 64 KB, for twice the depth.
+// rows 64w .. 64w + 63.  A stage holds one line of each operand (16 KB
+// each), 32 KB.
 //
 // The caller's policies decide what a step loads and what a finished group
 // of steps does (gemm_loop is the schedule; dense_pipeline gives it the
 // dense row policy of K1 and K2 and its ring, with one operand resident
 // when the depth is short):
-// - the copies of a step go into its stage: B's planes (GN rows, K-major)
-//   then A's (GM rows, K-major), hi before lo.  Out-of-range rows and depth
-//   are zero-filled (cp_async16 with valid == false).
+// - the copies of a step go into its stage: B's rows (GN, K-major) then
+//   A's (GM, K-major).  Out-of-range rows and depth are zero-filled
+//   (cp_async16 with valid == false).
 // - done(group) runs the epilogue on the accumulators after every spg
 //   steps.  A group's first product overwrites the accumulators (scale-d
 //   0): zeroing them in the loop would be a non-wgmma write to registers
@@ -78,13 +79,10 @@ namespace xgpr {
 
 constexpr int GM = 128;  // GEMM rows per tile: 2 warpgroups x 64
 constexpr int GN = 128;  // columns per tile (the wgmma N)
-constexpr int GK = 32;   // depth per step of the TF32 bodies (fp32 values)
 constexpr int STAGES = 3;
 constexpr int GT = 256;                  // threads per block
-constexpr int B_BYTES = GN * 128;        // one plane of B: 128-byte rows
-constexpr int A_BYTES = GM * 128;        // one plane of A
-constexpr int STAGE_BYTES = 2 * (A_BYTES + B_BYTES);     // TF32: 64 KB
-constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;  // + alignment slack
+constexpr int B_BYTES = GN * 128;        // a line of B: 128-byte rows
+constexpr int A_BYTES = GM * 128;        // a line of A
 
 // The operand formats, by the host's body flag
 // (ops/cuda/feature_map.py: kernel_body, BODY_FLAGS); FMT_F64 is the flag
@@ -93,18 +91,20 @@ constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;  // + alignment slack
 enum Format : int { FMT_TF32X3 = 0, FMT_FMA32 = 1, FMT_BF16 = 2,
                     FMT_F64 = 3 };
 
+// The formats of this ring: bf16 wgmma and fp32 FMAs.
 template <int FMT>
 struct Body {
-  static_assert(FMT != FMT_F64, "float64 runs dense_f64.cuh's loop");
+  static_assert(FMT == FMT_BF16 || FMT == FMT_FMA32,
+                "3xTF32 runs dense_tf32.cuh or conv_tf32.cuh, float64 "
+                "dense_f64.cuh or conv_sync.cuh");
   static constexpr bool BF16 = FMT == FMT_BF16;
   // Products complete when issued (fma_gemm.cuh), no wgmma in flight.
   static constexpr bool SYNC = FMT == FMT_FMA32;
   using T = float;  // the accumulators' type
-  static constexpr int PLANES = FMT == FMT_TF32X3 ? 2 : 1;  // TF32 hi, lo
-  static constexpr int ELEM = BF16 ? 2 : 4;                 // bytes a value
+  static constexpr int ELEM = BF16 ? 2 : 4;    // bytes a value
   static constexpr int VEC = 16 / ELEM;        // values per 16-byte copy
   static constexpr int KS = 128 / ELEM;        // depth per step
-  static constexpr int STAGE = PLANES * (A_BYTES + B_BYTES);
+  static constexpr int STAGE = A_BYTES + B_BYTES;
   static constexpr int SMEM = STAGES * STAGE + 1024;
 };
 
@@ -203,9 +203,8 @@ __device__ __forceinline__ unsigned char* ring_base(unsigned char* raw) {
 }
 
 // The products of a step in format FMT: this warpgroup's 64 rows of the A
-// tile against the B tile, each given by its first plane (a TF32 lo plane
-// 16 KB after its hi plane).  Each 32-byte depth slice of the 128-byte
-// rows is one wgmma; overwrite: the group's first step.  The fp32 FMA
+// tile against the B tile.  Each 32-byte depth slice of the 128-byte rows
+// is one bf16 wgmma; overwrite: the group's first step.  The fp32 FMA
 // format computes the thread's fragment at once (fma_products).
 template <int FMT>
 __device__ __forceinline__ void issue_products(
@@ -218,30 +217,19 @@ __device__ __forceinline__ void issue_products(
     const uint64_t ah = sw128_desc(a + a_rows), bh = sw128_desc(b);
     fence_acc(acc);
     wgmma_fence();
-    if constexpr (FMT == FMT_BF16) {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_bf16(acc, ah + 2 * kk, bh + 2 * kk, kk > 0 || !overwrite);
-    } else {
-      const uint64_t al = sw128_desc(a + A_BYTES + a_rows);
-      const uint64_t bl = sw128_desc(b + B_BYTES);
-#pragma unroll
-      for (int kk = 0; kk < GK / 8; ++kk) {
-        wgmma_tf32(acc, al + 2 * kk, bh + 2 * kk, kk > 0 || !overwrite);
-        wgmma_tf32(acc, ah + 2 * kk, bl + 2 * kk, 1);
-        wgmma_tf32(acc, ah + 2 * kk, bh + 2 * kk, 1);
-      }
-    }
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_bf16(acc, ah + 2 * kk, bh + 2 * kk, kk > 0 || !overwrite);
     wgmma_commit();
   }
 }
 
-// The same on a stage of the ring: B's planes, then A's.
+// The same on a stage of the ring: B's line, then A's.
 template <int FMT>
 __device__ __forceinline__ void issue_stage(const unsigned char* st,
                                             typename Body<FMT>::T acc[64],
                                             bool overwrite) {
-  issue_products<FMT>(st + Body<FMT>::PLANES * B_BYTES, st, acc, overwrite);
+  issue_products<FMT>(st + B_BYTES, st, acc, overwrite);
 }
 
 // The main loop over nsteps steps in groups of spg; see the top of the
@@ -287,7 +275,7 @@ __device__ __forceinline__ void gemm_loop(int nsteps, int spg,
 // copies are in flight during the previous tile's epilogue.
 struct DenseOperands {
   const void* x_hi;  // (n, dp), 16-byte rows: TF32 high parts, bf16 or
-                     // the values (the CUDA-core formats)
+                     // the values (the CUDA-core and float64 formats)
   const void* x_lo;  // the same, TF32 remainders (unused by the others)
   const void* b_hi;  // (f, dp), K-major (proj transposed): the same
   const void* b_lo;
@@ -317,13 +305,12 @@ __device__ __forceinline__ DenseWalk dense_walk(bool by_cols, int n, int f) {
 }
 
 // The copies of depth chunk kk (one 128-byte line of each row) of rows
-// base .. base + 127 of a K-major (nrows, dp) operand in format FMT, its
-// planes (hi, lo) into dst and dst + 16 KB: thread (lr, lc) = (tid / 8,
-// tid % 8) brings 16-byte chunk lc of rows lr + 32q.  Rows past nrows and
-// depth past dp are zero-filled.
+// base .. base + 127 of a K-major (nrows, dp) operand in format FMT into
+// dst: thread (lr, lc) = (tid / 8, tid % 8) brings 16-byte chunk lc of
+// rows lr + 32q.  Rows past nrows and depth past dp are zero-filled.
 template <int FMT>
-__device__ __forceinline__ void load_rows(const void* hi, const void* lo,
-                                          int nrows, int dp, int base, int kk,
+__device__ __forceinline__ void load_rows(const void* src, int nrows,
+                                          int dp, int base, int kk,
                                           unsigned char* dst) {
   using B = Body<FMT>;
   const int lc = threadIdx.x % 8, lr = threadIdx.x / 8;
@@ -334,10 +321,8 @@ __device__ __forceinline__ void load_rows(const void* hi, const void* lo,
     const int r = base + lr + 32 * q;
     const bool ok = cok && r < nrows;
     const size_t off = ok ? ((size_t)r * dp + c) * B::ELEM : 0;
-    const int d = sw128(lr + 32 * q, lc);
-    cp_async16(dst + d, static_cast<const char*>(hi) + off, ok);
-    if constexpr (B::PLANES == 2)
-      cp_async16(dst + A_BYTES + d, static_cast<const char*>(lo) + off, ok);
+    cp_async16(dst + sw128(lr + 32 * q, lc),
+               static_cast<const char*>(src) + off, ok);
   }
 }
 
@@ -347,20 +332,19 @@ __device__ __forceinline__ void load_rows(const void* hi, const void* lo,
 // (A when it walks column tiles, B when it walks row tiles), all its
 // depth chunks, in shared memory, and the ring carries only the other
 // one, half the bytes a step; the layout is then the fixed tile's chunks
-// (its planes: 32 KB TF32, 16 KB bf16), then STAGES ring stages of the
-// same size.  Otherwise the ring's stages hold both operands' planes
-// (Body<FMT>::STAGE), so done(tile) may use the stage of the tile's last
-// step as scratch.  extra(step) runs
-// beside each step's copies (the kernels stage small per-tile operands
-// there).
+// (16 KB each), then STAGES ring stages of the same size.  Otherwise the
+// ring's stages hold both operands' lines (Body<FMT>::STAGE), so
+// done(tile) may use the stage of the tile's last step as scratch.
+// extra(step) runs beside each step's copies (the kernels stage small
+// per-tile operands there).
 constexpr int RES_K = 3;
 
-template <bool RESIDENT, int FMT = FMT_TF32X3, class Extra, class Done>
+template <bool RESIDENT, int FMT, class Extra, class Done>
 __device__ __forceinline__ void dense_pipeline(
     unsigned char* smem, const DenseOperands& p, const DenseWalk& w, int kc,
     typename Body<FMT>::T acc[64], Extra&& extra, Done&& done) {
   static_assert(A_BYTES == B_BYTES, "a ring stage holds an A or a B tile");
-  constexpr int HALF = Body<FMT>::PLANES * A_BYTES;  // one operand's planes
+  constexpr int HALF = A_BYTES;  // one operand's line
   const bool resident = RESIDENT && kc <= RES_K;
   const int nsteps = w.count * kc;
   auto stage = [&](int step) {
@@ -371,12 +355,12 @@ __device__ __forceinline__ void dense_pipeline(
     unsigned char* st = stage(step);
     const int i = step / kc, kk = step - i * kc;
     if (!resident) {
-      load_rows<FMT>(p.b_hi, p.b_lo, p.f, p.dp, w.col0(i), kk, st);
-      load_rows<FMT>(p.x_hi, p.x_lo, p.n, p.dp, w.row0(i), kk, st + HALF);
+      load_rows<FMT>(p.b_hi, p.f, p.dp, w.col0(i), kk, st);
+      load_rows<FMT>(p.x_hi, p.n, p.dp, w.row0(i), kk, st + HALF);
     } else if (w.by_cols) {
-      load_rows<FMT>(p.b_hi, p.b_lo, p.f, p.dp, w.col0(i), kk, st);
+      load_rows<FMT>(p.b_hi, p.f, p.dp, w.col0(i), kk, st);
     } else {
-      load_rows<FMT>(p.x_hi, p.x_lo, p.n, p.dp, w.row0(i), kk, st);
+      load_rows<FMT>(p.x_hi, p.n, p.dp, w.row0(i), kk, st);
     }
     extra(step);
   };
@@ -394,17 +378,17 @@ __device__ __forceinline__ void dense_pipeline(
     for (int kk = 0; kk < kc; ++kk) {
       unsigned char* dst = smem + kk * HALF;
       if (w.by_cols)
-        load_rows<FMT>(p.x_hi, p.x_lo, p.n, p.dp, w.row0(0), kk, dst);
+        load_rows<FMT>(p.x_hi, p.n, p.dp, w.row0(0), kk, dst);
       else
-        load_rows<FMT>(p.b_hi, p.b_lo, p.f, p.dp, w.col0(0), kk, dst);
+        load_rows<FMT>(p.b_hi, p.f, p.dp, w.col0(0), kk, dst);
     }
   }
   gemm_loop<FMT>(nsteps, kc, acc, load, issue, done);
 }
 
 // Lets a kernel of format FMT's body take its ring's dynamic shared memory
-// (Body<FMT>::SMEM; SMEM_BYTES for the TF32 bodies).
-template <int FMT = FMT_TF32X3, class Kernel>
+// (Body<FMT>::SMEM).
+template <int FMT, class Kernel>
 cudaError_t allow_ring_smem(Kernel kernel) {
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Body<FMT>::SMEM);

@@ -1,7 +1,7 @@
-// K1 in the 3xTF32 format ("high" and "highest", the default) and K1's C
-// entry point for every format; the kernels and their design are in
-// ztzv.cuh.
-#include "ztzv.cuh"
+// K1 in the 3xTF32 format ("high" and "highest", the default: the
+// warp-specialised TMA pipeline of dense_tf32.cuh) and K1's C entry point
+// for every format; what the kernels compute is in ztzv.cuh.
+#include "dense_tf32.cuh"
 
 using namespace xgpr;
 using namespace xgpr::ztzv;
@@ -14,7 +14,10 @@ using namespace xgpr::ztzv;
 // zv_part (zsplit, n, k), oc_part/os_part (osplit, f, k) and oc/os (f, k)
 // are float32, or float64 for FMT_F64, whose sincos is the builtin in
 // every mode.  All contiguous, on `stream`.  mode is a SincosMode
-// (common.cuh); any other mode or body is refused.
+// (common.cuh); any other mode or body is refused.  zsplit and osplit are
+// the host's plan (ops/cuda/ztzv.py: launch_plan): the slices of pass
+// (a)'s and pass (b)'s walks, whose partials pass (b) and the last launch
+// sum in slice order.
 extern "C" int xgpr_ztzv(const void* x_hi, const void* x_lo, const void* m,
                          const void* proj_hi, const void* proj_lo,
                          double sigma, const void* vc, const void* vs,
@@ -46,8 +49,8 @@ extern "C" int xgpr_ztzv(const void* x_hi, const void* x_lo, const void* m,
                            static_cast<float*>(oc), static_cast<float*>(os)};
   switch (body) {
     case FMT_TF32X3:
-      return launch<FMT_TF32X3>(p, a, parts[0], parts[1], parts[2], parts[3],
-                                parts[4], zsplit, osplit, mode, st);
+      return dtf32::launch_k1(p, a, parts[0], parts[1], parts[2], parts[3],
+                              parts[4], zsplit, osplit, mode, st);
     case FMT_BF16:
       return launch_bf16(p, a, parts[0], parts[1], parts[2], parts[3],
                          parts[4], zsplit, osplit, mode, st);

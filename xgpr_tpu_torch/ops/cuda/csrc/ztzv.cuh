@@ -1,8 +1,8 @@
 // Fused CG matvec for one chunk on Hopper (K1): Z^T (Z v) without writing Z,
 // its projections on the tensor cores in the body of the feature precision
-// (tf32_gemm.cuh: 3xTF32 for "high" and "highest", one bf16 pass for
-// "default"), or in float64 m16n8k8 DMMA for float64 operands
-// (dense_f64.cuh).
+// (3xTF32 for "high" and "highest" on dense_tf32.cuh's pipeline, one bf16
+// pass for "default" on tf32_gemm.cuh's ring), or in float64 m16n8k8 DMMA
+// for float64 operands (dense_f64.cuh).
 //
 // Replaces the TPU kernel xgpr_tpu/ops/pallas/ztzv_pallas.py:_ztzv_kernel
 // (pallas_call in _ztzv_parts_impl).  For raw rows x (R, D), row mask m (R,),
@@ -39,15 +39,23 @@
 // features instead of writing Z trades 268 MB of traffic per chunk for the
 // second projection.
 //
-// Design: both passes are the wgmma body of tf32_gemm.cuh with the dense
-// row policy, 128 x 128 tiles whose stages flow from one tile to the next
-// of a block's walk (the role the window-group loop plays in conv.cu).  Up
-// to three depth steps (D 96 in TF32, 192 in bf16; RBF's 84) the tile the
-// walk does not move stays in shared memory and the ring carries only the
-// other operand (dense_pipeline): half the copies a step.  Pass (b)
-// projects with the operands swapped (proj^T x^T: frequencies as the
-// tile's rows, rows of x as its columns), so that in both passes the
-// contraction runs over the fragment's columns.
+// Design.  The 3xTF32 body ("high", "highest": float32 operands) runs the
+// warp-specialised TMA pipeline of dense_tf32.cuh, with the walks below:
+// pass (a) holds 128 rows of x and walks a slice of the frequency tiles,
+// its two consumer warpgroups multiplying 64 rows each in step; pass (b)
+// at K 1 holds a 128-frequency tile and its consumers take the halves of
+// the row tiles of a slice on rings of their own, so that one folds while
+// the other multiplies; at K > 1 it holds 128 frequencies of proj^T (the
+// operands swapped) and walks a slice of the row tiles of x as pass (a)
+// does.  The bf16 body ("default")
+// is the last body of K1 on tf32_gemm.cuh's shared cp.async ring: the
+// passes below, 128 x 128 tiles whose stages flow from one tile to the
+// next of a block's walk; up to three depth steps (D 192 in bf16; RBF's
+// 84) the tile the walk does not move stays in shared memory and the ring
+// carries only the other operand (dense_pipeline).  In both bodies pass
+// (b) at K > 1 projects with the operands swapped (proj^T x^T:
+// frequencies as the tile's rows, rows of x as its columns), so that in
+// both passes the contraction runs over the fragment's columns.
 //
 // The contractions run on the tensor cores straight from the accumulator
 // fragment (mma.sync, the A operand in registers): the fragment holds tile
@@ -56,16 +64,17 @@
 // column 8j + 2t and depth t + 4 column 8j + 2t + 1, of m16n8k8.tf32 for
 // columns 8j .. 8j + 7.  The B operand (v_c / v_s of a frequency tile in
 // pass (a), zv of a row tile in pass (b)) is staged in shared memory, fp32,
-// one row per right-hand side in the swizzle of staged_at.  A block carries
-// 8 NT right-hand sides (NT n8 tiles, mma_nt): every right-hand side of
-// the block shares one projection and one sincos of each tile, where a
-// CUDA-core contraction carried one right-hand side a block in pass (b)
-// and recomputed the features K times (3.73 ms at K 26 in 3xTF32).  NT is
-// 1 up to K 8, then 4 for bf16 and 2 for 3xTF32: the TF32 ring takes
-// 193 KB of the 227 KB a block may have, and two slots of v_c / v_s for 16
-// right-hand sides take the 32 KB left (32 would need 64 KB).  At K 1
-// one-rhs passes that contract on the CUDA cores (ztzv_zv_kernel,
-// ztzv_out_kernel) run instead.
+// one row per right-hand side in the swizzle of staged_at.  A block (in
+// 3xTF32 a consumer warpgroup) carries 8 NT right-hand sides (NT n8
+// tiles, mma_nt): every right-hand side shares one projection and one
+// sincos of each tile, where a CUDA-core contraction carried one
+// right-hand side a block in pass (b) and recomputed the features K times
+// (3.73 ms at K 26 in 3xTF32).  NT is 1 up to K 8, then 4 for bf16 and 2
+// for 3xTF32: two slots of v_c / v_s for 32 right-hand sides need 64 KB a
+// consumer, which dense_tf32.cuh's ring does not leave, and their sums 32
+// more registers a thread.  At K 1 one-rhs passes that contract on the
+// CUDA cores (ztzv_zv_kernel, ztzv_out_kernel; in 3xTF32 their folds in
+// dense_tf32.cuh) run instead.
 //
 // Precision: "default" (bf16) rounds c, s (after scale * mask and the
 // intercept column), v_c / v_s and the summed zv to bf16 as the TPU's
@@ -89,9 +98,10 @@
 //
 // Each kernel is instantiated once per sincos mode (common.cuh) and
 // format; each format's instantiations are a translation unit of their own
-// (ztzv.cu, ztzv_bf16.cu, ztzv_f64.cu), built in parallel, and the host
-// picks the instantiation at launch.  The wrapper picks the slice counts
-// that fill the SMs in the fewest waves (ops/cuda/ztzv.py: launch_plan).
+// (ztzv.cu: 3xTF32 on dense_tf32.cuh; ztzv_bf16.cu: bf16 on the passes
+// below; ztzv_f64.cu), built in parallel, and the host picks the
+// instantiation at launch.  The wrapper picks the slice counts that fill
+// the SMs in the fewest waves (ops/cuda/ztzv.py: launch_plan).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -120,16 +130,16 @@ constexpr int MAX_GRID_Z = 65535;
 
 // ---------------------------------------------------------------------------
 // The one-rhs passes at K 1 (a fit's CG matvec), contracting on the CUDA
-// cores.  In 3xTF32 the tensor-core passes' splits and fresh products cost
-// more than the two FMAs a feature takes here (0.323 against 0.256 ms at
-// RBF's chunk, PERF.md).  In bf16 they were faster (0.173 against 0.185
-// ms), but their other summation order cost slice A's fit under "max" a
-// CG iteration (18 against 17), so bf16 keeps these passes at K 1 too.
-// Under "default" the epilogues round c, s, v_c / v_s and zv to bf16
-// (as_operand) before their fp32 FMAs.  These are the passes K1 had
-// before the tensor-core ones, unchanged; the zv pass is instantiated at
-// KC = 1 right-hand side a block, the out pass takes right-hand side
-// blockIdx.z of a grid one deep.
+// cores, in bf16 (3xTF32's are dense_tf32.cuh's k1_zv_kernel and
+// k1_out1_kernel, with these folds).  In 3xTF32 the tensor-core passes'
+// splits and fresh products cost more than the two FMAs a feature takes
+// here (0.323 against 0.256 ms at RBF's chunk, PERF.md).  In bf16 they
+// were faster (0.173 against 0.185 ms), but their other summation order
+// cost slice A's fit under "max" a CG iteration (18 against 17), so bf16
+// keeps these passes at K 1 too.  The epilogues round c, s, v_c / v_s and
+// zv to bf16 (as_operand) before their fp32 FMAs.  The zv pass is
+// instantiated at KC = 1 right-hand side a block, the out pass takes
+// right-hand side blockIdx.z of a grid one deep.
 
 // Partial zv over the frequency tiles of this block's walk.
 template <int FMT, int MODE, int KC>
@@ -339,7 +349,8 @@ cudaError_t launch_one(const DenseOperands& p, const ZtzvArgs<float>& a,
 }
 
 // ---------------------------------------------------------------------------
-// The float32 passes on the tensor cores (FMT_TF32X3, FMT_BF16).
+// The float32 passes on the tensor cores: bf16's kernels below, and the
+// mma.sync helpers both they and dense_tf32.cuh's 3xTF32 passes use.
 
 // n8 tiles of right-hand sides a block carries at K: 8 NT right-hand sides.
 __host__ __device__ constexpr int mma_nt(int fmt, int k) {
@@ -509,12 +520,12 @@ __device__ __forceinline__ float mma_value(const MmaSum& d, int r) {
   return FMT == FMT_BF16 ? d.main[r] : d.main[r] + d.corr[r];
 }
 
-// Shared memory of the tensor-core passes: the ring, then the staged
+// Shared memory of the bf16 tensor-core passes: the ring, then the staged
 // operands.  Pass (a): v_c and v_s of a frequency tile (8 NT x 128 each)
 // in 2 slots, filled by cp.async in the previous tile's epilogue; pass
 // (b): zv (8 NT x 128) and the mask of a row tile in 3 slots, filled with
-// the tile's first copies.  TF32 at NT 2: 197,632 + 32,768 and + 26,112
-// bytes of the 232,448 a block may have.
+// the tile's first copies.  dense_tf32.cuh's passes take the same slots,
+// two a consumer.
 template <int NT>
 constexpr int ZV_SLOT = 2 * 8 * NT * GN;  // floats
 template <int NT>

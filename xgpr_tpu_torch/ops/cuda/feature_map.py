@@ -56,7 +56,8 @@ from .operands import (data_ptr, depth_multiple, kernel_planes, pad_depth,
 
 LAUNCHES = Counter()
 
-TILE = 128  # rows and frequencies per tile (csrc/tf32_gemm.cuh: GM, GN)
+TILE = 128  # rows and frequencies per tile (csrc/tf32_gemm.cuh: GM, GN;
+#             csrc/dense_tf32.cuh: a block's 128-wide walk tiles)
 
 
 def rbf_feature_map_plain(x, proj, fit_intercept, padded, mode=None,
@@ -228,28 +229,42 @@ def _rbf_feature_map_kernel(x, proj, fit_intercept, padded, mode, precision):
     """The K2 launcher: operand checks, x's planes, one launch."""
     if x.device.type != "cuda":
         raise ValueError(f"rbf_feature_map: no kernel for {x.device}.")
+    return launcher(x, proj, fit_intercept, padded, mode, precision)()
+
+
+def launcher(x, proj, fit_intercept, padded, mode=None, precision=None):
+    """The kernel launch of one ``rbf_feature_map`` call on CUDA operands,
+    prepared: a function of no arguments that launches the kernel on the
+    current stream into its output, counts the launch and returns the
+    output."""
     dtype, (x, proj) = cuda_operands("rbf_feature_map", x, proj)
+    mode = kernel_mode(mode)
+    precision = kernel_precision(precision, x.device, dtype)
     body = kernel_body("K2", dtype, precision)
     n = x.shape[0]
     f = proj.shape[1]
     out = torch.empty((n, 2 * f), dtype=dtype, device=x.device)
     if n == 0 or f == 0:
-        return out
+        return lambda: out
     xh, xl = kernel_planes(pad_depth(x, depth_multiple(body)), body)
     ph, pl = projT_planes(proj, body)
     row_tiles, f_tiles = -(-n // TILE), -(-f // TILE)
     rsplit = tile_split(row_tiles, f_tiles, sm_count(x.device.index), 64)
     lib = build.library()
     scale = rbf_norm_constant(f, fit_intercept)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.xgpr_feature_map(xh.data_ptr(), data_ptr(xl),
-                                  ph.data_ptr(), data_ptr(pl),
-                                  out.data_ptr(), n, xh.shape[1], f,
-                                  int(padded), scale,
-                                  kernel_sincos_flag(mode), BODY_FLAGS[body],
-                                  rsplit, stream)
-    build.check(rc, "feature map kernel")
     ran = "highest" if body == "fma32" else "high"
-    LAUNCHES[(n, x.shape[1], f) + launch_tags(dtype, mode, ran)] += 1
-    return out
+    key = (n, x.shape[1], f) + launch_tags(dtype, mode, ran)
+
+    def launch():
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            rc = lib.xgpr_feature_map(xh.data_ptr(), data_ptr(xl),
+                                      ph.data_ptr(), data_ptr(pl),
+                                      out.data_ptr(), n, xh.shape[1], f,
+                                      int(padded), scale,
+                                      kernel_sincos_flag(mode),
+                                      BODY_FLAGS[body], rsplit, stream)
+        build.check(rc, "feature map kernel")
+        LAUNCHES[key] += 1
+        return out
+    return launch

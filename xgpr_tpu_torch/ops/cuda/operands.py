@@ -24,8 +24,12 @@ These plain torch functions prepare them:
   (``pad_windows``); cached with the projection tensor and keyed on the
   body and width: the kernels' callers pass the same tensor on every
   call (the conv wrapper takes the cache for its bf16 body);
-- ``tile_split``: how many blocks share a loop over tiles.
+- ``tile_split``: how many blocks share a loop over tiles;
+- ``dense_walks``: what each block of the 3xTF32 dense pipeline walks,
+  in grid order (the kernels' own index arithmetic, which the CPU tests
+  replay).
 """
+from collections import namedtuple
 import weakref
 from functools import lru_cache
 
@@ -128,6 +132,7 @@ def sm_count(device_index):
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
+@lru_cache(maxsize=4096)
 def tile_split(tiles, other_blocks, sms, cap):
     """How many blocks share a loop over `tiles` tiles, each slice beside
     `other_blocks` blocks, at one block per SM: the count that needs the
@@ -139,3 +144,34 @@ def tile_split(tiles, other_blocks, sms, cap):
         if best_cost is None or cost < best_cost:
             best, best_cost = s, cost
     return best
+
+
+# csrc/dense_tf32.cuh: a block's walk.  Consumer c's tile i starts at row
+# first[c] + i * stride of the walked operand and c has counts[c] tiles;
+# slices[c] is the slice of the split whose partial c sums, kz the block
+# of right-hand sides.
+DenseWalk = namedtuple("DenseWalk", "fixed0 first stride counts slices kz")
+
+
+def dense_walks(fixed_b, fixed_rows, walk_rows, split, kblocks=1):
+    """The walks of csrc/dense_tf32.cuh's blocks in grid order: a block
+    holds 128 of the ``fixed_rows`` rows of its fixed operand and walks
+    the 128-row tiles b, b + split, ... of the other's ``walk_rows`` rows
+    (slice b), for each of ``kblocks`` blocks of right-hand sides.  With
+    ``fixed_b`` (K2; K1's pass (b) at K 1; no blocks of right-hand sides)
+    consumer c takes rows 64c .. 64c + 63 of each walked tile; otherwise
+    (K1's pass (a), pass (b) at K > 1) both consumers walk the same tiles
+    and consumer c takes the fixed rows 64c .. 64c + 63."""
+    tiles, fixed_tiles = -(-walk_rows // 128), -(-fixed_rows // 128)
+    walks = []
+    for x in range(fixed_tiles * split * (1 if fixed_b else kblocks)):
+        if fixed_b:
+            (ft, b), kz = divmod(x, split), 0
+        else:
+            ft, rest = x % fixed_tiles, x // fixed_tiles
+            b, kz = rest % split, rest // split
+        count = (tiles - 1 - b) // split + 1 if b < tiles else 0
+        first = (128 * b, 128 * b + 64) if fixed_b else (128 * b, 128 * b)
+        walks.append(DenseWalk(128 * ft, first, 128 * split,
+                               (count, count), (b, b), kz))
+    return walks

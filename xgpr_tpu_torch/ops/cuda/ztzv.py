@@ -31,8 +31,11 @@ launches count as ("exact", "float64"), ``launch_tags``): K is 1 in a
 fit's CG and 26 in SLQ's.  Two calls on the same inputs give the same
 bits.  ``launch_plan`` is the wrapper's block arithmetic (right-hand sides
 a block, the splits of the walks, the launches of each pass), plain
-Python that the CPU tests hold; any K is taken (past MAX_GRID_Z blocks of
-right-hand sides a pass goes in several launches).
+Python that the CPU tests hold; any K is taken (the 3xTF32 body's grids
+are 1-D; the others' pass goes in several launches past MAX_GRID_Z blocks
+of right-hand sides).  ``launcher`` returns the prepared launch apart
+from the wrapper's checks and preparation (what a timing of the kernel
+alone calls).
 """
 from collections import Counter, namedtuple
 
@@ -59,24 +62,25 @@ MAX_GRID_Z = 65535
 LaunchPlan = namedtuple("LaunchPlan", "blocks zsplit osplit launches")
 
 
-def launch_plan(rhs, n, f, k, sms):
+def launch_plan(rhs, n, f, k, sms, body):
     """How one call on R = n rows, F = f frequencies and K = k right-hand
-    sides is launched on ``sms`` SMs when a block carries ``rhs`` of them
-    (the library's xgpr_ztzv_rhs_per_block for the call's body and K, the
-    same in both passes: 1 at K 1 in float32, else 8 up to K 8, then 16 in
-    3xTF32 and 32 in bf16 and float64, so float64 at SLQ's K 26 projects
-    once a pass): ``blocks`` blocks of right-hand sides along grid
-    z in each pass; pass (a) splits each row tile's frequency tiles over
-    ``zsplit`` blocks and pass (b) each frequency tile's row tiles over
-    ``osplit``, the counts that fill the SMs in the fewest waves
+    sides is launched in ``body`` on ``sms`` SMs when a block carries
+    ``rhs`` of them (the library's xgpr_ztzv_rhs_per_block for the call's
+    body and K, the same in both passes: 1 at K 1 in float32, else 8 up to
+    K 8, then 16 in 3xTF32 and 32 in bf16 and float64, so float64 at
+    SLQ's K 26 projects once a pass): ``blocks`` blocks of right-hand
+    sides in each pass; pass (a) splits each row tile's frequency tiles
+    over ``zsplit`` blocks and pass (b) each frequency tile's row tiles
+    over ``osplit``, the counts that fill the SMs in the fewest waves
     (``tile_split``); ``launches`` launches of each pass carry the blocks,
-    at most MAX_GRID_Z each."""
+    at most MAX_GRID_Z each, but one in 3xTF32, whose grids are 1-D
+    (csrc/dense_tf32.cuh)."""
     blocks = -(-k // rhs)
     row_tiles, f_tiles = -(-n // TILE), -(-f // TILE)
     return LaunchPlan(blocks,
                       tile_split(f_tiles, row_tiles * blocks, sms, 16),
                       tile_split(row_tiles, f_tiles * blocks, sms, 32),
-                      -(-blocks // MAX_GRID_Z))
+                      1 if body == "tf32x3" else -(-blocks // MAX_GRID_Z))
 
 
 def ztzv_parts_plain(x, m, proj, sigma, v_c, v_s, fit_intercept, mode=None,
@@ -119,6 +123,18 @@ def ztzv_parts(x, m, proj, sigma, v_c, v_s, fit_intercept, mode=None,
                                 mode, precision)
     if x.device.type != "cuda":
         raise ValueError(f"ztzv_parts: no kernel for {x.device}.")
+    return launcher(x, m, proj, sigma, v_c, v_s, fit_intercept, mode,
+                    precision)()
+
+
+def launcher(x, m, proj, sigma, v_c, v_s, fit_intercept, mode=None,
+             precision=None):
+    """The kernel launch of one ``ztzv_parts`` call on CUDA operands,
+    prepared: a function of no arguments that launches the three kernels
+    on the current stream, counts the launch and returns (oc, os)."""
+    n, d = x.shape
+    f = proj.shape[1]
+    k = v_c.shape[1]
     dtype, (x, m, proj, v_c, v_s) = cuda_operands("ztzv_parts", x, m, proj,
                                                   v_c, v_s)
     mode = kernel_mode(mode)
@@ -126,10 +142,11 @@ def ztzv_parts(x, m, proj, sigma, v_c, v_s, fit_intercept, mode=None,
     body = kernel_body("K1", dtype, precision)
     opts = dict(dtype=dtype, device=x.device)
     if n == 0 or f == 0:
-        return torch.zeros((f, k), **opts), torch.zeros((f, k), **opts)
+        return lambda: (torch.zeros((f, k), **opts),
+                        torch.zeros((f, k), **opts))
     lib = build.library()
     plan = launch_plan(lib.xgpr_ztzv_rhs_per_block(BODY_FLAGS[body], k, 0),
-                       n, f, k, sm_count(x.device.index))
+                       n, f, k, sm_count(x.device.index), body)
     xh, xl = kernel_planes(pad_depth(x, depth_multiple(body)), body)
     ph, pl = projT_planes(proj, body)
     zv_part = torch.empty((plan.zsplit, n, k), **opts)
@@ -137,16 +154,20 @@ def ztzv_parts(x, m, proj, sigma, v_c, v_s, fit_intercept, mode=None,
     os_part = torch.empty((plan.osplit, f, k), **opts)
     oc = torch.empty((f, k), **opts)
     os_ = torch.empty((f, k), **opts)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.xgpr_ztzv(
-            xh.data_ptr(), data_ptr(xl), m.data_ptr(), ph.data_ptr(),
-            data_ptr(pl), float(sigma), v_c.data_ptr(), v_s.data_ptr(),
-            zv_part.data_ptr(), oc_part.data_ptr(), os_part.data_ptr(),
-            oc.data_ptr(), os_.data_ptr(), n, xh.shape[1], f, k, plan.zsplit,
-            plan.osplit, rbf_norm_constant(f, fit_intercept),
-            int(bool(fit_intercept)), kernel_sincos_flag(mode),
-            BODY_FLAGS[body], stream)
-    build.check(rc, "ztzv kernel")
-    LAUNCHES[(n, d, f, k) + launch_tags(dtype, mode, precision)] += 1
-    return oc, os_
+    key = (n, d, f, k) + launch_tags(dtype, mode, precision)
+
+    def launch():
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            rc = lib.xgpr_ztzv(
+                xh.data_ptr(), data_ptr(xl), m.data_ptr(), ph.data_ptr(),
+                data_ptr(pl), float(sigma), v_c.data_ptr(), v_s.data_ptr(),
+                zv_part.data_ptr(), oc_part.data_ptr(), os_part.data_ptr(),
+                oc.data_ptr(), os_.data_ptr(), n, xh.shape[1], f, k,
+                plan.zsplit, plan.osplit, rbf_norm_constant(f, fit_intercept),
+                int(bool(fit_intercept)), kernel_sincos_flag(mode),
+                BODY_FLAGS[body], stream)
+        build.check(rc, "ztzv kernel")
+        LAUNCHES[key] += 1
+        return oc, os_
+    return launch
