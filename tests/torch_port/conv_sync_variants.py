@@ -199,7 +199,9 @@ _SYNC_ZERO = """  unsigned char* smem = ring_base(smem_raw);
   for (int i = threadIdx.x; i < S * Tile::STAGE / 16; i += THREADS)
     reinterpret_cast<int4*>(smem)[i] = make_int4(0, 0, 0, 0);
 """
-_FMA_LOOP = "#pragma unroll 8\n    for (int k = 0; k < KS; ++k) {\n"
+# The fp32 register tile's depth loop (fma_gemm.cuh: fma_step).
+FMA_H = "xgpr_tpu_torch/ops/cuda/csrc/fma_gemm.cuh"
+_FMA_LOOP = "#pragma unroll 8\n  for (int k = 0; k < KS; ++k) fma_channel("
 VARIANTS = {
     "base": [],
     "nofold": [(SYNC, _FOLD, _SYNC_SINK)],
@@ -230,10 +232,10 @@ VARIANTS = {
     "ahead": [(SYNC, "  while (q < S - 2 && q < nsteps) issue();\n",
                "  while (q < S - 1 && q < nsteps) issue();\n")],
     # The fp32 products' depth loop unrolled by 4 or 32, not 8.
-    "unroll4": [(SYNC, _FMA_LOOP,
-                 "#pragma unroll 4\n    for (int k = 0; k < KS; ++k) {\n")],
-    "unroll32": [(SYNC, _FMA_LOOP,
-                  "#pragma unroll\n    for (int k = 0; k < KS; ++k) {\n")],
+    "unroll4": [(FMA_H, _FMA_LOOP,
+                 "#pragma unroll 4\n  for (int k = 0; k < KS; ++k) fma_channel(")],
+    "unroll32": [(FMA_H, _FMA_LOOP,
+                  "#pragma unroll\n  for (int k = 0; k < KS; ++k) fma_channel(")],
 }
 
 

@@ -61,6 +61,8 @@ import conv_ws_variants as wsv  # noqa: E402
 ROOT = Path.cwd()
 CONV = "xgpr_tpu_torch/ops/cuda/csrc/conv.cuh"
 GEMM = "xgpr_tpu_torch/ops/cuda/csrc/tf32_gemm.cuh"
+# This tree's shared header (the timeline's counters).
+CSRC_COMMON = "xgpr_tpu_torch/ops/cuda/csrc/gemm_common.cuh"
 CONV_TU = "xgpr_tpu_torch/ops/cuda/csrc/conv.cu"
 TF32 = "xgpr_tpu_torch/ops/cuda/csrc/conv_tf32.cuh"
 
@@ -226,7 +228,7 @@ extern "C" int xgpr_span_tf32(unsigned long long* host) {
 }
 """
 _TIMELINE = [
-    (GEMM, "namespace xgpr {\n", csv._TL_DECL),
+    (CSRC_COMMON, "namespace xgpr {\n", csv._TL_DECL),
     (TF32, "namespace xgpr {\n", _SPAN_DECL),
     (CONV_TU, "using namespace xgpr::conv;\n",
      "using namespace xgpr::conv;\n" + csv._reader("tf32") + _SPAN_READER),

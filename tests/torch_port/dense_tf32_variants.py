@@ -1,50 +1,59 @@
-"""Split and time K1 and K2's 3xTF32 bodies on the card.
+"""Split and time K1 and K2's dense bodies on the card: 3xTF32 (K1, K2),
+bf16 (K1, ``--body bf16``) and fp32 FMAs (K2, ``--body fma32``).
 
 Each variant is a copy of a tree's package and chip_smoke.py under
 build/variants/<name> whose sources take one named set of patches
-(below).  A copy builds only a small entry file this script writes
-(the 3xTF32 branches of ``xgpr_ztzv``, ``xgpr_ztzv_rhs_per_block`` and
-``xgpr_feature_map``, over the tree's headers), so a build
-takes seconds, not the minutes of the whole library.  All builds run
-side by side (``-Xptxas -v``: every variant prints the registers, spills
-and stack of its kernels); then each variant times, in a process of its
-own, the launch alone (the C entry point on operands prepared as the
-wrappers prepare them; CUDA events, 2 x 20 calls after a warm-up) at
+(below).  A copy builds only a small entry file this script writes (the
+body's branches of ``xgpr_ztzv``, ``xgpr_ztzv_rhs_per_block`` and
+``xgpr_feature_map``, over the tree's headers; for bf16 and fp32 FMAs in
+this tree also the body's own translation unit), so a build takes
+seconds to a minute, not the minutes of the whole library.  All builds
+run side by side (``-Xptxas -v``: every variant prints the registers,
+spills and stack of its kernels); then each variant times, in a process
+of its own, the launch alone (the C entry point on operands prepared as
+the wrappers prepare them; CUDA events, 2 x 20 calls after a warm-up) at
 chip_smoke.py's shapes and prints one line:
 
     VARIANT <name> K1 K=1 hi <ms>/<ms> | K1 K=1 exact ... | K1 K=26 ... |
         K1 F16384 K=1 ... | K1 F16384 K=5 ... | K2 D84 ... | K2 D1024 ...
 
-K1 runs slice A's chunk (8192 x 84 rows, F 4096) at K 1 in "hi" and in
-"exact" (the 3xTF32 body of "highest") and at K 26, and E2(b)'s width
-(F 16384) at K 1 and 5; K2 slice A's rows (padded 128), Conv1dTwoLayer's
-second layer (8192 x 1024 rows, F 2048, padded 1024), and slice A's rows
-at the tuning width (F 1024), the auxiliary tools' (F 2048, no
-intercept) and E2(b)'s (F 16384).
-The base variants also print each output's error against the plain
-version and a SHA-256 of its bits.
+3xTF32: K1 runs slice A's chunk (8192 x 84 rows, F 4096) at K 1 in "hi"
+and in "exact" (the 3xTF32 body of "highest") and at K 26, and E2(b)'s
+width (F 16384) at K 1 and 5; K2 slice A's rows (padded 128),
+Conv1dTwoLayer's second layer (8192 x 1024 rows, F 2048, padded 1024),
+and slice A's rows at the tuning width (F 1024), the auxiliary tools'
+(F 2048, no intercept) and E2(b)'s (F 16384).  bf16: K1 at K 1 and 26,
+"fast" (the "max" preset's) and "hi".  fp32 FMAs: K2 at D 84 "exact"
+(the "reference" preset's) and "hi", and at D 1024 "exact".  The base
+variants also print each output's error against the plain version and a
+SHA-256 of its bits.
 
 From the root of a checkout on the card:
 
-    python tests/torch_port/dense_tf32_variants.py [name ...]
-    python tests/torch_port/dense_tf32_variants.py --parent DIR [name ...]
-    python tests/torch_port/dense_tf32_variants.py --time <label>
+    python tests/torch_port/dense_tf32_variants.py [--body B] [name ...]
+    python tests/torch_port/dense_tf32_variants.py [--body B] --parent DIR [name ...]
+    python tests/torch_port/dense_tf32_variants.py [--body B] --time <label>
+    python tests/torch_port/dense_tf32_variants.py --stress
 
-``--parent DIR`` splits the tree at DIR as it was before the redesign
-(both bodies on tf32_gemm.cuh's 3-stage cp.async ring, e.g. ``git
-archive c2803c7 | tar -x -C build/parent``; PARENT_VARIANTS): as it is,
-with the fold (the sincos), the projections, K1's contractions, K2's
-stores or the copies compiled out, and a clock64 timeline (thread 0 of
-every block: the share of its cycles in the copy wait and barrier, the
-copies' issue, the epilogue and the products).  Without it this tree's
-pipeline (csrc/dense_tf32.cuh; VARIANTS) is timed as it is (``base``)
-and with the fold compiled out (``nofold``).  ``--time <label>`` times
-the package of the working directory (the launch alone and the whole
-wrapper, 2 x 20 calls each, the host's time to issue a wrapper call, and
-each output's error and SHA-256), so that two trees are compared in
-turns in one call: ``(cd build/parent && python
-../../tests/torch_port/dense_tf32_variants.py --time parent)``, then the
-root, the root again and the parent.
+``--parent DIR`` splits an older tree: for 3xTF32 a tree from before
+dense_tf32.cuh (both bodies on tf32_gemm.cuh's 3-stage cp.async ring,
+e.g. ``git archive c2803c7 | tar -x -C build/parent``;
+PARENT_VARIANTS), for bf16 and fp32 FMAs the ring those two bodies kept
+until 5cf5d0c (RING_PARENT_VARIANTS): as it is, with the fold (the
+sincos), the projections, K1's contractions, K2's stores or the copies
+compiled out, and a clock64 timeline (thread 0 of every block: the share
+of its cycles in the copy wait and barrier, the copies' issue, the
+epilogue and the products).  Without it this tree's bodies
+(csrc/dense_wgmma.cuh, csrc/feature_map_fma.cu; VARIANTS) are timed as
+they are (``base``), with the fold compiled out (``nofold``) or with one
+of the named changes of VARIANTS.  ``--time <label>`` times the package
+of the working directory (the launch alone and the whole wrapper, 2 x 20
+calls each, the host's time to issue a wrapper call, and each output's
+error and SHA-256), so that two trees are compared in turns in one call:
+``(cd build/parent && python ../../tests/torch_port/dense_tf32_variants.py
+--time parent)``, then the root, the root again and the parent.
+``--stress`` calls K1 300 times in each float32 body, mode and K and
+checks the bits stay the first call's.
 """
 import hashlib
 import subprocess
@@ -64,6 +73,7 @@ GEMM = CSRC + "tf32_gemm.cuh"
 ZTZV = CSRC + "ztzv.cuh"
 FEAT = CSRC + "feature_map.cuh"
 DENSE = CSRC + "dense_tf32.cuh"
+WGMMA = CSRC + "dense_wgmma.cuh"
 ENTRY_TU = CSRC + "tf32_entry.cu"
 SOURCES = ["tf32_entry.cu"]
 
@@ -228,20 +238,239 @@ PARENT_VARIANTS = {
                          + csv_._reader("k2"))],
 }
 
+# --- the parent's ring bodies (5cf5d0c: K1's bf16 passes in ztzv.cuh and
+# K2's fp32 FMA kernel in feature_map.cuh, both on tf32_gemm.cuh's
+# gemm_loop and dense_pipeline; fma_gemm.cuh's fma_products) --------------
+FMA = CSRC + "fma_gemm.cuh"
+_RING_BF16_PRODUCTS = """#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_bf16(acc, ah + 2 * kk, bh + 2 * kk, kk > 0 || !overwrite);
+"""
+_RING_FMA_PRODUCTS = "    fma_products(a, b, acc, overwrite);\n"
+_RING_MMA_BF16 = "    mma_bf16(d.main, a.hi, b.hi[0], b.hi[1]);\n"
+_RING_K2_STORES = """                store2(o + col, c0, c1);
+                store2(o + col + width, s0, s1);
+"""
+_RING_COPY = """    cp_async16(dst + sw128(lr + 32 * q, lc),
+               static_cast<const char*>(src) + off, ok);
+"""
+_RING_ZEROED_BASE = """__device__ __forceinline__ unsigned char* ring_base(unsigned char* raw) {
+  unsigned char* p =
+      raw + ((1024 - ((unsigned)__cvta_generic_to_shared(raw) & 1023)) & 1023);
+  for (int i = threadIdx.x; i < STAGES * (A_BYTES + B_BYTES) / 16;
+       i += blockDim.x)
+    reinterpret_cast<int4*>(p)[i] = make_int4(0, 0, 0, 0);
+  __syncthreads();
+  return p;
+}
+"""
+RING_PARENT_VARIANTS = {
+    "parent": [],
+    "parent_nofold": [(COMMON, _WITH_SINCOS, _NO_SINCOS)],
+    # The products compiled out, the accumulators kept opaque.
+    "parent_noproducts": [
+        (GEMM, _RING_BF16_PRODUCTS, "    (void)ah;\n    (void)bh;\n"),
+        (GEMM, _RING_FMA_PRODUCTS,
+         "    (void)a;\n    (void)b;\n    (void)overwrite;\n"
+         "    fence_acc(acc);\n")],
+    # K1's contractions: the K 1 passes' FMAs and the tensor-core
+    # contractions' mma.sync each one add a value.
+    "parent_nocontract": [
+        (ZTZV, _K1_ZV_ONE, "              part[h][q] += c + s;\n"),
+        (ZTZV, _K1_OUT_ONE, "                oc[2 * j + e] += c;\n"
+                            "                os[2 * j + e] += s;\n"),
+        (ZTZV, _RING_MMA_BF16,
+         "    for (int r = 0; r < 4; ++r)\n"
+         "      d.main[r] += __uint_as_float(a.hi[r]) +\n"
+         "                   __uint_as_float(b.hi[r % 2]);\n")],
+    # K2's stores kept live behind a test no value passes.
+    "parent_nostores": [(FEAT, _RING_K2_STORES,
+                         "                if (c0 == -1.25e30f) {\n"
+                         + _RING_K2_STORES + "                }\n")],
+    # The ring's cp.async copies and K1's staging loads compiled out; the
+    # ring zeroed once.
+    "parent_nocopies": [
+        (GEMM, _RING_COPY, "    (void)off;\n    (void)ok;\n"),
+        (GEMM, _RING_BASE, _RING_ZEROED_BASE),
+        (ZTZV, _CP4, "  (void)d;\n  (void)src;\n  (void)valid;\n"),
+        (ZTZV, _K1_ONE_STAGE, "        vcs[i % 3][e] = T(0);\n"
+                              "        vss[i % 3][e] = T(0);\n"
+                              "        (void)ok;\n        (void)at;\n"),
+        (ZTZV, _K1_OUT_STAGE, "            mr = T(1);\n"),
+        (ZTZV, _K1_MMA_OUT_STAGE, "")],
+    # thread 0's clock64 split of gemm_loop: wait and barrier, copy issue
+    # (bf16: and the wait for the step's products), epilogue, products
+    # (bf16: their issue).
+    "parent_timeline": [(GEMM, "namespace xgpr {\n", csv_._TL_DECL),
+                        (GEMM, csv_._PARENT_LOOP, csv_._TIMED_LOOP),
+                        (ENTRY_TU, "using namespace xgpr;\n",
+                         "using namespace xgpr;\n" + csv_._reader("k1")
+                         + csv_._reader("k2"))],
+}
+
+# The bf16 and fp32 FMA branches of the parent's C entry points.
+RING_PARENT_ENTRY = """#include "ztzv.cuh"
+#include "feature_map.cuh"
+
+using namespace xgpr;
+
+extern "C" int xgpr_ztzv(const void* x_hi, const void* x_lo, const void* m,
+                         const void* proj_hi, const void* proj_lo,
+                         double sigma, const void* vc, const void* vs,
+                         void* zv_part, void* oc_part, void* os_part,
+                         void* oc, void* os, int n, int dp, int f, int k,
+                         int zsplit, int osplit, double scale, int intercept,
+                         int mode, int body, void* stream) {
+  if (body != FMT_BF16) return (int)cudaErrorInvalidValue;
+  const DenseOperands p{x_hi, x_lo, proj_hi, proj_lo, n, dp, f};
+  const ztzv::ZtzvArgs<float> a{static_cast<const float*>(m),
+                                static_cast<const float*>(vc),
+                                static_cast<const float*>(vs), (float)sigma,
+                                (float)scale, k, intercept};
+  return ztzv::launch<FMT_BF16>(
+      p, a, static_cast<float*>(zv_part), static_cast<float*>(oc_part),
+      static_cast<float*>(os_part), static_cast<float*>(oc),
+      static_cast<float*>(os), zsplit, osplit, mode, (cudaStream_t)stream);
+}
+
+extern "C" int xgpr_ztzv_rhs_per_block(int body, int k, int pass) {
+  (void)pass;
+  return k == 1 ? 1 : 8 * ztzv::mma_nt(body, k);
+}
+
+extern "C" int xgpr_feature_map(const void* x_hi, const void* x_lo,
+                                const void* proj_hi, const void* proj_lo,
+                                void* out, int n, int dp, int f, int padded,
+                                double scale, int mode, int body, int rsplit,
+                                void* stream) {
+  if (body != FMT_FMA32) return (int)cudaErrorInvalidValue;
+  const DenseOperands p{x_hi, x_lo, proj_hi, proj_lo, n, dp, f};
+  const features::FeatureArgs<float> a{static_cast<float*>(out), padded,
+                                       (float)scale};
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (mode) {
+    case MODE_HI: return features::launch<FMT_FMA32, MODE_HI>(p, a, rsplit, st);
+    case MODE_EXACT:
+      return features::launch<FMT_FMA32, MODE_EXACT>(p, a, rsplit, st);
+    case MODE_FAST:
+      return features::launch<FMT_FMA32, MODE_FAST>(p, a, rsplit, st);
+    default: return features::launch<FMT_FMA32, MODE_POLY>(p, a, rsplit, st);
+  }
+}
+"""
+
 # --- this tree's pipeline (csrc/dense_tf32.cuh) ------------------------------
 _STAGED = "  const bool staged = has_omap && tile_blk >= 0 && f0 + B_ROWS <= p.f &&"
-_RSPLIT = "    rsplit = tile_split(row_tiles, f_tiles, sm_count(x.device.index), 64)"
+_RSPLIT = "    rsplit = tile_split(row_tiles, f_tiles, slots, 64)"
 VARIANTS = {
     "base": [],
     "nofold": [(COMMON, _WITH_SINCOS, _NO_SINCOS)],
     # K2's tiles all stored from the fragment, not by TMA boxes.
-    "nostage": [(DENSE, _STAGED, _STAGED.replace("has_omap &&",
+    "nostage": [(WGMMA, _STAGED, _STAGED.replace("has_omap &&",
                                                  "false && has_omap &&"))],
     # K2's row tiles split over at least two blocks a frequency tile.
     "rsplit2": [(CSRC + "../feature_map.py", _RSPLIT,
                  _RSPLIT.replace("rsplit = tile_split", "rsplit = max(2, "
                                  "tile_split") + ")")],
 }
+
+# --- this tree's fp32 FMA feature map (csrc/feature_map_fma.cu) and the
+# bf16 instantiations of dense_wgmma.cuh ---------------------------------
+FMAF = CSRC + "feature_map_fma.cu"
+_FMA_PRODUCTS = """      if (kn == KS)
+        fma_step<KS>(as + rb, TILE, 4, bs + b_at, TILE, F_RUN, acc);
+      else
+        fma_step_n(as + rb, TILE, 4, bs + b_at, TILE, F_RUN, kn, acc);
+"""
+_FMA_STORES = """          *reinterpret_cast<float4*>(o + col) =
+              make_float4(cv[0], cv[1], cv[2], cv[3]);
+          *reinterpret_cast<float4*>(o + col + width) =
+              make_float4(sv[0], sv[1], sv[2], sv[3]);
+"""
+_BF16_PRODUCTS = """      wgmma_bf16(acc, ah + 2 * kk, bh + 2 * kk, kk > 0 || !overwrite);
+"""
+_ZV_ONE = "              part[h] = fma_t(cv, vcf, fma_t(sv, vsf, part[h]));\n"
+_OUT_ONE = """            oc[2 * j + e] = fma_t(cv, zr[h], oc[2 * j + e]);
+            os[2 * j + e] = fma_t(sv, zr[h], os[2 * j + e]);
+"""
+_ZV_COPY1 = """        ztzv::cp_async4(vc + tid, (tid < B_ROWS ? a.vc : a.vs) + at, ok);
+"""
+_ZV_COPY = """          ztzv::cp_async4(vc + ztzv::staged_at(q, cc), a.vc + at, ok);
+          ztzv::cp_async4(vs + ztzv::staged_at(q, cc), a.vs + at, ok);
+"""
+_OUT_FILL = """        ztzv::cp_async4(zt + ztzv::staged_at(q, cc), zv + at, ok);
+"""
+_OUT1_STAGE = """      zr[h] = as_operand<FMT>(ok ? zv[(size_t)r * a.k] : 0.0f);
+      mr[h] = ok ? a.m[r] : 0.0f;
+"""
+_WS = ("constexpr int ZV_WS = 3;", "constexpr int OUT1_WS = 3;",
+       "constexpr int OUTM_WS = 3;")
+VARIANTS.update({
+    # K2's FMA products compiled out, the accumulators kept opaque.
+    "fma_noproducts": [(FMAF, _FMA_PRODUCTS,
+                        "      (void)kn;\n      (void)as;\n      (void)bs;\n"
+                        "      fence_acc(acc);\n")],
+    # Its 16-byte runs kept live behind a test no value passes.
+    "fma_nostores": [(FMAF, _FMA_STORES,
+                      "          if (cv[0] == -1.25e30f) {\n" + _FMA_STORES
+                      + "          }\n")],
+    # A thread's 8 frequencies adjacent (two 16-byte stores 32 bytes
+    # apart a warp: half-sectors), B's chunks permuted so a quarter warp's
+    # loads stay contiguous.
+    "fma_runs8": [
+        (FMAF, "  const int b_at = 64 * (q % 2) + 4 * tx;",
+         "  const int b_at = 4 * (16 * (q % 2) + tx);"),
+        (FMAF, "  const int fb = f0 + b_at;",
+         "  const int fb = f0 + 64 * (q % 2) + 8 * tx;"),
+        (FMAF, "  const int b_dst = A_BYTES + (q * TILE + 4 * lane) * 4;",
+         "  const int b_dst = A_BYTES + (q * TILE + 4 * (16 * (lane / 16) + "
+         "8 * (lane % 2) + (lane % 16) / 2)) * 4;"),
+        (FMAF, "constexpr int F_RUN = 32;", "constexpr int F_RUN = 4;")],
+    # "exact" over the whole tile at once (64 inlined sincosf, not 8).
+    "fma_exact64": [(FMAF, "    if constexpr (MODE == MODE_EXACT) {",
+                     "    if constexpr (false) {")],
+    # Steps of 32 channels, 3 stages.
+    "fma_ks32": [(FMAF, "constexpr int KS = 16; ", "constexpr int KS = 32; "),
+                 (FMAF, "constexpr int STAGES = 6;", "constexpr int STAGES = 3;")],
+    # One block an SM on 12 stages.
+    "fma_minb1": [(FMAF, "constexpr int MIN_BLOCKS = 2; ",
+                   "constexpr int MIN_BLOCKS = 1; "),
+                  (FMAF, "constexpr int STAGES = 6;",
+                   "constexpr int STAGES = 12;"),
+                  (CSRC + "../feature_map.py", "FMA_BLOCKS_PER_SM = 2",
+                   "FMA_BLOCKS_PER_SM = 1")],
+    # K1 bf16: its products, contractions or staged operands compiled out;
+    # six walk stages (bf16's boxes are half 3xTF32's).
+    "bf16_noproducts": [(WGMMA, _BF16_PRODUCTS, "      (void)ah;\n")],
+    "bf16_nocontract": [
+        (WGMMA, _ZV_ONE, "              part[h] += cv + sv;\n"),
+        (WGMMA, _OUT_ONE, "            oc[2 * j + e] += cv;\n"
+                          "            os[2 * j + e] += sv;\n"),
+        (ZTZV, _RING_MMA_BF16,
+         "    for (int r = 0; r < 4; ++r)\n"
+         "      d.main[r] += __uint_as_float(a.hi[r]) +\n"
+         "                   __uint_as_float(b.hi[r % 2]);\n")],
+    "bf16_nostage": [
+        (WGMMA, _ZV_COPY1, "        (void)at;\n"),
+        (WGMMA, _ZV_COPY, "          (void)at;\n"),
+        (WGMMA, _OUT_FILL, "        (void)at;\n"),
+        (WGMMA, _OUT1_STAGE, "      zr[h] = 0.0f;\n      mr[h] = 1.0f;\n"
+                             "      (void)ok;\n")],
+    "bf16_ws6": [(WGMMA, w, w.replace("3;", "6;")) for w in _WS],
+    # The sincos of the tensor-core zv pass (K > 1) or of the out pass
+    # alone replaced by two operations a value.
+    "bf16_stubzv": [(WGMMA, """                sincos(acc[4 * (JS * u + jj) + 2 * h + e] * a.sigma, wrow[h],
+                       &cv[jj][h][e], &sv[jj][h][e]);
+""", """                (void)sincos, cv[jj][h][e] = acc[4 * (JS * u + jj) + 2 * h + e] *
+                                        wrow[h],
+                sv[jj][h][e] = acc[4 * (JS * u + jj) + 2 * h + e] + wrow[h];
+""")],
+    "bf16_stubout": [(WGMMA, """              sincos(acc[4 * j + 2 * h + e] * a.sigma, wr, &cv[jj][h][e],
+                     &sv[jj][h][e]);
+""", """              (void)sincos, cv[jj][h][e] = acc[4 * j + 2 * h + e] * wr;
+              sv[jj][h][e] = acc[4 * j + 2 * h + e] + wr;
+""")],
+})
 
 # The same branches of this tree's entry points, on dense_tf32.cuh.
 ENTRY = """#include "dense_tf32.cuh"
@@ -292,17 +521,80 @@ extern "C" int xgpr_feature_map(const void* x_hi, const void* x_lo,
 """
 
 
-def entry_for(src):
-    """The entry file of a tree: this tree's when it has dense_tf32.cuh,
-    else the parent's."""
-    return ENTRY if (src / DENSE).exists() else PARENT_ENTRY
+# This tree's bf16 and fp32 FMA branches: the bodies' own translation
+# units (ztzv_bf16.cu, feature_map_fma.cu) built as they are, beside an
+# entry file that calls them: K1's branch, then K2's.
+RING_ENTRY = """#include "ztzv.cuh"
+
+using namespace xgpr;
+
+extern "C" int xgpr_ztzv(const void* x_hi, const void* x_lo, const void* m,
+                         const void* proj_hi, const void* proj_lo,
+                         double sigma, const void* vc, const void* vs,
+                         void* zv_part, void* oc_part, void* os_part,
+                         void* oc, void* os, int n, int dp, int f, int k,
+                         int zsplit, int osplit, double scale, int intercept,
+                         int mode, int body, void* stream) {
+  if (body != FMT_BF16) return (int)cudaErrorInvalidValue;
+  const DenseOperands p{x_hi, x_lo, proj_hi, proj_lo, n, dp, f};
+  const ztzv::ZtzvArgs<float> a{static_cast<const float*>(m),
+                                static_cast<const float*>(vc),
+                                static_cast<const float*>(vs), (float)sigma,
+                                (float)scale, k, intercept};
+  return ztzv::launch_bf16(
+      p, a, static_cast<float*>(zv_part), static_cast<float*>(oc_part),
+      static_cast<float*>(os_part), static_cast<float*>(oc),
+      static_cast<float*>(os), zsplit, osplit, mode, (cudaStream_t)stream);
+}
+
+extern "C" int xgpr_ztzv_rhs_per_block(int body, int k, int pass) {
+  (void)pass;
+  return k == 1 ? 1 : 8 * ztzv::mma_nt(body, k);
+}
+"""
+# K2's branch, alone (each body's variants build its own unit only).
+RING_ENTRY_K2 = """#include "feature_map.cuh"
+
+using namespace xgpr;
+
+extern "C" int xgpr_feature_map(const void* x_hi, const void* x_lo,
+                                const void* proj_hi, const void* proj_lo,
+                                void* out, int n, int dp, int f, int padded,
+                                double scale, int mode, int body, int rsplit,
+                                void* stream) {
+  if (body != FMT_FMA32) return (int)cudaErrorInvalidValue;
+  const DenseOperands p{x_hi, x_lo, proj_hi, proj_lo, n, dp, f};
+  const features::FeatureArgs<float> a{static_cast<float*>(out), padded,
+                                       (float)scale};
+  return features::launch_fma32(p, a, mode, rsplit, (cudaStream_t)stream);
+}
+"""
+# The trees: those before dense_tf32.cuh (every float32 body on
+# tf32_gemm.cuh's ring, c2803c7 and earlier), those with it (3xTF32 on it,
+# bf16 and fp32 FMAs on the ring, 5cf5d0c) and later ones (3xTF32 and bf16
+# on dense_wgmma.cuh, fp32 FMAs on a register tile of their own).
 
 
-def make(src, name, patches):
+def entry_for(src, body):
+    """(entry file, translation units to build) of a tree for ``body``."""
+    if (src / WGMMA).exists():
+        if body == "tf32x3":
+            return ENTRY.replace('"dense_tf32.cuh"', '"dense_wgmma.cuh"') \
+                .replace("dtf32::launch_k1(", "dense::launch_k1<FMT_TF32X3>(") \
+                .replace("dtf32::", "dense::"), SOURCES
+        if body == "bf16":
+            return RING_ENTRY, SOURCES + ["ztzv_bf16.cu"]
+        return RING_ENTRY_K2, SOURCES + ["feature_map_fma.cu"]
+    if body != "tf32x3":
+        return RING_PARENT_ENTRY, SOURCES
+    return (ENTRY if (src / DENSE).exists() else PARENT_ENTRY), SOURCES
+
+
+def make(src, name, patches, body="tf32x3"):
     entry = [p for p in patches if p[0] == ENTRY_TU]
     rest = [p for p in patches if p[0] != ENTRY_TU]
-    dst = wsv.make(src, name, rest, SOURCES)
-    text = entry_for(src)
+    text, sources = entry_for(src, body)
+    dst = wsv.make(src, name, rest, sources)
     for _, old, new in entry:
         text = text.replace(old, new, 1)
     (dst / ENTRY_TU).write_text(text)
@@ -314,10 +606,41 @@ def sha(tensors):
                                    for a in tensors)).hexdigest()[:12]
 
 
-def cases():
-    """(label, launch alone, wrapper, plain outputs) of each timed row,
-    on the package of the working directory: the launch through the
-    wrapper's ``launcher`` where the tree has one, else through the
+def ring_cases(body, t, rng, p1, p2, xr, m, sigma, rbf, two):
+    """The bf16 body's K1 rows ("default": K 1 and 26, "fast" and "hi") or
+    the fp32 FMA body's K2 rows ("highest": D 84 "exact" and "hi", D
+    1024 "exact"), through the wrappers' launchers."""
+    from xgpr_tpu_torch.ops.cuda import feature_map, ztzv
+    out = []
+    if body == "bf16":
+        for label, k, mode in (("K1 K=1 fast", 1, "fast"),
+                               ("K1 K=1 hi", 1, "hi"),
+                               ("K1 K=26 fast", 26, "fast"),
+                               ("K1 K=26 hi", 26, "hi")):
+            vc = t(rng.standard_normal((p1.shape[1], k)))
+            vs = t(rng.standard_normal((p1.shape[1], k)))
+            args = (xr, m, p1, sigma, vc, vs, True, mode, "default")
+            out.append((label, ztzv.launcher(*args),
+                        lambda args=args: ztzv.ztzv_parts(*args),
+                        ztzv.ztzv_parts_plain(*args)))
+        return out
+    x_tab = t(rng.standard_normal((xr.shape[0], p1.shape[0])) * 0.5)
+    x_two = t(rng.random((xr.shape[0], p2.shape[0])) * 0.1)
+    for label, xk, pr, padded, mode in (
+            ("K2 D84 exact", x_tab, p1, rbf.padded_dims, "exact"),
+            ("K2 D84 hi", x_tab, p1, rbf.padded_dims, "hi"),
+            ("K2 D1024 exact", x_two, p2, two._feature_padded, "exact")):
+        args = (xk, pr, True, padded, mode, "highest")
+        out.append((label, lambda f=feature_map.launcher(*args): (f(),),
+                    lambda args=args: (feature_map.rbf_feature_map(*args),),
+                    (feature_map.rbf_feature_map_plain(*args),)))
+    return out
+
+
+def cases(body="tf32x3"):
+    """(label, launch alone, wrapper, plain outputs) of each timed row of
+    ``body``, on the package of the working directory: the launch through
+    the wrapper's ``launcher`` where the tree has one, else through the
     parent's C entry points on the operands its wrappers prepare."""
     import numpy as np
     import torch
@@ -351,6 +674,8 @@ def cases():
     m = t((rng.random(cs.CHUNK) > 0.25).astype(np.float32))
     out = []
     new = hasattr(ztzv, "launcher")
+    if body != "tf32x3":
+        return lib, ring_cases(body, t, rng, p1, p2, xr, m, sigma, rbf, two)
 
     for label, pr, k, mode, precision in (
             ("K1 K=1 hi", p1, 1, "hi", "high"),
@@ -424,7 +749,7 @@ def cases():
     return lib, out[:4] + out[5:] + out[4:5]   # E2(b)'s K 5 last
 
 
-def timing(name, wrapper=False):
+def timing(name, wrapper=False, body="tf32x3"):
     """Runs in a variant's copy (or, with ``wrapper``, in a tree): each
     launch alone, twice 20 calls, and with ``wrapper`` the whole wrapper
     too; the base variants also check and hash the outputs, the timeline
@@ -433,13 +758,14 @@ def timing(name, wrapper=False):
     sys.path.insert(0, str(Path.cwd()))
     import torch
     import chip_smoke as cs
-    lib, launches = cases()
+    lib, launches = cases(body)
     rows, notes = [], []
 
     def twice(fn):
         return "/".join(f"{cs.time_ms(torch, fn, reps=20):.4f}"
                         for _ in range(2))
     for label, fn, wrap, want in launches:
+        print("CASE", name, label, file=sys.stderr, flush=True)
         row = f"{label} {twice(fn)}"
         if wrapper:
             row += f" wrapper {twice(wrap)}"
@@ -484,23 +810,68 @@ def timing(name, wrapper=False):
         print("CHECK", name, note, flush=True)
 
 
+def stress(calls=300):
+    """K1 in its 3xTF32 and bf16 bodies, "fast" and "hi", at K 1, 5, 9,
+    26, 33 and 64 on slice A's chunk: ``calls`` calls each, checked every
+    50 against the first call's bits; one line a case (a hang shows as
+    the last line printed)."""
+    sys.path.insert(0, str(Path.cwd()))
+    import numpy as np
+    import torch
+    from xgpr_tpu_torch.ops.cuda import ztzv
+    rng = np.random.default_rng(0)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device="cuda")
+    x, m = t(rng.standard_normal((8192, 84))), t(rng.random(8192) > 0.25)
+    proj = t(rng.standard_normal((84, 4096)) * 0.3)
+    for precision in ("default", "high"):
+        for mode in ("fast", "hi"):
+            for k in (26, 1, 9, 33, 64, 5):
+                vc, vs = (t(rng.standard_normal((4096, k))) for _ in "cs")
+                args = (x, m, proj, 0.05, vc, vs, True, mode, precision)
+                first = ztzv.ztzv_parts(*args)
+                same = True
+                for it in range(calls):
+                    out = ztzv.ztzv_parts(*args)
+                    if it % 50 == 49:
+                        torch.cuda.synchronize()
+                        same = same and all(torch.equal(a, b)
+                                            for a, b in zip(out, first))
+                torch.cuda.synchronize()
+                print("STRESS", precision, mode, f"K={k}", calls, "calls",
+                      "bitwise", same, flush=True)
+
+
 def main(argv):
+    body = "tf32x3"
+    if argv == ["--stress"]:
+        stress()
+        return
+    if "--body" in argv:
+        at = argv.index("--body")
+        body = argv[at + 1]
+        argv = argv[:at] + argv[at + 2:]
+        if body not in ("tf32x3", "bf16", "fma32"):
+            raise SystemExit(f"unknown body {body!r}")
     if len(argv) > 1 and argv[0] == "--time":
-        timing(argv[1], wrapper=True)
+        timing(argv[1], wrapper=True, body=body)
         return
     if len(argv) > 1 and argv[0] == "--variant":
-        timing(argv[1])
+        timing(argv[1], body=body)
         return
     if len(argv) > 1 and argv[0] == "--build":
         dfv.build_variant(argv[1])
         return
     if argv and argv[0] == "--parent":
-        src, table = Path(argv[1]).resolve(), PARENT_VARIANTS
+        src = Path(argv[1]).resolve()
+        table = PARENT_VARIANTS if body == "tf32x3" or \
+            (src / WGMMA).exists() else RING_PARENT_VARIANTS
         names = argv[2:] or list(table)
     else:
         src, table = ROOT, VARIANTS
         names = argv or list(table)
-    dirs = {n: make(src, n, table[n]) for n in names}
+    dirs = {n: make(src, n, table[n], body) for n in names}
     built = dfv.build_all(dirs)
     for n, d in dirs.items():
         if not built[n]:
@@ -508,7 +879,8 @@ def main(argv):
             continue
         try:
             subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                            "--variant", n], cwd=d, check=False, timeout=300)
+                            "--variant", n, "--body", body], cwd=d,
+                           check=False, timeout=150)
         except subprocess.TimeoutExpired:
             print("VARIANT", n, "timed out", flush=True)
 

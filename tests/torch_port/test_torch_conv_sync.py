@@ -3,7 +3,7 @@ and its tiles' index arithmetic, on the CPU.
 
 The wrapper lays x out for the fp32 body with the rows in tile order and
 last (``conv.sync_layout``) and pads proj's frequencies to 16 bytes
-(``conv.sync_proj``); the float64 body reads x with its channels padded to
+(``operands.pad_freqs``); the float64 body reads x with its channels padded to
 an even count and projT's cached plane.  Each is held against
 ``row_order`` / ``pad_operands``.  Then the kernel's walk is replayed in
 numpy, copy by copy: each block's window groups and depth steps, each
@@ -58,7 +58,7 @@ def test_sync_layout_puts_the_tile_rows_last(n, l, d):
 def test_sync_proj_pads_frequencies_to_16_bytes(f):
     proj = torch.as_tensor(np.random.default_rng(f).standard_normal((12, f)),
                            dtype=torch.float32)
-    got = conv.sync_proj(proj)
+    got = operands.pad_freqs(proj)
     fp = -(-f // 4) * 4
     assert got.shape == (12, fp) and got.is_contiguous()
     assert torch.equal(got[:, :f], proj)
@@ -88,7 +88,7 @@ def _fma_projections(x, lens, proj, width):
     xt = conv.sync_layout(x, order).numpy().ravel()
     rows = order.numpy()
     nrows = -(-n // SEQ) * SEQ
-    pr = conv.sync_proj(proj)
+    pr = operands.pad_freqs(proj)
     fp = pr.shape[1]
     pr = pr.numpy().ravel()
     ids = np.arange(4 * THREADS)

@@ -168,28 +168,43 @@ def test_ztzv_kernel_is_deterministic(cuda, n, d, f, k):
         assert torch.equal(a, b)
 
 
-# The edges of K1 and K2's 3xTF32 pipeline (csrc/dense_tf32.cuh): K2's
+# The edges of K1 and K2's pipeline (csrc/dense_wgmma.cuh: 3xTF32 for both,
+# bf16 for K1) and of K2's fp32 FMA body (csrc/feature_map_fma.cu): K2's
 # stores by TMA boxes (a ragged last block, staged at its own width) and
 # from the fragment (blocks narrower than a tile or not a multiple of 128
-# wide, an odd F, whose output has no tensor map), rows past the last
-# 64-row half, D past the resident three lines (D 200, 1024; the fixed
-# tile then streams through its own ring); K1 at K 1 (one-rhs folds), 8,
-# 9, 16, 17, 26 and 64 (one or two n8 tiles, one or more blocks of right-
-# hand sides), ragged rows and F off the tile, with and without the
-# intercept column, deep D, and splits whose last pair has one slice.
+# wide, an odd F, whose output has no tensor map), the FMA body's 16-byte
+# runs and its value-by-value stores (blocks of 6, F not a multiple of
+# 4), rows past the last 64-row half, D past the resident lines (D 200,
+# 1024; the fixed tile then streams through its own ring; the FMA body's
+# ragged last 16-channel step); K1 at K 1 (one-rhs folds), 8, 9, 16, 17,
+# 26 and 64 (one or two n8 tiles in 3xTF32, up to four in bf16, one or
+# more blocks of right-hand sides), ragged rows and F off the tile, with
+# and without the intercept column, deep D, and splits whose last pair has
+# one slice; every sincos mode in the bf16 and FMA bodies; each call
+# twice, the same bits.
 DENSE_TF32_K2 = [(257, 84, 384, 256), (300, 84, 512, 64),
                  (130, 84, 640, 320), (65, 84, 201, 256),
-                 (200, 200, 256, 128), (100, 1024, 384, 128)]
+                 (200, 200, 256, 128), (100, 1024, 384, 128),
+                 (129, 17, 36, 6), (70, 84, 130, 128)]
+# (precision, sincos mode): the 3xTF32 body in "hi", the others in each.
+K2_BODIES = [("high", "hi")] + [("highest", m) for m in MODES]
+K1_BODIES = [("high", "hi")] + [("default", m) for m in MODES]
 
 
+@pytest.mark.parametrize("precision,mode", K2_BODIES)
+@pytest.mark.parametrize("intercept", [False, True])
 @pytest.mark.parametrize("n,d,f,padded", DENSE_TF32_K2)
-def test_dense_tf32_feature_map_edges(cuda, n, d, f, padded):
+def test_dense_tf32_feature_map_edges(cuda, precision, mode, intercept, n, d,
+                                      f, padded):
     rng = np.random.default_rng(3 * n + f)
     x = _t(rng.standard_normal((n, d)) * 0.3, cuda)
     proj = _t(rng.standard_normal((d, f)) * 0.3, cuda)
-    got = feature_map.rbf_feature_map(x, proj, True, padded, "hi", "high")
-    again = feature_map.rbf_feature_map(x, proj, True, padded, "hi", "high")
-    want = feature_map.rbf_feature_map_plain(x, proj, True, padded, "hi")
+    got = feature_map.rbf_feature_map(x, proj, intercept, padded, mode,
+                                      precision)
+    again = feature_map.rbf_feature_map(x, proj, intercept, padded, mode,
+                                        precision)
+    want = feature_map.rbf_feature_map_plain(x, proj, intercept, padded,
+                                             mode)
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) < 1e-5
     assert torch.equal(got, again)
@@ -200,17 +215,20 @@ DENSE_TF32_K1 = [(257, 84, 300, k) for k in (1, 8, 9, 16, 17, 26, 64)] + [
     (130, 1024, 200, 26), (70, 84, 129, 5)]
 
 
+@pytest.mark.parametrize("precision,mode", K1_BODIES)
 @pytest.mark.parametrize("intercept", [False, True])
 @pytest.mark.parametrize("n,d,f,k", DENSE_TF32_K1)
-def test_dense_tf32_ztzv_edges(cuda, intercept, n, d, f, k):
+def test_dense_tf32_ztzv_edges(cuda, precision, mode, intercept, n, d, f, k):
     x, m, proj, vc, vs = _ztzv_inputs(cuda, n, d, f, k)
-    got = ztzv.ztzv_parts(x, m, proj, 0.7, vc, vs, intercept, "hi", "high")
-    again = ztzv.ztzv_parts(x, m, proj, 0.7, vc, vs, intercept, "hi",
-                            "high")
-    want = ztzv.ztzv_parts_plain(x, m, proj, 0.7, vc, vs, intercept, "hi",
-                                 "high")
+    got = ztzv.ztzv_parts(x, m, proj, 0.7, vc, vs, intercept, mode,
+                          precision)
+    again = ztzv.ztzv_parts(x, m, proj, 0.7, vc, vs, intercept, mode,
+                            precision)
+    want = ztzv.ztzv_parts_plain(x, m, proj, 0.7, vc, vs, intercept, mode,
+                                 precision)
     torch.cuda.synchronize()
-    tol = 1e-4 * max(1.0, float(want[0].abs().max()),
+    rtol = K1_DEFAULT_RTOL if precision == "default" else 1e-4
+    tol = rtol * max(1.0, float(want[0].abs().max()),
                      float(want[1].abs().max()))
     for a, b, c in zip(got, want, again):
         assert float((a - b).abs().max()) < tol

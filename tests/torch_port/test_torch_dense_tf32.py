@@ -1,10 +1,12 @@
-"""K1 and K2's 3xTF32 body (csrc/dense_tf32.cuh): its host-side plan and
-its walk's index arithmetic, on the CPU.
+"""K1 and K2's 3xTF32 bodies and K1's bf16 body (csrc/dense_wgmma.cuh, one
+pipeline over the format): the host-side plan and the walk's index
+arithmetic, on the CPU, for each body.
 
-The plan (``ztzv.launch_plan`` in "tf32x3", K2's ``tile_split``) and the
-blocks' walks (``operands.dense_walks``, the kernels' own arithmetic) must
-give every (fixed tile, walked tile) of K2 and of each K1 pass to exactly
-one consumer of one block, for several cards.  Then the pipeline is
+The plan (``ztzv.launch_plan`` in "tf32x3" and "bf16", K2's
+``tile_split``) and the blocks' walks (``operands.dense_walks``, the
+kernels' own arithmetic) must give every (fixed tile, walked tile) of K2
+and of each K1 pass to exactly one consumer of one block, for several
+cards.  Then the pipeline is
 replayed in numpy block by block: each consumer's thread 0 filling its
 own ring (a stage again once the consumer has freed it; with a fixed A
 tile consumer 0's filling the one ring both read) and consumer 0's
@@ -13,16 +15,23 @@ reads at the fill indices and parities the kernel computes, its release
 of a line once the next is issued, and consumer 1 waiting for consumer
 0's first tile; the replay fails on a box read from the wrong fill, a
 stage refilled before it is freed, or a consumer that stops (a
-deadlock).  The replayed projections (lo*hi +
-hi*lo + hi*hi of the boxes, with TMA's zero fill) must equal x @ proj
-less the dropped lo*lo term at float64 roundoff.  Last, K1's partial sums
-in the kernel's partition and order (per slice over its tiles, slices in
-order) and K2's stores to the block [cos | sin] layout (the staged boxes
-and the fragment stores) are replayed in float32 and held against
-``xgpr_tpu``'s Pallas kernels in interpret mode (``_ztzv_parts_impl`` at
-3e-5 * max(1, |ref|), ``_rbf_feature_map_impl`` at 1e-5).  What only the
+deadlock); a line is 32 channels in 3xTF32 and 64 in bf16, so the rings
+turn at other depths.  The replayed projections (3xTF32: lo*hi + hi*lo +
+hi*hi of the boxes; bf16: the products of the bf16 planes' boxes; with
+TMA's zero fill) must equal x @ proj less the dropped lo*lo term, or the
+product of the bf16-rounded operands, at float64 roundoff.  Last, K1's
+partial sums in the kernel's partition and order (per slice over its
+tiles, slices in order; bf16 rounding c, s, v_c / v_s and the summed zv
+where the kernel does) and K2's stores to the block [cos | sin] layout
+(the staged boxes and the fragment stores) are replayed in float32 and
+held against ``xgpr_tpu``'s Pallas kernels in interpret mode
+(``_ztzv_parts_impl`` at 3e-5 * max(1, |ref|) in 3xTF32; under "default",
+which interpret mode on the CPU computes in fp32, at 4 * 2^-8 of max|ref|,
+and against the port's plain bf16 version at 1e-4 of it, ROADMAP.md's
+bf16 tolerances; ``_rbf_feature_map_impl`` at 1e-5).  What only the
 card can show is in test_torch_cuda_kernels.py.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,24 +39,30 @@ import torch
 
 from xgpr_tpu.ops.pallas.sorf_pallas import (pad_operands,
                                              rbf_feature_map_pallas)
+from xgpr_tpu import config as jax_config
 from xgpr_tpu.ops.pallas.ztzv_pallas import ztzv_parts_pallas
 from xgpr_tpu_torch.ops.cuda import feature_map, operands, ztzv
 from xgpr_tpu_torch.ops.sorf import rbf_norm_constant
 
-# csrc/dense_tf32.cuh: channels a line, the deepest resident fixed tile,
-# the fixed ring's stages, each consumer's walk stages by kernel.
-CH, RES_K, F_STAGES = 32, 3, 3
+# csrc/dense_wgmma.cuh: channels a line by body, the deepest resident
+# fixed tile, the fixed ring's stages, each consumer's walk stages by
+# kernel.
+CH = {"tf32x3": 32, "bf16": 64}
+RES_K, F_STAGES = 3, 3
 WS = {"k2": 2, "out1": 3, "zv1": 3, "zvm": 3, "outm": 3}
+BODIES = sorted(CH)
 
 
-def _rhs(k):
-    return 1 if k == 1 else 8 if k <= 8 else 16
+def _rhs(k, body="tf32x3"):
+    """xgpr_ztzv_rhs_per_block: 1 at K 1, 8 up to K 8, then 16 (3xTF32) or
+    32 (bf16)."""
+    return 1 if k == 1 else 8 if k <= 8 else 32 if body == "bf16" else 16
 
 
-def _passes(n, f, k, sms):
+def _passes(n, f, k, sms, body="tf32x3"):
     """(kernel, fixed_b, fixed rows, walked rows, split, kblocks) of K1's
     two passes under launch_plan."""
-    plan = ztzv.launch_plan(_rhs(k), n, f, k, sms, "tf32x3")
+    plan = ztzv.launch_plan(_rhs(k, body), n, f, k, sms, body)
     zv = ("zv1" if k == 1 else "zvm", False, n, f, plan.zsplit, plan.blocks)
     if k == 1:
         return plan, [zv, ("out1", True, f, n, plan.osplit, 1)]
@@ -59,10 +74,11 @@ PLAN_SHAPES = [(8192, 4096, 1), (8192, 4096, 26), (8192, 16384, 5),
                (1, 1, 1), (1000, 500, 64), (40, 16, 2)]
 
 
+@pytest.mark.parametrize("body", BODIES)
 @pytest.mark.parametrize("n,f,k", PLAN_SHAPES)
 @pytest.mark.parametrize("sms", [132, 66, 7, 1])
-def test_k1_walks_cover_every_tile_pair_once(n, f, k, sms):
-    plan, passes = _passes(n, f, k, sms)
+def test_k1_walks_cover_every_tile_pair_once(n, f, k, sms, body):
+    plan, passes = _passes(n, f, k, sms, body)
     assert plan.launches == 1
     for kind, fixed_b, fixed_rows, walk_rows, split, kb in passes:
         walks = operands.dense_walks(fixed_b, fixed_rows, walk_rows, split,
@@ -237,12 +253,14 @@ RING_CASES = [  # (kind, fixed rows, walked rows, split, kblocks, dp)
 ]
 
 
-@pytest.mark.parametrize("kind,fixed_rows,walk_rows,split,kb,dp",
-                         RING_CASES)
+# K2 has no bf16 body (xgpr_tpu's feature map pins HIGHEST).
+@pytest.mark.parametrize("body,kind,fixed_rows,walk_rows,split,kb,dp", [
+    (body,) + case for body in BODIES for case in RING_CASES
+    if body == "tf32x3" or case[0] != "k2"])
 def test_ring_replay_has_no_early_reuse_and_no_deadlock(
-        kind, fixed_rows, walk_rows, split, kb, dp):
+        body, kind, fixed_rows, walk_rows, split, kb, dp):
     fixed_b = kind in ("k2", "out1")
-    kc = -(-dp // CH)
+    kc = -(-dp // CH[body])
     walks = operands.dense_walks(fixed_b, fixed_rows, walk_rows, split, kb)
     for w in walks[:40]:
         reads = replay(w, kc, WS[kind], not fixed_b)
@@ -250,30 +268,52 @@ def test_ring_replay_has_no_early_reuse_and_no_deadlock(
             assert reads[c] == list(range(w.counts[c]))
 
 
-def _box(a, r0, rows, kk):
-    """Rows r0 .. r0 + rows - 1 of a (rows, dp) operand, channels 32 kk ..
-    32 kk + 31, zeros past its end (the TMA box's fill)."""
-    out = np.zeros((rows, CH))
-    part = a[r0:r0 + rows, CH * kk:CH * kk + CH]
+def _box(a, r0, rows, kk, ch=32):
+    """Rows r0 .. r0 + rows - 1 of a (rows, dp) operand, channels ch kk ..
+    ch kk + ch - 1 (one line), zeros past its end (the TMA box's fill)."""
+    out = np.zeros((rows, ch))
+    part = a[r0:r0 + rows, ch * kk:ch * kk + ch]
     out[:part.shape[0], :part.shape[1]] = part
     return out
 
 
-@pytest.mark.parametrize("fixed_b,n,f,d,split", [
-    (True, 300, 200, 84, 2), (False, 300, 200, 84, 3),
-    (True, 130, 260, 140, 1), (False, 200, 130, 140, 2)])
-def test_replayed_projections_are_the_split_products(fixed_b, n, f, d,
+def _planes(x, proj, body):
+    """The (hi, lo) planes of x and proj^T the body's boxes read, float64
+    (bf16: one plane, lo zero)."""
+    m = operands.depth_multiple(body)
+    xp = operands.kernel_planes(operands.pad_depth(x, m), body)
+    pp = operands.projT_planes(proj, body)
+    out = []
+    for hi, lo in (xp, pp):
+        hi = hi.double().numpy()
+        out.append((hi, np.zeros_like(hi) if lo is None else
+                    lo.double().numpy()))
+    return out
+
+
+@pytest.mark.parametrize("body,fixed_b,n,f,d,split", [
+    ("tf32x3", True, 300, 200, 84, 2), ("tf32x3", False, 300, 200, 84, 3),
+    ("tf32x3", True, 130, 260, 140, 1), ("tf32x3", False, 200, 130, 140, 2),
+    ("bf16", True, 300, 200, 84, 2), ("bf16", False, 300, 200, 84, 3),
+    ("bf16", False, 200, 130, 200, 2), ("bf16", True, 130, 260, 140, 1)])
+def test_replayed_projections_are_the_split_products(body, fixed_b, n, f, d,
                                                      split):
+    """3xTF32: x @ proj less the dropped lo*lo term; bf16: the product of
+    the bf16-rounded operands (bf16's lo planes are zero, so the same
+    three terms reduce to hi*hi)."""
     rng = np.random.default_rng(n + f + d)
     x = torch.as_tensor(rng.standard_normal((n, d)), dtype=torch.float32)
     proj = torch.as_tensor(rng.standard_normal((d, f)) * 0.3,
                            dtype=torch.float32)
-    xh, xl = (a.double().numpy() for a in operands.kernel_planes(
-        operands.pad_depth(x, 4), "tf32x3"))
-    ph, pl = (a.double().numpy() for a in operands.projT_planes(proj,
-                                                                "tf32x3"))
-    kc = -(-xh.shape[1] // CH)
-    want = (xh + xl) @ (ph + pl).T - xl @ pl.T         # less lo*lo
+    (xh, xl), (ph, pl) = _planes(x, proj, body)
+    ch = CH[body]
+    kc = -(-xh.shape[1] // ch)
+    if body == "bf16":
+        xb = x.to(torch.bfloat16).double().numpy()
+        pb = proj.to(torch.bfloat16).double().numpy()
+        want = xb @ pb                                   # rounded operands
+    else:
+        want = (xh + xl) @ (ph + pl).T - xl @ pl.T      # less lo*lo
     fixed, walk = ((ph, pl), (xh, xl)) if fixed_b else ((xh, xl), (ph, pl))
     for w in operands.dense_walks(fixed_b, (f if fixed_b else n),
                                   (n if fixed_b else f), split):
@@ -284,9 +324,9 @@ def test_replayed_projections_are_the_split_products(fixed_b, n, f, d,
                 fr0 = w.fixed0 if fixed_b else w.fixed0 + 64 * c
                 acc = 0.0
                 for kk in range(kc):
-                    fb = [_box(p, fr0, 128 if fixed_b else 64, kk)
+                    fb = [_box(p, fr0, 128 if fixed_b else 64, kk, ch)
                           for p in fixed]
-                    wb = [_box(p, row, 64 if fixed_b else 128, kk)
+                    wb = [_box(p, row, 64 if fixed_b else 128, kk, ch)
                           for p in walk]
                     ah, al = wb if fixed_b else fb
                     bh, bl = fb if fixed_b else wb
@@ -306,20 +346,32 @@ def _sincos32(arg, w):
         (np.sin(arg) * w).astype(np.float32)
 
 
-def k1_replay(x, m, proj, sigma, vc, vs, intercept, sms):
-    """oc, os in K1's 3xTF32 partition and order, float32: pass (a)'s
+def _bf16(a):
+    """a rounded to bf16 (to nearest even, as the kernels' as_operand and
+    bf16x2), float32."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def k1_replay(x, m, proj, sigma, vc, vs, intercept, sms, body="tf32x3"):
+    """oc, os in K1's partition and order in ``body``, float32: pass (a)'s
     partial zv per slice over its tiles in walk order, summed in slice
-    order; pass (b)'s per slice likewise; the slices summed in order."""
+    order; pass (b)'s per slice likewise; the slices summed in order.  In
+    bf16 the projection's operands, c and s (after the mask, scale and
+    intercept), v_c / v_s and the summed zv are rounded to bf16 as the
+    kernel rounds them."""
     n, f = x.shape[0], proj.shape[1]
     k = vc.shape[1]
-    rhs = _rhs(k)
-    plan = ztzv.launch_plan(rhs, n, f, k, sms, "tf32x3")
-    arg = ((x.astype(np.float64) @ proj.astype(np.float64)).astype(
-        np.float32) * np.float32(sigma)).astype(np.float32)
+    rhs = _rhs(k, body)
+    rnd = _bf16 if body == "bf16" else (lambda a: a)
+    plan = ztzv.launch_plan(rhs, n, f, k, sms, body)
+    arg = ((rnd(x).astype(np.float64) @ rnd(proj).astype(np.float64))
+           .astype(np.float32) * np.float32(sigma)).astype(np.float32)
     scale = np.float32(rbf_norm_constant(f, intercept))
     c, s = _sincos32(arg, (m * scale)[:, None])
     if intercept:
         c[:, 0] = m
+    c, s, vc, vs = rnd(c), rnd(s), rnd(vc), rnd(vs)
     zv_part = np.zeros((plan.zsplit, n, k), dtype=np.float32)
     for w in operands.dense_walks(False, n, f, plan.zsplit, plan.blocks):
         q = slice(rhs * w.kz, rhs * w.kz + rhs)    # the block's rhs
@@ -333,6 +385,7 @@ def k1_replay(x, m, proj, sigma, vc, vs, intercept, sms):
     zv = np.zeros((n, k), dtype=np.float32)
     for p in zv_part:
         zv += p
+    zv = rnd(zv)
     oc_part = np.zeros((plan.osplit, f, k), dtype=np.float32)
     os_part = np.zeros_like(oc_part)
     fixed_b = k == 1
@@ -354,9 +407,12 @@ def k1_replay(x, m, proj, sigma, vc, vs, intercept, sms):
     return oc, os_
 
 
+K1_SHAPES = [(300, 84, 256, 1), (257, 84, 300, 26), (200, 140, 130, 9),
+             (128, 10, 512, 3)]
+
+
 @pytest.mark.parametrize("intercept", [False, True])
-@pytest.mark.parametrize("n,d,f,k", [(300, 84, 256, 1), (257, 84, 300, 26),
-                                     (200, 140, 130, 9), (128, 10, 512, 3)])
+@pytest.mark.parametrize("n,d,f,k", K1_SHAPES)
 def test_k1_replayed_order_matches_pallas(intercept, n, d, f, k):
     rng = np.random.default_rng(n * 5 + f + k)
     x = rng.standard_normal((n, d)).astype(np.float32)
@@ -372,6 +428,56 @@ def test_k1_replayed_order_matches_pallas(intercept, n, d, f, k):
     tol = 3e-5 * max(1.0, np.abs(oc_ref).max(), np.abs(os_ref).max())
     assert np.abs(oc - oc_ref).max() < tol
     assert np.abs(os_ - os_ref).max() < tol
+
+
+# ROADMAP.md's bf16 tolerances: 4 * 2^-8 of max|ref| for K1 with a sigma
+# that is not a power of two against an unrounded reference; 1e-3 of it
+# for K1's bf16 body against its plain version, which rounds c, s and zv
+# at the same points but sums in another fp32 order, so a value near a
+# bf16 rounding boundary can round apart (chip_smoke.py: K1_DEFAULT_RTOL).
+PHASE_RTOL, BODY_RTOL = 4 * 2.0 ** -8, 1e-3
+
+
+@pytest.fixture
+def default_precision():
+    """xgpr_tpu's feature precision at "default" (the TPU's DEFAULT dot),
+    restored after."""
+    saved = jax_config._FEATURE_PRECISION
+    jax_config.set_feature_precision("default")
+    try:
+        yield
+    finally:
+        jax_config.set_feature_precision(saved)
+
+
+@pytest.mark.parametrize("intercept", [False, True])
+@pytest.mark.parametrize("n,d,f,k", K1_SHAPES + [(300, 200, 256, 33)])
+def test_k1_bf16_replayed_order_matches_pallas(default_precision, intercept,
+                                               n, d, f, k):
+    """K1's bf16 partition and order against ``ztzv_parts_pallas`` at
+    "default" in interpret mode (fp32 products on the CPU: the bf16
+    rounding shows at PHASE_RTOL) and against the port's plain bf16
+    version, which rounds at the kernel's points (BODY_RTOL)."""
+    rng = np.random.default_rng(n * 7 + f + k)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    m = (rng.random(n) > 0.25).astype(np.float32)
+    proj = (rng.standard_normal((d, f)) * 0.3).astype(np.float32)
+    vc = rng.standard_normal((f, k)).astype(np.float32)
+    vs = rng.standard_normal((f, k)).astype(np.float32)
+    sigma = np.float32(0.7)
+    with jax.enable_x64(False):
+        oc_ref, os_ref = (np.asarray(a) for a in ztzv_parts_pallas(
+            jnp.asarray(x), jnp.asarray(m), jnp.asarray(proj), sigma,
+            jnp.asarray(vc), jnp.asarray(vs), intercept, f, interpret=True))
+    plain = ztzv.ztzv_parts_plain(*(torch.from_numpy(a) for a in (x, m, proj)),
+                                  float(sigma), torch.from_numpy(vc),
+                                  torch.from_numpy(vs), intercept, "hi",
+                                  "default")
+    got = k1_replay(x, m, proj, sigma, vc, vs, intercept, 7, "bf16")
+    for g, ref, pl in zip(got, (oc_ref, os_ref), plain):
+        top = np.abs(ref).max()
+        assert np.abs(g - ref).max() <= PHASE_RTOL * top
+        assert np.abs(g - pl.numpy()).max() <= BODY_RTOL * top
 
 
 def k2_replay(x, proj, intercept, padded, sms):

@@ -14,7 +14,10 @@ FORBIDDEN = ("jax", "jaxlib", "xgpr_tpu")
 FILES = sorted((ROOT / "xgpr_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py", ROOT / "million_point_torch.py",
      ROOT / "tests" / "torch_port" / "conv_tf32_variants.py",
-     ROOT / "tests" / "torch_port" / "dense_tf32_variants.py"]
+     ROOT / "tests" / "torch_port" / "dense_tf32_variants.py",
+     ROOT / "tests" / "torch_port" / "conv_sync_variants.py",
+     ROOT / "tests" / "torch_port" / "kernel_bits.py",
+     ROOT / "tests" / "torch_port" / "test_torch_cuda_kernels.py"]
 
 
 def _imported_modules(path):

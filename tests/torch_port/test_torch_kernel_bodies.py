@@ -42,7 +42,7 @@ def test_kernel_body(kernel, precision, dtype):
 
 
 def test_body_flags_are_the_formats():
-    """csrc/tf32_gemm.cuh: Format."""
+    """csrc/gemm_common.cuh: Format."""
     assert BODY_FLAGS == {"tf32x3": 0, "fma32": 1, "bf16": 2, "f64": 3}
 
 

@@ -84,7 +84,8 @@ def rhs_per_block(body, k):
 
 # launch_plan at slice A's chunk (8192 rows, F 4096) on the H100's 132
 # SMs: (blocks of right-hand sides, zsplit, osplit, launches of each
-# pass).  3xTF32's grids are 1-D (csrc/dense_tf32.cuh): one launch.
+# pass).  3xTF32's and bf16's grids are 1-D (csrc/dense_wgmma.cuh): one
+# launch.
 PLANS = {
     ("tf32x3", 1): (1, 2, 4, 1), ("bf16", 1): (1, 2, 4, 1),
     ("tf32x3", 8): (1, 2, 4, 1), ("bf16", 8): (1, 2, 4, 1),
@@ -110,11 +111,11 @@ def test_launch_plan(body, k):
 @pytest.mark.parametrize("body", ["tf32x3", "bf16", "f64"])
 def test_launch_plan_chunks_past_the_grid(body):
     """Past MAX_GRID_Z blocks of right-hand sides each pass launches again
-    (3xTF32's 1-D grids take them in one launch): K is not bounded by the
-    launch grid."""
+    (the 1-D grids of 3xTF32 and bf16 take them in one launch): K is not
+    bounded by the launch grid."""
     k = ztzv.MAX_GRID_Z * rhs_per_block(body, 100)
     assert ztzv.launch_plan(rhs_per_block(body, k), 40, 16, k,
                             132, body).launches == 1
     assert ztzv.launch_plan(rhs_per_block(body, k + 1), 40, 16, k + 1,
-                            132, body).launches == (1 if body == "tf32x3"
-                                                    else 2)
+                            132, body).launches == (
+        1 if body in ("tf32x3", "bf16") else 2)

@@ -17,18 +17,20 @@ Each sincos kernel has one instantiation per mode (csrc/common.cuh), so
 a source holds several large kernels; ``--split-compile=0`` optimises
 them on all the host's cores, which halves the build on an 8-core host
 (PERF.md).  The kernels also have one instantiation per body
-(csrc/tf32_gemm.cuh: Format), each body in its own source so that their
+(csrc/gemm_common.cuh: Format), each body in its own source so that their
 nvcc processes run side by side: the 3xTF32 body in ``feature_map.cu``,
 ``ztzv.cu`` and ``conv.cu`` (with the C entry points; K1/K2's TMA
-pipeline of ``dense_tf32.cuh``, K3/K4's of ``conv_tf32.cuh``), the bf16
-body in ``ztzv_bf16.cu`` and
+pipeline of ``dense_wgmma.cuh``, K3/K4's of ``conv_tf32.cuh``), the bf16
+body in ``ztzv_bf16.cu`` (K1 on ``dense_wgmma.cuh``'s pipeline) and
 ``conv_bf16.cu`` (K3/K4's TMA pipeline of ``conv_ws.cuh``, with its own
-entry points and the row layout of both pipelines, ``conv_layout.cuh``;
-they reach the driver's ``cuTensorMapEncodeTiled`` through the runtime,
-so nothing links libcuda), K3/K4's synchronous kernel (``conv_sync.cuh``) in
-``conv_fma.cu`` (fp32 FMAs, with its entry points) and ``conv_f64.cu``,
-and the float64 (DMMA) bodies of K1 and K2 in ``feature_map_f64.cu`` and
-``ztzv_f64.cu``.  No --use_fast_math: it would turn
+entry points and the row layout of both conv pipelines,
+``conv_layout.cuh``; the TMA pipelines reach the driver's
+``cuTensorMapEncodeTiled`` through the runtime, so nothing links
+libcuda), the fp32 FMA bodies on ``fma_gemm.cuh``'s register tile in
+``feature_map_fma.cu`` (K2's kernel) and ``conv_fma.cu`` (K3/K4's
+synchronous kernel, ``conv_sync.cuh``, with its entry points),
+``conv_f64.cu``, and the float64 (DMMA) bodies of K1 and K2 in
+``feature_map_f64.cu`` and ``ztzv_f64.cu``.  No --use_fast_math: it would turn
 sincosf into the inaccurate __sincosf.
 """
 import ctypes

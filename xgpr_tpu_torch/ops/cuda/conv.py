@@ -62,8 +62,9 @@ projT's planes come from the cache kept with proj
   lists the walks of both pipelines' blocks.
 - The synchronous bodies ("highest" fp32 FMAs and float64) are one kernel
   (csrc/conv_sync.cuh): ``sync_layout`` writes x for the fp32 body in
-  tile order transposed, each tile's sequences contiguous, ``sync_proj``
-  pads proj's frequencies to 16 bytes, and float64 reads x as
+  tile order transposed, each tile's sequences contiguous,
+  ``operands.pad_freqs`` (shared with K2's fp32 body) pads proj's
+  frequencies to 16 bytes, and float64 reads x as
   ``pad_operands`` pads it beside projT's cached plane.
 
 Any number of frequency tiles is taken: every body's grid is 1-D.
@@ -86,7 +87,8 @@ from .feature_map import (BODY_FLAGS, check_device, cuda_operands,
                           kernel_body, kernel_mode, kernel_precision,
                           kernel_sincos_flag, launch_tags)
 from .operands import (data_ptr, depth_multiple, kernel_planes, pad_depth,
-                       pad_windows, projT_planes, sm_count, tile_split)
+                       pad_freqs, pad_windows, projT_planes, sm_count,
+                       tile_split)
 
 PARTS_LAUNCHES = Counter()
 MAXPOOL_LAUNCHES = Counter()
@@ -290,17 +292,6 @@ def sync_layout(x, order):
     return x.permute(1, 2, 0).index_select(2, idx)
 
 
-def sync_proj(proj):
-    """The fp32 synchronous body's proj: (w*D, fp), the frequencies padded
-    by zeros to fp, the next multiple of 4 (16-byte rows); proj itself
-    when it is so and 16-byte aligned."""
-    f = proj.shape[1]
-    fp = -(-f // 4) * 4
-    if fp != f:
-        return F.pad(proj, (0, fp - f)).contiguous()
-    return proj.contiguous() if proj.data_ptr() % 16 == 0 else proj.clone()
-
-
 def _check_shapes(name, x, seq_lengths, proj, width):
     if x.dim() != 3 or proj.dim() != 2 or \
             proj.shape[0] != width * x.shape[2] or \
@@ -355,12 +346,12 @@ def _checked(name, kernel, x, seq_lengths, proj, precision, *more):
 def _sync_args(x, seq_lengths, proj, width, body):
     """The synchronous bodies' operands, as xgpr_conv_parts_sync /
     xgpr_conv_maxpool_sync take them: (x, order, nk, proj) (fp32:
-    ``sync_layout`` and ``sync_proj``; float64: x padded to an even channel
+    ``sync_layout`` and ``pad_freqs``; float64: x padded to an even channel
     count and projT's cached plane), (d, fp) the channels of x as laid out
     and proj's row stride, and the tensors to keep alive."""
     order, nk = row_order(seq_lengths, width, x.shape[1] - width + 1)
     if body == "fma32":
-        xs, pr = sync_layout(x, order), sync_proj(proj)
+        xs, pr = sync_layout(x, order), pad_freqs(proj)
         dims = (x.shape[2], pr.shape[1])
     else:
         xs = pad_depth(x, depth_multiple(body))

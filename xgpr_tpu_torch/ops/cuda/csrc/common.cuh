@@ -2,8 +2,8 @@
 // every kernel (feature_map.cu, ztzv.cu, conv.cu), one per sincos mode, and
 // the dispatch of the dense kernels' epilogues to a mode's polynomial
 // alone; float64's builtin evaluator; the swizzle of the shared tiles.
-// The GEMM bodies they share are in tf32_gemm.cuh (tensor cores) and
-// fma_gemm.cuh (CUDA cores).
+// The GEMM parts they share are in gemm_common.cuh (formats, copies,
+// wgmma) and fma_gemm.cuh (the CUDA cores' register tile).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -13,8 +13,8 @@ namespace xgpr {
 
 // Byte offset of 16-byte chunk c of row r in a tile of 128-byte rows in
 // the 128-byte swizzle, the layout wgmma's descriptors read
-// (tf32_gemm.cuh) and the CUDA-core body reads the same way
-// (fma_gemm.cuh).
+// (gemm_common.cuh: sw128_desc) and the float64 fragment loads read the
+// same way (dmma.cuh).
 __device__ __forceinline__ int sw128(int r, int c) {
   return r * 128 + ((c ^ (r % 8)) << 4);
 }

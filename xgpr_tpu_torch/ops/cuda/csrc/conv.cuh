@@ -53,7 +53,8 @@
 #include <stdint.h>
 
 #include "common.cuh"
-#include "tf32_gemm.cuh"
+#include "fma_gemm.cuh"
+#include "gemm_common.cuh"
 
 namespace xgpr {
 namespace conv {

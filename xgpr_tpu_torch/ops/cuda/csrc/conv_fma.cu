@@ -8,7 +8,7 @@ using namespace xgpr;
 using namespace xgpr::conv::sync;
 
 // x, proj and the other operands as conv_sync.cuh's Args lays them out
-// for the format `body` names (tf32_gemm.cuh: Format): FMT_FMA32 (float32
+// for the format `body` names (gemm_common.cuh: Format): FMT_FMA32 (float32
 // row_scale, outputs and sigma; fp the row stride of proj) or FMT_F64
 // (float64; the builtin sincos in every mode).  Any other body, and for
 // K3 any other sincos mode, is refused.

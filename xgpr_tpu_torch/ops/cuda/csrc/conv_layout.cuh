@@ -18,7 +18,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "tf32_gemm.cuh"
+#include "gemm_common.cuh"
 
 namespace xgpr {
 namespace conv {

@@ -70,6 +70,7 @@
 
 #include "conv.cuh"
 #include "dmma.cuh"
+#include "fma_gemm.cuh"
 #include "mbarrier.cuh"
 
 namespace xgpr {
@@ -174,29 +175,14 @@ struct FmaTile {
   }
 
   // The step's products: KS channels, one fmaf chain per accumulator
-  // (from the zero the kernel sets at each group's start).  Unrolled by 8
-  // channels, not 32: the whole step's 2,048 FMAs in straight-line code
-  // ran 10% slower on the card (PERF.md §6).
+  // (from the zero the kernel sets at each group's start), fma_gemm.cuh's
+  // 8 x 8 register tile: A's rows at sb and SEQ + sb of a channel's
+  // [window][sequence] row, B's frequencies at fb and fb + 32.
   __device__ __forceinline__ void products(const unsigned char* st,
                                            float acc[ACC]) const {
     const float* as = reinterpret_cast<const float*>(st);
     const float* bs = reinterpret_cast<const float*>(st + A_BYTES);
-#pragma unroll 8
-    for (int k = 0; k < KS; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(as + k * 128 + sb);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(as + k * 128 + SEQ + sb);
-      const float4 b0 = *reinterpret_cast<const float4*>(bs + k * BN + fb);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(bs + k * BN + fb + 32);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c)
-          acc[8 * r + c] = fmaf(a[r], b[c], acc[8 * r + c]);
-    }
+    fma_step<KS>(as + sb, PAIR * SEQ, SEQ, bs + fb, BN, 32, acc);
   }
 
   // Sequence i of the thread in its tile, and its frequency pair j

@@ -58,7 +58,7 @@
 //   tap-major, then channel lines, then k8 slices, then lo*hi, hi*lo,
 //   hi*hi (x's plane first), the group's first product overwriting, and
 //   the fold adds windows in order with the same sincos arithmetic, as the
-//   implicit GEMM on tf32_gemm.cuh's ring did.
+//   implicit GEMM it replaced did.
 #pragma once
 
 #include <cuda.h>
@@ -259,7 +259,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   auto before = [](int s, int n, int k) { return s >= k ? s - k : s + n - k; };
   uint32_t pq = 0, xq = 0;
   // Each window's first product overwrites its accumulators: zeroing them
-  // in the loop would serialise the products (tf32_gemm.cuh).
+  // in the loop would serialise the products.
   float acc[2][32];
 #pragma unroll
   for (int k = 0; k < 32; ++k) acc[0][k] = acc[1][k] = 0.0f;

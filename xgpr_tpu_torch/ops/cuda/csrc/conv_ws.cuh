@@ -9,7 +9,8 @@
 // What bounds it.  At the motif chunk (8192 rows, L 16, D 64, w 9, F
 // 4096) the valid windows need 173 GFLOP, 0.175 ms on the bf16 tensor
 // cores, against 0.09 ms for the bytes (268 MB of outputs).  The implicit
-// GEMM it replaced (tf32_gemm.cuh's shared ring) took 1.11 ms there (the
+// GEMM it replaced (a cp.async ring shared by the dense kernels, since
+// removed) took 1.11 ms there (the
 // launch alone; PERF.md §6): one block per SM behind a block barrier each
 // 64-deep step, projT re-read from L2 on every step (~1.5 GB a call of
 // 4.7 MB that are distinct), each x line read by 9 taps, and no product in
@@ -257,7 +258,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   constexpr uint64_t S_STEP = STREAM_STAGE / 16;
   uint32_t q0 = 0;  // ring fills of the earlier tiles
   // Each window's first product overwrites its accumulators: zeroing them
-  // in the loop would serialise the products (tf32_gemm.cuh).
+  // in the loop would serialise the products.
   float acc[2][32];
 #pragma unroll
   for (int k = 0; k < 32; ++k) acc[0][k] = acc[1][k] = 0.0f;

@@ -48,8 +48,8 @@
 #include <stdint.h>
 
 #include "dmma.cuh"
+#include "gemm_common.cuh"
 #include "mbarrier.cuh"
-#include "tf32_gemm.cuh"
 
 namespace xgpr {
 namespace f64 {

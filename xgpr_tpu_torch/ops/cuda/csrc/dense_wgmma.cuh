@@ -1,25 +1,33 @@
 // K1 and K2's 3xTF32 bodies ("high", under the "balanced" default; K1
-// also under "highest"), redesigned for Hopper: a warp-specialised TMA
-// pipeline whose two consumer warpgroups own whole tiles of a block's
-// walk, so that one warpgroup's fold (the sincos, K1's contractions, K2's
-// staging) runs while the other's products are in flight.  What the
+// also under "highest") and K1's bf16 body ("default", under the "max"
+// preset), redesigned for Hopper: a warp-specialised TMA pipeline whose
+// two consumer warpgroups own whole tiles of a block's walk, so that one
+// warpgroup's fold (the sincos, K1's contractions, K2's staging) runs
+// while the other's products are in flight.  One template over the
+// format (Fmt): the walks, rings, plan and epilogues are the same in
+// both; a line, its boxes and its products are the format's.  What the
 // kernels compute, and the TPU kernels they replace
 // (xgpr_tpu/ops/pallas/ztzv_pallas.py: _ztzv_kernel in _ztzv_parts_impl;
 // sorf_pallas.py: _feature_kernel in _rbf_feature_map_impl), is written in
 // ztzv.cuh and feature_map.cuh, with what bounds each on the card.
 //
 // The GEMM.  A consumer computes acc = A B^T for a tile of 64 A rows by
-// 128 B rows (wgmma.m64n128k8 in TF32, 64 accumulators a thread), one
-// 32-channel line of depth a step, and for each k8 slice of a line the
-// parent's three products lo*hi, hi*lo, hi*hi (A's plane first), the
-// tile's first product overwriting: the parent's products in the parent's
-// order (tf32_gemm.cuh's issue_products), so each accumulator holds the
-// parent's bits.  A is x's rows (K2, K1's pass (a) and K1's pass (b) at
-// K 1) or proj^T's (K1's pass (b) at K > 1, the operands swapped); B the
-// other.  The wrapper splits both into TF32 hi and lo planes; TMA reads
-// them from 2-D tensor maps in the 128-byte swizzle (a line of 64 A rows
-// is 16 KB with both planes, of 128 B rows 32 KB) and zero-fills rows past
-// the operand and depth past dp.
+// 128 B rows (64 accumulators a thread), one 128-byte line of depth a
+// step, the tile's first product overwriting, in the order the shared
+// cp.async ring these bodies ran on before used (issue_line), so each
+// accumulator holds that ring's bits:
+// - 3xTF32: a line is 32 channels in two planes, the wrapper's TF32 hi
+//   and lo splits, and each k8 slice of it three wgmma.m64n128k8 products
+//   lo*hi, hi*lo, hi*hi (A's plane first); a line of 64 A rows is 16 KB,
+//   of 128 B rows 32 KB;
+// - bf16: a line is 64 channels in one plane of bf16 values, and each
+//   32-byte slice of it one wgmma.m64n128k16; a line of 64 A rows is 8
+//   KB, of 128 B rows 16 KB, so RBF's D 84 is two lines and up to D 192
+//   (RES_K lines) the fixed tile stays resident.
+// A is x's rows (K2, K1's pass (a) and K1's pass (b) at K 1) or proj^T's
+// (K1's pass (b) at K > 1, the operands swapped); B the other.  TMA reads
+// the planes from 2-D tensor maps in the 128-byte swizzle and zero-fills
+// rows past the operand and depth past dp.
 //
 // The walk.  A block holds one fixed tile and walks tiles of the other
 // operand:
@@ -55,26 +63,31 @@
 //   together, as the parent's two warpgroups did, on TMA boxes in place
 //   of every thread's cp.async.
 // - consumer 0's thread 0 issues the fixed tile: up to RES_K = 3 lines
-//   (D 96; RBF's 84) once, resident; deeper, a box a line of every round
-//   into a ring of F_STAGES stages that both consumers free.
-// - a consumer waits for a line's boxes, issues its 12 products, and
+//   (D 96 in 3xTF32, 192 in bf16; RBF's 84) once, resident; deeper, a
+//   box a line of every round into a ring of F_STAGES stages that both
+//   consumers free.
+// - a consumer waits for a line's boxes, issues its products, and
 //   frees the line before once those are done (wgmma.wait_group 1); after
 //   a tile it waits for all, frees the last line and folds.
-// - K1's staged operands (v_c / v_s, or zv summed over pass (a)'s split
-//   and the mask) go into two slots.  With a fixed A tile both consumers
-//   read one copy, which the block's 256 threads stage a tile ahead
-//   (cp.async where no sum is needed) after the tile's first products are
-//   issued, into the slot the fold of the tile before read, behind a
-//   barrier of both consumers (bar.sync 3); at K 1 pass (b) each thread
-//   loads its two rows' zv and mask into registers.
+// - K1's staged operands (v_c / v_s, or zv and the mask) go into two
+//   slots.  With a fixed A tile both consumers read one copy, which the
+//   block's 256 threads stage by cp.async a tile ahead, after the tile's
+//   first products are issued, into the slot the fold of the tile before
+//   read, behind a barrier of both consumers (bar.sync 3); at K 1 pass
+//   (b) each thread loads its two rows' zv and mask into registers.  When
+//   the plan splits pass (a), a small launch between the passes sums its
+//   partials in slice order from zero, as the parent's pass (b) did while
+//   it staged each tile (every block again, with loads it waited on: the
+//   bf16 K 26 launch spent half its time there, PERF.md §6).
 //
-// Shared memory (232,448 bytes a block): the fixed region, 3 boxes of 128
-// rows (96 KB), the walk's ring(s), then each kernel's own: K2 224 KB
-// with 2 stages of 16 KB a consumer and its output staging (2 x 32 KB);
-// K1's pass (b) at K 1 200 KB with 3 stages a consumer and the 8 KB of
-// its cross-warp sums; pass (a) 193 KB (3 stages of 32 KB, K 1) or 224 KB
-// (two 16 KB slots of 16 right-hand sides); pass (b) at K > 1 209 KB (17
-// KB of slots).
+// Shared memory (232,448 bytes a block), in 3xTF32: the fixed region, 3
+// boxes of 128 rows (96 KB), the walk's ring(s), then each kernel's own:
+// K2 224 KB with 2 stages of 16 KB a consumer and its output staging (2 x
+// 32 KB); K1's pass (b) at K 1 200 KB with 3 stages a consumer and the 8
+// KB of its cross-warp sums; pass (a) 193 KB (3 stages of 32 KB, K 1) or
+// 224 KB (two 16 KB slots of 16 right-hand sides); pass (b) at K > 1 209
+// KB (17 KB of slots).  bf16's boxes are half as large: its pass (a)
+// takes 161 KB at K > 8 (two 32 KB slots of 32 right-hand sides, NT 4).
 //
 // K2 stores its features through shared memory by TMA: a tile lies in
 // one block of the [cos | sin] layout when the blocks are a multiple of
@@ -94,11 +107,12 @@
 #include <stdint.h>
 
 #include "feature_map.cuh"
+#include "fma_gemm.cuh"
 #include "tma.cuh"
 #include "ztzv.cuh"
 
 namespace xgpr {
-namespace dtf32 {
+namespace dense {
 
 // The block: two consumer warpgroups, 256 threads, so that ptxas may give
 // a thread 255 registers (a ninth warp, a producer's, puts three warps on
@@ -107,25 +121,39 @@ namespace dtf32 {
 constexpr int THREADS = 256;
 constexpr int A_ROWS = 64;            // the wgmma M
 constexpr int B_ROWS = 128;           // the wgmma N
-constexpr int CH = 32;                // channels a line: 128 bytes
-constexpr int A_PLANE = A_ROWS * 128;  // 8 KB
-constexpr int A_BOX = 2 * A_PLANE;     // hi then lo, 16 KB
-constexpr int B_PLANE = B_ROWS * 128;  // 16 KB
-constexpr int B_BOX = 2 * B_PLANE;     // 32 KB
+constexpr int CH = 32;                // float32 values a 128-byte line
+constexpr int A_PLANE = A_ROWS * 128;  // a plane of 64 rows' line, 8 KB
+constexpr int B_PLANE = B_ROWS * 128;  // of 128 rows', 16 KB
 constexpr int RES_K = 3;     // the deepest resident fixed tile, in lines
 constexpr int F_STAGES = 3;  // the fixed tile's ring when it streams
 
-__host__ __device__ constexpr int lines(int dp) { return (dp + CH - 1) / CH; }
+// A line of format FMT: one 128-byte row of depth a row in each plane,
+// 32 channels in two planes (TF32 hi, lo) for 3xTF32, 64 in one for bf16.
+template <int FMT>
+struct Fmt {
+  static_assert(FMT == FMT_TF32X3 || FMT == FMT_BF16,
+                "the pipeline's formats are 3xTF32 and bf16");
+  static constexpr bool BF16 = FMT == FMT_BF16;
+  static constexpr int PLANES = BF16 ? 1 : 2;
+  static constexpr int CH = BF16 ? 64 : 32;         // channels a line
+  static constexpr int A_BOX = PLANES * A_PLANE;    // 64 rows, hi then lo
+  static constexpr int B_BOX = PLANES * B_PLANE;    // 128 rows
+};
+
+template <int FMT>
+__host__ __device__ constexpr int lines(int dp) {
+  return (dp + Fmt<FMT>::CH - 1) / Fmt<FMT>::CH;
+}
 
 // Bytes of a block's fixed region (128 rows a line) and its walk rings:
 // FIXED_B, the fixed tile is B and each consumer walks its own 64-row
 // tiles on a ring of its own; otherwise the fixed tile is A (consumer c
 // multiplies its rows 64c .. 64c + 63) and both consumers read one ring
 // of 128-row B tiles.  WS: a ring's stages.
-template <bool FIXED_B, int WS>
+template <int FMT, bool FIXED_B, int WS>
 struct Layout {
-  static constexpr int FB = B_BOX;                    // a fixed box
-  static constexpr int WB = FIXED_B ? A_BOX : B_BOX;  // a walk box
+  static constexpr int FB = Fmt<FMT>::B_BOX;  // a fixed box
+  static constexpr int WB = FIXED_B ? Fmt<FMT>::A_BOX : Fmt<FMT>::B_BOX;
   static constexpr int RINGS = FIXED_B ? 2 : 1;
   static constexpr int RING = RES_K * FB + RINGS * WS * WB;
 };
@@ -155,33 +183,42 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 3, 256;\n" ::: "memory");
 }
 
-// One line's products: for each k8 slice lo*hi, hi*lo, hi*hi of A (64
-// rows, descriptor of its hi plane; its lo plane AL descriptor units on)
-// against B (128 rows; lo B_PLANE after), as tf32_gemm.cuh's
-// issue_products.
-template <uint64_t AL>
+// One line's products of A (64 rows, descriptor of its hi plane; its lo
+// plane AL descriptor units on) against B (128 rows; lo B_PLANE after),
+// in the order of the parent's shared ring: in bf16 one m64n128k16 a
+// 32-byte depth slice; in 3xTF32, for each k8 slice, lo*hi, hi*lo and
+// hi*hi (A's plane first).  overwrite: the tile's first line.
+template <int FMT, uint64_t AL>
 __device__ __forceinline__ void issue_line(float acc[64], uint64_t ah,
                                            uint64_t bh, bool overwrite) {
   constexpr uint64_t BL = B_PLANE / 16;
   fence_acc(acc);
   wgmma_fence();
+  if constexpr (FMT == FMT_BF16) {
 #pragma unroll
-  for (int kk = 0; kk < CH / 8; ++kk) {
-    wgmma_tf32(acc, ah + AL + 2 * kk, bh + 2 * kk, kk > 0 || !overwrite);
-    wgmma_tf32(acc, ah + 2 * kk, bh + BL + 2 * kk, 1);
-    wgmma_tf32(acc, ah + 2 * kk, bh + 2 * kk, 1);
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_bf16(acc, ah + 2 * kk, bh + 2 * kk, kk > 0 || !overwrite);
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < CH / 8; ++kk) {
+      wgmma_tf32(acc, ah + AL + 2 * kk, bh + 2 * kk, kk > 0 || !overwrite);
+      wgmma_tf32(acc, ah + 2 * kk, bh + BL + 2 * kk, 1);
+      wgmma_tf32(acc, ah + 2 * kk, bh + 2 * kk, 1);
+    }
   }
   wgmma_commit();
 }
 
-// The TMA boxes (both planes) of one operand line into dst, on `bar`.
+// The TMA boxes (each plane's) of one operand line into dst, on `bar`.
+template <int FMT>
 __device__ __forceinline__ void box_pair(unsigned char* dst, int bytes,
                                          const CUtensorMap* hi,
                                          const CUtensorMap* lo,
                                          uint64_t* bar, int kk, int row) {
   mbar_expect_tx(bar, bytes);
-  tma_box2(dst, hi, bar, CH * kk, row);
-  tma_box2(dst + bytes / 2, lo, bar, CH * kk, row);
+  tma_box2(dst, hi, bar, Fmt<FMT>::CH * kk, row);
+  if constexpr (Fmt<FMT>::PLANES == 2)
+    tma_box2(dst + bytes / 2, lo, bar, Fmt<FMT>::CH * kk, row);
 }
 
 // A block's pipeline.  With a fixed B tile each consumer walks its own
@@ -196,9 +233,9 @@ __device__ __forceinline__ void box_pair(unsigned char* dst, int bytes,
 // 0's thread 0 also issues the fixed tile: resident (up to RES_K lines)
 // once, else a box a line of every tile into F_STAGES stages that both
 // consumers free.
-template <bool FIXED_B, int WS>
+template <int FMT, bool FIXED_B, int WS>
 struct Pipe {
-  using L = Layout<FIXED_B, WS>;
+  using L = Layout<FMT, FIXED_B, WS>;
   const CUtensorMap *fh, *fl, *wh, *wl;  // fixed and walk operands' maps
   Walk w;
   int kc, c;
@@ -210,13 +247,14 @@ struct Pipe {
 
   __device__ __forceinline__ void fill_walk(int j) {
     const int st = j % WS, i = j / kc;
-    box_pair(ring + st * L::WB, L::WB, wh, wl, &bar.wfull[r][st], j - i * kc,
-             w.first + i * w.stride + (FIXED_B ? A_ROWS * c : 0));
+    box_pair<FMT>(ring + st * L::WB, L::WB, wh, wl, &bar.wfull[r][st],
+                  j - i * kc,
+                  w.first + i * w.stride + (FIXED_B ? A_ROWS * c : 0));
   }
   __device__ __forceinline__ void fill_fixed(int q) {
     const int st = q % F_STAGES;
-    box_pair(fixed + st * L::FB, L::FB, fh, fl, &bar.ffull[st], q % kc,
-             w.fixed0);
+    box_pair<FMT>(fixed + st * L::FB, L::FB, fh, fl, &bar.ffull[st], q % kc,
+                  w.fixed0);
   }
 
   // The boxes every ring starts with.
@@ -229,8 +267,10 @@ struct Pipe {
         mbar_expect_tx(&bar.ffull[0], kc * L::FB);
         for (int kk = 0; kk < kc; ++kk) {
           unsigned char* dst = fixed + kk * L::FB;
-          tma_box2(dst, fh, &bar.ffull[0], CH * kk, w.fixed0);
-          tma_box2(dst + L::FB / 2, fl, &bar.ffull[0], CH * kk, w.fixed0);
+          tma_box2(dst, fh, &bar.ffull[0], Fmt<FMT>::CH * kk, w.fixed0);
+          if constexpr (Fmt<FMT>::PLANES == 2)
+            tma_box2(dst + L::FB / 2, fl, &bar.ffull[0], Fmt<FMT>::CH * kk,
+                     w.fixed0);
         }
       } else if (!resident) {
         for (int q = 0; q < min(F_STAGES, steps); ++q) fill_fixed(q);
@@ -276,7 +316,8 @@ struct Pipe {
           fd = fdesc + fs.stage * FSTEP;
         }
         const uint64_t wd = wdesc + ws.stage * WSTEP;
-        issue_line<AL>(acc, FIXED_B ? wd : fd, FIXED_B ? fd : wd, kk == 0);
+        issue_line<FMT, AL>(acc, FIXED_B ? wd : fd, FIXED_B ? fd : wd,
+                            kk == 0);
         if (kk == 0) epi.stage(i);
         if (kk > 0) {  // the line before is complete
           wgmma_wait<1>();
@@ -295,14 +336,14 @@ struct Pipe {
 
 // The block's set-up and its consumer's loop; returns the consumer's
 // index (0, 1).  fh/fl and wh/wl are the fixed and walk operands' maps.
-template <bool FIXED_B, int WS, class Epi>
+template <int FMT, bool FIXED_B, int WS, class Epi>
 __device__ __forceinline__ int run(const CUtensorMap* fh,
                                    const CUtensorMap* fl,
                                    const CUtensorMap* wh,
                                    const CUtensorMap* wl, const Walk& w,
                                    int kc, unsigned char* smem,
                                    Bars<WS>& bar, Epi& epi) {
-  using L = Layout<FIXED_B, WS>;
+  using L = Layout<FMT, FIXED_B, WS>;
   if (threadIdx.x == 0) {
     for (int i = 0; i < F_STAGES; ++i) {
       mbar_init(&bar.ffull[i], 1);
@@ -321,14 +362,15 @@ __device__ __forceinline__ int run(const CUtensorMap* fh,
   const int c = threadIdx.x / 128;
   const bool resident = kc <= RES_K;
   const int r = FIXED_B ? c : 0;
-  Pipe<FIXED_B, WS> pipe{fh, fl, wh, wl, w, kc, c, smem,
+  Pipe<FMT, FIXED_B, WS> pipe{fh, fl, wh, wl, w, kc, c, smem,
                          smem + RES_K * L::FB + r * WS * L::WB, bar,
                          resident,
                          FIXED_B ? threadIdx.x % 128 == 0 : threadIdx.x == 0,
                          w.count * kc, r};
   pipe.prologue();
   // Each tile's first product overwrites the accumulators: zeroing them in
-  // the loop would serialise the products (tf32_gemm.cuh).
+  // the loop would be a non-wgmma write to registers of products in
+  // flight, and ptxas would then serialise every wgmma.
   float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
@@ -352,7 +394,8 @@ struct Lane {
 
 constexpr int K2_WS = 2;
 constexpr int K2_STAGING = 32768;  // a consumer's: 4 boxes of 64 x 32
-constexpr int K2_SMEM = Layout<true, K2_WS>::RING + 2 * K2_STAGING + 1024;
+constexpr int K2_SMEM =
+    Layout<FMT_TF32X3, true, K2_WS>::RING + 2 * K2_STAGING + 1024;
 
 template <int MODE>
 struct K2Epi {
@@ -474,21 +517,32 @@ __global__ void __launch_bounds__(THREADS, 1)
                       tile_width % 4 == 0 && p.f % 2 == 0;
   const int c = threadIdx.x / 128;
   unsigned char* staging =
-      smem + Layout<true, K2_WS>::RING + c * K2_STAGING;
+      smem + Layout<FMT_TF32X3, true, K2_WS>::RING + c * K2_STAGING;
   K2Epi<MODE> epi{p, a, &omap, w, staging, c, tile_blk,
                   tile_width, staged, Lane(c)};
-  run<true, K2_WS>(&ph, &pl, &xh, &xl, w, lines(p.dp), smem, bar, epi);
+  run<FMT_TF32X3, true, K2_WS>(&ph, &pl, &xh, &xl, w,
+                                lines<FMT_TF32X3>(p.dp), smem, bar, epi);
   if (epi.ln.tid == 0) bulk_wait<0>();
 }
 
-// The 2-D tensor maps of a (rows, dp) K-major float32 operand's planes in
-// boxes of `box_rows` rows by one 32-channel line.
-inline bool plane_maps(CUtensorMap* hi, CUtensorMap* lo, const void* h,
-                       const void* l, int rows, int dp, int box_rows) {
-  const int dims[2] = {dp, rows}, box[2] = {CH, box_rows};
-  const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-  return swizzled_map(hi, f32, 4, h, 2, dims, box) &&
-         swizzled_map(lo, f32, 4, l, 2, dims, box);
+// The 2-D tensor maps of a (rows, dp) K-major operand's planes in format
+// FMT in boxes of `box_rows` rows by one line (bf16 has one plane: lo is
+// a copy of hi, never read).
+template <int FMT>
+bool plane_maps(CUtensorMap* hi, CUtensorMap* lo, const void* h,
+                const void* l, int rows, int dp, int box_rows) {
+  const int dims[2] = {dp, rows}, box[2] = {Fmt<FMT>::CH, box_rows};
+  if constexpr (Fmt<FMT>::BF16) {
+    if (!swizzled_map(hi, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, h, 2, dims,
+                      box))
+      return false;
+    *lo = *hi;
+    return true;
+  } else {
+    const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+    return swizzled_map(hi, f32, 4, h, 2, dims, box) &&
+           swizzled_map(lo, f32, 4, l, 2, dims, box);
+  }
 }
 
 template <int MODE>
@@ -500,8 +554,8 @@ int launch_k2(const DenseOperands& p, const features::FeatureArgs<float>& a,
       (long long)rsplit * ((p.f + B_ROWS - 1) / B_ROWS);
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
   CUtensorMap xh, xl, ph, pl, omap;
-  if (!plane_maps(&xh, &xl, p.x_hi, p.x_lo, p.n, p.dp, A_ROWS) ||
-      !plane_maps(&ph, &pl, p.b_hi, p.b_lo, p.f, p.dp, B_ROWS))
+  if (!plane_maps<FMT_TF32X3>(&xh, &xl, p.x_hi, p.x_lo, p.n, p.dp, A_ROWS) ||
+      !plane_maps<FMT_TF32X3>(&ph, &pl, p.b_hi, p.b_lo, p.f, p.dp, B_ROWS))
     return (int)cudaErrorNotSupported;
   // The output (n, 2f) in boxes of 64 rows x 32 values, when its rows are
   // whole 16-byte units (F even).
@@ -528,18 +582,27 @@ int launch_k2(const DenseOperands& p, const features::FeatureArgs<float>& a,
 // K1's pass (a): partial zv of the block's 128 rows of x (consumer c's
 // rows 64c ..) over its slice of the frequency tiles, for right-hand
 // sides 8 NT kz ... (NT 0: the one right-hand side of K 1, contracted on
-// the CUDA cores as the parent's ztzv_zv_kernel; else on mma.sync from
-// the fragment as its ztzv_zv_mma_kernel).  Block (rt, s, kz) is
-// blockIdx.x = (kz * zsplit + s) * row tiles + rt.
+// the CUDA cores; else on mma.sync from the fragment).  Block (rt, s, kz)
+// is blockIdx.x = (kz * zsplit + s) * row tiles + rt.
+//
+// At K 1 both formats contract on the CUDA cores, two FMAs a feature: in
+// 3xTF32 the tensor-core passes' splits and fresh products cost more
+// (0.323 against 0.256 ms at RBF's chunk, PERF.md); in bf16 they were
+// faster (0.173 against 0.185 ms on the ring bf16 ran on before), but
+// their other summation order cost slice A's fit under "max" a CG
+// iteration (18 against 17), so bf16 keeps the one-rhs passes, whose sums
+// run in the earlier body's order.  bf16 rounds c, s (after scale * mask
+// and the intercept column), v_c / v_s and zv to bf16 (as_operand) before
+// the fp32 FMAs, as the TPU's DEFAULT dot rounds its operands.
 
 constexpr int ZV_WS = 3;
 template <int NT>
 constexpr int ZV_SLOT_FLOATS = NT == 0 ? 2 * B_ROWS : ztzv::ZV_SLOT<NT>;
-template <int NT>
-constexpr int ZV_SMEM = Layout<false, ZV_WS>::RING +
+template <int FMT, int NT>
+constexpr int ZV_SMEM = Layout<FMT, false, ZV_WS>::RING +
                         2 * ZV_SLOT_FLOATS<NT> * (int)sizeof(float) + 1024;
 
-template <int MODE, int NT>
+template <int FMT, int MODE, int NT>
 struct ZvEpi {
   ztzv::ZtzvArgs<float> a;
   DenseOperands p;
@@ -564,7 +627,9 @@ struct ZvEpi {
   }
 
   // Tile t's v_c / v_s into slot t % 2 by cp.async, the block's 256
-  // threads between them (staged_pair's elements), as one group.
+  // threads between them, as one group: a warp takes 8 consecutive
+  // columns by 4 consecutive right-hand sides (16-byte runs of the (., K)
+  // operand; its stores fall on 32 distinct banks).
   __device__ __forceinline__ void copy(int t) {
     if (t < w.count) {
       const int f0 = w.first + t * w.stride, tid = threadIdx.x;
@@ -615,43 +680,49 @@ struct ZvEpi {
           for (int e = 0; e < 2; ++e) {
             const int fl = 8 * j + 2 * ln.t4 + e;
             const bool icol = a.intercept && f0 + fl == 0;
+            const float vcf = as_operand<FMT>(vc[fl]);
+            const float vsf = as_operand<FMT>(vs[fl]);
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
               float cv, sv;
               sincos(acc[4 * j + 2 * h + e] * a.sigma, wrow[h], &cv, &sv);
               if (icol) cv = mrow[h];
-              part[h] = fma_t(cv, vc[fl], fma_t(sv, vs[fl], part[h]));
+              cv = as_operand<FMT>(cv);
+              sv = as_operand<FMT>(sv);
+              part[h] = fma_t(cv, vcf, fma_t(sv, vsf, part[h]));
             }
           }
       });
     } else {
-      constexpr int KO = 8 * NT;
+      // Slabs of 8 fragment columns an mma takes: m16n8k8 (TF32) one,
+      // m16n8k16 (bf16) two.
+      constexpr int KO = 8 * NT, JS = ztzv::MMA_JS<FMT>;
       const float* vs = vc + KO * B_ROWS;
       const bool icol = a.intercept && f0 == 0 && ln.t4 == 0;
       with_sincos<MODE>(acc, a.sigma, [&](auto sincos) {
 #pragma unroll
-        for (int u = 0; u < 16; ++u) {
-          float cv[1][2][2], sv[1][2][2];
+        for (int u = 0; u < 16 / JS; ++u) {
+          float cv[JS][2][2], sv[JS][2][2];
 #pragma unroll
-          for (int h = 0; h < 2; ++h)
+          for (int jj = 0; jj < JS; ++jj)
 #pragma unroll
-            for (int e = 0; e < 2; ++e)
-              sincos(acc[4 * u + 2 * h + e] * a.sigma, wrow[h], &cv[0][h][e],
-                     &sv[0][h][e]);
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                sincos(acc[4 * (JS * u + jj) + 2 * h + e] * a.sigma, wrow[h],
+                       &cv[jj][h][e], &sv[jj][h][e]);
           if (u == 0 && icol) {  // column 0 of the intercept
             cv[0][0][0] = mrow[0];
             cv[0][1][0] = mrow[1];
           }
-          const ztzv::MmaA ac = ztzv::mma_a<FMT_TF32X3>(cv),
-                           as = ztzv::mma_a<FMT_TF32X3>(sv);
+          const ztzv::MmaA ac = ztzv::mma_a<FMT>(cv),
+                           as = ztzv::mma_a<FMT>(sv);
 #pragma unroll
           for (int nt = 0; nt < NT; ++nt) {
-            ztzv::mma_add<FMT_TF32X3>(
-                z[nt], ac, ztzv::mma_b<FMT_TF32X3>(vc, 8 * nt + ln.g, u,
-                                                   ln.t4));
-            ztzv::mma_add<FMT_TF32X3>(
-                z[nt], as, ztzv::mma_b<FMT_TF32X3>(vs, 8 * nt + ln.g, u,
-                                                   ln.t4));
+            ztzv::mma_add<FMT>(
+                z[nt], ac, ztzv::mma_b<FMT>(vc, 8 * nt + ln.g, u, ln.t4));
+            ztzv::mma_add<FMT>(
+                z[nt], as, ztzv::mma_b<FMT>(vs, 8 * nt + ln.g, u, ln.t4));
           }
         }
       });
@@ -685,7 +756,7 @@ struct ZvEpi {
           const int q = 8 * nt + 2 * ln.t4 + r % 2;
           if (q < kcnt)
             zv_part[((size_t)s * p.n + row) * a.k + k0 + q] =
-                ztzv::mma_value<FMT_TF32X3>(z[nt], r);
+                ztzv::mma_value<FMT>(z[nt], r);
         }
       }
     }
@@ -700,7 +771,7 @@ __device__ __forceinline__ Walk slice_walk(int fixed0, int s, int split,
   return Walk{fixed0, s * B_ROWS, split * B_ROWS, count};
 }
 
-template <int MODE, int NT>
+template <int FMT, int MODE, int NT>
 __global__ void __launch_bounds__(THREADS, 1)
     k1_zv_kernel(const __grid_constant__ CUtensorMap xh,
                  const __grid_constant__ CUtensorMap xl,
@@ -720,11 +791,13 @@ __global__ void __launch_bounds__(THREADS, 1)
                             (p.f + B_ROWS - 1) / B_ROWS);
   const int c = threadIdx.x / 128;
   const int k0 = NT == 0 ? kz : kz * 8 * NT;
-  float* slots = reinterpret_cast<float*>(smem + Layout<false, WS>::RING);
-  ZvEpi<MODE, NT> epi{a, p, w, slots, c, k0,
-                      min(NT == 0 ? 1 : 8 * NT, a.k - k0), Lane(c)};
+  float* slots = reinterpret_cast<float*>(
+      smem + Layout<FMT, false, WS>::RING);
+  ZvEpi<FMT, MODE, NT> epi{a, p, w, slots, c, k0,
+                           min(NT == 0 ? 1 : 8 * NT, a.k - k0), Lane(c)};
   epi.init();
-  run<false, WS>(&xh, &xl, &ph, &pl, w, lines(p.dp), smem, bar, epi);
+  run<FMT, false, WS>(&xh, &xl, &ph, &pl, w, lines<FMT>(p.dp), smem, bar,
+                      epi);
   // Every slice's partial is written, an empty one's as zeros: pass (b)
   // sums all of them.
   epi.write(s, zv_part);
@@ -732,20 +805,22 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 // ---------------------------------------------------------------------------
 // K1's pass (b) at K 1: partial oc / os of the block's frequency tile over
-// its slice of the row tiles (the parent's ztzv_out_kernel, its 8 warps
-// now the two consumers'), block (ft, b) = blockIdx.x = ft * osplit + b.
+// its slice of the row tiles (the 8 warps of the parent's one-rhs out
+// pass now the two consumers'), block (ft, b) = blockIdx.x = ft * osplit
+// + b.
 
 constexpr int OUT1_WS = 3;
-constexpr int OUT1_SMEM = Layout<true, OUT1_WS>::RING +
+template <int FMT>
+constexpr int OUT1_SMEM = Layout<FMT, true, OUT1_WS>::RING +
                           2 * 8 * B_ROWS * (int)sizeof(float) + 1024;
 
-template <int MODE>
+template <int FMT, int MODE>
 struct Out1Epi {
   ztzv::ZtzvArgs<float> a;
   DenseOperands p;
   Walk w;
-  const float* zv_part;
-  int zsplit, c;
+  const float* zv;  // (n, k): pass (a)'s partials summed
+  int c;
   Lane ln;
   float zr[2], mr[2];
   float oc[32], os[32];  // column 8j + 2 t4 + e at [2j + e]
@@ -755,20 +830,16 @@ struct Out1Epi {
     for (int i = 0; i < 32; ++i) oc[i] = os[i] = 0.0f;
   }
 
-  // The tile's summed zv and mask of this thread's two rows.
+  // The tile's zv (as the format's product reads it) and mask of this
+  // thread's two rows.
   __device__ __forceinline__ void stage(int i) {
     const int row0 = w.first + i * w.stride + A_ROWS * c;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = row0 + ln.warp * 16 + ln.g + 8 * h;
-      float v = 0.0f, m = 0.0f;
-      if (r < p.n) {
-        for (int s = 0; s < zsplit; ++s)
-          v += zv_part[((size_t)s * p.n + r) * a.k];
-        m = a.m[r];
-      }
-      zr[h] = v;
-      mr[h] = m;
+      const bool ok = r < p.n;
+      zr[h] = as_operand<FMT>(ok ? zv[(size_t)r * a.k] : 0.0f);
+      mr[h] = ok ? a.m[r] : 0.0f;
     }
   }
 
@@ -785,6 +856,8 @@ struct Out1Epi {
             float cv, sv;
             sincos(acc[4 * j + 2 * h + e] * a.sigma, wr, &cv, &sv);
             if (a.intercept && f0 + 8 * j + 2 * ln.t4 + e == 0) cv = mr[h];
+            cv = as_operand<FMT>(cv);
+            sv = as_operand<FMT>(sv);
             oc[2 * j + e] = fma_t(cv, zr[h], oc[2 * j + e]);
             os[2 * j + e] = fma_t(sv, zr[h], os[2 * j + e]);
           }
@@ -828,14 +901,14 @@ struct Out1Epi {
   }
 };
 
-template <int MODE>
+template <int FMT, int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
     k1_out1_kernel(const __grid_constant__ CUtensorMap xh,
                    const __grid_constant__ CUtensorMap xl,
                    const __grid_constant__ CUtensorMap ph,
                    const __grid_constant__ CUtensorMap pl, DenseOperands p,
-                   ztzv::ZtzvArgs<float> a, const float* __restrict__ zv_part,
-                   int zsplit, int osplit, float* __restrict__ oc_part,
+                   ztzv::ZtzvArgs<float> a, const float* __restrict__ zv,
+                   int osplit, float* __restrict__ oc_part,
                    float* __restrict__ os_part) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   __shared__ __align__(8) Bars<OUT1_WS> bar;
@@ -846,33 +919,35 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int count = b < tiles ? (tiles - 1 - b) / osplit + 1 : 0;
   const Walk w{f0, b * B_ROWS, osplit * B_ROWS, count};
   const int c = threadIdx.x / 128;
-  Out1Epi<MODE> epi{a, p, w, zv_part, zsplit, c, Lane(c)};
+  Out1Epi<FMT, MODE> epi{a, p, w, zv, c, Lane(c)};
   epi.init();
-  run<true, OUT1_WS>(&ph, &pl, &xh, &xl, w, lines(p.dp), smem, bar, epi);
-  epi.write(b, reinterpret_cast<float*>(smem + Layout<true, OUT1_WS>::RING),
+  run<FMT, true, OUT1_WS>(&ph, &pl, &xh, &xl, w, lines<FMT>(p.dp), smem, bar,
+                          epi);
+  epi.write(b,
+            reinterpret_cast<float*>(smem + Layout<FMT, true, OUT1_WS>::RING),
             oc_part, os_part);
 }
 
 // ---------------------------------------------------------------------------
 // K1's pass (b) at K > 1, on the swapped operands (A = proj^T's rows, B =
 // x's): partial oc / os of the block's 128 frequencies (consumer c's 64c
-// ..) over its slice of the row tiles of x, right-hand sides 8 NT kz ...
-// (the parent's ztzv_out_mma_kernel).  Block (ft, s, kz) = blockIdx.x =
-// (kz * osplit + s) * frequency tiles + ft.
+// ..) over its slice of the row tiles of x, right-hand sides 8 NT kz ....
+// Block (ft, s, kz) = blockIdx.x = (kz * osplit + s) * frequency tiles +
+// ft.
 
 constexpr int OUTM_WS = 3;
-template <int NT>
-constexpr int OUTM_SMEM = Layout<false, OUTM_WS>::RING +
+template <int FMT, int NT>
+constexpr int OUTM_SMEM = Layout<FMT, false, OUTM_WS>::RING +
                           2 * ztzv::OUT_SLOT<NT> * (int)sizeof(float) + 1024;
 
-template <int MODE, int NT>
+template <int FMT, int MODE, int NT>
 struct OutMmaEpi {
   ztzv::ZtzvArgs<float> a;
   DenseOperands p;  // the unswapped operands: n rows, f frequencies
   Walk w;
-  const float* zv_part;
-  float* slots;  // two, both consumers'
-  int zsplit, c, k0, kcnt;
+  const float* zv;  // (n, k): pass (a)'s partials summed
+  float* slots;     // two, both consumers'
+  int c, k0, kcnt;
   Lane ln;
   ztzv::MmaSum sums[2][NT];  // oc, os
 
@@ -884,10 +959,8 @@ struct OutMmaEpi {
     }
   }
 
-  // Tile t's zv (summed over pass (a)'s split) and mask into slot t % 2,
-  // the block's 256 threads between them (staged_pair's elements), as one
-  // cp.async group: copied when pass (a) has one slice (its partial is zv:
-  // 0 + v is v), else summed here in slice order.
+  // Tile t's zv and mask into slot t % 2 by cp.async, the block's 256
+  // threads between them (as ZvEpi's copies), as one group.
   __device__ __forceinline__ void fill(int t) {
     if (t < w.count) {
       constexpr int KO = 8 * NT;
@@ -900,15 +973,7 @@ struct OutMmaEpi {
         const int q = 4 * (wi / 16) + lane / 8;
         const bool ok = r0 + cc < p.n && q < kcnt;
         const size_t at = ok ? (size_t)(r0 + cc) * a.k + k0 + q : 0;
-        if (zsplit == 1) {
-          ztzv::cp_async4(zt + ztzv::staged_at(q, cc), zv_part + at, ok);
-          continue;
-        }
-        float v = 0.0f;
-        if (ok)
-          for (int s = 0; s < zsplit; ++s)
-            v += zv_part[(size_t)s * p.n * a.k + at];
-        zt[ztzv::staged_at(q, cc)] = v;
+        ztzv::cp_async4(zt + ztzv::staged_at(q, cc), zv + at, ok);
       }
       if (tid < B_ROWS) {
         const bool ok = r0 + tid < p.n;
@@ -929,7 +994,7 @@ struct OutMmaEpi {
   }
 
   __device__ __forceinline__ void fold(int i, const float acc[64]) {
-    constexpr int KO = 8 * NT;
+    constexpr int KO = 8 * NT, JS = ztzv::MMA_JS<FMT>;
     cp_async_wait<1>();  // all but tile i + 1's group
     consumers_sync();
     const float* zt = slots + (i % 2) * ztzv::OUT_SLOT<NT>;
@@ -937,26 +1002,29 @@ struct OutMmaEpi {
     const int fbase = w.fixed0 + 64 * c + ln.warp * 16 + ln.g;
     with_sincos<MODE>(acc, a.sigma, [&](auto sincos) {
 #pragma unroll
-      for (int u = 0; u < 16; ++u) {
-        float cv[1][2][2], sv[1][2][2];
+      for (int u = 0; u < 16 / JS; ++u) {
+        float cv[JS][2][2], sv[JS][2][2];
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float mr = mt[8 * u + 2 * ln.t4 + e], wr = mr * a.scale;
+        for (int jj = 0; jj < JS; ++jj)
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            sincos(acc[4 * u + 2 * h + e] * a.sigma, wr, &cv[0][h][e],
-                   &sv[0][h][e]);
-            if (a.intercept && fbase + 8 * h == 0) cv[0][h][e] = mr;
+          for (int e = 0; e < 2; ++e) {
+            const int j = JS * u + jj;
+            const float mr = mt[8 * j + 2 * ln.t4 + e], wr = mr * a.scale;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              sincos(acc[4 * j + 2 * h + e] * a.sigma, wr, &cv[jj][h][e],
+                     &sv[jj][h][e]);
+              if (a.intercept && fbase + 8 * h == 0) cv[jj][h][e] = mr;
+            }
           }
-        }
-        const ztzv::MmaA ac = ztzv::mma_a<FMT_TF32X3>(cv),
-                         as = ztzv::mma_a<FMT_TF32X3>(sv);
+        const ztzv::MmaA ac = ztzv::mma_a<FMT>(cv),
+                         as = ztzv::mma_a<FMT>(sv);
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
           const ztzv::MmaB bz =
-              ztzv::mma_b<FMT_TF32X3>(zt, 8 * nt + ln.g, u, ln.t4);
-          ztzv::mma_add<FMT_TF32X3>(sums[0][nt], ac, bz);
-          ztzv::mma_add<FMT_TF32X3>(sums[1][nt], as, bz);
+              ztzv::mma_b<FMT>(zt, 8 * nt + ln.g, u, ln.t4);
+          ztzv::mma_add<FMT>(sums[0][nt], ac, bz);
+          ztzv::mma_add<FMT>(sums[1][nt], as, bz);
         }
       }
     });
@@ -974,21 +1042,21 @@ struct OutMmaEpi {
         const int q = 8 * nt + 2 * ln.t4 + r % 2;
         if (q >= kcnt) continue;
         const size_t at = ((size_t)s * p.f + col) * a.k + k0 + q;
-        oc_part[at] = ztzv::mma_value<FMT_TF32X3>(sums[0][nt], r);
-        os_part[at] = ztzv::mma_value<FMT_TF32X3>(sums[1][nt], r);
+        oc_part[at] = ztzv::mma_value<FMT>(sums[0][nt], r);
+        os_part[at] = ztzv::mma_value<FMT>(sums[1][nt], r);
       }
     }
   }
 };
 
-template <int MODE, int NT>
+template <int FMT, int MODE, int NT>
 __global__ void __launch_bounds__(THREADS, 1)
     k1_outm_kernel(const __grid_constant__ CUtensorMap ph,
                    const __grid_constant__ CUtensorMap pl,
                    const __grid_constant__ CUtensorMap xh,
                    const __grid_constant__ CUtensorMap xl, DenseOperands p,
-                   ztzv::ZtzvArgs<float> a, const float* __restrict__ zv_part,
-                   int zsplit, int osplit, float* __restrict__ oc_part,
+                   ztzv::ZtzvArgs<float> a, const float* __restrict__ zv,
+                   int osplit, float* __restrict__ oc_part,
                    float* __restrict__ os_part) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   __shared__ __align__(8) Bars<OUTM_WS> bar;
@@ -1001,18 +1069,35 @@ __global__ void __launch_bounds__(THREADS, 1)
                             (p.n + B_ROWS - 1) / B_ROWS);
   const int c = threadIdx.x / 128;
   const int k0 = kz * 8 * NT;
-  float* slots = reinterpret_cast<float*>(smem + Layout<false, OUTM_WS>::RING);
-  OutMmaEpi<MODE, NT> epi{a, p, w, zv_part, slots, zsplit, c, k0,
-                          min(8 * NT, a.k - k0), Lane(c)};
+  float* slots = reinterpret_cast<float*>(
+      smem + Layout<FMT, false, OUTM_WS>::RING);
+  OutMmaEpi<FMT, MODE, NT> epi{a, p, w, zv, slots, c, k0,
+                               min(8 * NT, a.k - k0), Lane(c)};
   epi.init();
-  run<false, OUTM_WS>(&ph, &pl, &xh, &xl, w, lines(p.dp), smem, bar, epi);
+  run<FMT, false, OUTM_WS>(&ph, &pl, &xh, &xl, w, lines<FMT>(p.dp), smem,
+                           bar, epi);
   epi.write(s, oc_part, os_part);
 }
 
 // ---------------------------------------------------------------------------
-// K1's three launches in 3xTF32: pass (a) over zsplit slices of each row
-// tile's frequency tiles, pass (b) over osplit slices of each frequency
-// tile's row tiles, the fixed-order sum of pass (b)'s partials.
+// K1's launches in format FMT: pass (a) over zsplit slices of each row
+// tile's frequency tiles; with more than one slice, the sum of its
+// partials; pass (b) over osplit slices of each frequency tile's row
+// tiles; the fixed-order sum of pass (b)'s partials.
+
+// zv_part[0] = 0 + pass (a)'s nsplit partials in slice order, in place
+// (each thread owns one element of every slice): the sum the parent's
+// pass (b) made as it staged each tile, made once, so that pass (b)
+// copies it.  Internal linkage, as ztzv.cuh's sum kernels.
+template <class T>
+static __global__ void sum_zv_slices_kernel(T* __restrict__ zv_part,
+                                            int nsplit, size_t len) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= len) return;
+  T v = T(0);
+  for (int s = 0; s < nsplit; ++s) v += zv_part[(size_t)s * len + i];
+  zv_part[i] = v;
+}
 
 template <class Kernel>
 cudaError_t allow_smem(Kernel kernel, int bytes) {
@@ -1020,7 +1105,7 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int MODE, int NT>
+template <int FMT, int MODE, int NT>
 cudaError_t launch_k1_passes(const DenseOperands& p,
                              const ztzv::ZtzvArgs<float>& a, float* zv_part,
                              float* oc_part, float* os_part, int zsplit,
@@ -1028,9 +1113,9 @@ cudaError_t launch_k1_passes(const DenseOperands& p,
   // x in boxes of 128 rows (a fixed A or a walked B) and of 64 (pass (b)
   // at K 1 walks it), proj^T in boxes of 128.
   CUtensorMap xh, xl, xbh, xbl, ph, pl;
-  if (!plane_maps(&xh, &xl, p.x_hi, p.x_lo, p.n, p.dp, A_ROWS) ||
-      !plane_maps(&xbh, &xbl, p.x_hi, p.x_lo, p.n, p.dp, B_ROWS) ||
-      !plane_maps(&ph, &pl, p.b_hi, p.b_lo, p.f, p.dp, B_ROWS))
+  if (!plane_maps<FMT>(&xh, &xl, p.x_hi, p.x_lo, p.n, p.dp, A_ROWS) ||
+      !plane_maps<FMT>(&xbh, &xbl, p.x_hi, p.x_lo, p.n, p.dp, B_ROWS) ||
+      !plane_maps<FMT>(&ph, &pl, p.b_hi, p.b_lo, p.f, p.dp, B_ROWS))
     return cudaErrorNotSupported;
   const long long kblocks = NT == 0 ? a.k : (a.k + 8 * NT - 1) / (8 * NT);
   const long long row_tiles = (p.n + B_ROWS - 1) / B_ROWS;
@@ -1039,29 +1124,37 @@ cudaError_t launch_k1_passes(const DenseOperands& p,
   const long long blocks_b = f_tiles * osplit * kblocks;
   if (blocks_a > 0x7fffffff || blocks_b > 0x7fffffff)
     return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(k1_zv_kernel<MODE, NT>, ZV_SMEM<NT>);
+  cudaError_t err = allow_smem(k1_zv_kernel<FMT, MODE, NT>, ZV_SMEM<FMT, NT>);
   if (err != cudaSuccess) return err;
-  k1_zv_kernel<MODE, NT><<<(unsigned)blocks_a, THREADS, ZV_SMEM<NT>, st>>>(
-      xbh, xbl, ph, pl, p, a, zv_part, zsplit);
+  k1_zv_kernel<FMT, MODE, NT>
+      <<<(unsigned)blocks_a, THREADS, ZV_SMEM<FMT, NT>, st>>>(
+          xbh, xbl, ph, pl, p, a, zv_part, zsplit);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  if (zsplit > 1) {
+    const size_t len = (size_t)p.n * a.k;
+    sum_zv_slices_kernel<float><<<(unsigned)((len + 255) / 256), 256, 0,
+                                  st>>>(zv_part, zsplit, len);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
   if constexpr (NT == 0) {
-    err = allow_smem(k1_out1_kernel<MODE>, OUT1_SMEM);
+    err = allow_smem(k1_out1_kernel<FMT, MODE>, OUT1_SMEM<FMT>);
     if (err != cudaSuccess) return err;
-    k1_out1_kernel<MODE><<<(unsigned)blocks_b, THREADS, OUT1_SMEM, st>>>(
-        xh, xl, ph, pl, p, a, zv_part, zsplit, osplit, oc_part, os_part);
+    k1_out1_kernel<FMT, MODE>
+        <<<(unsigned)blocks_b, THREADS, OUT1_SMEM<FMT>, st>>>(
+            xh, xl, ph, pl, p, a, zv_part, osplit, oc_part, os_part);
   } else {
-    err = allow_smem(k1_outm_kernel<MODE, NT>, OUTM_SMEM<NT>);
+    err = allow_smem(k1_outm_kernel<FMT, MODE, NT>, OUTM_SMEM<FMT, NT>);
     if (err != cudaSuccess) return err;
-    k1_outm_kernel<MODE, NT>
-        <<<(unsigned)blocks_b, THREADS, OUTM_SMEM<NT>, st>>>(
-            ph, pl, xbh, xbl, p, a, zv_part, zsplit, osplit, oc_part,
-            os_part);
+    k1_outm_kernel<FMT, MODE, NT>
+        <<<(unsigned)blocks_b, THREADS, OUTM_SMEM<FMT, NT>, st>>>(
+            ph, pl, xbh, xbl, p, a, zv_part, osplit, oc_part, os_part);
   }
   return cudaGetLastError();
 }
 
-template <int MODE>
+template <int FMT, int MODE>
 cudaError_t launch_k1_mode(const DenseOperands& p,
                            const ztzv::ZtzvArgs<float>& a, float* zv_part,
                            float* oc_part, float* os_part, float* oc,
@@ -1069,13 +1162,13 @@ cudaError_t launch_k1_mode(const DenseOperands& p,
                            cudaStream_t st) {
   cudaError_t err;
   if (a.k == 1)
-    err = launch_k1_passes<MODE, 0>(p, a, zv_part, oc_part, os_part, zsplit,
-                                    osplit, st);
-  else if (ztzv::mma_nt(FMT_TF32X3, a.k) == 1)
-    err = launch_k1_passes<MODE, 1>(p, a, zv_part, oc_part, os_part, zsplit,
-                                    osplit, st);
+    err = launch_k1_passes<FMT, MODE, 0>(p, a, zv_part, oc_part, os_part,
+                                         zsplit, osplit, st);
+  else if (ztzv::mma_nt(FMT, a.k) == 1)
+    err = launch_k1_passes<FMT, MODE, 1>(p, a, zv_part, oc_part, os_part,
+                                         zsplit, osplit, st);
   else
-    err = launch_k1_passes<MODE, ztzv::mma_nt(FMT_TF32X3, 9)>(
+    err = launch_k1_passes<FMT, MODE, ztzv::mma_nt(FMT, 9)>(
         p, a, zv_part, oc_part, os_part, zsplit, osplit, st);
   if (err != cudaSuccess) return err;
   const size_t len = (size_t)p.f * a.k;
@@ -1085,32 +1178,37 @@ cudaError_t launch_k1_mode(const DenseOperands& p,
   return cudaGetLastError();
 }
 
-// One K1 call in 3xTF32 in sincos mode `mode` (an unknown mode, or a split
-// below 1, is refused).
-inline int launch_k1(const DenseOperands& p, const ztzv::ZtzvArgs<float>& a,
-                     float* zv_part, float* oc_part, float* os_part,
-                     float* oc, float* os, int zsplit, int osplit, int mode,
-                     cudaStream_t st) {
-  if (zsplit < 1 || osplit < 1 || p.dp % 4 != 0 || a.k < 1)
+// One K1 call in format FMT (3xTF32 or bf16) in sincos mode `mode` (an
+// unknown mode, a split below 1 or a depth that is not whole 16-byte rows
+// is refused).
+template <int FMT>
+int launch_k1(const DenseOperands& p, const ztzv::ZtzvArgs<float>& a,
+              float* zv_part, float* oc_part, float* os_part, float* oc,
+              float* os, int zsplit, int osplit, int mode, cudaStream_t st) {
+  if (zsplit < 1 || osplit < 1 || p.dp % (Fmt<FMT>::BF16 ? 8 : 4) != 0 ||
+      a.k < 1)
     return (int)cudaErrorInvalidValue;
   switch (mode) {
     case MODE_HI:
-      return (int)launch_k1_mode<MODE_HI>(p, a, zv_part, oc_part, os_part,
-                                          oc, os, zsplit, osplit, st);
+      return (int)launch_k1_mode<FMT, MODE_HI>(p, a, zv_part, oc_part,
+                                               os_part, oc, os, zsplit,
+                                               osplit, st);
     case MODE_EXACT:
-      return (int)launch_k1_mode<MODE_EXACT>(p, a, zv_part, oc_part,
-                                             os_part, oc, os, zsplit, osplit,
-                                             st);
+      return (int)launch_k1_mode<FMT, MODE_EXACT>(p, a, zv_part, oc_part,
+                                                  os_part, oc, os, zsplit,
+                                                  osplit, st);
     case MODE_FAST:
-      return (int)launch_k1_mode<MODE_FAST>(p, a, zv_part, oc_part, os_part,
-                                            oc, os, zsplit, osplit, st);
+      return (int)launch_k1_mode<FMT, MODE_FAST>(p, a, zv_part, oc_part,
+                                                 os_part, oc, os, zsplit,
+                                                 osplit, st);
     case MODE_POLY:
-      return (int)launch_k1_mode<MODE_POLY>(p, a, zv_part, oc_part, os_part,
-                                            oc, os, zsplit, osplit, st);
+      return (int)launch_k1_mode<FMT, MODE_POLY>(p, a, zv_part, oc_part,
+                                                 os_part, oc, os, zsplit,
+                                                 osplit, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-}  // namespace dtf32
+}  // namespace dense
 }  // namespace xgpr

@@ -1,16 +1,17 @@
 // K2 in the 3xTF32 format (float32 operands, "high" and "default": the
-// warp-specialised TMA pipeline of dense_tf32.cuh) and K2's C entry point
+// warp-specialised TMA pipeline of dense_wgmma.cuh) and K2's C entry point
 // for every format; what the kernel computes is in feature_map.cuh.
-#include "dense_tf32.cuh"
+#include "dense_wgmma.cuh"
 
 using namespace xgpr;
 using namespace xgpr::features;
 
 // K2's C entry point.  x_hi/x_lo (n, dp) and proj_hi/proj_lo (f, dp) are
 // the planes of x and of proj transposed in the format `body` names
-// (tf32_gemm.cuh: Format): FMT_TF32X3, TF32 splits of float32 values with
-// dp % 4 == 0, out float32; FMT_FMA32, the float32 values with dp % 4 == 0
-// and the lo pointers unused, out float32; FMT_F64, float64 values with
+// (gemm_common.cuh: Format): FMT_TF32X3, TF32 splits of float32 values with
+// dp % 4 == 0, out float32; FMT_FMA32, x^T (dp, np) in x_hi and proj
+// (dp, fp) in proj_hi, float32 (np and fp n and f rounded up to multiples
+// of 4), the lo pointers unused, out float32; FMT_F64, float64 values with
 // dp % 2 == 0 and the lo pointers unused, out float64.  out is (n, 2f);
 // rsplit blocks share each frequency tile's 128-row tiles (in 3xTF32 a
 // block's two consumers take their halves); mode is a SincosMode
@@ -31,9 +32,9 @@ extern "C" int xgpr_feature_map(const void* x_hi, const void* x_lo,
   if (body == FMT_FMA32) return launch_fma32(p, a, mode, rsplit, st);
   if (body != FMT_TF32X3) return (int)cudaErrorInvalidValue;
   switch (mode) {
-    case MODE_HI: return dtf32::launch_k2<MODE_HI>(p, a, rsplit, st);
-    case MODE_EXACT: return dtf32::launch_k2<MODE_EXACT>(p, a, rsplit, st);
-    case MODE_FAST: return dtf32::launch_k2<MODE_FAST>(p, a, rsplit, st);
-    default: return dtf32::launch_k2<MODE_POLY>(p, a, rsplit, st);
+    case MODE_HI: return dense::launch_k2<MODE_HI>(p, a, rsplit, st);
+    case MODE_EXACT: return dense::launch_k2<MODE_EXACT>(p, a, rsplit, st);
+    case MODE_FAST: return dense::launch_k2<MODE_FAST>(p, a, rsplit, st);
+    default: return dense::launch_k2<MODE_POLY>(p, a, rsplit, st);
   }
 }

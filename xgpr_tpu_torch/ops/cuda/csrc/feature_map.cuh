@@ -24,7 +24,7 @@
 //
 // Design (the wrapper in ../feature_map.py prepares the operands):
 // - float32 operands at "high" and "default" run the 3xTF32 body, the
-//   warp-specialised TMA pipeline of dense_tf32.cuh (its
+//   warp-specialised TMA pipeline of dense_wgmma.cuh (its
 //   feature_map_kernel): a block takes one 128-frequency tile of proj^T,
 //   resident up to D 96, and its two consumer warpgroups take the halves
 //   of the row tiles of its walk,
@@ -43,17 +43,19 @@
 //   64-value loop.  No (N, F) intermediate reaches device memory, and each
 //   feature is written once.
 // - At the "highest" feature precision (the "reference" preset) float32
-//   operands run feature_map_kernel below, the last body of K2 on
-//   tf32_gemm.cuh's shared cp.async ring: fp32 FMAs of fma_gemm.cuh,
-//   fp32-exact as xgpr_tpu's Pallas feature map, which pins HIGHEST
-//   (sorf_pallas.py:48-50): the 3xTF32 body's tensor-core sums measured
-//   2.05x the error of a plain fp32 product against a float64 witness
-//   (PERF.md).  A block takes one frequency tile and walks a slice of the
-//   row tiles; each thread stores its pairs of adjacent frequencies from
-//   the fragment as 8-byte stores (scalars where a pair is split or
-//   unaligned).  What bounds it: the projection as fp32 FMAs, 5.6 GFLOP at
-//   RBF's chunk, 0.084 ms at the CUDA cores' 67 TFLOP/s, against the
-//   0.081 ms write.
+//   operands run fp32 FMAs on the CUDA cores, fp32-exact as xgpr_tpu's
+//   Pallas feature map, which pins HIGHEST (sorf_pallas.py:48-50): the
+//   3xTF32 body's tensor-core sums measured 2.05x the error of a plain
+//   fp32 product against a float64 witness (PERF.md).  That body is a
+//   kernel of its own in feature_map_fma.cu (its design is written there):
+//   fma_gemm.cuh's 8 x 8 register tile a thread, channel-major operands
+//   (x^T and proj, which the wrapper lays out) on a cp.async ring with
+//   full and empty mbarriers, each output one fmaf chain over the
+//   channels in order, and the fold and stores on the thread's tile
+//   (16-byte runs of 4 frequencies).  What bounds it: the CUDA cores,
+//   the projection's 5.6 GFLOP of fp32 FMAs at RBF's chunk (0.084 ms at
+//   67 TFLOP/s) plus the fold's sincos instructions, against the 0.081 ms
+//   write.
 // - float64 operands run a kernel of their own, feature_map_f64_kernel in
 //   feature_map_f64.cu: the m16n8k8 DMMA loop of dense_f64.cuh (a
 //   six-stage mbarrier ring, tiles of 128 rows x 128 frequencies) with the
@@ -65,12 +67,12 @@
 //   ~0.1 ms of double sincos on the FP64 units; at D 1024 the 34.4 GFLOP
 //   of projection, 0.51 ms.
 // The 3xTF32 instantiations are in feature_map.cu (with the C entry
-// point), the fp32 FMA ones in feature_map_fma.cu, the float64 kernel in
+// point), the fp32 FMA kernel in feature_map_fma.cu, the float64 kernel in
 // feature_map_f64.cu, built in parallel.
 #pragma once
 
 #include "common.cuh"
-#include "tf32_gemm.cuh"
+#include "gemm_common.cuh"
 
 namespace xgpr {
 namespace features {
@@ -99,71 +101,6 @@ __device__ __forceinline__ void store_feature(const FeatureArgs<T>& a, T* o,
   const int col = fc + blk * a.padded;
   o[col] = c;
   o[col + width] = s;
-}
-
-template <int FMT, int MODE>
-__global__ void __launch_bounds__(GT, 1)
-    feature_map_kernel(DenseOperands p, FeatureArgs<typename Body<FMT>::T> a) {
-  using T = typename Body<FMT>::T;
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  unsigned char* smem = ring_base(smem_raw);
-  const DenseWalk w = dense_walk(false, p.n, p.f);
-  const int kc = max(1, (p.dp + Body<FMT>::KS - 1) / Body<FMT>::KS);
-  const int lane = threadIdx.x % 32, t4 = lane % 4;
-  const int rbase = (threadIdx.x / 32) * 16 + lane / 4;  // row in the tile
-  const size_t ld = 2 * (size_t)p.f;
-  // With blocks a multiple of the tile wide, the tile is in one block.
-  const int tile_blk = a.padded % GN == 0 ? w.col0(0) / a.padded : -1;
-
-  T acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = T(0);
-
-  dense_pipeline<false, FMT>(
-      smem, p, w, kc, acc, [](int) {},
-      [&](int i) {  // row tile i is complete: its features go out
-        const int row0 = w.row0(i);
-        const int fb = w.col0(i) + 2 * t4;
-        with_sincos<MODE>(acc, T(1), [&](auto sincos) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int r = row0 + rbase + 8 * h;
-            if (r >= p.n) continue;
-            T* o = a.out + (size_t)r * ld;
-#pragma unroll
-            for (int j = 0; j < 16; ++j) {
-              const int f = fb + 8 * j;
-              if (f >= p.f) continue;
-              T c0, s0, c1, s1;
-              sincos(acc[4 * j + 2 * h], a.scale, &c0, &s0);
-              sincos(acc[4 * j + 2 * h + 1], a.scale, &c1, &s1);
-              const int blk = tile_blk >= 0 ? tile_blk : f / a.padded;
-              const int width = min(a.padded, p.f - blk * a.padded);
-              // f is even, so with even blocks f and f + 1 share a block
-              // and both columns of the pair are aligned to their store.
-              if (f + 1 < p.f && a.padded % 2 == 0 && width % 2 == 0) {
-                const int col = f + blk * a.padded;
-                store2(o + col, c0, c1);
-                store2(o + col + width, s0, s1);
-              } else {
-                store_feature(a, o, p.f, f, c0, s0);
-                if (f + 1 < p.f) store_feature(a, o, p.f, f + 1, c1, s1);
-              }
-            }
-          }
-        });
-      });
-}
-
-template <int FMT, int MODE>
-int launch(const DenseOperands& p, const FeatureArgs<typename Body<FMT>::T>& a,
-           int rsplit, cudaStream_t stream) {
-  cudaError_t err = allow_ring_smem<FMT>(feature_map_kernel<FMT, MODE>);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p.f + GN - 1) / GN, rsplit);
-  feature_map_kernel<FMT, MODE>
-      <<<grid, GT, Body<FMT>::SMEM, stream>>>(p, a);
-  return (int)cudaGetLastError();
 }
 
 // The fp32 FMA body's launch in sincos mode `mode` (feature_map_fma.cu).

@@ -1,29 +1,23 @@
-// The projection body of K2 at the "highest" feature precision (the
-// "reference" preset), beside the wgmma bodies of tf32_gemm.cuh (Format):
-// FMT_FMA32, fp32 FMAs on the CUDA cores (fma_products), whose products
-// are complete when issued (no wgmma in flight).  K3 and K4 run the same
-// arithmetic in conv_sync.cuh.  xgpr_tpu's "highest" is an fp32-exact
-// product (HIGHEST: six bf16 passes on the TPU); the 3xTF32 body sums in
-// the tensor cores' fp32 accumulation and measured 6.2x (K3) and 5.1x (K4)
-// the error of a plain fp32 product against a float64 witness on the H100
-// (PERF.md), while an fp32 FMA rounds each step as the plain product
-// does.  Float64 operands run elsewhere: K1 and K2 on dense_f64.cuh's
-// m16n8k8 DMMA loop, K3 and K4 in conv_sync.cuh.
+// The CUDA-core products of the fp32 FMA bodies ("highest", the
+// "reference" preset's fp32-exact products: K2's kernel in
+// feature_map_fma.cu, K3 and K4's FmaTile in conv_sync.cuh), and the
+// scalar helpers the epilogues share (fma_t, max_t).
 //
-// What bounds it: operations, 5.6 GFLOP at RBF's chunk as fp32 FMAs, 0.084
-// ms at the CUDA cores' 67 TFLOP/s (PERF.md §6).
-//
-// Layout: the stages of the wgmma bodies, filled by the same copies
-// (tf32_gemm.cuh: gemm_loop, load_rows), one plane per operand: each row
-// K-major in 128-byte lines (32 fp32 values of depth) in the 128-byte
-// swizzle.  Thread (warp W, lane (g, t) = (lane / 4, lane % 4)) owns the
-// accumulator fragment of the wgmma bodies: tile rows 16W + g + 8h by
-// columns 8j + 2t + e, in acc[4j + 2h + e] (h, e < 2, j < 16), so every
-// epilogue reads the same registers whatever the body.  Depth runs in a
-// fixed order, so the sums are the same from run to run.
+// The register tile: a thread holds 8 GEMM rows by 8 columns
+// (frequencies), acc[8r + c], and its operands lie channel-major ("K-major"
+// tiles of one channel a row) in shared memory, so that one channel's 8 A
+// and 8 B values are four 16-byte loads for its 64 FMAs: A's rows as two
+// runs of 4 (at a and a + a1), B's columns as two runs of 4 (at b and
+// b + b1).  Each accumulator is one fmaf chain over the channels in order,
+// so an output is the same fp32 sum whatever the tile's staging; a
+// 16-byte load of A is the same address across a quarter warp (a
+// broadcast) and B's loads are 128 contiguous bytes a quarter warp in both
+// kernels' layouts, so they are free of bank conflicts.  The wgmma
+// fragment as a thread tile (2 rows x 32 frequencies: 34 shared loads per
+// 256 FMAs) ran K3 at 31% and K2 at 11% of their bound on the card.
 #pragma once
 
-#include "common.cuh"
+#include <cuda_runtime.h>
 
 namespace xgpr {
 
@@ -37,51 +31,43 @@ __device__ __forceinline__ double max_t(double a, double b) {
   return fmax(a, b);
 }
 
-// The 16 bytes at p (shared memory) as 4 values.
-__device__ __forceinline__ void load16(const unsigned char* p, float v[4]) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x;
-  v[1] = q.y;
-  v[2] = q.z;
-  v[3] = q.w;
+// One channel's 64 FMAs: acc[8r + c] = fmaf(a_r, b_c, acc[8r + c]) for
+// A's rows a[0..3], a[a1 .. a1 + 3] and B's columns b[0..3],
+// b[b1 .. b1 + 3] (shared memory, 16-byte aligned).
+__device__ __forceinline__ void fma_channel(const float* a, int a1,
+                                            const float* b, int b1,
+                                            float acc[64]) {
+  const float4 a0 = *reinterpret_cast<const float4*>(a);
+  const float4 a4 = *reinterpret_cast<const float4*>(a + a1);
+  const float4 b0 = *reinterpret_cast<const float4*>(b);
+  const float4 b4 = *reinterpret_cast<const float4*>(b + b1);
+  const float av[8] = {a0.x, a0.y, a0.z, a0.w, a4.x, a4.y, a4.z, a4.w};
+  const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      acc[8 * r + c] = fmaf(av[r], bv[c], acc[8 * r + c]);
 }
 
-// acc (this thread's fragment) = or += A rows (the tile's 128 rows at a)
-// times B rows (its 128 columns at b) over one 128-byte line of depth, in
-// fp32 FMAs; overwrite: the group's first step.  For each 16-byte chunk of
-// depth (VEC values) a thread loads its two A rows and its 32 B columns,
-// one 16-byte load each (the 4 lanes of one g, or the 8 of one t, read the
-// same address; the swizzle puts the 8 rows, or 4 columns, of one load on
-// distinct banks), and does 64 x VEC FMAs: 34 shared loads per 256 FMAs.
-template <class T>
-__device__ __forceinline__ void fma_products(const unsigned char* a,
-                                             const unsigned char* b,
-                                             T acc[64], bool overwrite) {
-  constexpr int VEC = 16 / sizeof(T);
-  const int lane = threadIdx.x % 32, t4 = lane % 4;
-  const int r0 = (threadIdx.x / 32) * 16 + lane / 4;
-  if (overwrite) {
-#pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = T(0);
-  }
-#pragma unroll 1
-  for (int c = 0; c < 8; ++c) {  // the line's 16-byte chunks
-    T a0[VEC], a1[VEC];
-    load16(a + sw128(r0, c), a0);
-    load16(a + sw128(r0 + 8, c), a1);
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        T bv[VEC];
-        load16(b + sw128(8 * j + 2 * t4 + e, c), bv);
-#pragma unroll
-        for (int v = 0; v < VEC; ++v) {
-          acc[4 * j + e] = fma_t(a0[v], bv[v], acc[4 * j + e]);
-          acc[4 * j + 2 + e] = fma_t(a1[v], bv[v], acc[4 * j + 2 + e]);
-        }
-      }
-  }
+// KS channels of a step in order, channel k's A values at a + k * ap and
+// B values at b + k * bp.  Unrolled by 8 channels, not KS: a whole 32-
+// channel step's 2,048 FMAs in straight-line code ran K3 10% slower on the
+// card (PERF.md §6).
+template <int KS>
+__device__ __forceinline__ void fma_step(const float* a, int ap, int a1,
+                                         const float* b, int bp, int b1,
+                                         float acc[64]) {
+#pragma unroll 8
+  for (int k = 0; k < KS; ++k) fma_channel(a + k * ap, a1, b + k * bp, b1, acc);
+}
+
+// The same over the first kn channels of a step (a ragged last step).
+__device__ __forceinline__ void fma_step_n(const float* a, int ap, int a1,
+                                           const float* b, int bp, int b1,
+                                           int kn, float acc[64]) {
+#pragma unroll 4
+  for (int k = 0; k < kn; ++k) fma_channel(a + k * ap, a1, b + k * bp, b1, acc);
 }
 
 }  // namespace xgpr

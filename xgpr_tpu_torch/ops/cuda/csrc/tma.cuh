@@ -1,10 +1,10 @@
 // The TMA and wgmma-wait helpers of the warp-specialised pipelines
 // (conv_ws.cuh: K3/K4's bf16 body; conv_tf32.cuh: their 3xTF32 body;
-// dense_tf32.cuh: K1 and K2's 3xTF32 bodies): a tensor map's encoding
-// through the runtime (the library links no libcuda), box copies into
-// shared memory that complete on an mbarrier (2-D, 3-D and 4-D), bulk
-// stores of a 2-D box from shared memory with their commit and waits, and
-// a ring position (a stage and its fill's parity).
+// dense_wgmma.cuh: K1 and K2's 3xTF32 and K1's bf16 bodies): a tensor
+// map's encoding through the runtime (the library links no libcuda), box
+// copies into shared memory that complete on an mbarrier (2-D, 3-D and
+// 4-D), bulk stores of a 2-D box from shared memory with their commit and
+// waits, and a ring position (a stage and its fill's parity).
 #pragma once
 
 #include <cuda.h>

@@ -1,14 +1,14 @@
 // K1 in the 3xTF32 format ("high" and "highest", the default: the
-// warp-specialised TMA pipeline of dense_tf32.cuh) and K1's C entry point
+// warp-specialised TMA pipeline of dense_wgmma.cuh) and K1's C entry point
 // for every format; what the kernels compute is in ztzv.cuh.
-#include "dense_tf32.cuh"
+#include "dense_wgmma.cuh"
 
 using namespace xgpr;
 using namespace xgpr::ztzv;
 
 // K1's C entry point.  x_hi/x_lo (n, dp) and proj_hi/proj_lo (f, dp) are
 // the planes of x and of proj transposed in the format `body` names
-// (tf32_gemm.cuh: Format): FMT_TF32X3, TF32 splits with dp % 4 == 0;
+// (gemm_common.cuh: Format): FMT_TF32X3, TF32 splits with dp % 4 == 0;
 // FMT_BF16, bf16 values with dp % 8 == 0; FMT_F64, float64 values with
 // dp % 2 == 0 (the lo pointers unused by both).  m (n,), vc/vs (f, k),
 // zv_part (zsplit, n, k), oc_part/os_part (osplit, f, k) and oc/os (f, k)
@@ -49,7 +49,7 @@ extern "C" int xgpr_ztzv(const void* x_hi, const void* x_lo, const void* m,
                            static_cast<float*>(oc), static_cast<float*>(os)};
   switch (body) {
     case FMT_TF32X3:
-      return dtf32::launch_k1(p, a, parts[0], parts[1], parts[2], parts[3],
+      return dense::launch_k1<FMT_TF32X3>(p, a, parts[0], parts[1], parts[2], parts[3],
                               parts[4], zsplit, osplit, mode, st);
     case FMT_BF16:
       return launch_bf16(p, a, parts[0], parts[1], parts[2], parts[3],

@@ -1,8 +1,8 @@
 // Fused CG matvec for one chunk on Hopper (K1): Z^T (Z v) without writing Z,
 // its projections on the tensor cores in the body of the feature precision
-// (3xTF32 for "high" and "highest" on dense_tf32.cuh's pipeline, one bf16
-// pass for "default" on tf32_gemm.cuh's ring), or in float64 m16n8k8 DMMA
-// for float64 operands (dense_f64.cuh).
+// (3xTF32 for "high" and "highest", one bf16 pass for "default", both on
+// dense_wgmma.cuh's pipeline), or in float64 m16n8k8 DMMA for float64
+// operands (dense_f64.cuh).
 //
 // Replaces the TPU kernel xgpr_tpu/ops/pallas/ztzv_pallas.py:_ztzv_kernel
 // (pallas_call in _ztzv_parts_impl).  For raw rows x (R, D), row mask m (R,),
@@ -26,8 +26,8 @@
 //       by tile -> zv_part (SZ, R, K).
 //   (b) out pass: per frequency tile, slice of the row tiles and block of
 //       right-hand sides, recompute the same features and contract with zv
-//       (the SZ partials summed in a fixed order as they are staged) ->
-//       oc_part, os_part (SO, F, K).
+//       (the SZ partials summed in a fixed order first, by a small launch
+//       when SZ > 1) -> oc_part, os_part (SO, F, K).
 //   (c) sum_splits_kernel: fixed-order sum over the SO partials -> oc, os.
 //
 // What bounds it on the H100: at RBF's chunk (8192 x 84 rows, F 4096)
@@ -39,23 +39,17 @@
 // features instead of writing Z trades 268 MB of traffic per chunk for the
 // second projection.
 //
-// Design.  The 3xTF32 body ("high", "highest": float32 operands) runs the
-// warp-specialised TMA pipeline of dense_tf32.cuh, with the walks below:
-// pass (a) holds 128 rows of x and walks a slice of the frequency tiles,
-// its two consumer warpgroups multiplying 64 rows each in step; pass (b)
-// at K 1 holds a 128-frequency tile and its consumers take the halves of
-// the row tiles of a slice on rings of their own, so that one folds while
-// the other multiplies; at K > 1 it holds 128 frequencies of proj^T (the
-// operands swapped) and walks a slice of the row tiles of x as pass (a)
-// does.  The bf16 body ("default")
-// is the last body of K1 on tf32_gemm.cuh's shared cp.async ring: the
-// passes below, 128 x 128 tiles whose stages flow from one tile to the
-// next of a block's walk; up to three depth steps (D 192 in bf16; RBF's
-// 84) the tile the walk does not move stays in shared memory and the ring
-// carries only the other operand (dense_pipeline).  In both bodies pass
-// (b) at K > 1 projects with the operands swapped (proj^T x^T:
-// frequencies as the tile's rows, rows of x as its columns), so that in
-// both passes the contraction runs over the fragment's columns.
+// Design.  The float32 bodies, 3xTF32 ("high", "highest") and bf16
+// ("default"), run the warp-specialised TMA pipeline of dense_wgmma.cuh,
+// one template over the format, with the walks below: pass (a) holds 128
+// rows of x and walks a slice of the frequency tiles, its two consumer
+// warpgroups multiplying 64 rows each in step; pass (b) at K 1 holds a
+// 128-frequency tile and its consumers take the halves of the row tiles
+// of a slice on rings of their own, so that one folds while the other
+// multiplies; at K > 1 it holds 128 frequencies of proj^T (the operands
+// swapped: frequencies as the tile's rows, rows of x as its columns) and
+// walks a slice of the row tiles of x as pass (a) does, so that in both
+// passes the contraction runs over the fragment's columns.
 //
 // The contractions run on the tensor cores straight from the accumulator
 // fragment (mma.sync, the A operand in registers): the fragment holds tile
@@ -70,11 +64,11 @@
 // sincos of each tile, where a CUDA-core contraction carried one
 // right-hand side a block in pass (b) and recomputed the features K times
 // (3.73 ms at K 26 in 3xTF32).  NT is 1 up to K 8, then 4 for bf16 and 2
-// for 3xTF32: two slots of v_c / v_s for 32 right-hand sides need 64 KB a
-// consumer, which dense_tf32.cuh's ring does not leave, and their sums 32
-// more registers a thread.  At K 1 one-rhs passes that contract on the
-// CUDA cores (ztzv_zv_kernel, ztzv_out_kernel; in 3xTF32 their folds in
-// dense_tf32.cuh) run instead.
+// for 3xTF32, whose sums take twice the registers (main and correction
+// terms): 32 right-hand sides a block past K 16 measured slower in 3xTF32
+// (PERF.md §6).  The plan, and so each output's summation order, follows
+// NT.  At K 1 one-rhs passes contract on the CUDA cores instead (the
+// folds of dense_wgmma.cuh's k1_zv_kernel and k1_out1_kernel).
 //
 // Precision: "default" (bf16) rounds c, s (after scale * mask and the
 // intercept column), v_c / v_s and the summed zv to bf16 as the TPU's
@@ -98,10 +92,10 @@
 //
 // Each kernel is instantiated once per sincos mode (common.cuh) and
 // format; each format's instantiations are a translation unit of their own
-// (ztzv.cu: 3xTF32 on dense_tf32.cuh; ztzv_bf16.cu: bf16 on the passes
-// below; ztzv_f64.cu), built in parallel, and the host picks the
-// instantiation at launch.  The wrapper picks the slice counts that fill
-// the SMs in the fewest waves (ops/cuda/ztzv.py: launch_plan).
+// (ztzv.cu: 3xTF32 and ztzv_bf16.cu: bf16, both on dense_wgmma.cuh;
+// ztzv_f64.cu: the float64 passes below), built in parallel, and the host
+// picks the instantiation at launch.  The wrapper picks the slice counts
+// that fill the SMs in the fewest waves (ops/cuda/ztzv.py: launch_plan).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -109,7 +103,7 @@
 
 #include "common.cuh"
 #include "dense_f64.cuh"
-#include "tf32_gemm.cuh"
+#include "gemm_common.cuh"
 
 namespace xgpr {
 namespace ztzv {
@@ -129,228 +123,8 @@ struct ZtzvArgs {
 constexpr int MAX_GRID_Z = 65535;
 
 // ---------------------------------------------------------------------------
-// The one-rhs passes at K 1 (a fit's CG matvec), contracting on the CUDA
-// cores, in bf16 (3xTF32's are dense_tf32.cuh's k1_zv_kernel and
-// k1_out1_kernel, with these folds).  In 3xTF32 the tensor-core passes'
-// splits and fresh products cost more than the two FMAs a feature takes
-// here (0.323 against 0.256 ms at RBF's chunk, PERF.md).  In bf16 they
-// were faster (0.173 against 0.185 ms), but their other summation order
-// cost slice A's fit under "max" a CG iteration (18 against 17), so bf16
-// keeps these passes at K 1 too.  The epilogues round c, s, v_c / v_s and
-// zv to bf16 (as_operand) before their fp32 FMAs.  The zv pass is
-// instantiated at KC = 1 right-hand side a block, the out pass takes
-// right-hand side blockIdx.z of a grid one deep.
-
-// Partial zv over the frequency tiles of this block's walk.
-template <int FMT, int MODE, int KC>
-__global__ void __launch_bounds__(GT, 1)
-    ztzv_zv_kernel(DenseOperands p, ZtzvArgs<typename Body<FMT>::T> a,
-                   typename Body<FMT>::T* __restrict__ zv_part) {
-  using T = typename Body<FMT>::T;
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  __shared__ T vcs[3][GN * KC], vss[3][GN * KC];
-  unsigned char* smem = ring_base(smem_raw);
-  const DenseWalk w = dense_walk(true, p.n, p.f);
-  const int kc = max(1, (p.dp + Body<FMT>::KS - 1) / Body<FMT>::KS);
-  const int tid = threadIdx.x, lane = tid % 32, t4 = lane % 4;
-  const int rbase = (tid / 32) * 16 + lane / 4;
-  const int k0 = blockIdx.z * KC, kcnt = min(KC, a.k - k0);
-
-  T mrow[2], wrow[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = w.row0(0) + rbase + 8 * h;
-    mrow[h] = r < p.n ? a.m[r] : T(0);
-    wrow[h] = mrow[h] * a.scale;
-  }
-  T part[2][KC];
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int q = 0; q < KC; ++q) part[h][q] = T(0);
-
-  auto stage_v = [&](int step) {
-    if (step % kc == 0) {  // stage the tile's v_c / v_s
-      const int i = step / kc, f0 = w.col0(i);
-      for (int e = tid; e < GN * KC; e += GT) {
-        const int fl = e / KC, q = e % KC, gf = f0 + fl;
-        const bool ok = gf < p.f && q < kcnt;
-        const size_t at = (size_t)gf * a.k + k0 + q;
-        vcs[i % 3][e] = ok ? as_operand<FMT>(a.vc[at]) : T(0);
-        vss[i % 3][e] = ok ? as_operand<FMT>(a.vs[at]) : T(0);
-      }
-    }
-  };
-  T acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = T(0);
-
-  // Frequency tile i is complete: its contributions to the rows' partial
-  // sums.
-  dense_pipeline<true, FMT>(smem, p, w, kc, acc, stage_v, [&](int i) {
-    const T* vct = vcs[i % 3];
-    const T* vst = vss[i % 3];
-    const int f0 = w.col0(i);
-    with_sincos<MODE>(acc, a.sigma, [&](auto sincos) {
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int fl = 8 * j + 2 * t4 + e;
-          const bool icol = a.intercept && f0 + fl == 0;
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            T c, s;
-            sincos(acc[4 * j + 2 * h + e] * a.sigma, wrow[h], &c, &s);
-            if (icol) c = mrow[h];
-            c = as_operand<FMT>(c);
-            s = as_operand<FMT>(s);
-#pragma unroll
-            for (int q = 0; q < KC; ++q)
-              part[h][q] = fma_t(c, vct[fl * KC + q],
-                                 fma_t(s, vst[fl * KC + q], part[h][q]));
-          }
-        }
-    });
-  });
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int q = 0; q < KC; ++q) {
-      T v = part[h][q];
-      v += __shfl_xor_sync(0xffffffffu, v, 1);
-      v += __shfl_xor_sync(0xffffffffu, v, 2);
-      part[h][q] = v;
-    }
-  if (t4 != 0) return;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = w.row0(0) + rbase + 8 * h;
-    if (r >= p.n) continue;
-#pragma unroll
-    for (int q = 0; q < KC; ++q)
-      if (q < kcnt)
-        zv_part[((size_t)blockIdx.y * p.n + r) * a.k + k0 + q] = part[h][q];
-  }
-}
-
-// Partial oc/os of one frequency tile over the row tiles of this block's
-// walk, for right-hand side q = blockIdx.z.
-template <int FMT, int MODE>
-__global__ void __launch_bounds__(GT, 1)
-    ztzv_out_kernel(DenseOperands p, ZtzvArgs<typename Body<FMT>::T> a,
-                    const typename Body<FMT>::T* __restrict__ zv_part,
-                    int zsplit, typename Body<FMT>::T* __restrict__ oc_part,
-                    typename Body<FMT>::T* __restrict__ os_part) {
-  using T = typename Body<FMT>::T;
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  __shared__ T zvs[3][GM], ms[3][GM];
-  __shared__ T red[2][GT / 32][GN];
-  unsigned char* smem = ring_base(smem_raw);
-  const DenseWalk w = dense_walk(false, p.n, p.f);
-  const int kc = max(1, (p.dp + Body<FMT>::KS - 1) / Body<FMT>::KS);
-  const int tid = threadIdx.x, lane = tid % 32, t4 = lane % 4;
-  const int warp = tid / 32, rbase = warp * 16 + lane / 4;
-  const int q = blockIdx.z, f0 = w.col0(0);
-
-  T oc[32], os[32];  // column 8j + 2 t4 + e at [2j + e]
-#pragma unroll
-  for (int i = 0; i < 32; ++i) oc[i] = os[i] = T(0);
-
-  T acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = T(0);
-
-  dense_pipeline<true, FMT>(
-      smem, p, w, kc, acc,
-      [&](int step) {
-        if (step % kc == 0 && tid < GM) {  // stage the tile's zv and mask
-          const int i = step / kc, r = w.row0(i) + tid;
-          T v = T(0), mr = T(0);
-          if (r < p.n) {
-            for (int s = 0; s < zsplit; ++s)
-              v += zv_part[((size_t)s * p.n + r) * a.k + q];
-            mr = a.m[r];
-          }
-          zvs[i % 3][tid] = as_operand<FMT>(v);
-          ms[i % 3][tid] = mr;
-        }
-      },
-      [&](int i) {
-        with_sincos<MODE>(acc, a.sigma, [&](auto sincos) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int rl = rbase + 8 * h;
-            const T zr = zvs[i % 3][rl], mr = ms[i % 3][rl];
-            const T wr = mr * a.scale;
-#pragma unroll
-            for (int j = 0; j < 16; ++j)
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                T c, s;
-                sincos(acc[4 * j + 2 * h + e] * a.sigma, wr, &c, &s);
-                if (a.intercept && f0 + 8 * j + 2 * t4 + e == 0) c = mr;
-                c = as_operand<FMT>(c);
-                s = as_operand<FMT>(s);
-                oc[2 * j + e] = fma_t(c, zr, oc[2 * j + e]);
-                os[2 * j + e] = fma_t(s, zr, os[2 * j + e]);
-              }
-          }
-        });
-      });
-
-  // Sum over the warp's rows (lanes with the same t4), then over warps.
-#pragma unroll
-  for (int i = 0; i < 32; ++i)
-#pragma unroll
-    for (int off = 4; off < 32; off <<= 1) {
-      oc[i] += __shfl_xor_sync(0xffffffffu, oc[i], off);
-      os[i] += __shfl_xor_sync(0xffffffffu, os[i], off);
-    }
-  if (lane < 4) {
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        red[0][warp][8 * j + 2 * t4 + e] = oc[2 * j + e];
-        red[1][warp][8 * j + 2 * t4 + e] = os[2 * j + e];
-      }
-  }
-  __syncthreads();
-  const int which = tid / GN, fl = tid % GN, col = f0 + fl;
-  if (col < p.f) {
-    T v = T(0);
-#pragma unroll
-    for (int u = 0; u < GT / 32; ++u) v += red[which][u][fl];
-    T* out = which ? os_part : oc_part;
-    out[((size_t)blockIdx.y * p.f + col) * a.k + q] = v;
-  }
-}
-
-// Passes (a) and (b) of a call at K 1.
-template <int FMT, int MODE>
-cudaError_t launch_one(const DenseOperands& p, const ZtzvArgs<float>& a,
-                       float* zv_part, float* oc_part, float* os_part,
-                       int zsplit, int osplit, cudaStream_t st) {
-  cudaError_t err = allow_ring_smem<FMT>(ztzv_zv_kernel<FMT, MODE, 1>);
-  if (err != cudaSuccess) return err;
-  err = allow_ring_smem<FMT>(ztzv_out_kernel<FMT, MODE>);
-  if (err != cudaSuccess) return err;
-  ztzv_zv_kernel<FMT, MODE, 1>
-      <<<dim3((p.n + GM - 1) / GM, zsplit), GT, Body<FMT>::SMEM, st>>>(
-          p, a, zv_part);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  ztzv_out_kernel<FMT, MODE>
-      <<<dim3((p.f + GN - 1) / GN, osplit), GT, Body<FMT>::SMEM, st>>>(
-          p, a, zv_part, zsplit, oc_part, os_part);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// The float32 passes on the tensor cores: bf16's kernels below, and the
-// mma.sync helpers both they and dense_tf32.cuh's 3xTF32 passes use.
+// The mma.sync helpers of the float32 passes at K > 1 (dense_wgmma.cuh's
+// k1_zv_kernel and k1_outm_kernel, in both formats).
 
 // n8 tiles of right-hand sides a block carries at K: 8 NT right-hand sides.
 __host__ __device__ constexpr int mma_nt(int fmt, int k) {
@@ -364,21 +138,19 @@ constexpr int MMA_JS = FMT == FMT_BF16 ? 2 : 1;
 // Word of element (q, c) of a tile's staged operand (8 NT rows q, one per
 // right-hand side, by 128 columns c: frequencies in pass (a), rows of x in
 // pass (b)).  The swizzle puts the float2 B loads of a half-warp (q = 8 nt
-// + g, g < 4; c = 8j + 2t) and the stores of staged_pair on distinct
-// banks.
+// + g, g < 4; c = 8j + 2t) and the staging copies (a warp: 8 consecutive
+// columns by 4 consecutive right-hand sides) on distinct banks.
 __device__ __forceinline__ int staged_at(int q, int c) {
   return q * GN + (c ^ (8 * (q % 4)));
 }
 
-// The (c, q) a thread stages at its it-th turn: a warp takes 8 consecutive
-// columns by 4 consecutive right-hand sides, so its global reads are
-// 16-byte runs of 8 rows of the (., K) operand and its shared stores fall
-// on 32 distinct banks.  it < 4 NT covers the tile.
-__device__ __forceinline__ void staged_pair(int it, int& c, int& q) {
-  const int e = threadIdx.x + GT * it, lane = e % 32, wi = e / 32;
-  c = 8 * (wi % 16) + lane % 8;
-  q = 4 * (wi / 16) + lane / 8;
-}
+// Floats of one slot of a tile's staged operands: pass (a)'s v_c and v_s
+// of a frequency tile (8 NT x 128 each); pass (b)'s zv (8 NT x 128) and
+// the mask of a row tile.
+template <int NT>
+constexpr int ZV_SLOT = 2 * 8 * NT * GN;
+template <int NT>
+constexpr int OUT_SLOT = (8 * NT + 1) * GN;
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           bool valid) {
@@ -520,216 +292,6 @@ __device__ __forceinline__ float mma_value(const MmaSum& d, int r) {
   return FMT == FMT_BF16 ? d.main[r] : d.main[r] + d.corr[r];
 }
 
-// Shared memory of the bf16 tensor-core passes: the ring, then the staged
-// operands.  Pass (a): v_c and v_s of a frequency tile (8 NT x 128 each)
-// in 2 slots, filled by cp.async in the previous tile's epilogue; pass
-// (b): zv (8 NT x 128) and the mask of a row tile in 3 slots, filled with
-// the tile's first copies.  dense_tf32.cuh's passes take the same slots,
-// two a consumer.
-template <int NT>
-constexpr int ZV_SLOT = 2 * 8 * NT * GN;  // floats
-template <int NT>
-constexpr int OUT_SLOT = (8 * NT + 1) * GN;
-template <int FMT, int NT>
-constexpr int ZV_MMA_SMEM =
-    Body<FMT>::SMEM + 2 * ZV_SLOT<NT> * (int)sizeof(float);
-template <int FMT, int NT>
-constexpr int OUT_MMA_SMEM =
-    Body<FMT>::SMEM + 3 * OUT_SLOT<NT> * (int)sizeof(float);
-
-// Pass (a): partial zv over the frequency tiles of this block's walk, for
-// right-hand sides 8 NT (blockIdx.z + zbase) ...
-template <int FMT, int MODE, int NT>
-__global__ void __launch_bounds__(GT, 1)
-    ztzv_zv_mma_kernel(DenseOperands p, ZtzvArgs<float> a,
-                       float* __restrict__ zv_part) {
-  constexpr int KO = 8 * NT, JS = MMA_JS<FMT>;
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  unsigned char* smem = ring_base(smem_raw);
-  float* const slots = reinterpret_cast<float*>(smem_raw + Body<FMT>::SMEM);
-  const DenseWalk w = dense_walk(true, p.n, p.f);
-  const int kc = max(1, (p.dp + Body<FMT>::KS - 1) / Body<FMT>::KS);
-  const int tid = threadIdx.x, lane = tid % 32, g = lane / 4, t4 = lane % 4;
-  const int rbase = (tid / 32) * 16 + g;
-  const int k0 = (blockIdx.z + a.zbase) * KO, kcnt = min(KO, a.k - k0);
-
-  float mrow[2], wrow[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = w.row0(0) + rbase + 8 * h;
-    mrow[h] = r < p.n ? a.m[r] : 0.0f;
-    wrow[h] = mrow[h] * a.scale;
-  }
-  MmaSum z[NT];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) mma_zero(z[nt]);
-
-  // Frequency tile i's v_c / v_s into slot i % 2, as one cp.async group:
-  // tile i + 1's copies run during tile i's epilogue, and the pipeline's
-  // next barrier (after a wait for every group) orders them before tile
-  // i + 1's reads, and tile i - 1's reads of the slot before them.
-  auto stage_v = [&](int i) {
-    const int f0 = w.col0(i);
-    float* vc = slots + (i % 2) * ZV_SLOT<NT>;
-    float* vs = vc + KO * GN;
-#pragma unroll
-    for (int it = 0; it < KO / 2; ++it) {
-      int c, q;
-      staged_pair(it, c, q);
-      const bool ok = f0 + c < p.f && q < kcnt;
-      const size_t at = ok ? (size_t)(f0 + c) * a.k + k0 + q : 0;
-      cp_async4(vc + staged_at(q, c), a.vc + at, ok);
-      cp_async4(vs + staged_at(q, c), a.vs + at, ok);
-    }
-    cp_async_commit();
-  };
-  if (w.count > 0) stage_v(0);
-
-  float acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
-
-  dense_pipeline<true, FMT>(smem, p, w, kc, acc, [](int) {}, [&](int i) {
-    if (i + 1 < w.count) stage_v(i + 1);
-    const float* vc = slots + (i % 2) * ZV_SLOT<NT>;
-    const float* vs = vc + KO * GN;
-    const bool icol = a.intercept && w.col0(i) == 0 && t4 == 0;
-    with_sincos<MODE>(acc, a.sigma, [&](auto sincos) {
-#pragma unroll
-      for (int u = 0; u < 16 / JS; ++u) {
-        float c[JS][2][2], s[JS][2][2];
-#pragma unroll
-        for (int jj = 0; jj < JS; ++jj)
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-#pragma unroll
-            for (int e = 0; e < 2; ++e)
-              sincos(acc[4 * (JS * u + jj) + 2 * h + e] * a.sigma, wrow[h],
-                     &c[jj][h][e], &s[jj][h][e]);
-        if (u == 0 && icol) {  // column 0 of the intercept
-          c[0][0][0] = mrow[0];
-          c[0][1][0] = mrow[1];
-        }
-        const MmaA ac = mma_a<FMT>(c), as = mma_a<FMT>(s);
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          mma_add<FMT>(z[nt], ac, mma_b<FMT>(vc, 8 * nt + g, u, t4));
-          mma_add<FMT>(z[nt], as, mma_b<FMT>(vs, 8 * nt + g, u, t4));
-        }
-      }
-    });
-  });
-
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = w.row0(0) + rbase + 8 * (r / 2);
-    if (row >= p.n) continue;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int q = 8 * nt + 2 * t4 + r % 2;
-      if (q < kcnt)
-        zv_part[((size_t)blockIdx.y * p.n + row) * a.k + k0 + q] =
-            mma_value<FMT>(z[nt], r);
-    }
-  }
-}
-
-// Pass (b) on the swapped operands t (t.n = F frequencies as rows, t.f = R
-// rows of x as columns): partial oc/os of one frequency tile over the row
-// tiles of this block's walk, right-hand sides 8 NT (blockIdx.z + zbase)
-// ...
-template <int FMT, int MODE, int NT>
-__global__ void __launch_bounds__(GT, 1)
-    ztzv_out_mma_kernel(DenseOperands t, ZtzvArgs<float> a,
-                        const float* __restrict__ zv_part, int zsplit,
-                        float* __restrict__ oc_part,
-                        float* __restrict__ os_part) {
-  constexpr int KO = 8 * NT, JS = MMA_JS<FMT>;
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  unsigned char* smem = ring_base(smem_raw);
-  float* const slots = reinterpret_cast<float*>(smem_raw + Body<FMT>::SMEM);
-  const DenseWalk w = dense_walk(true, t.n, t.f);
-  const int kc = max(1, (t.dp + Body<FMT>::KS - 1) / Body<FMT>::KS);
-  const int tid = threadIdx.x, lane = tid % 32, g = lane / 4, t4 = lane % 4;
-  const int fbase = w.row0(0) + (tid / 32) * 16 + g;
-  const int k0 = (blockIdx.z + a.zbase) * KO, kcnt = min(KO, a.k - k0);
-
-  MmaSum o[2][NT];  // oc, os
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    mma_zero(o[0][nt]);
-    mma_zero(o[1][nt]);
-  }
-  float acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
-
-  dense_pipeline<true, FMT>(
-      smem, t, w, kc, acc,
-      [&](int step) {
-        if (step % kc == 0) {  // stage the tile's zv and mask
-          const int i = step / kc, r0 = w.col0(i);
-          float* zt = slots + (i % 3) * OUT_SLOT<NT>;
-#pragma unroll
-          for (int it = 0; it < KO / 2; ++it) {
-            int c, q;
-            staged_pair(it, c, q);
-            float v = 0.0f;
-            if (r0 + c < t.f && q < kcnt)
-              for (int s = 0; s < zsplit; ++s)
-                v += zv_part[((size_t)s * t.f + r0 + c) * a.k + k0 + q];
-            zt[staged_at(q, c)] = v;
-          }
-          if (tid < GN)
-            zt[KO * GN + tid] = r0 + tid < t.f ? a.m[r0 + tid] : 0.0f;
-        }
-      },
-      [&](int i) {
-        const float* zt = slots + (i % 3) * OUT_SLOT<NT>;
-        const float* mt = zt + KO * GN;
-        with_sincos<MODE>(acc, a.sigma, [&](auto sincos) {
-#pragma unroll
-          for (int u = 0; u < 16 / JS; ++u) {
-            float c[JS][2][2], s[JS][2][2];
-#pragma unroll
-            for (int jj = 0; jj < JS; ++jj)
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                const int j = JS * u + jj;
-                const float mr = mt[8 * j + 2 * t4 + e], wr = mr * a.scale;
-#pragma unroll
-                for (int h = 0; h < 2; ++h) {
-                  sincos(acc[4 * j + 2 * h + e] * a.sigma, wr, &c[jj][h][e],
-                         &s[jj][h][e]);
-                  if (a.intercept && fbase + 8 * h == 0) c[jj][h][e] = mr;
-                }
-              }
-            const MmaA ac = mma_a<FMT>(c), as = mma_a<FMT>(s);
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt) {
-              const MmaB b = mma_b<FMT>(zt, 8 * nt + g, u, t4);
-              mma_add<FMT>(o[0][nt], ac, b);
-              mma_add<FMT>(o[1][nt], as, b);
-            }
-          }
-        });
-      });
-
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int col = fbase + 8 * (r / 2);
-    if (col >= t.n) continue;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int q = 8 * nt + 2 * t4 + r % 2;
-      if (q >= kcnt) continue;
-      const size_t at = ((size_t)blockIdx.y * t.n + col) * a.k + k0 + q;
-      oc_part[at] = mma_value<FMT>(o[0][nt], r);
-      os_part[at] = mma_value<FMT>(o[1][nt], r);
-    }
-  }
-}
-
 // Internal linkage: each format's translation unit keeps its own copy.
 template <class T>
 static __global__ void sum_splits_kernel(const T* __restrict__ oc_part,
@@ -762,34 +324,6 @@ cudaError_t over_rhs_blocks(const ZtzvArgs<T>& a, int kblocks,
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
-}
-
-// Passes (a) and (b) of a call on the tensor cores, NT n8 tiles a block.
-template <int FMT, int MODE, int NT>
-cudaError_t launch_mma(const DenseOperands& p, const ZtzvArgs<float>& a,
-                       float* zv_part, float* oc_part, float* os_part,
-                       int zsplit, int osplit, cudaStream_t st) {
-  constexpr int ZS = ZV_MMA_SMEM<FMT, NT>, OS = OUT_MMA_SMEM<FMT, NT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      ztzv_zv_mma_kernel<FMT, MODE, NT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, ZS);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(ztzv_out_mma_kernel<FMT, MODE, NT>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, OS);
-  if (err != cudaSuccess) return err;
-  const int kblocks = (a.k + 8 * NT - 1) / (8 * NT);
-  err = over_rhs_blocks(a, kblocks, [&](const ZtzvArgs<float>& c, int nz) {
-    ztzv_zv_mma_kernel<FMT, MODE, NT>
-        <<<dim3((p.n + GM - 1) / GM, zsplit, nz), GT, ZS, st>>>(p, c,
-                                                                zv_part);
-  });
-  if (err != cudaSuccess) return err;
-  const DenseOperands t{p.b_hi, p.b_lo, p.x_hi, p.x_lo, p.f, p.dp, p.n};
-  return over_rhs_blocks(a, kblocks, [&](const ZtzvArgs<float>& c, int nz) {
-    ztzv_out_mma_kernel<FMT, MODE, NT>
-        <<<dim3((p.f + GM - 1) / GM, osplit, nz), GT, OS, st>>>(
-            t, c, zv_part, zsplit, oc_part, os_part);
-  });
 }
 
 // The float64 format's passes (a) and (b), on the DMMA loop of
@@ -1122,62 +656,6 @@ cudaError_t launch_all_f64(const DenseOperands& p, const ZtzvArgs<double>& a,
   sum_splits_kernel<double><<<(unsigned)((len + 255) / 256), 256, 0, st>>>(
       oc_part, os_part, oc, os, osplit, len);
   return cudaGetLastError();
-}
-
-// Passes (a) and (b) of one call in a float32 format and sincos mode: K 1
-// on the one-rhs passes, else the tensor-core passes.
-template <int FMT, int MODE>
-cudaError_t launch_passes(const DenseOperands& p, const ZtzvArgs<float>& a,
-                          float* zv_part, float* oc_part, float* os_part,
-                          int zsplit, int osplit, cudaStream_t st) {
-  if (a.k == 1)
-    return launch_one<FMT, MODE>(p, a, zv_part, oc_part, os_part, zsplit,
-                                 osplit, st);
-  if (mma_nt(FMT, a.k) == 1)
-    return launch_mma<FMT, MODE, 1>(p, a, zv_part, oc_part, os_part, zsplit,
-                                    osplit, st);
-  return launch_mma<FMT, MODE, mma_nt(FMT, 9)>(p, a, zv_part, oc_part,
-                                                os_part, zsplit, osplit, st);
-}
-
-// The three launches of one call in a float32 format and sincos mode.
-template <int FMT, int MODE>
-cudaError_t launch_all(const DenseOperands& p, const ZtzvArgs<float>& a,
-                       float* zv_part, float* oc_part, float* os_part,
-                       float* oc, float* os, int zsplit, int osplit,
-                       cudaStream_t st) {
-  cudaError_t err = launch_passes<FMT, MODE>(p, a, zv_part, oc_part,
-                                             os_part, zsplit, osplit, st);
-  if (err != cudaSuccess) return err;
-  const size_t len = (size_t)p.f * a.k;
-  sum_splits_kernel<float><<<(unsigned)((len + 255) / 256), 256, 0, st>>>(
-      oc_part, os_part, oc, os, osplit, len);
-  return cudaGetLastError();
-}
-
-// One call in format FMT and sincos mode `mode` (an unknown mode is
-// refused).
-template <int FMT>
-int launch(const DenseOperands& p, const ZtzvArgs<float>& a, float* zv_part,
-           float* oc_part, float* os_part, float* oc, float* os, int zsplit,
-           int osplit, int mode, cudaStream_t st) {
-  switch (mode) {
-    case MODE_HI:
-      return (int)launch_all<FMT, MODE_HI>(p, a, zv_part, oc_part, os_part,
-                                           oc, os, zsplit, osplit, st);
-    case MODE_EXACT:
-      return (int)launch_all<FMT, MODE_EXACT>(p, a, zv_part, oc_part,
-                                              os_part, oc, os, zsplit, osplit,
-                                              st);
-    case MODE_FAST:
-      return (int)launch_all<FMT, MODE_FAST>(p, a, zv_part, oc_part, os_part,
-                                             oc, os, zsplit, osplit, st);
-    case MODE_POLY:
-      return (int)launch_all<FMT, MODE_POLY>(p, a, zv_part, oc_part, os_part,
-                                             oc, os, zsplit, osplit, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
 }
 
 // The bf16 format's call (ztzv_bf16.cu).

@@ -14,9 +14,11 @@ remainders (operands.py: three elementwise passes over x, 2.75 MB at
 RBF's 8192 x 84 chunk); proj's transpose is prepared once per body and
 cached with proj (``projT_planes``).  float32 operands run the 3xTF32
 body, or at the "highest" feature precision the fp32 FMA body on the CUDA
-cores (fp32-exact, as xgpr_tpu's Pallas feature map, which pins HIGHEST);
-float64 operands the float64 DMMA body with the builtin sincos
-(``kernel_body``).
+cores (fp32-exact, as xgpr_tpu's Pallas feature map, which pins HIGHEST),
+which reads x^T (one transpose a call, ``rows_last``) and proj with its
+frequencies padded to 16 bytes (``pad_freqs``, proj itself when F is a
+multiple of 4); float64 operands the float64 DMMA body with the builtin
+sincos (``kernel_body``).
 
 ``rbf_feature_map`` runs the plain version for a CPU tensor and the
 kernel for a CUDA tensor; anything else raises.  A CUDA tensor gets the
@@ -52,12 +54,17 @@ from ..sorf import rbf_norm_constant
 from ...config import feature_matmul_precision, sincos_mode
 from . import build
 from .operands import (data_ptr, depth_multiple, kernel_planes, pad_depth,
-                       projT_planes, sm_count, tile_split)
+                       pad_freqs, projT_planes, rows_last, sm_count,
+                       tile_split)
 
 LAUNCHES = Counter()
 
-TILE = 128  # rows and frequencies per tile (csrc/tf32_gemm.cuh: GM, GN;
-#             csrc/dense_tf32.cuh: a block's 128-wide walk tiles)
+TILE = 128  # rows and frequencies per tile (csrc/gemm_common.cuh: GM, GN;
+#             csrc/dense_wgmma.cuh: a block's 128-wide walk tiles;
+#             csrc/feature_map_fma.cu: TILE)
+# Blocks of the fp32 FMA body an SM holds (csrc/feature_map_fma.cu:
+# MIN_BLOCKS): its row split fills this many a SM.
+FMA_BLOCKS_PER_SM = 2
 
 
 def rbf_feature_map_plain(x, proj, fit_intercept, padded, mode=None,
@@ -112,7 +119,7 @@ def kernel_precision(precision=None, device="cuda", dtype=None) -> str:
 
 
 # The bodies of the kernels by the flag their C entry points take
-# (csrc/tf32_gemm.cuh: Format): 3xTF32, one bf16 pass and float64 DMMA on
+# (csrc/gemm_common.cuh: Format): 3xTF32, one bf16 pass and float64 DMMA on
 # the tensor cores, fp32 FMAs on the CUDA cores.
 BODY_FLAGS = {"tf32x3": 0, "fma32": 1, "bf16": 2, "f64": 3}
 
@@ -246,10 +253,16 @@ def launcher(x, proj, fit_intercept, padded, mode=None, precision=None):
     out = torch.empty((n, 2 * f), dtype=dtype, device=x.device)
     if n == 0 or f == 0:
         return lambda: out
-    xh, xl = kernel_planes(pad_depth(x, depth_multiple(body)), body)
-    ph, pl = projT_planes(proj, body)
+    slots = sm_count(x.device.index)
+    if body == "fma32":
+        xh, xl, ph, pl = rows_last(x), None, pad_freqs(proj), None
+        dp, slots = x.shape[1], slots * FMA_BLOCKS_PER_SM
+    else:
+        xh, xl = kernel_planes(pad_depth(x, depth_multiple(body)), body)
+        ph, pl = projT_planes(proj, body)
+        dp = xh.shape[1]
     row_tiles, f_tiles = -(-n // TILE), -(-f // TILE)
-    rsplit = tile_split(row_tiles, f_tiles, sm_count(x.device.index), 64)
+    rsplit = tile_split(row_tiles, f_tiles, slots, 64)
     lib = build.library()
     scale = rbf_norm_constant(f, fit_intercept)
     ran = "highest" if body == "fma32" else "high"
@@ -260,7 +273,7 @@ def launcher(x, proj, fit_intercept, padded, mode=None, precision=None):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             rc = lib.xgpr_feature_map(xh.data_ptr(), data_ptr(xl),
                                       ph.data_ptr(), data_ptr(pl),
-                                      out.data_ptr(), n, xh.shape[1], f,
+                                      out.data_ptr(), n, dp, f,
                                       int(padded), scale,
                                       kernel_sincos_flag(mode),
                                       BODY_FLAGS[body], rsplit, stream)

@@ -1,9 +1,10 @@
 """Host-side preparation of the kernels' operands.
 
 Every kernel of csrc/ computes its projection in one of four bodies
-(csrc/tf32_gemm.cuh: Format; feature_map.py ``kernel_body`` picks it from
-the operands' dtype and the feature precision) and reads both operands
-K-major, in 16-byte copies, as that body's planes:
+(csrc/gemm_common.cuh: Format; feature_map.py ``kernel_body`` picks it
+from the operands' dtype and the feature precision) and reads its
+operands in 16-byte copies, K-major as that body's planes (K2's fp32 FMA
+body channel-major, below):
 
 - "tf32x3" (3xTF32 on the tensor cores): the operand split into TF32
   high parts and remainders (``split_tf32``: hi + lo == a exactly);
@@ -24,8 +25,12 @@ These plain torch functions prepare them:
   (``pad_windows``); cached with the projection tensor and keyed on the
   body and width: the kernels' callers pass the same tensor on every
   call (the conv wrapper takes the cache for its bf16 body);
+- ``rows_last`` and ``pad_freqs``: K2's fp32 FMA operands, x^T and
+  proj, channel-major with 16-byte rows (K3 and K4's fp32 body reads proj
+  as ``pad_freqs`` lays it out too); ``fma_walks`` and ``fma_cells``
+  mirror that kernel's walks and thread tile for the CPU tests;
 - ``tile_split``: how many blocks share a loop over tiles;
-- ``dense_walks``: what each block of the 3xTF32 dense pipeline walks,
+- ``dense_walks``: what each block of the dense TMA pipeline walks,
   in grid order (the kernels' own index arithmetic, which the CPU tests
   replay).
 """
@@ -96,6 +101,27 @@ def pad_windows(proj, width, multiple=4):
     return proj.reshape(width * dp, f).t().contiguous()
 
 
+def rows_last(x):
+    """x (n, d) as x^T (d, np), contiguous: K2's fp32 FMA body reads a
+    channel's rows together; np is n rounded up to a multiple of 4
+    (16-byte rows), the rows past n zeros."""
+    pad = -x.shape[0] % 4
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+    return x.t().contiguous()
+
+
+def pad_freqs(proj):
+    """proj (rows, fp), the frequencies padded by zeros to fp, the next
+    multiple of 4 (16-byte rows); proj itself when it is so and 16-byte
+    aligned."""
+    f = proj.shape[1]
+    fp = -(-f // 4) * 4
+    if fp != f:
+        return F.pad(proj, (0, fp - f)).contiguous()
+    return proj.contiguous() if proj.data_ptr() % 16 == 0 else proj.clone()
+
+
 # id(proj) -> (weak reference to proj, proj._version,
 #              {(body, width): planes})
 _PROJ_SPLITS = {}
@@ -146,7 +172,7 @@ def tile_split(tiles, other_blocks, sms, cap):
     return best
 
 
-# csrc/dense_tf32.cuh: a block's walk.  Consumer c's tile i starts at row
+# csrc/dense_wgmma.cuh: a block's walk.  Consumer c's tile i starts at row
 # first[c] + i * stride of the walked operand and c has counts[c] tiles;
 # slices[c] is the slice of the split whose partial c sums, kz the block
 # of right-hand sides.
@@ -154,7 +180,7 @@ DenseWalk = namedtuple("DenseWalk", "fixed0 first stride counts slices kz")
 
 
 def dense_walks(fixed_b, fixed_rows, walk_rows, split, kblocks=1):
-    """The walks of csrc/dense_tf32.cuh's blocks in grid order: a block
+    """The walks of csrc/dense_wgmma.cuh's blocks in grid order: a block
     holds 128 of the ``fixed_rows`` rows of its fixed operand and walks
     the 128-row tiles b, b + split, ... of the other's ``walk_rows`` rows
     (slice b), for each of ``kblocks`` blocks of right-hand sides.  With
@@ -175,3 +201,31 @@ def dense_walks(fixed_b, fixed_rows, walk_rows, split, kblocks=1):
         walks.append(DenseWalk(128 * ft, first, 128 * split,
                                (count, count), (b, b), kz))
     return walks
+
+
+# csrc/feature_map_fma.cu: channels a stage, and a block's tile.
+FMA_KS, FMA_TILE = 16, 128
+
+
+def fma_walks(n, f, rsplit):
+    """The walks of csrc/feature_map_fma.cu's blocks in grid order: block
+    x = ft * rsplit + b holds frequency tile ft (first frequency
+    ``fixed0``) and walks the 128-row tiles b, b + rsplit, ... (the first
+    row of each in ``rows``)."""
+    tiles, f_tiles = -(-n // FMA_TILE), -(-f // FMA_TILE)
+    walks = []
+    for x in range(f_tiles * rsplit):
+        ft, b = divmod(x, rsplit)
+        walks.append((FMA_TILE * ft,
+                      [FMA_TILE * t for t in range(b, tiles, rsplit)]))
+    return walks
+
+
+def fma_cells(q, lane):
+    """(rows, frequencies) of a tile that thread (warp q, lane) of
+    csrc/feature_map_fma.cu holds, 8 each: acc[8i + j] is rows[i] by
+    frequencies[j], two runs of 4 frequencies 32 apart."""
+    ty, tx = lane // 8, lane % 8
+    r0, f0 = 32 * (q // 2) + 8 * ty, 64 * (q % 2) + 4 * tx
+    return (list(range(r0, r0 + 8)),
+            list(range(f0, f0 + 4)) + list(range(f0 + 32, f0 + 36)))

@@ -2,8 +2,8 @@
 
 Replaces xgpr_tpu/ops/pallas/ztzv_pallas.py (``ztzv_parts_pallas``, whose
 ``pallas_call`` is in ``_ztzv_parts_impl``) with the CUDA C++ kernels in
-csrc/ztzv.cuh; see that file for the design and what bounds it on the
-card.  Before a launch the wrapper makes the operands contiguous, pads
+csrc/ztzv.cuh (3xTF32 and bf16 on csrc/dense_wgmma.cuh); see those files
+for the design and what bounds it on the card.  Before a launch the wrapper makes the operands contiguous, pads
 x's columns to 16 bytes (4 fp32, 8 bf16 or 2 float64 values) and makes x
 the planes of the body (operands.py: TF32 high parts and remainders, bf16
 values, or the float64 values; a few elementwise passes over the chunk,
@@ -31,9 +31,9 @@ launches count as ("exact", "float64"), ``launch_tags``): K is 1 in a
 fit's CG and 26 in SLQ's.  Two calls on the same inputs give the same
 bits.  ``launch_plan`` is the wrapper's block arithmetic (right-hand sides
 a block, the splits of the walks, the launches of each pass), plain
-Python that the CPU tests hold; any K is taken (the 3xTF32 body's grids
-are 1-D; the others' pass goes in several launches past MAX_GRID_Z blocks
-of right-hand sides).  ``launcher`` returns the prepared launch apart
+Python that the CPU tests hold; any K is taken (the 3xTF32 and bf16
+bodies' grids are 1-D; float64's pass goes in several launches past
+MAX_GRID_Z blocks of right-hand sides).  ``launcher`` returns the prepared launch apart
 from the wrapper's checks and preparation (what a timing of the kernel
 alone calls).
 """
@@ -73,14 +73,15 @@ def launch_plan(rhs, n, f, k, sms, body):
     over ``zsplit`` blocks and pass (b) each frequency tile's row tiles
     over ``osplit``, the counts that fill the SMs in the fewest waves
     (``tile_split``); ``launches`` launches of each pass carry the blocks,
-    at most MAX_GRID_Z each, but one in 3xTF32, whose grids are 1-D
-    (csrc/dense_tf32.cuh)."""
+    at most MAX_GRID_Z each, but one in 3xTF32 and bf16, whose grids are
+    1-D (csrc/dense_wgmma.cuh)."""
     blocks = -(-k // rhs)
     row_tiles, f_tiles = -(-n // TILE), -(-f // TILE)
     return LaunchPlan(blocks,
                       tile_split(f_tiles, row_tiles * blocks, sms, 16),
                       tile_split(row_tiles, f_tiles * blocks, sms, 32),
-                      1 if body == "tf32x3" else -(-blocks // MAX_GRID_Z))
+                      1 if body in ("tf32x3", "bf16")
+                      else -(-blocks // MAX_GRID_Z))
 
 
 def ztzv_parts_plain(x, m, proj, sigma, v_c, v_s, fit_intercept, mode=None,
