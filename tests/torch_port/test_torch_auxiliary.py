@@ -1,6 +1,6 @@
 """The auxiliary tools and SRHTCompressor against xgpr_tpu, both in
 float64 on the CPU, same data, seeds and hyperparameters; and the port's
-``diagnostics.trace`` and ``block``.
+``diagnostics.trace``, with one of the port's spans in its file.
 
 - SRHTCompressor: the same state bit for bit, the compressed rows to
   1e-12 relative.
@@ -23,6 +23,7 @@ from xgpr_tpu.models.clustering import KernelPCA as JaxPCA
 from xgpr_tpu.models.kernel_fgen import KernelFGen as JaxFGen
 import xgpr_tpu_torch
 from xgpr_tpu_torch.kernels import SRHTCompressor
+from xgpr_tpu_torch.ops.cuda.ztzv import ztzv_parts
 from xgpr_tpu_torch.utils import diagnostics
 from tests.utils.synthetic import sequence_data, tabular_data
 
@@ -147,13 +148,13 @@ def test_kernel_kmeans_labels_match_jax():
 
 def test_trace_writes_a_chrome_trace(tmp_path):
     x = torch.ones((64, 64), dtype=torch.float64)
+    v = torch.ones((32, 1), dtype=torch.float64)
     with diagnostics.trace(str(tmp_path / "t")) as prof:
         y = x @ x
+        oc, _ = ztzv_parts(x, torch.ones(64, dtype=torch.float64),
+                           x[:, :32], 0.1, v, v, True)
     assert prof is not None and float(y[0, 0]) == 64.0
+    assert oc.shape == (32, 1)
     path = tmp_path / "t" / "trace.json"
-    assert path.exists() and "aten::mm" in path.read_text()
-
-
-def test_block_walks_nested_structures():
-    tree = {"a": torch.zeros(3), "b": [torch.ones(2), (torch.ones(1), 3)]}
-    assert diagnostics.block(tree) is tree
+    text = path.read_text() if path.exists() else ""
+    assert "aten::mm" in text and '"xgpr/k1"' in text

@@ -47,6 +47,7 @@ from ..data.dataset import OnlineDataset
 from ..ops.contract import mm, parts_contract, ztzv_contract
 from ..ops.sorf import srht_rows
 from ..utils import rng as state_rng
+from ..utils.diagnostics import span
 
 
 class Engine:
@@ -186,8 +187,10 @@ class Engine:
         return out.reshape(np.shape(vec))
 
     def gauss_pass(self, q_mat):
-        """Z^T Z Q for a dense (M, rank) Q: ztzv with a matrix RHS."""
-        return self.ztzv(q_mat)
+        """Z^T Z Q for a dense (M, rank) Q: ztzv with a matrix RHS (the
+        span ``xgpr/precond.power``)."""
+        with span("xgpr/precond.power"):
+            return self.ztzv(q_mat)
 
     # ------------------------------------------------------------------
     # The classifier's reductions (fitting/softmax_solver.py).  The chunk
@@ -299,31 +302,35 @@ class Engine:
     def sketch(self, srht_radem, sample_idx, with_zty=True,
                row_keep_prob=None, seed=123):
         """SRHT sketch pass: acc = sum SRHT(Z)^T Z, optionally with Z^T y
-        and y^T y, or over an exact-count row subsample."""
-        rank = sample_idx.shape[0]
-        m = self.num_rffs
-        opts = dict(dtype=self._dtype, device=self.device)
-        acc, zty, yty = self._zeros(rank, m), self._zeros(m), self._zeros()
-        params = self._params()
-        radem = torch.as_tensor(srht_radem, **opts)
-        idx = torch.as_tensor(sample_idx, dtype=torch.int64,
-                              device=self.device)
-        if row_keep_prob is not None and row_keep_prob >= 1.0:
-            row_keep_prob = None
-        rng = np.random.default_rng(seed)
-        for xb, yb, lb, mb, mh in self._batches(with_y=with_zty):
-            if row_keep_prob is not None:
-                keep = state_rng.exact_count_keep_mask(mh, row_keep_prob, rng)
-                mb = mb * torch.as_tensor(keep, **opts)
-            z = self._features(params, xb, lb, mb)
-            acc += mm(srht_rows(z, radem, idx).T, z)
+        and y^T y, or over an exact-count row subsample (the span
+        ``xgpr/precond.sketch``)."""
+        with span("xgpr/precond.sketch"):
+            rank = sample_idx.shape[0]
+            m = self.num_rffs
+            opts = dict(dtype=self._dtype, device=self.device)
+            acc, zty = self._zeros(rank, m), self._zeros(m)
+            yty = self._zeros()
+            params = self._params()
+            radem = torch.as_tensor(srht_radem, **opts)
+            idx = torch.as_tensor(sample_idx, dtype=torch.int64,
+                                  device=self.device)
+            if row_keep_prob is not None and row_keep_prob >= 1.0:
+                row_keep_prob = None
+            rng = np.random.default_rng(seed)
+            for xb, yb, lb, mb, mh in self._batches(with_y=with_zty):
+                if row_keep_prob is not None:
+                    keep = state_rng.exact_count_keep_mask(mh, row_keep_prob,
+                                                           rng)
+                    mb = mb * torch.as_tensor(keep, **opts)
+                z = self._features(params, xb, lb, mb)
+                acc += mm(srht_rows(z, radem, idx).T, z)
+                if with_zty:
+                    ym = yb * mb
+                    zty += mm(z.T, ym)
+                    yty += ym @ ym
             if with_zty:
-                ym = yb * mb
-                zty += mm(z.T, ym)
-                yty += ym @ ym
-        if with_zty:
-            return acc, zty, float(yty)
-        return acc
+                return acc, zty, float(yty)
+            return acc
 
     # ------------------------------------------------------------------
     def _gradient_batch_terms(self, grad_fn, gparams, xb, lb, mb, yb):

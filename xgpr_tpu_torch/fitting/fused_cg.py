@@ -35,6 +35,7 @@ import torch
 from .. import config
 from ..ops.contract import mm
 from ..parallel.distributed import all_gather, all_reduce_sum, reduce_scatter
+from ..utils.diagnostics import span
 
 
 def _precond_mv(u_mat, inv_eig, prefactor, v):
@@ -44,6 +45,13 @@ def _precond_mv(u_mat, inv_eig, prefactor, v):
 
 def _col_sum(a):
     return torch.sum(a, dim=0)
+
+
+def _any_active(active):
+    """The loop's one host read an iteration: whether any column is still
+    active (it waits for the iteration's work on the device)."""
+    with span("xgpr/wait.cg_flag"):
+        return bool(active.any())
 
 
 def _cg_while(matvec, precond, rhs, lam, max_iter, tol, col_sum=_col_sum):
@@ -64,6 +72,10 @@ def _cg_while(matvec, precond, rhs, lam, max_iter, tol, col_sum=_col_sum):
     the device (zero once a column is frozen), where SLQ reads where each
     column's Lanczos sequence ends.
 
+    Each iteration is the span ``xgpr/cg.iter`` in a profiled run, its
+    closing flag read ``xgpr/wait.cg_flag`` inside it (the first read
+    comes before the loop).
+
     Returns (x, all converged, iterations, alphas, betas, relative
     residual norms of column 0 per iteration), the last three trimmed to
     the iterations run.
@@ -81,27 +93,30 @@ def _cg_while(matvec, precond, rhs, lam, max_iter, tol, col_sum=_col_sum):
     betas = torch.zeros_like(alphas)
     lam2 = lam ** 2
     niter = 0
-    while niter < max_iter and bool(active.any()):
-        w = matvec(p) + lam2 * p
-        pw = col_sum(p * w)
-        alpha_raw = rz / pw
-        active = active & torch.isfinite(alpha_raw) & (pw > 0)
-        alpha = torch.where(active, alpha_raw, 0.0)
-        x = x + alpha[None, :] * p
-        r = r - alpha[None, :] * w
-        err = torch.sqrt(col_sum(r * r)) / init_norms
-        converged = converged | (err < tol)
-        z = precond(r)
-        rz_next = col_sum(r * z)
-        active = active & (rz_next > 0)
-        beta = torch.where(active, rz_next / rz, 0.0)
-        p = torch.where(active[None, :], z + beta[None, :] * p, p)
-        active = active & ~torch.all(converged | ~active)
-        alphas[niter] = alpha
-        betas[niter] = beta
-        errs[niter] = err[0]
-        rz = rz_next
-        niter += 1
+    go = niter < max_iter and _any_active(active)
+    while go:
+        with span("xgpr/cg.iter"):
+            w = matvec(p) + lam2 * p
+            pw = col_sum(p * w)
+            alpha_raw = rz / pw
+            active = active & torch.isfinite(alpha_raw) & (pw > 0)
+            alpha = torch.where(active, alpha_raw, 0.0)
+            x = x + alpha[None, :] * p
+            r = r - alpha[None, :] * w
+            err = torch.sqrt(col_sum(r * r)) / init_norms
+            converged = converged | (err < tol)
+            z = precond(r)
+            rz_next = col_sum(r * z)
+            active = active & (rz_next > 0)
+            beta = torch.where(active, rz_next / rz, 0.0)
+            p = torch.where(active[None, :], z + beta[None, :] * p, p)
+            active = active & ~torch.all(converged | ~active)
+            alphas[niter] = alpha
+            betas[niter] = beta
+            errs[niter] = err[0]
+            rz = rz_next
+            niter += 1
+            go = niter < max_iter and _any_active(active)
     return (x, bool(torch.all(converged)), niter, alphas[:niter],
             betas[:niter], errs[:niter])
 

@@ -22,6 +22,7 @@ from ..parallel.distributed import global_host_reduce
 from ..parallel.sharded import ShardedEngine
 from ..parallel.streaming import StreamingShardedEngine
 from ..preconditioners.nystrom import NystromPreconditioner, srht_ratio_check
+from ..utils.diagnostics import span
 
 
 class ModelBaseclass:
@@ -232,7 +233,8 @@ class ModelBaseclass:
         """Walk a ladder of candidate ranks, stopping at the first whose
         sampled min-eig / lambda^2 estimate clears ``ratio_target``; if the
         ladder is exhausted, use the largest admissible rank with the
-        two-pass srht_2 construction.  Then build the preconditioner."""
+        two-pass srht_2 construction.  Then build the preconditioner.
+        Each trial rank is the span ``xgpr/precond.ratio_check``."""
         rank_cap = min(max_rank, self.kernel.get_num_rffs() - 1)
         # The engine's row count: on a sharded engine every rank must take
         # the same ladder.
@@ -243,7 +245,9 @@ class ModelBaseclass:
             chosen_rank, method = rank_cap, "srht"
         else:
             for candidate in range(min_rank, rank_cap, increment_size):
-                est = self._check_rank_ratio(dataset, sample_frac, candidate)
+                with span("xgpr/precond.ratio_check"):
+                    est = self._check_rank_ratio(dataset, sample_frac,
+                                                 candidate)
                 if est <= ratio_target:
                     chosen_rank, method = candidate, "srht"
                     break

@@ -39,7 +39,7 @@ from ..scoring.gradient import exact_nmll_reg_grad
 from ..scoring.lb_optimizer import shared_hparam_search
 from ..scoring.slq import slq_nmll_from_engine
 from ..scoring.surrogate_tuner import surrogate_grid_tuning
-from ..utils.diagnostics import PhaseTimes, phase_timer
+from ..utils.diagnostics import PhaseTimes, phase_timer, span
 
 # The failures of a degenerate hyperparameter point: the port's own
 # non-positive-definite and SLQ breakdown checks, and the solvers' (torch
@@ -89,41 +89,54 @@ class GPRegression(ModelBaseclass):
         xgpr_tpu pads the sequence axis to a bucket first
         (``_bucket_sequence_axis``) only so that XLA reuses one compiled
         program; PyTorch compiles nothing per shape, and padding windows
-        changes no feature, so the port does not."""
-        self.pre_prediction_checks(input_x, sequence_lengths, get_var)
-        feature_fn = self.kernel.pure_feature_fn()
-        params = self.kernel.feature_params()
-        lam2 = self.kernel.get_lambda() ** 2
-        weights = self.weights.double()
-        if get_var and self.exact_var_calculation:
-            var_idx = torch.as_tensor(
-                self.kernel.variance_column_indices(self.variance_rffs),
-                device=self.kernel.device)
-            var_mat = self.var.double()
-        means, variances = [], []
-        for i in range(0, input_x.shape[0], chunk_size):
-            slen = None if sequence_lengths is None else \
-                self.kernel._cast_lengths(sequence_lengths[i:i + chunk_size])
-            z = feature_fn(params, self.kernel._cast_input(
-                input_x[i:i + chunk_size]), slen).double()
-            means.append(z @ weights)
+        changes no feature, so the port does not.
+
+        In a profiled run the call is the span ``xgpr/predict``, each
+        chunk's variance ``xgpr/predict.var``, and its blocking copies
+        ``xgpr/wait.lengths`` (a chunk's lengths to the device) and
+        ``xgpr/wait.to_host``."""
+        with span("xgpr/predict"):
+            self.pre_prediction_checks(input_x, sequence_lengths, get_var)
+            feature_fn = self.kernel.pure_feature_fn()
+            params = self.kernel.feature_params()
+            lam2 = self.kernel.get_lambda() ** 2
+            weights = self.weights.double()
+            if get_var and self.exact_var_calculation:
+                var_idx = torch.as_tensor(
+                    self.kernel.variance_column_indices(self.variance_rffs),
+                    device=self.kernel.device)
+                var_mat = self.var.double()
+            means, variances = [], []
+            for i in range(0, input_x.shape[0], chunk_size):
+                slen = None
+                if sequence_lengths is not None:
+                    with span("xgpr/wait.lengths"):
+                        slen = self.kernel._cast_lengths(
+                            sequence_lengths[i:i + chunk_size])
+                z = feature_fn(params, self.kernel._cast_input(
+                    input_x[i:i + chunk_size]), slen).double()
+                means.append(z @ weights)
+                if not get_var:
+                    continue
+                with span("xgpr/predict.var"):
+                    if self.exact_var_calculation:
+                        variances.append(_exact_variance(
+                            z[:, var_idx], var_mat, lam2))
+                    else:
+                        # The Nystrom variance (Linear): P^-1 z^T with the
+                        # preconditioner's float64 factors.
+                        pv = self.var.batch_matvec(z.T).T
+                        variances.append(
+                            lam2 + lam2 * torch.sum(z * pv, dim=1))
+            with span("xgpr/wait.to_host"):
+                preds = torch.cat(means).cpu().numpy()
+            preds = preds * self.trainy_std + self.trainy_mean
             if not get_var:
-                continue
-            if self.exact_var_calculation:
-                variances.append(_exact_variance(z[:, var_idx], var_mat,
-                                                 lam2))
-            else:
-                # The Nystrom variance (Linear): P^-1 z^T with the
-                # preconditioner's float64 factors.
-                pv = self.var.batch_matvec(z.T).T
-                variances.append(lam2 + lam2 * torch.sum(z * pv, dim=1))
-        preds = torch.cat(means).cpu().numpy()
-        preds = preds * self.trainy_std + self.trainy_mean
-        if not get_var:
-            return preds
-        var = torch.cat(variances).cpu().numpy()
-        var[var < 0] = 0
-        return preds, var * self.trainy_std ** 2
+                return preds
+            with span("xgpr/wait.to_host"):
+                var = torch.cat(variances).cpu().numpy()
+            var[var < 0] = 0
+            return preds, var * self.trainy_std ** 2
 
     def export_predict_fn(self, get_var=False):
         """(fn, state) for serving without the model object.

@@ -44,6 +44,7 @@ import torch
 from .. import sincos as _sincos
 from ..contract import bf16_mm, parts_contract_bf16
 from ..sorf import rbf_norm_constant
+from ...utils.diagnostics import span
 from . import build
 from .feature_map import (BODY_FLAGS, TILE, cuda_operands, kernel_body,
                           kernel_mode, kernel_precision, kernel_sincos_flag,
@@ -111,21 +112,23 @@ def ztzv_parts(x, m, proj, sigma, v_c, v_s, fit_intercept, mode=None,
     """(oc, os), each (F, K): the chunk's Z^T (Z v) in cos/sin halves.
 
     x (R, D) raw rows; m (R,) row mask; proj (D, F); sigma a float;
-    v_c / v_s (F, K) the cos/sin halves of the CG direction.
+    v_c / v_s (F, K) the cos/sin halves of the CG direction.  The call
+    is the span ``xgpr/k1`` (utils/diagnostics.py) in a profiled run.
     """
-    n, d = x.shape
-    f = proj.shape[1]
-    k = v_c.shape[1]
-    if proj.shape[0] != d or m.shape != (n,) or v_c.shape != (f, k) \
-            or v_s.shape != (f, k) or k < 1:
-        raise ValueError("ztzv_parts: inconsistent operand shapes.")
-    if all(t.device.type == "cpu" for t in (x, m, proj, v_c, v_s)):
-        return ztzv_parts_plain(x, m, proj, sigma, v_c, v_s, fit_intercept,
-                                mode, precision)
-    if x.device.type != "cuda":
-        raise ValueError(f"ztzv_parts: no kernel for {x.device}.")
-    return launcher(x, m, proj, sigma, v_c, v_s, fit_intercept, mode,
-                    precision)()
+    with span("xgpr/k1"):
+        n, d = x.shape
+        f = proj.shape[1]
+        k = v_c.shape[1]
+        if proj.shape[0] != d or m.shape != (n,) or v_c.shape != (f, k) \
+                or v_s.shape != (f, k) or k < 1:
+            raise ValueError("ztzv_parts: inconsistent operand shapes.")
+        if all(t.device.type == "cpu" for t in (x, m, proj, v_c, v_s)):
+            return ztzv_parts_plain(x, m, proj, sigma, v_c, v_s,
+                                    fit_intercept, mode, precision)
+        if x.device.type != "cuda":
+            raise ValueError(f"ztzv_parts: no kernel for {x.device}.")
+        return launcher(x, m, proj, sigma, v_c, v_s, fit_intercept, mode,
+                        precision)()
 
 
 def launcher(x, m, proj, sigma, v_c, v_s, fit_intercept, mode=None,

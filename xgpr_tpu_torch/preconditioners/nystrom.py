@@ -23,7 +23,10 @@ in float64 for the CG iterations, whose state is float64 too
 this changes nothing.  On a sharded engine (parallel/sharded.py) the
 sketch and the Z^T Z Q pass come back all-reduced, so every rank builds
 the same U; the M-sharded solver (``fused_cg_solve_msharded``) takes this
-rank's block of its rows.
+rank's block of its rows.  In a profiled run a build is the span
+``xgpr/precond.build`` and its float64 algebra ``xgpr/precond.factor``
+(the engine's passes are ``xgpr/precond.sketch`` and
+``xgpr/precond.power``).
 """
 import numpy as np
 import torch
@@ -32,6 +35,7 @@ from .. import config
 from ..ops.contract import mm
 from ..ops.sorf import srht_rows
 from ..utils import rng as state_rng
+from ..utils.diagnostics import span
 
 
 def _sketch_state(engine, rank, random_state):
@@ -52,18 +56,19 @@ def _tall_svd(b):
 
 def _nystrom_from_sketch(acc, radem, idx):
     """Shared tail of the single-pass construction: sketch-SVD + whitening."""
-    acc = acc.double()
-    c_mat = srht_rows(acc, torch.as_tensor(radem, dtype=acc.dtype,
-                                           device=acc.device),
-                      torch.as_tensor(idx, dtype=torch.int64,
-                                      device=acc.device))
-    _, c_s1, c_v1 = torch.linalg.svd(c_mat, full_matrices=False)
-    mask = c_s1 < 1e-14
-    c_s1 = 1.0 / torch.sqrt(torch.clamp(c_s1, min=1e-14))
-    c_s1 = torch.where(mask, 0.0, c_s1)
-    b = mm(mm(acc.T, c_v1.T), c_s1[:, None] * c_v1)
-    u_mat, s_mat = _tall_svd(b)
-    return u_mat, s_mat ** 2
+    with span("xgpr/precond.factor"):
+        acc = acc.double()
+        c_mat = srht_rows(acc, torch.as_tensor(radem, dtype=acc.dtype,
+                                               device=acc.device),
+                          torch.as_tensor(idx, dtype=torch.int64,
+                                          device=acc.device))
+        _, c_s1, c_v1 = torch.linalg.svd(c_mat, full_matrices=False)
+        mask = c_s1 < 1e-14
+        c_s1 = 1.0 / torch.sqrt(torch.clamp(c_s1, min=1e-14))
+        c_s1 = torch.where(mask, 0.0, c_s1)
+        b = mm(mm(acc.T, c_v1.T), c_s1[:, None] * c_v1)
+        u_mat, s_mat = _tall_svd(b)
+        return u_mat, s_mat ** 2
 
 
 def initialize_srht(engine, rank, random_state, is_regression=True):
@@ -90,20 +95,22 @@ def initialize_srht_multipass(engine, rank, random_state, n_passes=2,
     acc = acc.T.double()  # (M, rank)
     q_mat = None
     for _ in range(n_passes - 1):
-        q_mat = torch.linalg.qr(acc)[0].to(engine._dtype)
+        with span("xgpr/precond.factor"):
+            q_mat = torch.linalg.qr(acc)[0].to(engine._dtype)
         acc = engine.gauss_pass(q_mat).double()
         q_mat = q_mat.double()
     # Whiten acc by small^{-1/2}, small = Q^T Z^T Z Q, with pinv-style
     # eigh whitening: directions below fp noise are dropped rather than
     # amplified, so fp32 never NaNs on a numerically rank-deficient sketch.
-    small = mm(q_mat.T, acc)
-    e_val, e_vec = torch.linalg.eigh(small)
-    floor = torch.clamp(e_val[-1], min=0.0) * (
-        torch.finfo(acc.dtype).eps * small.shape[0])
-    inv_sqrt = torch.where(
-        e_val > floor, 1.0 / torch.sqrt(torch.where(e_val > floor, e_val,
-                                                    1.0)), 0.0)
-    u_mat, s_mat = _tall_svd(mm(acc, e_vec * inv_sqrt[None, :]))
+    with span("xgpr/precond.factor"):
+        small = mm(q_mat.T, acc)
+        e_val, e_vec = torch.linalg.eigh(small)
+        floor = torch.clamp(e_val[-1], min=0.0) * (
+            torch.finfo(acc.dtype).eps * small.shape[0])
+        inv_sqrt = torch.where(
+            e_val > floor, 1.0 / torch.sqrt(torch.where(e_val > floor, e_val,
+                                                        1.0)), 0.0)
+        u_mat, s_mat = _tall_svd(mm(acc, e_vec * inv_sqrt[None, :]))
     return u_mat, torch.clamp(s_mat ** 2, min=0), z_trans_y, y_trans_y
 
 
@@ -122,15 +129,16 @@ class NystromPreconditioner:
                  method="srht", is_regression=True):
         if method not in ("srht", "srht_2", "srht_3"):
             raise RuntimeError("Unknown preconditioner construction method.")
-        if method.startswith("srht_"):
-            u_mat, eig, zty, yty = initialize_srht_multipass(
-                engine, max_rank, random_state, int(method.split("_")[1]),
-                is_regression)
-        else:
-            u_mat, eig, zty, yty = initialize_srht(
-                engine, max_rank, random_state, is_regression)
+        with span("xgpr/precond.build"):
+            if method.startswith("srht_"):
+                u_mat, eig, zty, yty = initialize_srht_multipass(
+                    engine, max_rank, random_state,
+                    int(method.split("_")[1]), is_regression)
+            else:
+                u_mat, eig, zty, yty = initialize_srht(
+                    engine, max_rank, random_state, is_regression)
+            min_eig = float(eig.min())
         lambda_ = engine.kernel.get_lambda()
-        min_eig = float(eig.min())
         self.u_mat = u_mat
         self.eig = eig + lambda_ ** 2
         self.inv_eig = torch.where(self.eig > 1e-14, 1.0 / self.eig, 0.0)

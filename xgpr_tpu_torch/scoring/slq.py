@@ -11,6 +11,8 @@ num_rffs * mean_probes sum_j w_j ln(theta_j) with w_j the squared first
 eigenvector components, plus the preconditioner's own logdet.  The
 coefficients come to the host once, after the solve: the tridiagonals are
 at most nmll_iter square, so scipy's eigh_tridiagonal solves them there.
+The three steps are the spans ``xgpr/slq.probes``, ``xgpr/slq.pcg`` and
+``xgpr/slq.lanczos`` in a profiled run.
 """
 import numpy as np
 import torch
@@ -19,6 +21,7 @@ from scipy.linalg import eigh_tridiagonal
 from .alpha_beta import optimize_alpha_beta
 from ..fitting.cg import ConjugateGrad
 from ..utils import rng as state_rng
+from ..utils.diagnostics import span
 
 
 def slq_nmll_from_engine(engine, preconditioner, random_seed, nsamples,
@@ -27,21 +30,24 @@ def slq_nmll_from_engine(engine, preconditioner, random_seed, nsamples,
     data is touched only through the engine's matvec and the
     preconditioner's stored Z^T y / y^T y."""
     num_rffs = engine.num_rffs
-    probes = torch.as_tensor(
-        state_rng.normal_probes(random_seed, num_rffs, nsamples),
-        dtype=torch.float64, device=engine.device)
-    probes = preconditioner.matvec_for_sampling(probes)
+    with span("xgpr/slq.probes"):
+        probes = torch.as_tensor(
+            state_rng.normal_probes(random_seed, num_rffs, nsamples),
+            dtype=torch.float64, device=engine.device)
+        probes = preconditioner.matvec_for_sampling(probes)
 
     z_trans_y = preconditioner.get_zty()
     y_trans_y = preconditioner.get_yty()
     ndatapoints = engine.ndatapoints
     rhs = torch.cat([z_trans_y[:, None] / ndatapoints, probes], dim=1)
 
-    x_k, alphas, betas = ConjugateGrad(engine).fit(
-        rhs, engine.kernel.get_lambda(), preconditioner, nmll_iter,
-        nmll_tol, nmll_settings=True)
+    with span("xgpr/slq.pcg"):
+        x_k, alphas, betas = ConjugateGrad(engine).fit(
+            rhs, engine.kernel.get_lambda(), preconditioner, nmll_iter,
+            nmll_tol, nmll_settings=True)
     x0 = x_k[:, 0] * ndatapoints
-    logdet = estimate_logdet(alphas, betas, num_rffs, preconditioner)
+    with span("xgpr/slq.lanczos"):
+        logdet = estimate_logdet(alphas, betas, num_rffs, preconditioner)
     nll1 = float(0.5 * (y_trans_y - z_trans_y @ x0))
     negloglik, _ = optimize_alpha_beta(
         engine.kernel.get_lambda(), np.array([nll1, 0.5 * logdet]),
