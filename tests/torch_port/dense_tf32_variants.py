@@ -74,6 +74,7 @@ ZTZV = CSRC + "ztzv.cuh"
 FEAT = CSRC + "feature_map.cuh"
 DENSE = CSRC + "dense_tf32.cuh"
 WGMMA = CSRC + "dense_wgmma.cuh"
+REUSE = CSRC + "ztzv_reuse.cuh"
 ENTRY_TU = CSRC + "tf32_entry.cu"
 SOURCES = ["tf32_entry.cu"]
 
@@ -360,6 +361,10 @@ extern "C" int xgpr_feature_map(const void* x_hi, const void* x_lo,
 """
 
 # --- this tree's pipeline (csrc/dense_tf32.cuh) ------------------------------
+_TF32_PRODUCTS = """      wgmma_tf32(acc, ah + AL + 2 * kk, bh + 2 * kk, kk > 0 || !overwrite);
+      wgmma_tf32(acc, ah + 2 * kk, bh + BL + 2 * kk, 1);
+      wgmma_tf32(acc, ah + 2 * kk, bh + 2 * kk, 1);
+"""
 _STAGED = "  const bool staged = has_omap && tile_blk >= 0 && f0 + B_ROWS <= p.f &&"
 _RSPLIT = "    rsplit = tile_split(row_tiles, f_tiles, slots, 64)"
 VARIANTS = {
@@ -372,6 +377,13 @@ VARIANTS = {
     "rsplit2": [(CSRC + "../feature_map.py", _RSPLIT,
                  _RSPLIT.replace("rsplit = tile_split", "rsplit = max(2, "
                                  "tile_split") + ")")],
+    # The projections' three wgmma a k8 slice compiled out (K1 and K2),
+    # the accumulators kept opaque.
+    "noproducts": [(WGMMA, _TF32_PRODUCTS,
+                    "      (void)ah;\n      (void)bh;\n")],
+    # K1's tensor-core contractions (K > 1): one add a value in place of
+    # the three mma.sync.
+    "nocontract": [(ZTZV, _MMA_ADD, _NO_MMA_ADD)],
 }
 
 # --- this tree's fp32 FMA feature map (csrc/feature_map_fma.cu) and the
@@ -579,9 +591,15 @@ def entry_for(src, body):
     """(entry file, translation units to build) of a tree for ``body``."""
     if (src / WGMMA).exists():
         if body == "tf32x3":
-            return ENTRY.replace('"dense_tf32.cuh"', '"dense_wgmma.cuh"') \
+            text = ENTRY.replace('"dense_tf32.cuh"', '"dense_wgmma.cuh"') \
                 .replace("dtf32::launch_k1(", "dense::launch_k1<FMT_TF32X3>(") \
-                .replace("dtf32::", "dense::"), SOURCES
+                .replace("dtf32::", "dense::")
+            if (src / REUSE).exists():  # K1's reuse path and its entry
+                tu = (src / CSRC / "ztzv.cu").read_text()
+                text = text.replace('"dense_wgmma.cuh"', '"ztzv_reuse.cuh"') \
+                    + "\nusing namespace xgpr::ztzv;\n" \
+                    + tu[tu.index('extern "C" int xgpr_ztzv_reuse('):]
+            return text, SOURCES
         if body == "bf16":
             return RING_ENTRY, SOURCES + ["ztzv_bf16.cu"]
         return RING_ENTRY_K2, SOURCES + ["feature_map_fma.cu"]

@@ -235,6 +235,87 @@ def test_dense_tf32_ztzv_edges(cuda, precision, mode, intercept, n, d, f, k):
         assert torch.equal(a, c)
 
 
+# K1's reuse path (csrc/ztzv_reuse.cuh: 3xTF32 from ztzv.REUSE_MIN_K, and
+# below it where a test lowers the crossover): K 9, 16, 17, 26, 32 and 64
+# (one or two blocks of the streams' 32 right-hand sides), R 8192, 8191
+# and 257, F 4096, 300 (a partial last 64-column stage) and 129 (rows of
+# C and S padded to 16 bytes), with and without the intercept column.
+REUSE_K = [9, 16, 17, 26, 32, 64]
+REUSE_RF = [(8192, 4096), (8191, 4096), (257, 300), (100, 129)]
+
+
+def _reuse_below(monkeypatch, k):
+    """The reuse path at K, whatever the crossover."""
+    monkeypatch.setattr(ztzv, "REUSE_MIN_K", min(k, ztzv.REUSE_MIN_K))
+
+
+@pytest.mark.parametrize("intercept", [False, True])
+@pytest.mark.parametrize("n,f", REUSE_RF)
+@pytest.mark.parametrize("k", REUSE_K)
+def test_ztzv_reuse_path(cuda, monkeypatch, k, n, f, intercept):
+    """Against the plain version, one projection a call, and the same bits
+    from two calls."""
+    _reuse_below(monkeypatch, k)
+    x, m, proj, vc, vs = _ztzv_inputs(cuda, n, 84, f, k)
+    key = (n, 84, f, k, "hi", "high")
+    before = ztzv.PROJECTIONS[key], ztzv.LAUNCHES[key]
+    args = (x, m, proj, 0.7, vc, vs, intercept, "hi", "high")
+    got, again = ztzv.ztzv_parts(*args), ztzv.ztzv_parts(*args)
+    want = ztzv.ztzv_parts_plain(*args)
+    torch.cuda.synchronize()
+    assert (ztzv.PROJECTIONS[key] - before[0],
+            ztzv.LAUNCHES[key] - before[1]) == (2, 2)
+    tol = 1e-4 * max(1.0, float(want[0].abs().max()),
+                     float(want[1].abs().max()))
+    for a, b, c in zip(got, want, again):
+        assert float((a - b).abs().max()) < tol
+        assert torch.equal(a, c)
+
+
+def _witness_ratio(kernel, plain):
+    """precision_error.py's measure: the kernel's error against the plain
+    version in float64 over the plain fp32 version's."""
+    witness = plain(torch.float64)
+    top = max(float(w.abs().max()) for w in witness)
+
+    def err(got):
+        return max(float((g.double() - w).abs().max())
+                   for g, w in zip(got, witness)) / top
+    return err(kernel()) / err(plain(torch.float32))
+
+
+@pytest.mark.parametrize("k", REUSE_K)
+def test_ztzv_reuse_path_is_fp32_grade(cuda, monkeypatch, k):
+    """Against a float64 witness at slice A's chunk: within 2 of the plain
+    fp32 product's error (precision_error.py's fp32 grade), or within 1.25
+    times the passes' own ratio on the same inputs, which read 1.2 to 4.0
+    on an H100 (the reuse path 1.2 to 3.1; PERF.md)."""
+    ops = _ztzv_inputs(cuda, 8192, 84, 4096, k)
+
+    def ratio():
+        return _witness_ratio(
+            lambda: ztzv.ztzv_parts(*ops[:3], 0.7, *ops[3:], True, "exact",
+                                    "highest"),
+            lambda dt: ztzv.ztzv_parts_plain(
+                *(a.to(dt) for a in ops[:3]), 0.7,
+                *(a.to(dt) for a in ops[3:]), True, "exact", "highest"))
+    monkeypatch.setattr(ztzv, "REUSE_MIN_K", 1 << 30)
+    passes = ratio()
+    _reuse_below(monkeypatch, k)
+    assert ztzv.reuses_features("tf32x3", k)
+    assert ratio() <= max(2.0, 1.25 * passes)
+
+
+def test_ztzv_reuse_path_keeps_slqs_error(cuda):
+    """precision_error.py's K1 K=26 case ("highest", "exact") on the reuse
+    path: no worse than the passes' 0.711 (PERF.md)."""
+    from tests.torch_port import precision_error
+    assert ztzv.reuses_features("tf32x3", 26)
+    (_, kernel, plain), = [c for c in precision_error.cases("highest")
+                           if c[0] == "K1 K=26"]
+    assert _witness_ratio(kernel, plain) <= 0.711
+
+
 # (n, l, d, w, f, lengths): "spread" draws lengths over [w - 1, L] in
 # shuffled row order, with row 0 below w (no valid window); "equal" gives
 # every row the same length.

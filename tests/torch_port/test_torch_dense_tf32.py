@@ -61,8 +61,11 @@ def _rhs(k, body="tf32x3"):
 
 def _passes(n, f, k, sms, body="tf32x3"):
     """(kernel, fixed_b, fixed rows, walked rows, split, kblocks) of K1's
-    two passes under launch_plan."""
+    passes on the pipeline under launch_plan: its two passes, or on the
+    reuse path the feature pass (K2's walk)."""
     plan = ztzv.launch_plan(_rhs(k, body), n, f, k, sms, body)
+    if ztzv.reuses_features(body, k):
+        return plan, [("k2", True, f, n, plan.rsplit, 1)]
     zv = ("zv1" if k == 1 else "zvm", False, n, f, plan.zsplit, plan.blocks)
     if k == 1:
         return plan, [zv, ("out1", True, f, n, plan.osplit, 1)]
@@ -106,6 +109,45 @@ def test_k1_walks_cover_every_tile_pair_once(n, f, k, sms, body):
         # every slice of the split has a block that writes its partial
         written = {(w.fixed0, s, w.kz) for w in walks for s in w.slices}
         assert len(written) == len({w.fixed0 for w in walks}) * split * kb
+
+
+# Shapes on 3xTF32's reuse path: SLQ's K 26 at slice A's chunk, K past
+# one and two blocks of the streams' right-hand sides, ragged rows and F
+# off the 64-wide stages (an F that is no multiple of 4 too).
+REUSE_SHAPES = [(8192, 4096, 26), (8191, 4096, 17), (257, 300, 26),
+                (130, 40, 64), (64, 3, 32), (1000, 501, 33), (40, 16, 700)]
+
+
+@pytest.mark.parametrize("n,f,k", REUSE_SHAPES)
+@pytest.mark.parametrize("sms", [132, 66, 7, 1])
+def test_k1_stream_walks_cover_every_stage_once(n, f, k, sms):
+    """Each stream block's stages (csrc/ztzv_reuse.cuh): pass (a) reads
+    every (64 rows, 64-column stage of C or S, block of right-hand sides)
+    once and pass (b) every (64 columns of C or S, 64-row stage, block)
+    once; every slice of each split has a block that writes its
+    partial."""
+    plan = ztzv.launch_plan(_rhs(k), n, f, k, sms, "tf32x3")
+    assert plan.projections == 1 and plan.rhs * plan.blocks >= k
+    ctiles = -(-(-(-f // 4) * 4) // 64)
+    rtiles = -(-n // 64)
+    for pass_b, split in ((False, plan.zsplit), (True, plan.osplit)):
+        walks = operands.stream_walks(pass_b, n, f, split, plan.blocks)
+        seen = [(w.plane, w.fixed0, t, w.kz) for w in walks
+                for t in w.stages]
+        for w in walks:
+            assert all(t % split == w.slice for t in w.stages)
+        if pass_b:
+            want = {(p, 64 * c, t, z) for p in (0, 1) for c in range(ctiles)
+                    for t in range(rtiles) for z in range(plan.blocks)}
+        else:
+            want = {(None, 64 * r, t, z) for r in range(rtiles)
+                    for t in range(2 * ctiles) for z in range(plan.blocks)}
+        assert len(seen) == len(set(seen)) == len(want)
+        assert set(seen) == want
+        written = [(w.plane, w.fixed0, w.slice, w.kz) for w in walks]
+        fixed = 2 * ctiles if pass_b else rtiles
+        assert len(written) == len(set(written)) == \
+            fixed * split * plan.blocks
 
 
 @pytest.mark.parametrize("n,f", [(8192, 4096), (8192, 2048), (300, 200),
@@ -268,6 +310,67 @@ def test_ring_replay_has_no_early_reuse_and_no_deadlock(
             assert reads[c] == list(range(w.counts[c]))
 
 
+# csrc/ztzv_reuse.cuh: the streams' ring stages and warps.
+STREAM_STAGES, STREAM_WARPS = 4, 8
+
+
+def stream_replay(count, stages=STREAM_STAGES, warps=STREAM_WARPS):
+    """csrc/ztzv_reuse.cuh's stream(): thread 0 (of warp 0) fills the first
+    ``stages`` stages, every warp waits for stage j's fill (the parity of
+    j // stages), reads it and releases it, and thread 0, once all warps
+    have released stage j, fills it again with stage j + stages.  Returns
+    the fills each warp read, in order; fails on a read of the wrong
+    fill, a stage filled before it is freed, or a warp that stops."""
+    full = [Barrier(1) for _ in range(stages)]
+    empty = [Barrier(warps) for _ in range(stages)]
+    held = [None] * stages
+
+    def program(w):
+        prog = [("fill", j) for j in range(min(stages, count))] \
+            if w == 0 else []
+        for j in range(count):
+            prog += [("wait", j), ("release", j)]
+            if w == 0 and j + stages < count:
+                prog += [("wait_empty", j), ("fill", j + stages)]
+        return prog
+    progs = [program(w) for w in range(warps)]
+    pc = [0] * warps
+    reads = [[] for _ in range(warps)]
+    while True:
+        moved = False
+        for w in range(warps):
+            if pc[w] >= len(progs[w]):
+                continue
+            op, j = progs[w][pc[w]]
+            st, fill = j % stages, j // stages
+            if op == "fill":
+                assert empty[st].done == fill      # freed by every warp
+                held[st] = j
+                full[st].arrive()
+            elif op == "wait":
+                if full[st].done <= fill:
+                    continue
+                assert full[st].done == fill + 1 and held[st] == j
+                reads[w].append(j)
+            elif op == "release":
+                empty[st].arrive()
+            elif op == "wait_empty":
+                if empty[st].done <= fill:
+                    continue
+            pc[w] += 1
+            moved = True
+        if not moved:
+            break
+    assert pc == [len(p) for p in progs], "a warp stalled"
+    return reads
+
+
+@pytest.mark.parametrize("count", [0, 1, 3, 4, 5, 8, 9, 64, 129])
+def test_stream_ring_replay_has_no_early_reuse_and_no_deadlock(count):
+    for reads in stream_replay(count):
+        assert reads == list(range(count))
+
+
 def _box(a, r0, rows, kk, ch=32):
     """Rows r0 .. r0 + rows - 1 of a (rows, dp) operand, channels ch kk ..
     ch kk + ch - 1 (one line), zeros past its end (the TMA box's fill)."""
@@ -372,6 +475,8 @@ def k1_replay(x, m, proj, sigma, vc, vs, intercept, sms, body="tf32x3"):
     if intercept:
         c[:, 0] = m
     c, s, vc, vs = rnd(c), rnd(s), rnd(vc), rnd(vs)
+    if ztzv.reuses_features(body, k):
+        return reuse_replay(c, s, vc, vs, m * scale, plan)
     zv_part = np.zeros((plan.zsplit, n, k), dtype=np.float32)
     for w in operands.dense_walks(False, n, f, plan.zsplit, plan.blocks):
         q = slice(rhs * w.kz, rhs * w.kz + rhs)    # the block's rhs
@@ -407,8 +512,58 @@ def k1_replay(x, m, proj, sigma, vc, vs, intercept, sms, body="tf32x3"):
     return oc, os_
 
 
+def reuse_replay(c, s, vc, vs, w, plan):
+    """oc, os in the reuse path's partition and order (csrc/ztzv_reuse.cuh),
+    float32, from the stored features c and s (n, f): C and S hold
+    cos(0) * w = w and 0 past F to the 16-byte row (ldf), v_c^T and v_s^T
+    zeros there, and the TMA boxes zeros past ldf and past n.  Pass (a):
+    for each stream block, its two column halves' partial zv over its
+    stages in walk order (each 32 columns of a stage), the second added to
+    the first, the slices summed in order; pass (b) likewise over the row
+    halves of its row stages."""
+    n, f = c.shape
+    k = vc.shape[1]
+    ldf = -(-f // 4) * 4
+    ctiles = -(-ldf // 64)
+    planes = np.zeros((2, n, 64 * ctiles), np.float32)
+    planes[0, :, :f], planes[1, :, :f] = c, s
+    planes[0, :, f:ldf] = w[:, None]
+    vt = np.zeros((2, 64 * ctiles, k), np.float32)
+    vt[0, :f], vt[1, :f] = vc, vs
+    zv_part = np.zeros((plan.zsplit, n, k), np.float32)
+    for wk in operands.stream_walks(False, n, f, plan.zsplit, plan.blocks):
+        rows = slice(wk.fixed0, min(wk.fixed0 + 64, n))
+        q = slice(plan.rhs * wk.kz, min(plan.rhs * (wk.kz + 1), k))
+        halves = np.zeros((2, rows.stop - rows.start, q.stop - q.start),
+                          np.float32)
+        for t in wk.stages:
+            p, c0 = t // ctiles, 64 * (t % ctiles)
+            for h in (0, 1):
+                cc = slice(c0 + 32 * h, c0 + 32 * h + 32)
+                halves[h] += planes[p, rows, cc] @ vt[p, cc, q]
+        zv_part[wk.slice, rows, q] = halves[0] + halves[1]
+    zv = np.zeros((n, k), np.float32)
+    for part in zv_part:
+        zv += part
+    out_part = np.zeros((plan.osplit, 2, 64 * ctiles, k), np.float32)
+    for wk in operands.stream_walks(True, n, f, plan.osplit, plan.blocks):
+        cols = slice(wk.fixed0, wk.fixed0 + 64)
+        q = slice(plan.rhs * wk.kz, min(plan.rhs * (wk.kz + 1), k))
+        halves = np.zeros((2, 64, q.stop - q.start), np.float32)
+        for t in wk.stages:
+            for h in (0, 1):
+                rows = slice(64 * t + 32 * h, min(64 * t + 32 * h + 32, n))
+                if rows.start < n:
+                    halves[h] += planes[wk.plane, rows, cols].T @ zv[rows, q]
+        out_part[wk.slice, wk.plane, cols, q] = halves[0] + halves[1]
+    out = np.zeros((2, f, k), np.float32)
+    for part in out_part:
+        out += part[:, :f]
+    return out[0], out[1]
+
+
 K1_SHAPES = [(300, 84, 256, 1), (257, 84, 300, 26), (200, 140, 130, 9),
-             (128, 10, 512, 3)]
+             (128, 10, 512, 3), (200, 140, 130, 17)]
 
 
 @pytest.mark.parametrize("intercept", [False, True])

@@ -7,8 +7,9 @@ K = 26 (the SLQ probe count), intercept on and off, masked rows, to
 3e-5 * max(1, |ref|): both sides sum R x F fp32 products in different
 orders.  The wrapper's block arithmetic (``launch_plan``: blocks of
 right-hand sides, the splits of the walks, the launches past the grid's
-65,535 blocks) at slice A's chunk for K in {1, 8, 26, 33, 64, 70,000} in
-both float32 bodies.
+65,535 blocks, the projections a call makes) at slice A's chunk for K in
+{1, 5, 8, 9, 16, 26, 33, 64, 70,000} on the passes of every body and on
+3xTF32's reuse path from K 17.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -16,7 +17,7 @@ import pytest
 import torch
 
 from xgpr_tpu.ops.pallas.ztzv_pallas import ztzv_parts_pallas
-from xgpr_tpu_torch.ops.cuda import ztzv
+from xgpr_tpu_torch.ops.cuda import operands, ztzv
 
 torch.set_num_threads(1)
 
@@ -83,29 +84,67 @@ def rhs_per_block(body, k):
 
 
 # launch_plan at slice A's chunk (8192 rows, F 4096) on the H100's 132
-# SMs: (blocks of right-hand sides, zsplit, osplit, launches of each
-# pass).  3xTF32's and bf16's grids are 1-D (csrc/dense_wgmma.cuh): one
-# launch.
+# SMs: (right-hand sides a block, blocks of them, zsplit, osplit,
+# launches of each pass, projections a call, rsplit).  On the passes
+# (3xTF32 below REUSE_MIN_K, bf16 and float64 at every K) each pass
+# projects once a block of right-hand sides and rsplit is 0; 3xTF32's and
+# bf16's grids are 1-D (csrc/dense_wgmma.cuh): one launch.  On 3xTF32's
+# reuse path (csrc/ztzv_reuse.cuh) the call projects once, rsplit is the
+# feature pass's (K2's at this chunk) and zsplit and osplit the two
+# streams', at two blocks an SM.
 PLANS = {
-    ("tf32x3", 1): (1, 2, 4, 1), ("bf16", 1): (1, 2, 4, 1),
-    ("tf32x3", 8): (1, 2, 4, 1), ("bf16", 8): (1, 2, 4, 1),
-    ("tf32x3", 26): (2, 1, 2, 1), ("bf16", 26): (1, 2, 4, 1),
-    ("tf32x3", 33): (3, 2, 4, 1), ("bf16", 33): (2, 1, 2, 1),
-    ("tf32x3", 64): (4, 1, 1, 1), ("bf16", 64): (2, 1, 2, 1),
-    ("tf32x3", 70_000): (4375, 4, 8, 1),
-    ("bf16", 70_000): (2188, 8, 16, 1),
-    ("f64", 1): (1, 2, 4, 1), ("f64", 8): (1, 2, 4, 1),
-    ("f64", 26): (1, 2, 4, 1), ("f64", 33): (2, 1, 2, 1),
-    ("f64", 64): (2, 1, 2, 1), ("f64", 70_000): (2188, 8, 16, 1),
+    ("tf32x3", 1): (1, 1, 2, 4, 1, 2, 0), ("bf16", 1): (1, 1, 2, 4, 1, 2, 0),
+    ("tf32x3", 5): (8, 1, 2, 4, 1, 2, 0), ("bf16", 5): (8, 1, 2, 4, 1, 2, 0),
+    ("tf32x3", 8): (8, 1, 2, 4, 1, 2, 0), ("bf16", 8): (8, 1, 2, 4, 1, 2, 0),
+    ("tf32x3", 9): (16, 1, 2, 4, 1, 2, 0),
+    ("tf32x3", 16): (16, 1, 2, 4, 1, 2, 0),
+    ("tf32x3", 17): (32, 1, 2, 2, 1, 1, 4),
+    ("tf32x3", 26): (32, 1, 2, 2, 1, 1, 4),
+    ("bf16", 26): (32, 1, 2, 4, 1, 2, 0),
+    ("tf32x3", 33): (32, 2, 1, 1, 1, 1, 4),
+    ("bf16", 33): (32, 2, 1, 2, 1, 4, 0),
+    ("tf32x3", 64): (32, 2, 1, 1, 1, 1, 4),
+    ("bf16", 64): (32, 2, 1, 2, 1, 4, 0),
+    ("tf32x3", 70_000): (32, 2188, 8, 8, 1, 1, 4),
+    ("bf16", 70_000): (32, 2188, 8, 16, 1, 4376, 0),
+    ("f64", 1): (8, 1, 2, 4, 1, 2, 0), ("f64", 8): (8, 1, 2, 4, 1, 2, 0),
+    ("f64", 26): (32, 1, 2, 4, 1, 2, 0), ("f64", 33): (32, 2, 1, 2, 1, 4, 0),
+    ("f64", 64): (32, 2, 1, 2, 1, 4, 0),
+    ("f64", 70_000): (32, 2188, 8, 16, 1, 4376, 0),
 }
 
 
 @pytest.mark.parametrize("body,k", sorted(PLANS))
 def test_launch_plan(body, k):
-    rhs = rhs_per_block(body, k)
-    plan = ztzv.launch_plan(rhs, 8192, 4096, k, 132, body)
+    plan = ztzv.launch_plan(rhs_per_block(body, k), 8192, 4096, k, 132,
+                            body)
     assert tuple(plan) == PLANS[(body, k)]
-    assert (plan.blocks - 1) * rhs < k <= plan.blocks * rhs
+    assert (plan.blocks - 1) * plan.rhs < k <= plan.blocks * plan.rhs
+    if ztzv.reuses_features(body, k):
+        assert plan.projections == 1
+        # the feature pass is split as K2 splits the same chunk
+        assert plan.rsplit == operands.tile_split(64, 32, 132, 64)
+    else:
+        assert plan.rhs == rhs_per_block(body, k)
+        assert plan.projections == 2 * plan.blocks and plan.rsplit == 0
+
+
+# The projections of the chunk's features a call makes at slice A's
+# chunk: two (one a pass) up to K 16 in 3xTF32 and up to K 32 in bf16 and
+# float64; from REUSE_MIN_K (17) one in 3xTF32 (four at K 26 on the
+# passes), and in bf16 and float64 one a pass and block of 32 right-hand
+# sides.
+PROJECTIONS = {1: (2, 2, 2), 5: (2, 2, 2), 8: (2, 2, 2), 9: (2, 2, 2),
+               16: (2, 2, 2), 17: (1, 2, 2), 26: (1, 2, 2), 64: (1, 4, 4)}
+
+
+@pytest.mark.parametrize("k", sorted(PROJECTIONS))
+def test_projections_a_call(k):
+    for body, want in zip(("tf32x3", "bf16", "f64"), PROJECTIONS[k]):
+        plan = ztzv.launch_plan(rhs_per_block(body, k), 8192, 4096, k, 132,
+                                body)
+        assert plan.projections == want
+    assert ztzv.REUSE_MIN_K == 17
 
 
 @pytest.mark.parametrize("body", ["tf32x3", "bf16", "f64"])

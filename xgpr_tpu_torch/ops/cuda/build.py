@@ -54,6 +54,8 @@ _SIGNATURES = {
     "xgpr_feature_map": [_P] * 5 + [_I] * 4 + [_D, _I, _I, _I, _P],
     "xgpr_ztzv": [_P] * 5 + [_D] + [_P] * 7 + [_I] * 6
     + [_D, _I, _I, _I, _P],
+    "xgpr_ztzv_reuse": [_P] * 5 + [_D] + [_P] * 9 + [_I] * 7
+    + [_D, _I, _I, _P],
     "xgpr_conv_parts_tf32": [_P] * 9 + [_I] * 5 + [_D] + [_I] * 2 + [_P],
     "xgpr_conv_maxpool_tf32": [_P] * 7 + [_I] * 6 + [_P],
     "xgpr_conv_parts_sync": [_P] * 7 + [_I] * 6 + [_D, _I, _I, _P],

@@ -89,6 +89,15 @@
 // KB (17 KB of slots).  bf16's boxes are half as large: its pass (a)
 // takes 161 KB at K > 8 (two 32 KB slots of 32 right-hand sides, NT 4).
 //
+// K1's feature pass on the reuse path (ztzv_reuse.cuh: 3xTF32 from K 17,
+// where the passes below would project four times a call at SLQ's K 26)
+// is K2's kernel with K1's fold: the walk, the ring and the staged TMA
+// stores are K2's, the fold multiplies the argument by sigma and the
+// values by the row's mask times scale (the mask of a tile's rows loaded
+// while its products run) and puts the mask in cos column 0 with an
+// intercept, and every tile leaves as boxes of the call's scratch planes
+// C and S, (n, ldf) each, which the hardware clips at their edges.
+//
 // K2 stores its features through shared memory by TMA: a tile lies in
 // one block of the [cos | sin] layout when the blocks are a multiple of
 // 128 wide, F is even and the block's width a multiple of 4; then for
@@ -576,6 +585,107 @@ int launch_k2(const DenseOperands& p, const features::FeatureArgs<float>& a,
   kernel<<<(unsigned)blocks, THREADS, K2_SMEM, st>>>(xh, xl, ph, pl, omap, p,
                                                      a, rsplit, has_omap);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K1's feature pass on the reuse path (ztzv_reuse.cuh): K2's walk, ring and
+// staged TMA stores with K1's fold, c = cos(acc * sigma) * (m * scale) and
+// s = sin(...) * (m * scale), c's column 0 the mask with an intercept, into
+// the call's scratch planes C and S, (n, ldf) each (cmap, smap: boxes of
+// 64 rows x 32 values; the hardware clips the stores at n rows and ldf
+// columns).  Block (ft, b) is blockIdx.x = ft * rsplit + b, as K2's.
+
+template <int MODE>
+struct K1FeatEpi {
+  ztzv::ZtzvArgs<float> a;
+  DenseOperands p;
+  const CUtensorMap *cmap, *smap;
+  Walk w;
+  unsigned char* staging;  // this consumer's
+  int c;
+  Lane ln;
+  float mr[2];  // the mask of this thread's two rows of the tile
+
+  // Loaded while the tile's products run.
+  __device__ __forceinline__ void stage(int i) {
+    const int row0 = w.first + i * w.stride + A_ROWS * c;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + ln.warp * 16 + ln.g + 8 * h;
+      mr[h] = r < p.n ? a.m[r] : 0.0f;
+    }
+  }
+
+  __device__ __forceinline__ void fold(int i, const float acc[64]) {
+    const int row0 = w.first + i * w.stride + A_ROWS * c;
+    const int rbase = ln.warp * 16 + ln.g;
+    const float wr[2] = {mr[0] * a.scale, mr[1] * a.scale};
+    const bool icol = a.intercept && w.fixed0 == 0 && ln.t4 == 0;
+    with_sincos<MODE>(acc, a.sigma, [&](auto sincos) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {  // 64 frequencies at a time
+        // The staging is free once the last stores have read it.
+        if (ln.tid == 0) bulk_wait_read<0>();
+        consumer_sync(c);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = rbase + 8 * h;
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            const int j = 8 * hf + jj;
+            float c0, s0, c1, s1;
+            sincos(acc[4 * j + 2 * h] * a.sigma, wr[h], &c0, &s0);
+            sincos(acc[4 * j + 2 * h + 1] * a.sigma, wr[h], &c1, &s1);
+            if (j == 0 && icol) c0 = mr[h];  // column 0 of the intercept
+            // Value 8 (jj % 4) + 2 t4 of row r in cos box jj / 4; the
+            // sin boxes follow (K2Epi's staging).
+            const int chunk = 2 * (jj % 4) + (ln.t4 >> 1);
+            const int off = (jj / 4) * A_PLANE + r * 128 +
+                            ((chunk ^ (r & 7)) << 4) + 8 * (ln.t4 & 1);
+            *reinterpret_cast<float2*>(staging + off) = make_float2(c0, c1);
+            *reinterpret_cast<float2*>(staging + 2 * A_PLANE + off) =
+                make_float2(s0, s1);
+          }
+        }
+        fence_async_shared();
+        consumer_sync(c);
+        if (ln.tid == 0) {
+          const int cc = w.fixed0 + 64 * hf;
+          tma_store2(cmap, staging, cc, row0);
+          tma_store2(cmap, staging + A_PLANE, cc + 32, row0);
+          tma_store2(smap, staging + 2 * A_PLANE, cc, row0);
+          tma_store2(smap, staging + 3 * A_PLANE, cc + 32, row0);
+          bulk_commit();
+        }
+      }
+    });
+  }
+};
+
+template <int MODE>
+__global__ void __launch_bounds__(THREADS, 1)
+    k1_features_kernel(const __grid_constant__ CUtensorMap xh,
+                       const __grid_constant__ CUtensorMap xl,
+                       const __grid_constant__ CUtensorMap ph,
+                       const __grid_constant__ CUtensorMap pl,
+                       const __grid_constant__ CUtensorMap cmap,
+                       const __grid_constant__ CUtensorMap smap,
+                       DenseOperands p, ztzv::ZtzvArgs<float> a, int rsplit) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __shared__ __align__(8) Bars<K2_WS> bar;
+  unsigned char* smem = ring_base(smem_raw);
+  const int b = (int)(blockIdx.x % rsplit);
+  const int f0 = (int)(blockIdx.x / rsplit) * B_ROWS;
+  const int tiles = (p.n + B_ROWS - 1) / B_ROWS;
+  const int count = b < tiles ? (tiles - 1 - b) / rsplit + 1 : 0;
+  const Walk w{f0, b * B_ROWS, rsplit * B_ROWS, count};
+  const int c = threadIdx.x / 128;
+  unsigned char* staging =
+      smem + Layout<FMT_TF32X3, true, K2_WS>::RING + c * K2_STAGING;
+  K1FeatEpi<MODE> epi{a, p, &cmap, &smap, w, staging, c, Lane(c)};
+  run<FMT_TF32X3, true, K2_WS>(&ph, &pl, &xh, &xl, w,
+                                lines<FMT_TF32X3>(p.dp), smem, bar, epi);
+  if (epi.ln.tid == 0) bulk_wait<0>();
 }
 
 // ---------------------------------------------------------------------------

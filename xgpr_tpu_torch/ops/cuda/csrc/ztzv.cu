@@ -1,7 +1,8 @@
 // K1 in the 3xTF32 format ("high" and "highest", the default: the
-// warp-specialised TMA pipeline of dense_wgmma.cuh) and K1's C entry point
+// warp-specialised TMA pipeline of dense_wgmma.cuh, and from the wrapper's
+// crossover K the reuse path of ztzv_reuse.cuh) and K1's C entry points
 // for every format; what the kernels compute is in ztzv.cuh.
-#include "dense_wgmma.cuh"
+#include "ztzv_reuse.cuh"
 
 using namespace xgpr;
 using namespace xgpr::ztzv;
@@ -70,4 +71,33 @@ extern "C" int xgpr_ztzv_rhs_per_block(int body, int k, int pass) {
   if (body == FMT_F64) return 8 * f64_nt(k);
   if (k == 1) return 1;
   return 8 * mma_nt(body, k);
+}
+
+// K1's reuse path in 3xTF32 (ztzv_reuse.cuh): the operands as xgpr_ztzv's
+// (FMT_TF32X3 planes, float32), and the call's scratch: z, C then S, (n,
+// ldf) each with ldf = f rounded up to a multiple of 4; vt (2k, ldf); zv
+// (zsplit, n, kp) with kp = k rounded up to a multiple of 4; oc_part and
+// os_part (osplit, f, k); oc, os (f, k).  rsplit, zsplit and osplit are
+// the host's plan (ops/cuda/ztzv.py: launch_plan).  Anything else is
+// refused.
+extern "C" int xgpr_ztzv_reuse(const void* x_hi, const void* x_lo,
+                               const void* m, const void* proj_hi,
+                               const void* proj_lo, double sigma,
+                               const void* vc, const void* vs, void* z,
+                               void* vt, void* zv, void* oc_part,
+                               void* os_part, void* oc, void* os, int n,
+                               int dp, int f, int k, int rsplit, int zsplit,
+                               int osplit, double scale,
+                               int intercept, int mode, void* stream) {
+  const DenseOperands p{x_hi, x_lo, proj_hi, proj_lo, n, dp, f};
+  const ZtzvArgs<float> a{static_cast<const float*>(m),
+                          static_cast<const float*>(vc),
+                          static_cast<const float*>(vs), (float)sigma,
+                          (float)scale, k, intercept};
+  return reuse::launch_k1_reuse(
+      p, a, static_cast<float*>(z), static_cast<float*>(vt),
+      static_cast<float*>(zv), static_cast<float*>(oc_part),
+      static_cast<float*>(os_part), static_cast<float*>(oc),
+      static_cast<float*>(os), rsplit, zsplit, osplit, mode,
+      (cudaStream_t)stream);
 }

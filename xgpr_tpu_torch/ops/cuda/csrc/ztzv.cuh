@@ -37,7 +37,15 @@
 // (0.011 ms as one bf16 product at 989 TFLOP/s), at K 26 0.11 ms (0.019
 // ms), plus 2 x 33.5M sincos pairs on the CUDA cores.  Recomputing the
 // features instead of writing Z trades 268 MB of traffic per chunk for the
-// second projection.
+// second projection.  That trade holds while each pass carries every
+// right-hand side in one block: in 3xTF32 a block carries at most 16
+// (below), so from K 17 these passes project 2 ceil(K / 16) times a call
+// (four at SLQ's K 26, 0.64 ms against 0.33 ms at K 16, PERF.md), and
+// the wrapper takes the reuse path of ztzv_reuse.cuh instead: the
+// features projected and folded once, stored (268 MB) and read by two
+// streaming contractions, 0.36 ms at K 26, bound by those 805 MB of
+// traffic (0.24 ms).  Up to K 16 the two are as fast (0.33 and 0.34 ms
+// at K 16), and these passes move no features through device memory.
 //
 // Design.  The float32 bodies, 3xTF32 ("high", "highest") and bf16
 // ("default"), run the warp-specialised TMA pipeline of dense_wgmma.cuh,
@@ -66,7 +74,7 @@
 // (3.73 ms at K 26 in 3xTF32).  NT is 1 up to K 8, then 4 for bf16 and 2
 // for 3xTF32, whose sums take twice the registers (main and correction
 // terms): 32 right-hand sides a block past K 16 measured slower in 3xTF32
-// (PERF.md §6).  The plan, and so each output's summation order, follows
+// (PERF.md §6), which therefore takes the reuse path from K 17.  The plan, and so each output's summation order, follows
 // NT.  At K 1 one-rhs passes contract on the CUDA cores instead (the
 // folds of dense_wgmma.cuh's k1_zv_kernel and k1_out1_kernel).
 //
@@ -92,9 +100,10 @@
 //
 // Each kernel is instantiated once per sincos mode (common.cuh) and
 // format; each format's instantiations are a translation unit of their own
-// (ztzv.cu: 3xTF32 and ztzv_bf16.cu: bf16, both on dense_wgmma.cuh;
-// ztzv_f64.cu: the float64 passes below), built in parallel, and the host
-// picks the instantiation at launch.  The wrapper picks the slice counts
+// (ztzv.cu: 3xTF32 on dense_wgmma.cuh with the reuse path of
+// ztzv_reuse.cuh, and ztzv_bf16.cu: bf16 on dense_wgmma.cuh; ztzv_f64.cu:
+// the float64 passes below), built in parallel, and the host picks the
+// instantiation at launch.  The wrapper picks the slice counts
 // that fill the SMs in the fewest waves (ops/cuda/ztzv.py: launch_plan).
 #pragma once
 

@@ -32,7 +32,7 @@ These plain torch functions prepare them:
 - ``tile_split``: how many blocks share a loop over tiles;
 - ``dense_walks``: what each block of the dense TMA pipeline walks,
   in grid order (the kernels' own index arithmetic, which the CPU tests
-  replay).
+  replay); ``stream_walks`` the same for K1's reuse path's streams.
 """
 from collections import namedtuple
 import weakref
@@ -200,6 +200,39 @@ def dense_walks(fixed_b, fixed_rows, walk_rows, split, kblocks=1):
         first = (128 * b, 128 * b + 64) if fixed_b else (128 * b, 128 * b)
         walks.append(DenseWalk(128 * ft, first, 128 * split,
                                (count, count), (b, b), kz))
+    return walks
+
+
+# csrc/ztzv_reuse.cuh: a stream block's walk.  Pass (a)'s block holds the
+# 64 rows from ``fixed0`` of C and S and reads column stage t (64 columns
+# of C from 64 t while t < ctiles, then of S from 64 (t - ctiles)) for t
+# in ``stages``; pass (b)'s holds the 64 columns from ``fixed0`` of C
+# (``plane`` 0) or S (1) and reads the 64-row stages in ``stages``.
+# ``slice`` is the slice of the split whose partial it writes, ``kz`` its
+# block of right-hand sides.
+StreamWalk = namedtuple("StreamWalk", "fixed0 plane stages slice kz")
+STREAM_TILE = 64
+
+
+def stream_walks(pass_b, n, f, split, kblocks):
+    """The walks of csrc/ztzv_reuse.cuh's stream blocks in grid order, the
+    kernels' own arithmetic: pass (a) (``pass_b`` False) block (rt, s, kz)
+    = (kz * split + s) * row tiles + rt, pass (b) block (ct, s, kz) = (kz *
+    split + s) * 2 ctiles + ct, with ctiles the 64-column tiles of C (F
+    rounded up to 4 columns)."""
+    t = STREAM_TILE
+    ctiles, rtiles = -(-(-(-f // 4) * 4) // t), -(-n // t)
+    fixed, walked = (2 * ctiles, rtiles) if pass_b else (rtiles, 2 * ctiles)
+    walks = []
+    for x in range(fixed * split * kblocks):
+        ft, rest = x % fixed, x // fixed
+        s, kz = rest % split, rest // split
+        stages = list(range(s, walked, split))
+        if pass_b:
+            walks.append(StreamWalk(t * (ft % ctiles), ft // ctiles, stages,
+                                    s, kz))
+        else:
+            walks.append(StreamWalk(t * ft, None, stages, s, kz))
     return walks
 
 

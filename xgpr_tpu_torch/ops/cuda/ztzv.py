@@ -2,8 +2,10 @@
 
 Replaces xgpr_tpu/ops/pallas/ztzv_pallas.py (``ztzv_parts_pallas``, whose
 ``pallas_call`` is in ``_ztzv_parts_impl``) with the CUDA C++ kernels in
-csrc/ztzv.cuh (3xTF32 and bf16 on csrc/dense_wgmma.cuh); see those files
-for the design and what bounds it on the card.  Before a launch the wrapper makes the operands contiguous, pads
+csrc/ztzv.cuh (3xTF32 and bf16 on csrc/dense_wgmma.cuh; 3xTF32 from
+REUSE_MIN_K right-hand sides on csrc/ztzv_reuse.cuh, which makes each
+chunk's features once a call into scratch the wrapper allocates); see
+those files for the design and what bounds it on the card.  Before a launch the wrapper makes the operands contiguous, pads
 x's columns to 16 bytes (4 fp32, 8 bf16 or 2 float64 values) and makes x
 the planes of the body (operands.py: TF32 high parts and remainders, bf16
 values, or the float64 values; a few elementwise passes over the chunk,
@@ -25,10 +27,13 @@ v_c / v_s and the summed zv, each product summed in fp32.
 ``ztzv_parts`` runs the plain version for CPU tensors and the kernel for
 CUDA tensors; anything else raises.  A CUDA call runs the kernels of the
 sincos mode and precision it asks for, never another.  ``LAUNCHES``
-counts kernel launches (one per call, covering its three CUDA launches) by
+counts kernel launches (one per call, covering its CUDA launches) by
 their shape, mode and precision (R, D, F, K, mode, precision; float64
 launches count as ("exact", "float64"), ``launch_tags``): K is 1 in a
-fit's CG and 26 in SLQ's.  Two calls on the same inputs give the same
+fit's CG and 26 in SLQ's.  ``PROJECTIONS``, keyed the same, counts the
+projections of the chunk's features the calls made (``launch_plan``:
+one a pass and block of right-hand sides, or one a call on the reuse
+path).  Two calls on the same inputs give the same
 bits.  ``launch_plan`` is the wrapper's block arithmetic (right-hand sides
 a block, the splits of the walks, the launches of each pass), plain
 Python that the CPU tests hold; any K is taken (the 3xTF32 and bf16
@@ -49,40 +54,81 @@ from . import build
 from .feature_map import (BODY_FLAGS, TILE, cuda_operands, kernel_body,
                           kernel_mode, kernel_precision, kernel_sincos_flag,
                           launch_tags)
-from .operands import (data_ptr, depth_multiple, kernel_planes, pad_depth,
-                       projT_planes, sm_count, tile_split)
+from .operands import (STREAM_TILE, data_ptr, depth_multiple, kernel_planes,
+                       pad_depth, projT_planes, sm_count, tile_split)
 
 LAUNCHES = Counter()
+PROJECTIONS = Counter()
 
 # The most blocks a launch may have along grid z (csrc/ztzv.cuh:
 # MAX_GRID_Z): the blocks of right-hand sides past it go in further
 # launches of the same passes.
 MAX_GRID_Z = 65535
 
+# The K from which a 3xTF32 call takes the reuse path
+# (csrc/ztzv_reuse.cuh): up to K 16 the passes of csrc/dense_wgmma.cuh
+# carry every right-hand side in one block a pass and project twice a
+# call, as fast as the reuse path's one projection and two reads of the
+# stored features; from K 17 they project 2 ceil(K / 16) times (PERF.md:
+# both timed at K 9, 16, 17, 26 and 32).
+REUSE_MIN_K = 17
+# csrc/ztzv_reuse.cuh: the right-hand sides a stream block carries, and
+# the stream blocks an SM holds (a stage is STREAM_TILE rows by
+# STREAM_TILE columns).
+STREAM_RHS, STREAM_BLOCKS_PER_SM = 32, 2
 
-LaunchPlan = namedtuple("LaunchPlan", "blocks zsplit osplit launches")
+
+LaunchPlan = namedtuple("LaunchPlan",
+                        "rhs blocks zsplit osplit launches projections "
+                        "rsplit")
+
+
+def reuses_features(body, k):
+    """Whether a call at K right-hand sides in ``body`` takes the reuse
+    path: 3xTF32 from REUSE_MIN_K."""
+    return body == "tf32x3" and k >= REUSE_MIN_K
 
 
 def launch_plan(rhs, n, f, k, sms, body):
     """How one call on R = n rows, F = f frequencies and K = k right-hand
-    sides is launched in ``body`` on ``sms`` SMs when a block carries
-    ``rhs`` of them (the library's xgpr_ztzv_rhs_per_block for the call's
-    body and K, the same in both passes: 1 at K 1 in float32, else 8 up to
-    K 8, then 16 in 3xTF32 and 32 in bf16 and float64, so float64 at
-    SLQ's K 26 projects once a pass): ``blocks`` blocks of right-hand
-    sides in each pass; pass (a) splits each row tile's frequency tiles
-    over ``zsplit`` blocks and pass (b) each frequency tile's row tiles
-    over ``osplit``, the counts that fill the SMs in the fewest waves
-    (``tile_split``); ``launches`` launches of each pass carry the blocks,
-    at most MAX_GRID_Z each, but one in 3xTF32 and bf16, whose grids are
-    1-D (csrc/dense_wgmma.cuh)."""
-    blocks = -(-k // rhs)
+    sides is launched in ``body`` on ``sms`` SMs.
+
+    On the passes of csrc/dense_wgmma.cuh and csrc/ztzv.cuh a block
+    carries ``rhs`` right-hand sides (the library's xgpr_ztzv_rhs_per_block
+    for the call's body and K, the same in both passes: 1 at K 1 in
+    float32, else 8 up to K 8, then 16 in 3xTF32 and 32 in bf16 and
+    float64, so float64 at SLQ's K 26 projects once a pass): ``blocks``
+    blocks of right-hand sides in each pass, each projecting the chunk's
+    features again (``projections``, 2 ``blocks``); pass (a) splits each
+    row tile's frequency tiles over ``zsplit`` blocks and pass (b) each
+    frequency tile's row tiles over ``osplit``, the counts that fill the
+    SMs in the fewest waves (``tile_split``); ``launches`` launches of
+    each pass carry the blocks, at most MAX_GRID_Z each, but one in
+    3xTF32 and bf16, whose grids are 1-D; ``rsplit`` 0.
+
+    On the reuse path (``reuses_features``) the call projects once
+    (``projections`` 1): the feature pass splits each frequency tile's
+    row tiles over ``rsplit`` blocks (K2's split), and its two streams
+    carry ``rhs`` = STREAM_RHS right-hand sides a block in ``blocks``
+    blocks, pass (a) splitting the 64-column stages of C and S
+    over ``zsplit`` blocks and pass (b) the 64-row stages over ``osplit``,
+    two blocks an SM."""
     row_tiles, f_tiles = -(-n // TILE), -(-f // TILE)
-    return LaunchPlan(blocks,
+    if reuses_features(body, k):
+        rhs = STREAM_RHS
+        blocks = -(-k // rhs)
+        rows, cols = -(-n // STREAM_TILE), 2 * -(-f // STREAM_TILE)
+        slots = STREAM_BLOCKS_PER_SM * sms
+        return LaunchPlan(rhs, blocks,
+                          tile_split(cols, rows * blocks, slots, 16),
+                          tile_split(rows, cols * blocks, slots, 32),
+                          1, 1, tile_split(row_tiles, f_tiles, sms, 64))
+    blocks = -(-k // rhs)
+    return LaunchPlan(rhs, blocks,
                       tile_split(f_tiles, row_tiles * blocks, sms, 16),
                       tile_split(row_tiles, f_tiles * blocks, sms, 32),
                       1 if body in ("tf32x3", "bf16")
-                      else -(-blocks // MAX_GRID_Z))
+                      else -(-blocks // MAX_GRID_Z), 2 * blocks, 0)
 
 
 def ztzv_parts_plain(x, m, proj, sigma, v_c, v_s, fit_intercept, mode=None,
@@ -134,8 +180,9 @@ def ztzv_parts(x, m, proj, sigma, v_c, v_s, fit_intercept, mode=None,
 def launcher(x, m, proj, sigma, v_c, v_s, fit_intercept, mode=None,
              precision=None):
     """The kernel launch of one ``ztzv_parts`` call on CUDA operands,
-    prepared: a function of no arguments that launches the three kernels
-    on the current stream, counts the launch and returns (oc, os)."""
+    prepared: a function of no arguments that launches its kernels on the
+    current stream, counts the launch and its projections and returns
+    (oc, os)."""
     n, d = x.shape
     f = proj.shape[1]
     k = v_c.shape[1]
@@ -153,25 +200,47 @@ def launcher(x, m, proj, sigma, v_c, v_s, fit_intercept, mode=None,
                        n, f, k, sm_count(x.device.index), body)
     xh, xl = kernel_planes(pad_depth(x, depth_multiple(body)), body)
     ph, pl = projT_planes(proj, body)
-    zv_part = torch.empty((plan.zsplit, n, k), **opts)
     oc_part = torch.empty((plan.osplit, f, k), **opts)
     os_part = torch.empty((plan.osplit, f, k), **opts)
     oc = torch.empty((f, k), **opts)
     os_ = torch.empty((f, k), **opts)
     key = (n, d, f, k) + launch_tags(dtype, mode, precision)
+    scale = rbf_norm_constant(f, fit_intercept)
+    if reuses_features(body, k):
+        # One allocation: C and S (n, ldf) each, v_c^T and v_s^T (k, ldf)
+        # each, zv's slices (zsplit, n, kp); ldf and kp 16-byte rows.
+        ldf, kp = -(-f // 4) * 4, -(-k // 4) * 4
+        scratch = torch.empty(2 * (n + k) * ldf + plan.zsplit * n * kp,
+                              **opts)
 
-    def launch():
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            rc = lib.xgpr_ztzv(
+        def call(stream):
+            z = scratch.data_ptr()
+            vt = z + 4 * 2 * n * ldf
+            zv = vt + 4 * 2 * k * ldf
+            return lib.xgpr_ztzv_reuse(
+                xh.data_ptr(), xl.data_ptr(), m.data_ptr(), ph.data_ptr(),
+                pl.data_ptr(), float(sigma), v_c.data_ptr(), v_s.data_ptr(),
+                z, vt, zv, oc_part.data_ptr(), os_part.data_ptr(),
+                oc.data_ptr(), os_.data_ptr(), n, xh.shape[1], f, k,
+                plan.rsplit, plan.zsplit, plan.osplit, scale,
+                int(bool(fit_intercept)), kernel_sincos_flag(mode), stream)
+    else:
+        zv_part = torch.empty((plan.zsplit, n, k), **opts)
+
+        def call(stream):
+            return lib.xgpr_ztzv(
                 xh.data_ptr(), data_ptr(xl), m.data_ptr(), ph.data_ptr(),
                 data_ptr(pl), float(sigma), v_c.data_ptr(), v_s.data_ptr(),
                 zv_part.data_ptr(), oc_part.data_ptr(), os_part.data_ptr(),
                 oc.data_ptr(), os_.data_ptr(), n, xh.shape[1], f, k,
-                plan.zsplit, plan.osplit, rbf_norm_constant(f, fit_intercept),
-                int(bool(fit_intercept)), kernel_sincos_flag(mode),
-                BODY_FLAGS[body], stream)
+                plan.zsplit, plan.osplit, scale, int(bool(fit_intercept)),
+                kernel_sincos_flag(mode), BODY_FLAGS[body], stream)
+
+    def launch():
+        with torch.cuda.device(x.device):
+            rc = call(torch.cuda.current_stream(x.device).cuda_stream)
         build.check(rc, "ztzv kernel")
         LAUNCHES[key] += 1
+        PROJECTIONS[key] += plan.projections
         return oc, os_
     return launch
