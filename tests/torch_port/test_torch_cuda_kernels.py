@@ -1100,3 +1100,88 @@ def test_conv_sync_entry_points_refuse_other_bodies(cuda):
                                     None) == invalid
     for gone in ("xgpr_conv_parts", "xgpr_conv_maxpool"):
         assert not hasattr(lib, gone)
+
+
+# Protein length: Conv1dTwoLayer's layer 1 on the TAPE fluorescence shape
+# (gpbench's conv2l_gfp: L 237, D 21 one-hot channels, w 9, F 1024; 229
+# windows a row, 115 window pairs a tile, one partial 32-channel line a
+# tap) in its 3xTF32 body, N a whole and a ragged number of 64-row
+# tiles, every row full length or lengths spread over [w, L] with rows of
+# one window and a row of none.  K3 runs the same pipeline at that shape.
+PROTEIN = (237, 21, 9, 1024)
+
+
+def _protein_inputs(dev, n, kind):
+    seq_len, d, width, f = PROTEIN
+    rng = np.random.default_rng(n)
+    x = _t(rng.standard_normal((n, seq_len, d)) * 0.5, dev)
+    if kind == "full":
+        lengths = np.full(n, seq_len, dtype=np.int32)
+    else:
+        lengths = rng.integers(width, seq_len + 1, size=n).astype(np.int32)
+        lengths[:3] = width
+        lengths[3] = width - 1
+    lengths = torch.as_tensor(lengths, device=dev)
+    x[lengths.long()[:, None] <= torch.arange(seq_len, device=dev)] = 0.0
+    proj = _t(rng.standard_normal((width * d, f)) * 0.3, dev)
+    return x, lengths, proj
+
+
+@pytest.mark.parametrize("kind", ["full", "ragged"])
+@pytest.mark.parametrize("n", [8192, 8191])
+def test_conv_kernels_at_protein_length(cuda, n, kind):
+    """K4 and K3 ("hi") at L 237 against their plain versions, to the
+    window loops' tolerance, one launch each; two K4 calls bitwise
+    equal."""
+    seq_len, d, width, f = PROTEIN
+    x, lengths, proj = _protein_inputs(cuda, n, kind)
+    key = (n, seq_len, d, width, f, "high")
+    before = conv.MAXPOOL_LAUNCHES[key]
+    runs = [conv.conv_maxpool(x, lengths, proj, width, "high")
+            for _ in range(2)]
+    want = conv.conv_maxpool_plain(x, lengths, proj, width, "high")
+    torch.cuda.synchronize()
+    assert conv.MAXPOOL_LAUNCHES[key] == before + 2
+    assert torch.equal(runs[0], runs[1])
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    assert float((runs[0] - want).abs().max()) < tol
+    if kind == "ragged":
+        assert float(runs[0][3].abs().max()) == 0.0
+    del runs, want
+    scale = torch.linspace(0.5, 1.5, n, device=cuda)
+    got = conv.conv_parts(x, lengths, proj, 0.7, width, scale, "hi", "high")
+    want = conv.conv_parts_plain(x, lengths, proj, 0.7, width, scale, "hi",
+                                 "high")
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        tol = 1e-4 * max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) < tol
+
+
+def test_tile_layout_at_protein_length(cuda):
+    """The card's row layout at L 237: the plain version's grouping and
+    TF32 planes, each tile's largest count among 230 bins."""
+    x, lengths, _ = _protein_inputs(cuda, 8191, "ragged")
+    width = PROTEIN[2]
+    xt, order, nk_t, top = conv.tile_layout(x, lengths, width, "tf32x3")
+    _, p_order, p_nk, p_top = conv.tile_layout(x.cpu(), lengths.cpu(),
+                                               width, "tf32x3")
+    torch.cuda.synchronize()
+    o = order.long().cpu()
+    assert torch.equal(torch.sort(o).values, torch.arange(8191))
+    assert torch.equal(nk_t.cpu(), p_nk) and torch.equal(top.cpu(), p_top)
+    hi, lo = split_tf32(conv.pad_depth(x.cpu(), 4))
+    assert torch.equal(xt[0].cpu(), hi[o]) and torch.equal(xt[1].cpu(), lo[o])
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_feature_map_kernel_at_the_two_layer_width(cuda, mode):
+    """K2 on Conv1dTwoLayer's layer 2 in conv2l_gfp: D 1024 (the
+    profile), F 8192 in blocks of 1024, a chunk of 8192 rows."""
+    rng = np.random.default_rng(1024)
+    x = _t(rng.standard_normal((8192, 1024)) * 0.05, cuda)
+    proj = _t(rng.standard_normal((1024, 8192)) * 0.5, cuda)
+    got = feature_map.rbf_feature_map(x, proj, True, 1024, mode)
+    want = feature_map.rbf_feature_map_plain(x, proj, True, 1024, mode)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) < 1e-5

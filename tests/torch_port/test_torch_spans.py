@@ -1,9 +1,10 @@
 """The port's named spans (``utils/diagnostics.span``) on the CPU, in
 float64, on tiny data.
 
-Under ``torch.profiler`` a CG fit with the autoselect, an SLQ NMLL and a
-Conv1dRBF predict with its variance show their ``xgpr/`` spans, each as
-often and nested as the program's layers say.  With the profiler off a
+Under ``torch.profiler`` a CG fit with the autoselect, an SLQ NMLL, a
+Conv1dRBF predict with its variance and a Conv1dTwoLayer fit and
+gradient show their ``xgpr/`` spans, each as often and nested as the
+program's layers say.  With the profiler off a
 span never calls into ``torch.profiler``, and the program's outputs are
 the same bits with the profiler on and off.
 """
@@ -151,3 +152,60 @@ def test_outputs_are_bit_identical_with_tracing_on_and_off():
     assert off[1] == on[1]
     np.testing.assert_array_equal(off[2], on[2])
     np.testing.assert_array_equal(off[3], on[3])
+
+
+def _two_layer():
+    """A Conv1dTwoLayer model on 300 ragged sequences in chunks of 128
+    (three chunks), and its dataset."""
+    (x, y, lengths), _ = sequence_data(n_train=300, n_test=10)
+    data = build_regression_dataset(x, y, lengths, chunk_size=128)
+    model = GPRegression(num_rffs=128, variance_rffs=16, device="cpu",
+                         kernel_choice="Conv1dTwoLayer", verbose=False,
+                         kernel_settings={"conv_width": 9, "init_rffs": 32})
+    model.set_hyperparams(np.log(np.array([0.3, 0.5])), data)
+    return model, data
+
+
+def test_two_layer_spans_open_once_a_chunk():
+    """Each chunk's feature call opens ``xgpr/twolayer.l1`` around layer
+    1's K4 op and then ``xgpr/twolayer.l2`` around layer 2's K2 op, in a
+    CG fit (preconditioner, iterations, variance) and in the gradient's
+    feature call, with its plain SORF map in ``.l2``."""
+    model, data = _two_layer()
+    chunks = 3
+    names = ("xgpr/twolayer.l1", "xgpr/twolayer.l2",
+             "xgpr_tpu_torch::conv_maxpool",
+             "xgpr_tpu_torch::rbf_feature_map")
+
+    def events(fn):
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            fn()
+        found = sorted((e.time_range.start, e.time_range.end, e.name)
+                       for e in prof.events() if e.name in names)
+        return [_named(found, n) for n in names]
+
+    l1, l2, k4, k2 = events(lambda: model.fit(
+        data, mode="cg", min_rank=64, max_rank=100))
+    assert len(l1) == len(l2) == len(k4) == len(k2) > chunks
+    assert len(l1) % chunks == 0
+    assert _within(k4, l1) == [1] * len(k4)
+    assert _within(k2, l2) == [1] * len(k2)
+    # Layer 2 follows its own layer 1, before the next chunk's.
+    starts = [s for s, _ in l1[1:]] + [float("inf")]
+    assert all(a[1] <= b[0] and b[1] <= nxt
+               for a, b, nxt in zip(l1, l2, starts))
+    l1, l2, k4, k2 = events(lambda: model.exact_nmll_gradient(
+        np.log(np.array([0.3, 0.5])), data))
+    assert len(l1) == len(l2) == len(k4) == chunks and not k2
+
+
+def test_two_layer_spans_make_no_profiler_call_with_tracing_off(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) with tracing off")
+    monkeypatch.setattr(diagnostics, "record_function", refuse)
+    model, data = _two_layer()
+    n_iter, _ = model.fit(data, mode="cg", min_rank=64, max_rank=100,
+                          run_diagnostics=True)
+    assert n_iter > 0
+    assert np.isfinite(model.exact_nmll_gradient(
+        np.log(np.array([0.3, 0.5])), data)[0])

@@ -15,6 +15,11 @@ gradient fn runs layer 1 as above (K4 on the card) and layer 2's features
 and d features / d sigma through the structured SORF map in plain torch,
 as xgpr_tpu does.  Both take ``double_precision`` as xgpr_tpu does: the
 state drawn in float64 and held in float64 on any device.
+
+In a profiled run each call of either fn opens the span
+``xgpr/twolayer.l1`` around layer 1 (the tile layout and K4) and then
+``xgpr/twolayer.l2`` around layer 2 (sigma's scale and K2, or the
+gradient fn's plain SORF map).
 """
 from math import ceil
 
@@ -29,6 +34,7 @@ from ..ops.hadamard import next_pow2
 from ..ops.sorf import (dense_sorf_projection, dense_threshold_ok,
                         rbf_feature_map, rbf_feature_map_grad)
 from ..utils import rng as state_rng
+from ..utils.diagnostics import span
 
 
 def _maxpool_state(seed, width, dim, num_features, dtype, device, sdtype):
@@ -118,12 +124,14 @@ class Conv1dTwoLayer(KernelBaseclass):
         width = self.conv_width
 
         def fn(params, x, seq_len=None):
-            prof = conv_maxpool_features(x, seq_len, params["radem1"],
-                                         params["chi1"], width,
-                                         proj=params.get("proj1"))
-            z, dz = rbf_feature_map_grad(prof, params["radem2"],
-                                         params["chi2"], params["sigma"],
-                                         intercept)
+            with span("xgpr/twolayer.l1"):
+                prof = conv_maxpool_features(x, seq_len, params["radem1"],
+                                             params["chi1"], width,
+                                             proj=params.get("proj1"))
+            with span("xgpr/twolayer.l2"):
+                z, dz = rbf_feature_map_grad(prof, params["radem2"],
+                                             params["chi2"], params["sigma"],
+                                             intercept)
             if intercept:
                 z[:, 0] = 1.0
                 dz[:, 0, :] = 0.0
@@ -145,18 +153,20 @@ class Conv1dTwoLayer(KernelBaseclass):
         use_dense = self.use_dense_projection
 
         def fn(params, x, seq_len=None):
-            prof = conv_maxpool_features(x, seq_len, params["radem1"],
-                                         params["chi1"], width,
-                                         proj=params.get("proj1"))
-            if use_dense:
-                feats = fused_feature_map(
-                    prof * params["sigma"], params["proj2"], intercept,
-                    padded2, precision=config.feature_matmul_precision(
-                        prof.device, prof.dtype))
-            else:
-                feats = rbf_feature_map(prof * params["sigma"],
-                                        params["radem2"], params["chi2"],
-                                        intercept)
+            with span("xgpr/twolayer.l1"):
+                prof = conv_maxpool_features(x, seq_len, params["radem1"],
+                                             params["chi1"], width,
+                                             proj=params.get("proj1"))
+            with span("xgpr/twolayer.l2"):
+                if use_dense:
+                    feats = fused_feature_map(
+                        prof * params["sigma"], params["proj2"], intercept,
+                        padded2, precision=config.feature_matmul_precision(
+                            prof.device, prof.dtype))
+                else:
+                    feats = rbf_feature_map(prof * params["sigma"],
+                                            params["radem2"], params["chi2"],
+                                            intercept)
             if intercept:
                 feats[:, 0] = 1.0
             return feats

@@ -29,6 +29,10 @@ span wraps a host read that blocks on the device.  The spans:
   one Z^T Z Q pass of the engine; ``xgpr/precond.factor``: the float64
   SVD, QR and eigh after them; ``xgpr/precond.ratio_check``: one trial
   rank of the fit's autoselect (``models/baseclass.py``);
+- ``xgpr/twolayer.l1``, ``xgpr/twolayer.l2``: Conv1dTwoLayer's two
+  layers in one call of its feature or gradient fn
+  (``kernels/l2_conv1d.py``): layer 1's tile layout and K4, then layer
+  2's sigma scale and K2 (the plain SORF map in the gradient fn);
 - ``xgpr/predict``: one ``GPRegression.predict``, with
   ``xgpr/predict.var`` (a chunk's variance), ``xgpr/wait.lengths`` (a
   chunk's lengths copied to the device) and ``xgpr/wait.to_host`` (the
