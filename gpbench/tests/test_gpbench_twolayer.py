@@ -1,6 +1,6 @@
 """The two kinds of operation added for ``gfp_2l.fit`` (a Conv1dTwoLayer
 fit, ``operations/fit_twolayer.py``) and ``motif_1m.tune`` (the crude
-tuner's exact NMLL, ``operations/tune.py``), on the CPU at a tiny size:
+tuner's step, ``operations/tune.py``), on the CPU at a tiny size:
 sound runs are correct, the control (the reference at TF32 in the
 program's place) and broken timed paths are not; and K4's counts and the
 readers of its launches and of the two layers' spans."""
@@ -16,7 +16,7 @@ from gpbench.harness import cell, peaks, spec, trace
 from gpbench.kernels import k4
 from gpbench.reference import features as ref_features
 from gpbench.reference.twolayer import TwoLayerMap
-from xgpr_tpu_torch.models import regression
+from xgpr_tpu_torch.scoring import lb_optimizer
 
 from .conftest import make_tiny_root
 from .test_gpbench_faults import (half_the_data, state_unchanged,
@@ -32,6 +32,14 @@ TINY_GFP = {"rows": 400, "test_rows": 200, "seq_len": 24,
             "init_rffs": 64, "num_rffs": 256, "variance_rffs": 32,
             "chunk": 128, "rank": 64}
 TINY_TUNE = {"rows": 1500, "num_rffs": 256, "points": 3}
+# At 1500 rows the step's score, rounded to 3 places, is within 3.3e-7 of
+# the exact one per row, which a TF32 Gram moves by little more at the
+# motif set's pinned sigma: the tiny tuner's sigma is log sigma -0.5,
+# where the control reads 1.6e-6 to 6.0e-6 and sound runs 2.5e-7 at
+# most.  Its least NMLL lies at lambda's upper bound there, and a lambda
+# one grid point below it costs 5.3e-3 a row.
+TINY_TUNE_LOG_SIGMA = -0.5
+TINY_TUNE_LIMITS = {"tune_score_gap": 1e-6, "tune_lambda_regret": 1e-6}
 
 
 def make_root(root):
@@ -49,6 +57,12 @@ def make_root(root):
     path = root / "gpbench" / "traffic" / "tune.json"
     path.write_text(json.dumps({**json.loads(path.read_text()),
                                 **TINY_TUNE}))
+    path = root / "gpbench" / "configs" / "conv1d_motif_1m.json"
+    cfg = json.loads(path.read_text())
+    cfg["model"]["hyperparams"][1] = TINY_TUNE_LOG_SIGMA
+    path.write_text(json.dumps(cfg))
+    path = root / "gpbench" / "checks" / "motif_1m.tune.json"
+    path.write_text(json.dumps(TINY_TUNE_LIMITS))
     return root
 
 
@@ -96,18 +110,34 @@ def test_the_control_fails_the_limits(name, root):
     assert any(got["control"][k] > limits[k] for k in got["control"]), got
 
 
-def exact_nmll_altered(monkeypatch):
-    nmll = regression.GPRegression.exact_nmll
+def tuner_lambda_moved(monkeypatch):
+    """The step's best lambda one point of its grid below where it is,
+    its score kept."""
+    search = lb_optimizer.shared_hparam_search
 
-    def altered(self, *args, **kwargs):
-        value = nmll(self, *args, **kwargs)
-        return value + 1e-5 * abs(value)
-    monkeypatch.setattr(regression.GPRegression, "exact_nmll", altered)
+    def moved(sigma, kernel, engine_factory, init_bounds, **kwargs):
+        score, log_lam = search(sigma, kernel, engine_factory, init_bounds,
+                                **kwargs)
+        lo, hi = max(init_bounds[0, 0], np.log(1e-3)), init_bounds[0, 1]
+        return score, log_lam - (hi - lo) / 99
+    monkeypatch.setattr(lb_optimizer, "shared_hparam_search", moved)
+
+
+def exact_nmll_altered(monkeypatch):
+    """The step's exact NMLL, each score of its lambda grid, one part in
+    1e5 high."""
+    scoregrid = lb_optimizer.generate_scoregrid
+
+    def altered(*args, **kwargs):
+        scores = scoregrid(*args, **kwargs)
+        return scores + 1e-5 * np.abs(scores)
+    monkeypatch.setattr(lb_optimizer, "generate_scoregrid", altered)
 
 
 FAULTS = [("gfp_2l.fit", half_the_data), ("gfp_2l.fit", state_unchanged),
           ("gfp_2l.fit", weights_altered),
           ("motif_1m.tune", half_the_data),
+          ("motif_1m.tune", tuner_lambda_moved),
           ("motif_1m.tune", exact_nmll_altered)]
 
 
